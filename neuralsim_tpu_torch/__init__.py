@@ -1,0 +1,41 @@
+"""neuralsim_tpu_torch — the PyTorch/CUDA port of ``neuralsim_tpu``.
+
+A second package beside the JAX one, written for one NVIDIA H100. It keeps
+the JAX package's module names so that each function's counterpart is easy
+to find, and it imports nothing from that package: what it needs of the
+framework-free modules (configuration, camera loader, checkpoint key map)
+it keeps as its own copies.
+
+Slice ported so far: the exact K-pose render of the outer iteration
+(``pipeline.NeuralSimRenderer.render_images``), with the ray march
+(``kernels.raymarch.fused_nerf_march``) as a CUDA kernel written for Hopper
+(``kernels/csrc/nerf_march.cu``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no device given and no GPU present they raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default, the CPU only
+    when the caller asks for it. Never falls back silently."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def draw(shape, generator=None, device="cpu", normal: bool = False) -> torch.Tensor:
+    """U[0, 1) (or standard-normal) draws from ``generator``, made on the
+    generator's own device and moved to ``device``."""
+    gen_device = generator.device if generator is not None else "cpu"
+    fn = torch.randn if normal else torch.rand
+    return fn(shape, generator=generator, device=gen_device).to(device)

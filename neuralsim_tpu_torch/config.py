@@ -1,0 +1,157 @@
+"""Configuration of the render slice: a copy of the fields of
+``neuralsim_tpu.config`` that the port reads, with the same names and
+defaults (NeRF net, render, camera, sampler, data)."""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class NeRFNetConfig:
+    """NeRF MLP architecture (reference run_nerf_helpers.py:70-122)."""
+
+    netdepth: int = 8
+    netwidth: int = 256
+    netdepth_fine: int = 8
+    netwidth_fine: int = 256
+    skips: Tuple[int, ...] = (4,)
+    multires: int = 10          # xyz positional-encoding frequencies -> 63 ch
+    multires_views: int = 4     # viewdir encoding frequencies -> 27 ch
+    i_embed: int = 0            # 0 = positional encoding, -1 = identity
+    use_viewdirs: bool = True
+
+    @property
+    def input_ch(self) -> int:
+        if self.i_embed == -1:
+            return 3
+        return 3 + 3 * 2 * self.multires
+
+    @property
+    def input_ch_views(self) -> int:
+        if not self.use_viewdirs:
+            return 0
+        if self.i_embed == -1:
+            return 3
+        return 3 + 3 * 2 * self.multires_views
+
+    @property
+    def output_ch(self) -> int:
+        return 4
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Volume-rendering options (reference render_rays,
+    run_nerf_noscale.py:390-501). Routes outside the ported slice
+    (culling, coarse reuse, sparse fine, fused compositing) keep their
+    fields so configs carry over, and raise NotImplementedError where the
+    renderer would take them."""
+
+    n_samples: int = 64
+    n_importance: int = 128
+    perturb: bool = True
+    raw_noise_std: float = 0.0
+    white_bkgd: bool = False
+    lindisp: bool = False
+    ndc: bool = False
+    ray_chunk: int = 8192       # rays per march call
+    compute_dtype: str = "float32"   # or "bfloat16"
+    remat: bool = False
+    # march through the hand-written kernel on a CUDA tensor; False takes
+    # the plain PyTorch path on any device
+    use_pallas: bool = True
+    fuse_compositing: bool = False
+    fuse_pointgen: bool = True
+    pe_projection: bool = True
+    fine_fraction: float = 1.0
+    hit_budget: float = 1.0
+    tighten_bounds: bool = False
+    n_samples_culled: Optional[int] = 16
+    n_importance_culled: Optional[int] = None
+    reuse_coarse: bool = False
+    cull_mode: str = "aabb"
+    near: float = 0.3103964843749999   # pipeline default: info.near - 0.5
+    far: float = 1.9297681884765627    # pipeline default: info.far + 0.5
+
+    def test_mode(self) -> "RenderConfig":
+        """No jitter, no noise (reference render_kwargs_test)."""
+        return dataclasses.replace(self, perturb=False, raw_noise_std=0.0)
+
+    def production_mode(self, n_samples: int = 16,
+                        hit_budget_floor: float = 0.25) -> "RenderConfig":
+        """Occupancy cull + z tightening + single-pass march. The port
+        renders this route in a later slice; the renderer raises on it."""
+        return dataclasses.replace(
+            self.test_mode(), hit_budget=hit_budget_floor,
+            tighten_bounds=True, n_samples_culled=n_samples,
+            n_importance_culled=0)
+
+
+@dataclass(frozen=True)
+class CameraConfig:
+    """Pinhole intrinsics (reference load_data_param)."""
+
+    height: int = 100
+    width: int = 100
+    focal: float = 1333.3333740234375 / 4.0
+    fx: float = 1333.3333740234375 / 4.0
+    fy: float = 1334.2196044921875 / 4.0
+    cx: float = 195.4293212890625 / 4.0
+    cy: float = 200.63180541992188 / 4.0
+
+    @property
+    def K(self) -> np.ndarray:
+        return np.array(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=np.float32,
+        )
+
+
+@dataclass(frozen=True)
+class SamplerConfig:
+    """Gumbel-softmax pose sampler (reference load_LINEMOD_noscale.py:202-328)."""
+
+    n_bins: int = 8
+    bin_width_deg: float = 45.0
+    bin_offset_deg: float = 22.5
+    gumbel_temperature: float = 0.1
+    softmax_temperature: float = 0.25
+    theta_low_deg: float = 85.0
+    theta_high_deg: float = 95.0
+    radius: float = 1.01
+    n_samples_k: int = 50
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    basedir: str = "./logs"
+    datadir: str = "./logs/nerfdata"
+    expname: str = "exp_ycb_synthetic"
+    object_id: str = "2"
+    dataset_type: str = "LINEMOD"
+    half_res: bool = True
+    testskip: int = 0
+    train_val_path_info: str = "./configs/ycb_synthetic_train_val_path_info.json"
+    test_distribution: str = "one_1"
+    ft_path: Optional[str] = None
+    white_bkgd: bool = False
+    render_factor: int = 0
+    save_pngs: bool = True
+
+
+@dataclass(frozen=True)
+class NeuralSimConfig:
+    net: NeRFNetConfig = field(default_factory=NeRFNetConfig)
+    render: RenderConfig = field(default_factory=RenderConfig)
+    camera: CameraConfig = field(default_factory=CameraConfig)
+    sampler: SamplerConfig = field(default_factory=SamplerConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    seed: int = 0
+
+    def replace(self, **kw) -> "NeuralSimConfig":
+        return dataclasses.replace(self, **kw)

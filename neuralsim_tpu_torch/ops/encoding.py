@@ -1,0 +1,35 @@
+"""Frequency positional encoding gamma(x).
+
+Channel order of the reference Embedder (run_nerf_helpers.py:18-66):
+``[x, sin(x*2^0), cos(x*2^0), ..., sin(x*2^{L-1}), cos(x*2^{L-1})]``,
+each sin/cos block over the D input dims. The trig channels are computed as
+``sin(x * 2^k + phase)`` with phase 0 or pi/2, the same arithmetic as the
+JAX package's projection form (``neuralsim_tpu/ops/encoding.py:45-78``)
+and as the CUDA march kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def encoding_dim(input_dims: int, num_freqs: int, include_input: bool = True) -> int:
+    return input_dims * (int(include_input) + 2 * num_freqs)
+
+
+def positional_encoding(x: torch.Tensor, num_freqs: int,
+                        include_input: bool = True) -> torch.Tensor:
+    """gamma(x) for x[..., D] -> [..., D*(include + 2*num_freqs)]."""
+    if num_freqs == 0:
+        return x
+    d = x.shape[-1]
+    freqs = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device)
+    # [..., L, 2, D]: frequency k, (sin, cos), input dim
+    xb = x[..., None, None, :] * freqs[:, None, None]
+    phase = torch.tensor([0.0, math.pi / 2.0], dtype=x.dtype, device=x.device)
+    enc = torch.sin(xb + phase[:, None]).reshape(*x.shape[:-1], 2 * num_freqs * d)
+    if include_input:
+        enc = torch.cat([x, enc], dim=-1)
+    return enc

@@ -1,0 +1,124 @@
+"""Pipeline facade of the render slice: the reference's application-level
+``NeRF`` class (optimization/neural_sim_main.py:41-191), ported from
+``neuralsim_tpu/pipeline.py``.
+
+``NeuralSimRenderer`` loads the camera from ``nerf_traindata_info.json``
+(with the pipeline's half_res /4), loads or initializes the NeRF pair
+(reference ``.tar`` or ``.npz``), and renders K images from poses sampled
+from psi (``render_images``). The exact ``test_mode()`` render is the
+ported route; the occupancy-culled production render and the render
+gradient come in later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from neuralsim_tpu_torch import resolve_device
+from neuralsim_tpu_torch.config import NeuralSimConfig
+from neuralsim_tpu_torch.data.blender import load_data_param
+from neuralsim_tpu_torch.models.convert import (
+    load_nerf_checkpoint,
+    load_params_npz,
+    params_from_numpy,
+)
+from neuralsim_tpu_torch.models.nerf import init_nerf_pipeline_params
+from neuralsim_tpu_torch.ops.render import render_poses, to8b
+from neuralsim_tpu_torch.sampler.poses import (
+    PoseNoise,
+    draw_pose_noise,
+    poses_from_noise,
+    psi_to_probs,
+)
+
+
+class NeuralSimRenderer:
+    """Renders the K images of an outer iteration.
+
+    Args:
+      models: optional {"coarse": params, "fine": params} of numpy arrays
+        or tensors; otherwise loaded from the configured checkpoint, else
+        randomly initialized from ``generator``.
+      device: where the render runs; ``cuda`` when None (raises without
+        a GPU), ``"cpu"`` only when asked for.
+    """
+
+    def __init__(self, cfg: NeuralSimConfig, models=None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.rc = cfg.render.test_mode()
+        if self.rc.hit_budget < 1.0:
+            raise NotImplementedError(
+                "occupancy-culled production render (hit_budget < 1, "
+                "ops/occupancy.py): later slice")
+
+        info = os.path.join(cfg.data.datadir, "nerf_traindata_info.json")
+        if os.path.exists(info):
+            cam = load_data_param(cfg.data.datadir, cfg.data.half_res)
+            self.H, self.W, self.K = cam.height, cam.width, cam.K
+            self.rc = dataclasses.replace(self.rc, near=cam.near, far=cam.far)
+        else:
+            self.H, self.W, self.K = cfg.camera.height, cfg.camera.width, cfg.camera.K
+
+        rf = cfg.data.render_factor
+        if rf and rf > 0:
+            self.H //= rf
+            self.W //= rf
+            self.K = self.K / rf
+            self.K[2, 2] = 1.0
+
+        if models is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(cfg.seed)
+            models = self._load_models(generator)
+        self.models = params_from_numpy(models, self.device)
+
+    def _load_models(self, generator: torch.Generator):
+        cfg = self.cfg
+        # the reference pins ft_path to logs/nerf_models/ycbvid{id}.tar
+        candidates = [cfg.data.ft_path] if cfg.data.ft_path else []
+        for ext in ("tar", "npz"):
+            candidates.append(os.path.join(
+                cfg.data.basedir, "nerf_models", f"ycbvid{cfg.data.object_id}.{ext}"))
+        for path in candidates:
+            if os.path.exists(path):
+                if path.endswith(".npz"):
+                    return load_params_npz(path)
+                return load_nerf_checkpoint(path)[0]
+        # no checkpoint: random init (tests / from-scratch training)
+        return init_nerf_pipeline_params(cfg.net, cfg.render.n_importance,
+                                         generator)
+
+    def _render_impl(self, psi, noise: PoseNoise):
+        psi = torch.as_tensor(psi, dtype=torch.float32, device=self.device)
+        probs = psi_to_probs(psi, self.cfg.sampler)
+        poses = poses_from_noise(probs, noise.to(self.device), self.cfg.sampler)
+        out = render_poses(self.models, poses, self.H, self.W, self.K,
+                           self.cfg.net, self.rc, device=self.device)
+        return out["rgb_map"], out["disp_map"], out["acc_map"]
+
+    def render_images(self, psi, generator: Optional[torch.Generator] = None,
+                      num_k: Optional[int] = None,
+                      savedir: Optional[str] = None) -> Tuple[torch.Tensor, PoseNoise]:
+        """Sample K poses from psi and render them: (rgb [K,H,W,3], noise).
+        Optionally writes PNGs under ``savedir/{object_id}/{i:03d}.png``."""
+        noise = draw_pose_noise(generator, self.cfg.sampler, num_k, self.device)
+        with torch.no_grad():
+            rgb, _, _ = self._render_impl(psi, noise)
+        if savedir:
+            import imageio.v2 as imageio
+
+            out = os.path.join(savedir, str(self.cfg.data.object_id))
+            os.makedirs(out, exist_ok=True)
+            arr = rgb.cpu().numpy()
+            for i in range(arr.shape[0]):
+                imageio.imwrite(os.path.join(out, f"{i:03d}.png"), to8b(arr[i]))
+        return rgb, noise
+
+    def render_images_grad(self, psi, noise: PoseNoise, grad_E, mode: str = "strips"):
+        raise NotImplementedError("render gradient: later slice")
