@@ -8,18 +8,32 @@ Run from the root of the repository on a machine with the card:
 
 Phases, each of which exits nonzero when it fails:
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
-  2. build: nvcc builds kernels/csrc/nerf_march.cu for sm_90a;
-  3. kernel vs plain twin at full width (8x256 NeRF, PE 10/4), N=8192 rays,
-     S=64 and S=192, plus two ragged shapes, in float32 and bfloat16 on
-     random-init (default and He-scaled) and box-scene weights; one
-     backward through the autograd.Function; the times of kernel and twin
-     at the main path's shapes (CUDA events, median of 7 after warm-up);
-  4. main path: NeuralSimRenderer.render_images at the default config
+  2. build: nvcc builds every kernels/csrc/*.cu for sm_90a, one process per
+     source, all started together; ptxas registers and spills of each;
+  3. every kernel vs its plain twin at full width (8x256 NeRF, PE 10/4) in
+     float32 and bfloat16, on random-init (default and He-scaled) and
+     box-scene weights:
+       - fused_nerf_march and fused_render_tile at N=8192 rays x S=64 and
+         S=192 samples, plus the ragged N x S = 1001x48 and 3x5;
+       - fused_nerf_mlp_widepe, fused_nerf_mlp_pe and fused_nerf_mlp at
+         M = 8192*64 and 8192*192 points, plus the ragged M = 1001*48 and 15;
+     and the times of kernel and twin at the main path's shapes (CUDA
+     events, median of 7 after warm-up) beside each kernel's bound;
+  4. backward: one backward through each differentiable wrapper's
+     autograd.Function against plain autograd through the recompute it
+     stands for; the render tile refuses a gradient on the card;
+  5. main path: NeuralSimRenderer.render_images at the default config
      (64+128 samples, 100x100 camera, test mode, float32) on box-scene
-     weights, K=8 poses from psi_init("5"); the kernel's launch counter
-     must rise by 2 per ray chunk, the images must be finite, in [0, 1]
-     and not empty, and equal the same render through the twin;
-  5. a JSON line of the kernels' numbers, then the last line
+     weights, K=8 poses from psi_init("5"), through each march route: the
+     ray march (default), fuse_pointgen=False (point-major MLP kernel) and
+     fuse_compositing=True (fused march + compositing kernel). Each route's
+     kernel counter must read 2 per ray chunk and every other counter 0;
+     the images must be finite, in [0, 1], not empty, and within 2e-3 of
+     the ray-march route's and of the plain twin's render;
+  6. entry points: the exported fused_nerf_mlp (pre-encoded inputs) and
+     fused_nerf_mlp_pe on the coarse sample points of the same K=8 render,
+     one launch each, held against the ray-march kernel's raw field there;
+  7. a JSON line of the kernels' numbers, then the last line
      {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the rest of the repository beside it,
@@ -38,17 +52,30 @@ import time
 
 import torch
 
+from neuralsim_tpu_torch import kernels
 from neuralsim_tpu_torch.bilevel.psi_init import psi_init
 from neuralsim_tpu_torch.config import NeRFNetConfig, NeuralSimConfig
 from neuralsim_tpu_torch.kernels import build
-from neuralsim_tpu_torch.kernels.raymarch import fused_nerf_march, march_channels_ref
+from neuralsim_tpu_torch.kernels import raymarch as rm
 from neuralsim_tpu_torch.models.box_scene import box_scene_params
-from neuralsim_tpu_torch.models.nerf import init_nerf_params
+from neuralsim_tpu_torch.models.nerf import init_nerf_params, nerf_apply
+from neuralsim_tpu_torch.ops.encoding import positional_encoding
+from neuralsim_tpu_torch.ops.rays import get_rays
+from neuralsim_tpu_torch.ops.volume import stratified_z_vals
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
+from neuralsim_tpu_torch.sampler.poses import poses_from_noise, psi_to_probs
 
+DEVICE = torch.device("cuda")
 N_RAYS = 8192          # one ray_chunk
 F32_TOL = 2e-3         # tests_tpu/test_kernels_tpu.py:55-58
 K_POSES = 8
+ACC_FLOOR = 1e-3       # disparity is compared where acc reaches it
+RAY_SHAPES = ((N_RAYS, 64, True), (N_RAYS, 192, True), (1001, 48, False), (3, 5, False))
+# compositing per sample: distance, exp, alpha, weight, transmittance,
+# three sigmoids and five running sums, in FLOP
+COMPOSITE_FLOP = 28
+COUNTED = (rm.fused_nerf_march, rm.fused_nerf_mlp_widepe, rm.fused_nerf_mlp_pe,
+           rm.fused_nerf_mlp, rm.fused_render_tile)
 
 # Published peaks (NVIDIA data sheets, dense): FP32 CUDA cores, bf16 tensor
 # cores, memory bytes/s. The variant is picked from the card's name.
@@ -56,6 +83,14 @@ PEAKS = {
     "H100 SXM": (67e12, 989e12, 3.35e12),
     "H100 PCIe": (51e12, 756e12, 2.0e12),
     "H100 NVL": (60e12, 835e12, 3.9e12),
+}
+SOURCE = "neuralsim_tpu_torch/kernels/csrc/"
+REPLACES = {
+    "fused_nerf_march": ("nerf_march.cu", "neuralsim_tpu/kernels/raymarch.py:857"),
+    "fused_nerf_mlp_widepe": ("nerf_mlp.cu", "neuralsim_tpu/kernels/raymarch.py:469"),
+    "fused_render_tile": ("render_tile.cu", "neuralsim_tpu/kernels/raymarch.py:621"),
+    "fused_nerf_mlp": ("nerf_mlp.cu", "neuralsim_tpu/kernels/raymarch.py:162"),
+    "fused_nerf_mlp_pe": ("nerf_mlp.cu", "neuralsim_tpu/kernels/raymarch.py:107"),
 }
 
 
@@ -74,11 +109,27 @@ def macs_per_point(net: NeRFNetConfig) -> int:
     return macs + w * w + w + (w + net.input_ch_views) * (w // 2) + (w // 2) * 3
 
 
-def bound_ms(net, n, s, weight_bytes, peak_flops, peak_bytes):
-    flops = 2.0 * macs_per_point(net) * n * s
-    nbytes = 3 * n * 3 * 4 + n * s * 4 + weight_bytes + 4 * n * s * 4
-    ops_ms, bytes_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bytes
+def bound(flop, nbytes, peak_flops, peak_bytes):
+    """(least ms, what bounds it) for the work on this card."""
+    ops_ms, bytes_ms = 1e3 * flop / peak_flops, 1e3 * nbytes / peak_bytes
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def work(kernel, net, n, s, weight_bytes):
+    """FLOP and bytes (each input read once, each output written once) of
+    one call on n rays x s samples (m = n*s points)."""
+    m = n * s
+    flop = 2.0 * macs_per_point(net) * m
+    if kernel == "fused_nerf_march":
+        nbytes = 3 * n * 3 * 4 + m * 4 + 4 * m * 4
+    elif kernel == "fused_render_tile":
+        flop += COMPOSITE_FLOP * m
+        nbytes = 3 * n * 3 * 4 + m * 4 + m * 4 + n * 6 * 4
+    elif kernel == "fused_nerf_mlp":
+        nbytes = m * (net.input_ch + net.input_ch_views) * 4 + m * 4 * 4
+    else:
+        nbytes = m * 6 * 4 + m * 4 * 4
+    return flop, nbytes + weight_bytes
 
 
 def time_ms(fn, reps=7, warmup=2):
@@ -114,6 +165,38 @@ def march_inputs(n, s, gen, device):
     return [t.to(device).contiguous() for t in (o, d, vd, z)]
 
 
+def point_inputs(kernel, net, rays):
+    """The point-major kernels' inputs for the sample points of rays:
+    points and view directions [M,3], or their encodings."""
+    pts, dirs = rm.ray_points(*rays)
+    if kernel == "fused_nerf_mlp":
+        return (positional_encoding(pts, net.multires),
+                positional_encoding(dirs, net.multires_views))
+    return pts, dirs
+
+
+# kernel name -> (wrapper, twin, inputs from a ray bundle)
+KERNELS = {
+    "fused_nerf_march": (rm.fused_nerf_march, rm.march_channels_ref, lambda net, r: r),
+    "fused_render_tile": (rm.fused_render_tile, rm.render_tile_ref, lambda net, r: r),
+    "fused_nerf_mlp_widepe": (rm.fused_nerf_mlp_widepe, rm.mlp_widepe_ref,
+                              lambda net, r: point_inputs("fused_nerf_mlp_widepe", net, r)),
+    "fused_nerf_mlp_pe": (rm.fused_nerf_mlp_pe, rm.mlp_pe_ref,
+                          lambda net, r: point_inputs("fused_nerf_mlp_pe", net, r)),
+    "fused_nerf_mlp": (rm.fused_nerf_mlp, nerf_apply,
+                       lambda net, r: point_inputs("fused_nerf_mlp", net, r)),
+}
+
+
+def zero_counts():
+    for fn in COUNTED:
+        fn.launches = 0
+
+
+def counts():
+    return {fn.__name__: fn.launches for fn in COUNTED}
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -133,38 +216,76 @@ def phase_device():
 
 
 def phase_build():
-    path, seconds, report = build.build("nerf_march")
-    log(f"build nerf_march.cu: {seconds:.1f} s -> {path.name}")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log(f"build: {len(built)} sources in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    for name, (path, seconds, report) in built.items():
+        log(f"build {name}.cu: {seconds:.1f} s -> {path.name}")
+        kernel = None
+        for line in report.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else line.strip()
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {kernel}: {line.strip()}")
 
 
-def check_kernel(params, args, net, dtype, tag):
+def check(kernel, params, args, net, dtype, tag):
     """Kernel vs twin on the same inputs; returns the max abs error."""
+    wrapper, twin = KERNELS[kernel][:2]
     with torch.no_grad():
-        got = fused_nerf_march(params, *args, net, dtype)
-        want = march_channels_ref(params, *args, net, dtype)
+        got = wrapper(params, *args, net, compute_dtype=dtype)
+        want = twin(params, *args, net, compute_dtype=dtype)
     torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
     if not all(torch.isfinite(g).all() for g in got):
         raise AssertionError(f"kernel output not finite: {tag}")
+    if kernel == "fused_render_tile":
+        # disparity = acc / depth: on a ray whose weights sum to more than
+        # 0 but below ACC_FLOOR every alpha = 1 - exp(-x) has x ~ 1e-8, a
+        # float32 quantisation step on either side, and the ratio is of
+        # that noise (an empty ray gives 1e10 on both)
+        lit = (want[2] >= ACC_FLOOR) | (want[2] == 0)
+        got, want = list(got), list(want)
+        got[1], want[1] = got[1][lit], want[1][lit]
+        if not lit.all():
+            log(f"  {tag}: disp compared on {int(lit.sum())} of {lit.numel()} rays "
+                f"(acc 0 or >= {ACC_FLOOR:g})")
+    names = ("rgb", "disp", "acc", "weights", "depth") if len(got) == 5 else (
+        ("sigma", "rgb3") if len(got) == 2 else ("raw",))
     if dtype == torch.float32:
-        for g, w in zip(got, want):
+        for g, w, name in zip(got, want, names):
             torch.testing.assert_close(g, w, rtol=F32_TOL, atol=F32_TOL,
-                                       msg=lambda m: f"{tag}: {m}")
+                                       msg=lambda m: f"{tag} {name}: {m}")
     else:
         rules = [bf16_rule(g, w) for g, w in zip(got, want)]
         if not all(ok for ok, _ in rules):
-            raise AssertionError(f"bf16 rule fails: {tag} {rules}")
-    e = max((g - w).abs().max().item() for g, w in zip(got, want))
-    log(f"kernel vs twin {tag}: max abs err {e:.3e} (sigma max {got[0].max().item():.2f})")
-    return e
+            raise AssertionError(f"bf16 rule fails: {tag} {list(zip(names, rules))}")
+    return max((g - w).abs().max().item() for g, w in zip(got, want) if g.numel())
 
 
-def phase_kernel(net, peaks):
-    """Kernel vs twin at the main path's shapes (timed) and at ragged ones
-    (N*S not a multiple of the kernel's 64-point tile)."""
-    dev = torch.device("cuda")
+def check_render_tile_options(params, args, net):
+    """The render tile's white background (float32) and fast epilogue
+    (bfloat16) against the twin with the same options."""
+    for dtype, opts in ((torch.float32, dict(white_bkgd=True)),
+                        (torch.bfloat16, dict(fast_epilogue=True))):
+        with torch.no_grad():
+            got = rm.fused_render_tile(params, *args, net, compute_dtype=dtype, **opts)
+            want = rm.render_tile_ref(params, *args, net, compute_dtype=dtype, **opts)
+        for g, w in zip(got, want):
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, rtol=F32_TOL, atol=F32_TOL)
+            elif not bf16_rule(g, w)[0]:
+                raise AssertionError(f"bf16 rule fails: fused_render_tile {opts}")
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        log(f"kernel vs twin fused_render_tile box {opts} {str(dtype)[6:]}: "
+            f"max abs err {err:.2e}")
+
+
+def phase_kernels(net, peaks):
+    """Every kernel vs its twin at the main path's shapes (timed) and at
+    ragged ones (not a multiple of the kernels' 64-point tile)."""
+    dev = DEVICE
     gen = torch.Generator().manual_seed(0)
     random = init_nerf_params(net, generator=gen, device=dev)
     weights = {
@@ -177,108 +298,210 @@ def phase_kernel(net, peaks):
         "box": box_scene_params(net, generator=gen, device=dev),
     }
     weight_bytes = sum(t.numel() * 4 for t in weights["random"].values())
-    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    kernel_ms, plain_ms, bounds = {}, {}, {}
-    for n, s, timed in ((N_RAYS, 64, True), (N_RAYS, 192, True), (1001, 48, False),
-                        (3, 5, False)):
-        args = march_inputs(n, s, gen, dev)
-        for scene, params in weights.items():
-            for dtype in err:
-                tag = f"{scene} N={n} S={s} {str(dtype)[6:]}"
-                err[dtype] = max(err[dtype], check_kernel(params, args, net, dtype, tag))
-        if not timed:
-            continue
-        params = weights["random"]
-        for dtype in err:
-            key = f"{str(dtype)[6:]}_S{s}"
-            with torch.no_grad():
-                kernel_ms[key] = time_ms(lambda: fused_nerf_march(params, *args, net, dtype))
-                plain_ms[key] = time_ms(lambda: march_channels_ref(params, *args, net, dtype))
-            peak = peaks[0] if dtype == torch.float32 else peaks[1]
-            bounds[key], bound_by = bound_ms(net, n, s, weight_bytes, peak, peaks[2])
-            log(f"time {key} N={n}: kernel {kernel_ms[key]:.3f} ms, twin "
-                f"{plain_ms[key]:.3f} ms, bound {bounds[key]:.3f} ms ({bound_by})")
-    return err[torch.float32], err[torch.bfloat16], kernel_ms, plain_ms, bounds
+    rec = {k: {"err_f32": 0.0, "err_bf16": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {},
+               "bound_by": {}} for k in KERNELS}
+    for n, s, timed in RAY_SHAPES:
+        rays = march_inputs(n, s, gen, dev)
+        for kernel, (wrapper, twin, inputs) in KERNELS.items():
+            args = inputs(net, rays)
+            errs = {}
+            for scene, params in weights.items():
+                for dtype in (torch.float32, torch.bfloat16):
+                    key = "err_f32" if dtype == torch.float32 else "err_bf16"
+                    e = check(kernel, params, args, net, dtype, f"{kernel} {scene} "
+                              f"N={n} S={s} {str(dtype)[6:]}")
+                    errs[(scene, key)] = e
+                    rec[kernel][key] = max(rec[kernel][key], e)
+            log(f"kernel vs twin {kernel} N={n} S={s}: max abs err "
+                + ", ".join(f"{sc} {k[4:]} {e:.2e}" for (sc, k), e in errs.items()))
+            if kernel == "fused_render_tile" and (n, s) == RAY_SHAPES[2][:2]:
+                check_render_tile_options(weights["box"], args, net)
+            if not timed:
+                continue
+            params = weights["random"]
+            for dtype in (torch.float32, torch.bfloat16):
+                key = f"{str(dtype)[6:]}_S{s}"
+                with torch.no_grad():
+                    ms = time_ms(lambda: wrapper(params, *args, net, compute_dtype=dtype))
+                    plain = time_ms(lambda: twin(params, *args, net, compute_dtype=dtype))
+                peak = peaks[0] if dtype == torch.float32 else peaks[1]
+                b, by = bound(*work(kernel, net, n, s, weight_bytes), peak, peaks[2])
+                rec[kernel]["ms"][key], rec[kernel]["plain_ms"][key] = ms, plain
+                rec[kernel]["bound_ms"][key], rec[kernel]["bound_by"][key] = b, by
+                log(f"time {kernel} {key} N={n}: kernel {ms:.3f} ms, twin {plain:.3f} ms, "
+                    f"bound {b:.3f} ms ({by})")
+        del rays
+        torch.cuda.empty_cache()
+    return rec
 
 
 def phase_backward(net):
-    """One backward through the autograd.Function (kernel forward, twin
-    recompute) against plain autograd through the twin."""
-    dev = torch.device("cuda")
+    """One backward through each differentiable wrapper (kernel forward,
+    float32 recompute) against plain autograd through that recompute; the
+    render tile refuses a gradient on the card."""
+    dev = DEVICE
     gen = torch.Generator().manual_seed(1)
     params = box_scene_params(net, generator=gen, device=dev)
-    o, d, vd, z = march_inputs(64, 16, gen, dev)
-    ct = torch.randn(64, 16, generator=gen).to(dev)
+    rays = march_inputs(64, 16, gen, dev)
+    recompute = {
+        "fused_nerf_march": lambda p, o, d, v, z: rm.march_channels_ref(p, o, d, v, z, net),
+        "fused_nerf_mlp_widepe": lambda p, x, d: rm.mlp_widepe_ref(p, x, d, net),
+        # the JAX package's _pe_bwd recomputes through the projection form
+        "fused_nerf_mlp_pe": lambda p, x, d: rm.mlp_widepe_ref(p, x, d, net),
+        "fused_nerf_mlp": lambda p, x, d: nerf_apply(p, x, d, net),
+    }
+    for kernel, ref in recompute.items():
+        args = KERNELS[kernel][2](net, rays)
+        wrapper = KERNELS[kernel][0]
 
-    def grads(fn):
-        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-        zz, oo = z.clone().requires_grad_(True), o.clone().requires_grad_(True)
-        sigma, rgb = fn(leaves, oo, d, vd, zz, net, torch.float32)
-        ((sigma * ct).sum() + rgb.square().sum()).backward()
-        return [leaves[k].grad for k in sorted(leaves)] + [zz.grad, oo.grad]
+        def grads(fn):
+            leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+            ins = [a.clone().requires_grad_(True) for a in args]
+            out = fn(leaves, *ins)
+            out = out if isinstance(out, tuple) else (out,)
+            # randn, not randn_like: the twin's rgb3 is a permuted view, and
+            # randn_like would lay its draws out in that view's memory order
+            torch.manual_seed(0)
+            sum((o * torch.randn(o.shape, device=o.device)).sum() for o in out).backward()
+            return [leaves[k].grad for k in sorted(leaves)] + [a.grad for a in ins]
 
-    got, want = grads(fused_nerf_march), grads(march_channels_ref)
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=F32_TOL, atol=F32_TOL)
-    log(f"backward through autograd.Function vs plain autograd: max abs err {err:.3e}")
+        got = grads(lambda p, *a: wrapper(p, *a, net))
+        want = grads(ref)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=F32_TOL, atol=F32_TOL)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        log(f"backward {kernel} through autograd.Function vs plain autograd: "
+            f"max abs err {err:.3e}")
+    leaf = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    try:
+        rm.fused_render_tile(leaf, *rays, net)
+    except RuntimeError as e:
+        log(f"backward fused_render_tile: refused on the card ({str(e)[:40]}...)")
+    else:
+        raise AssertionError("fused_render_tile returned outputs to a gradient request")
+
+
+def drive_route(models, psi, kernel, **render):
+    """render_images at the default config through one march route: the
+    kernel's counter must read 2 per ray chunk and the others 0."""
+    cfg = NeuralSimConfig()
+    cfg = cfg.replace(render=dataclasses.replace(cfg.render, **render))
+    renderer = NeuralSimRenderer(cfg, models=models, device=DEVICE)
+    n_rays = K_POSES * renderer.H * renderer.W
+    expect = 2 * math.ceil(n_rays / renderer.rc.ray_chunk)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rgb, noise = renderer.render_images(psi, torch.Generator().manual_seed(0), num_k=K_POSES)
+    torch.cuda.synchronize()
+    seconds = [time.perf_counter() - t0]
+    launched = counts()
+    log(f"main path [{kernel}]: K={K_POSES} {renderer.H}x{renderer.W} images, "
+        f"{n_rays} rays, launches {launched} (expected {expect} of {kernel})")
+    if launched != {k: (expect if k == kernel else 0) for k in launched}:
+        raise AssertionError(f"route {render} launched {launched}, expected {expect} "
+                             f"of {kernel} and no other kernel")
+    with torch.no_grad():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rgb2, _, acc = renderer._render_impl(psi, noise)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1):
+        raise AssertionError(f"[{kernel}] images not finite or outside [0, 1]")
+    if rgb.shape != (K_POSES, renderer.H, renderer.W, 3):
+        raise AssertionError(f"[{kernel}] images have shape {tuple(rgb.shape)}")
+    hit = (acc > 0.5).float().mean().item()
+    if hit == 0.0:
+        raise AssertionError(f"[{kernel}] render is empty: acc <= 0.5 everywhere")
+    torch.testing.assert_close(rgb2, rgb, rtol=0, atol=1e-5)
+    best = statistics.median(seconds)
+    log(f"main path [{kernel}]: {hit:.3%} of pixels with acc > 0.5; render times (s) "
+        f"{[round(t, 4) for t in seconds]}; median {best:.4f} s = {n_rays / best:.0f} "
+        f"rays/s, {1e3 * best / K_POSES:.2f} ms/image")
+    return dict(rgb=rgb, noise=noise, launches=launched[kernel], renderer=renderer,
+                rays_per_s=n_rays / best, ms_per_image=1e3 * best / K_POSES)
 
 
 def phase_main_path():
     cfg = NeuralSimConfig()
     gen = torch.Generator().manual_seed(0)
-    box = box_scene_params(cfg.net, generator=gen, device="cuda")
+    box = box_scene_params(cfg.net, generator=gen, device=DEVICE)
     models = {"coarse": box, "fine": box}
-    renderer = NeuralSimRenderer(cfg, models=models)
     psi = psi_init("5")
-    n_rays = K_POSES * renderer.H * renderer.W
-    expect = 2 * math.ceil(n_rays / renderer.rc.ray_chunk)
-
-    torch.cuda.synchronize()
-    fused_nerf_march.launches = 0
-    t0 = time.perf_counter()
-    rgb, noise = renderer.render_images(psi, torch.Generator().manual_seed(0), num_k=K_POSES)
-    torch.cuda.synchronize()
-    seconds = [time.perf_counter() - t0]
-    launches = fused_nerf_march.launches
-    log(f"main path: K={K_POSES} {renderer.H}x{renderer.W} images, {n_rays} rays, "
-        f"kernel launches {launches} (expected {expect})")
-    if launches != expect:
-        raise AssertionError(f"main path launched the kernel {launches} times, "
-                             f"expected {expect}")
-
-    # two more timed runs of the same render, and its maps
-    with torch.no_grad():
-        for _ in range(2):
-            t0 = time.perf_counter()
-            rgb2, disp, acc = renderer._render_impl(psi, noise)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-    if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1):
-        raise AssertionError("main-path images not finite or outside [0, 1]")
-    if rgb.shape != (K_POSES, renderer.H, renderer.W, 3):
-        raise AssertionError(f"main-path images have shape {tuple(rgb.shape)}")
-    hit = (acc > 0.5).float().mean().item()
-    if hit == 0.0:
-        raise AssertionError("main-path render is empty: acc <= 0.5 everywhere")
-    torch.testing.assert_close(rgb2, rgb, rtol=0, atol=1e-5)
-
+    routes = {
+        "fused_nerf_march": drive_route(models, psi, "fused_nerf_march"),
+        "fused_nerf_mlp_widepe": drive_route(models, psi, "fused_nerf_mlp_widepe",
+                                             fuse_pointgen=False),
+        "fused_render_tile": drive_route(models, psi, "fused_render_tile",
+                                         fuse_compositing=True),
+    }
+    exact = routes["fused_nerf_march"]
     twin_cfg = cfg.replace(render=dataclasses.replace(cfg.render, use_pallas=False))
-    twin = NeuralSimRenderer(twin_cfg, models=models)
+    twin = NeuralSimRenderer(twin_cfg, models=models, device=DEVICE)
     with torch.no_grad():
         t0 = time.perf_counter()
-        rgb_twin, _, acc_twin = twin._render_impl(psi, noise)
+        rgb_twin = twin._render_impl(psi, exact["noise"])[0]
         torch.cuda.synchronize()
         twin_s = time.perf_counter() - t0
-    err = (rgb - rgb_twin).abs().max().item()
-    torch.testing.assert_close(rgb, rgb_twin, rtol=F32_TOL, atol=F32_TOL)
-    best = statistics.median(seconds)
-    log(f"main path: {hit:.3%} of pixels with acc > 0.5; rgb vs twin render "
-        f"max abs err {err:.3e}")
-    log(f"main path times (s): {[round(t, 4) for t in seconds]}; median {best:.4f} s = "
-        f"{n_rays / best:.0f} rays/s, {1e3 * best / K_POSES:.2f} ms/image; "
-        f"twin render {twin_s:.4f} s = {n_rays / twin_s:.0f} rays/s")
-    return launches, err
+    n_rays = K_POSES * twin.H * twin.W
+    log(f"main path twin render (use_pallas=False): {twin_s:.4f} s = "
+        f"{n_rays / twin_s:.0f} rays/s")
+    for kernel, route in routes.items():
+        for a, b in zip(route["noise"], exact["noise"]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        e_exact = (route["rgb"] - exact["rgb"]).abs().max().item()
+        e_twin = (route["rgb"] - rgb_twin).abs().max().item()
+        torch.testing.assert_close(route["rgb"], exact["rgb"], rtol=F32_TOL, atol=F32_TOL)
+        torch.testing.assert_close(route["rgb"], rgb_twin, rtol=F32_TOL, atol=F32_TOL)
+        route["err_vs_exact"], route["err_vs_twin"] = e_exact, e_twin
+        log(f"main path [{kernel}]: rgb vs ray-march route max abs err {e_exact:.3e}, "
+            f"vs twin render {e_twin:.3e}")
+    return routes, box, cfg
+
+
+def phase_entry_points(box, cfg, routes):
+    """The exported point-major entries on the coarse sample points of the
+    K=8 render (80,000 rays x 64 samples): one launch each, against the
+    ray-march kernel's raw field at the same points."""
+    exact = routes["fused_nerf_march"]
+    r = exact["renderer"]
+    dev = DEVICE
+    psi = torch.as_tensor(psi_init("5"), dtype=torch.float32, device=dev)
+    probs = psi_to_probs(psi, cfg.sampler)
+    poses = poses_from_noise(probs, exact["noise"].to(dev), cfg.sampler)
+    o, d = (t.reshape(-1, 3) for t in get_rays(r.H, r.W, r.K, poses))
+    vd = d / d.norm(dim=-1, keepdim=True)
+    z = stratified_z_vals(o.shape[0], r.rc.n_samples, r.rc.near, r.rc.far,
+                          perturb=False, device=dev)
+    x_pe, d_pe = point_inputs("fused_nerf_mlp", cfg.net, (o, d, vd, z))
+    pts, dirs = point_inputs("fused_nerf_mlp_pe", cfg.net, (o, d, vd, z))
+    out = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        raw_enc = kernels.fused_nerf_mlp(box, x_pe, d_pe, cfg.net)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        raw_pe = rm.fused_nerf_mlp_pe(box, pts, dirs, cfg.net)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launched = counts()
+        sigma, rgb3 = rm.fused_nerf_march(box, o, d, vd, z, cfg.net)
+    want = torch.cat([torch.movedim(rgb3, 0, -1), sigma[..., None]], -1).reshape(-1, 4)
+    for kernel, raw, secs in (("fused_nerf_mlp", raw_enc, t1 - t0),
+                              ("fused_nerf_mlp_pe", raw_pe, t2 - t1)):
+        if launched[kernel] != 1 or sum(launched.values()) != 2:
+            raise AssertionError(f"entry points launched {launched}")
+        torch.testing.assert_close(raw, want, rtol=F32_TOL, atol=F32_TOL)
+        err = (raw - want).abs().max().item()
+        out[kernel] = dict(launches=launched[kernel], err_vs_march=err)
+        log(f"entry point {kernel}: {raw.shape[0]} points, launches {launched[kernel]}, "
+            f"{1e3 * secs:.3f} ms (host clock), raw vs ray-march kernel max abs err "
+            f"{err:.3e}, sigma max {raw[:, 3].max().item():.2f}")
+    return out
 
 
 def main():
@@ -288,31 +511,39 @@ def main():
         f"{peaks[1] / 1e12:.0f} TFLOP/s, memory {peaks[2] / 1e12:.2f} TB/s")
     phase_build()
     net = NeRFNetConfig()
-    err_f32, err_bf16, kernel_ms, plain_ms, bounds = phase_kernel(net, peaks)
+    rec = phase_kernels(net, peaks)
     phase_backward(net)
-    launches, main_err = phase_main_path()
-    record = {
-        "name": "fused_nerf_march",
-        "route": "cuda",
-        "source": "neuralsim_tpu_torch/kernels/csrc/nerf_march.cu",
-        "replaces": "neuralsim_tpu/kernels/raymarch.py:857",
-        "launches": launches,
-        "max_abs_err": err_f32,
-        "ms": kernel_ms["float32_S192"],
-        "plain_ms": plain_ms["float32_S192"],
-        "bound_ms": bounds["float32_S192"],
-        "bound_by": "operations",
-        "library_ms": None,
-        "max_err_f32": err_f32,
-        "max_err_bf16": err_bf16,
-        "main_path_rgb_err": main_err,
-        "kernel_ms": kernel_ms,
-        "plain_ms_by_shape": plain_ms,
-        "bound_ms_by_shape": bounds,
-        "shape": f"N={N_RAYS} rays x S samples; ms/plain_ms/bound_ms at float32 S=192",
-        "card": smi,
-    }
-    print(json.dumps({"kernels": [record]}), flush=True)
+    routes, box, cfg = phase_main_path()
+    entries = phase_entry_points(box, cfg, routes)
+    records = []
+    for kernel in KERNELS:
+        src, replaces = REPLACES[kernel]
+        r = rec[kernel]
+        main = routes.get(kernel) or entries[kernel]
+        records.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": SOURCE + src,
+            "replaces": replaces,
+            "launches": main["launches"],
+            "max_abs_err": r["err_f32"],
+            "ms": r["ms"]["float32_S192"],
+            "plain_ms": r["plain_ms"]["float32_S192"],
+            "bound_ms": r["bound_ms"]["float32_S192"],
+            "bound_by": r["bound_by"]["float32_S192"],
+            "library_ms": None,
+            "max_err_f32": r["err_f32"],
+            "max_err_bf16": r["err_bf16"],
+            "kernel_ms": r["ms"],
+            "plain_ms_by_shape": r["plain_ms"],
+            "bound_ms_by_shape": r["bound_ms"],
+            "main_path": {k: v for k, v in main.items()
+                          if k not in ("rgb", "noise", "renderer")},
+            "shape": f"N={N_RAYS} rays x S samples (M = N*S points); "
+                     "ms/plain_ms/bound_ms at float32 S=192",
+            "card": smi,
+        })
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

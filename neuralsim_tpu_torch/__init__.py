@@ -6,10 +6,12 @@ to find, and it imports nothing from that package: what it needs of the
 framework-free modules (configuration, camera loader, checkpoint key map)
 it keeps as its own copies.
 
-Slice ported so far: the exact K-pose render of the outer iteration
-(``pipeline.NeuralSimRenderer.render_images``), with the ray march
-(``kernels.raymarch.fused_nerf_march``) as a CUDA kernel written for Hopper
-(``kernels/csrc/nerf_march.cu``).
+Slices ported so far: the exact K-pose render of the outer iteration
+(``pipeline.NeuralSimRenderer.render_images``) on its three march routes
+(the ray march, the point-major MLP with ``fuse_pointgen=False``, the fused
+march + compositing with ``fuse_compositing=True``), and every kernel the
+JAX package wrote in Pallas, each as a CUDA kernel written for Hopper
+(``kernels/raymarch.py``, sources in ``kernels/csrc/``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present they raise.

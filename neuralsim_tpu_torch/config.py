@@ -47,10 +47,10 @@ class NeRFNetConfig:
 @dataclass(frozen=True)
 class RenderConfig:
     """Volume-rendering options (reference render_rays,
-    run_nerf_noscale.py:390-501). Routes outside the ported slice
-    (culling, coarse reuse, sparse fine, fused compositing) keep their
-    fields so configs carry over, and raise NotImplementedError where the
-    renderer would take them."""
+    run_nerf_noscale.py:390-501). Routes outside the ported slices
+    (culling, coarse reuse, sparse fine) keep their fields so configs
+    carry over, and raise NotImplementedError where the renderer would
+    take them."""
 
     n_samples: int = 64
     n_importance: int = 128
@@ -62,11 +62,16 @@ class RenderConfig:
     ray_chunk: int = 8192       # rays per march call
     compute_dtype: str = "float32"   # or "bfloat16"
     remat: bool = False
-    # march through the hand-written kernel on a CUDA tensor; False takes
+    # march through the hand-written kernels on a CUDA tensor; False takes
     # the plain PyTorch path on any device
     use_pallas: bool = True
+    # on the card: march + compositing in one kernel (fused_render_tile)
+    # when raw_noise_std == 0
     fuse_compositing: bool = False
+    # on the card: the ray-march kernel; False: the point-major kernel
+    # (fused_nerf_mlp_widepe) on the flattened points
     fuse_pointgen: bool = True
+    # plain encoding: sin(y + pi/2) for cos (True) or a true cos (False)
     pe_projection: bool = True
     fine_fraction: float = 1.0
     hit_budget: float = 1.0

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library with
 a plain C interface, loaded with ctypes. The build happens at first use, on
 the machine with the card, into ``kernels/_build/`` (listed in .gitignore);
-the library's file name carries a hash of the source and the flags, so an
-edited source rebuilds. A failed build raises: nothing falls back.
+the library's file name carries a hash of the source, of every
+``csrc/*.cuh`` header it includes and of the flags, so an edited source or
+header rebuilds. A failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -13,15 +14,19 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("nerf_march", "nerf_mlp", "render_tile")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -35,34 +40,63 @@ def nvcc_path() -> str:
     return found
 
 
+def headers(path: Path) -> list[Path]:
+    """The ``csrc`` headers that ``path`` includes, directly or through
+    another header, in the order first met."""
+    found: list[Path] = []
+    todo = [path]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            dep = CSRC / inc
+            if dep.exists() and dep not in found:
+                found.append(dep)
+                todo.append(dep)
+    return found
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for dep in headers(src):
+        digest.update(dep.name.encode() + dep.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> tuple[Path, float, str]:
-    """Compile ``csrc/{name}.cu`` unless its current build exists.
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[Path, float, str]]:
+    """Compile each ``csrc/{name}.cu`` whose current build does not exist,
+    one nvcc process per source, all started together.
 
-    Returns (library path, build seconds, ptxas report); seconds is 0.0
-    when the library was already built."""
-    out = library_path(name)
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    Returns {name: (library path, build seconds, ptxas report)}; seconds is
+    0.0 and the report empty when the library was already built."""
+    out: Dict[str, Tuple[Path, float, str]] = {}
+    running = {}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, seconds, proc.stderr
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            out[name] = (lib, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        running[name] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (lib, tmp, proc) in running.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, time.perf_counter() - t0, stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/{name}.cu`` (built at first use)."""
-    path, _, _ = build(name)
+    path, _, _ = build_all([name])[name]
     return ctypes.CDLL(str(path))

@@ -84,16 +84,29 @@ def _dense(h, kernel, bias, compute_dtype):
             + bias.to(torch.float32))
 
 
+def _dense_relu(h, kernel, bias, compute_dtype, fast_epilogue: bool):
+    """ReLU layer, activation rounded to compute_dtype. ``fast_epilogue``
+    (the fused kernels' option) rounds the product and the bias to
+    compute_dtype before adding them; in float32 it changes nothing."""
+    if not fast_epilogue:
+        return round_to(torch.relu(_dense(h, kernel, bias, compute_dtype)),
+                        compute_dtype)
+    acc = round_to(h, compute_dtype) @ round_to(kernel, compute_dtype)
+    return round_to(torch.relu(round_to(acc, compute_dtype)
+                               + round_to(bias, compute_dtype)), compute_dtype)
+
+
 def nerf_apply(params: Params, x_pe, d_pe, net: NeRFNetConfig,
-               compute_dtype=torch.float32) -> torch.Tensor:
+               compute_dtype=torch.float32,
+               fast_epilogue: bool = False) -> torch.Tensor:
     """MLP on encoded inputs x_pe [N, input_ch], d_pe [N, input_ch_views]
     (or None). Returns raw [N, 4]: rgb logits, density."""
     depth = sum(1 for k in params if k.startswith("pts_") and k.endswith("kernel"))
     x_pe = round_to(x_pe, compute_dtype)
     h = x_pe
     for i in range(depth):
-        h = _dense(h, params[f"pts_{i}_kernel"], params[f"pts_{i}_bias"], compute_dtype)
-        h = round_to(torch.relu(h), compute_dtype)
+        h = _dense_relu(h, params[f"pts_{i}_kernel"], params[f"pts_{i}_bias"],
+                        compute_dtype, fast_epilogue)
         if i in net.skips:
             h = torch.cat([x_pe, h], dim=-1)
 
@@ -105,25 +118,44 @@ def nerf_apply(params: Params, x_pe, d_pe, net: NeRFNetConfig,
     feature = round_to(_dense(h, params["feature_kernel"], params["feature_bias"],
                               compute_dtype), compute_dtype)
     h = torch.cat([feature, round_to(d_pe, compute_dtype)], dim=-1)
-    h = round_to(torch.relu(_dense(h, params["views_0_kernel"],
-                                   params["views_0_bias"], compute_dtype)),
-                 compute_dtype)
+    h = _dense_relu(h, params["views_0_kernel"], params["views_0_bias"],
+                    compute_dtype, fast_epilogue)
     rgb = _dense(h, params["rgb_kernel"], params["rgb_bias"], compute_dtype)
     return torch.cat([rgb, alpha], dim=-1)
 
 
 def query_points(params: Params, pts, viewdirs: Optional[torch.Tensor],
-                 net: NeRFNetConfig, compute_dtype=torch.float32) -> torch.Tensor:
+                 net: NeRFNetConfig, compute_dtype=torch.float32,
+                 use_pallas: bool = False,
+                 pe_projection: bool = True) -> torch.Tensor:
     """Encode and evaluate the field at sample points pts [N, S, 3] with
-    per-ray unit view directions [N, 3] (or None). Returns raw [N, S, 4]."""
+    per-ray unit view directions [N, 3] (or None). Returns raw [N, S, 4].
+
+    With ``use_pallas`` on a CUDA tensor, a net with view directions and an
+    encoding goes through the point-major kernel
+    (``kernels.raymarch.fused_nerf_mlp_widepe``), whose encoding is the
+    projection form whatever ``pe_projection`` says, as in the JAX
+    package. Otherwise the plain encoding (``pe_projection`` picks its
+    form) and ``nerf_apply``.
+    """
+    from neuralsim_tpu_torch.kernels import raymarch
+
     n, s, _ = pts.shape
     flat = pts.reshape(n * s, 3)
-    x_pe = flat if net.i_embed == -1 else positional_encoding(flat, net.multires)
-    d_pe = None
+    dirs = None
     if net.use_viewdirs:
         dirs = viewdirs[:, None, :].expand(n, s, 3).reshape(n * s, 3)
+    if (use_pallas and net.use_viewdirs and net.i_embed != -1
+            and raymarch.uses_kernel(flat)):
+        raw = raymarch.fused_nerf_mlp_widepe(params, flat, dirs, net, compute_dtype)
+        return raw.reshape(n, s, raw.shape[-1])
+
+    x_pe = flat if net.i_embed == -1 else positional_encoding(
+        flat, net.multires, projection=pe_projection)
+    d_pe = None
+    if net.use_viewdirs:
         d_pe = dirs if net.i_embed == -1 else positional_encoding(
-            dirs, net.multires_views)
+            dirs, net.multires_views, projection=pe_projection)
     raw = nerf_apply(params, x_pe, d_pe, net, compute_dtype=compute_dtype)
     return raw.reshape(n, s, raw.shape[-1])
 

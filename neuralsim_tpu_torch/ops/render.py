@@ -3,15 +3,23 @@ march (reference render / batchify_rays / render_rays,
 run_nerf_noscale.py:43-123, 390-501; JAX counterpart
 ``neuralsim_tpu/ops/render.py``).
 
-On a CUDA tensor each march goes through the hand-written kernel
-(``kernels.raymarch.fused_nerf_march``) and the plain compositing of
-``raw2outputs_channels``; on a CPU tensor it takes ``query_points`` plus
-``raw2outputs``, as the JAX package does off the TPU. ``rc.use_pallas=False``
-selects the plain route on any device.
+Routes of one march, as in the JAX package's ``_march``. On a CUDA tensor
+with ``rc.use_pallas``:
+
+- ``rc.fuse_compositing`` with ``raw_noise_std == 0``: the fused
+  march + compositing kernel (``kernels.raymarch.fused_render_tile``);
+- else ``rc.fuse_pointgen`` (the default): the ray-march kernel
+  (``fused_nerf_march``) and the plain compositing of
+  ``raw2outputs_channels``;
+- else the point-major kernel (``fused_nerf_mlp_widepe``, through
+  ``query_points``) and ``raw2outputs``.
+
+On a CPU tensor, or with ``rc.use_pallas=False``, every route takes the
+plain ``query_points`` (encoding form from ``rc.pe_projection``) plus
+``raw2outputs``, as the JAX package does off the TPU.
 
 Routes the port has not reached yet raise NotImplementedError naming the
-route: occupancy-grid culling, coarse-raw reuse, the sparse fine pass,
-fused compositing, and ``fuse_pointgen=False`` on the card.
+route: occupancy-grid culling, coarse-raw reuse and the sparse fine pass.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import torch
 
 from neuralsim_tpu_torch import resolve_device
 from neuralsim_tpu_torch.config import NeRFNetConfig, RenderConfig
-from neuralsim_tpu_torch.kernels.raymarch import as_dtype, fused_nerf_march
+from neuralsim_tpu_torch.kernels import raymarch
+from neuralsim_tpu_torch.kernels.raymarch import as_dtype
 from neuralsim_tpu_torch.models.nerf import query_points
 from neuralsim_tpu_torch.ops.rays import get_rays, ndc_rays
 from neuralsim_tpu_torch.ops.volume import (
@@ -40,8 +49,6 @@ def _check_slice(rc: RenderConfig):
         raise NotImplementedError("reuse_coarse (coarse-raw reuse fine pass): later slice")
     if rc.fine_fraction < 1.0:
         raise NotImplementedError("fine_fraction < 1 (sparse fine pass): later slice")
-    if rc.fuse_compositing:
-        raise NotImplementedError("fuse_compositing (fused_render_tile kernel): later slice")
 
 
 def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
@@ -82,30 +89,40 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
 
 
 def _kernel_route(rays_o, net: NeRFNetConfig, rc: RenderConfig) -> bool:
-    """Whether a march goes through the CUDA kernel; raises for a config
-    that asks for a kernel route the port has not reached on the card."""
-    if not (rays_o.is_cuda and rc.use_pallas):
+    """Whether a march goes through a CUDA kernel; raises for a net the
+    port's kernel routes do not cover on the card."""
+    if not (raymarch.uses_kernel(rays_o) and rc.use_pallas):
         return False
     if not (net.use_viewdirs and net.i_embed != -1):
         raise NotImplementedError(
             "march without view directions or encoding on the card: later slice")
-    if not rc.fuse_pointgen:
-        raise NotImplementedError(
-            "fuse_pointgen=False (fused_nerf_mlp_widepe kernel): later slice")
     return True
+
+
+def _plain_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
+               rc: RenderConfig, compute_dtype):
+    """raw [N,S,4] through query_points: the point-major kernel on the
+    card (rc.use_pallas), the plain encoding and MLP otherwise."""
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    return query_points(params, pts, viewdirs, net, compute_dtype,
+                        use_pallas=rc.use_pallas, pe_projection=rc.pe_projection)
 
 
 def _march(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
            rc: RenderConfig, compute_dtype, generator=None):
     """One network march + compositing; returns the raw2outputs tuple."""
     if _kernel_route(rays_o, net, rc):
-        sigma, rgb3 = fused_nerf_march(params, rays_o, rays_d, viewdirs,
-                                       z_vals, net, compute_dtype)
-        return raw2outputs_channels(
-            sigma, rgb3, z_vals, rays_d, raw_noise_std=rc.raw_noise_std,
-            white_bkgd=rc.white_bkgd, generator=generator)
-    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    raw = query_points(params, pts, viewdirs, net, compute_dtype)
+        if rc.fuse_compositing and rc.raw_noise_std == 0.0:
+            return raymarch.fused_render_tile(
+                params, rays_o, rays_d, viewdirs, z_vals, net,
+                white_bkgd=rc.white_bkgd, compute_dtype=compute_dtype)
+        if rc.fuse_pointgen:
+            sigma, rgb3 = raymarch.fused_nerf_march(
+                params, rays_o, rays_d, viewdirs, z_vals, net, compute_dtype)
+            return raw2outputs_channels(
+                sigma, rgb3, z_vals, rays_d, raw_noise_std=rc.raw_noise_std,
+                white_bkgd=rc.white_bkgd, generator=generator)
+    raw = _plain_raw(params, rays_o, rays_d, viewdirs, z_vals, net, rc, compute_dtype)
     return raw2outputs(raw, z_vals, rays_d, raw_noise_std=rc.raw_noise_std,
                        white_bkgd=rc.white_bkgd, generator=generator)
 
@@ -113,12 +130,12 @@ def _march(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
 def _march_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
                rc: RenderConfig, compute_dtype):
     """Channel-separated raw field along rays without compositing:
-    (sigma [N,S], rgb3 [3,N,S]); same routing as _march."""
-    if _kernel_route(rays_o, net, rc):
-        return fused_nerf_march(params, rays_o, rays_d, viewdirs, z_vals, net,
-                                compute_dtype)
-    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    raw = query_points(params, pts, viewdirs, net, compute_dtype)
+    (sigma [N,S], rgb3 [3,N,S]); the march kernel when _march would take
+    it, else query_points."""
+    if _kernel_route(rays_o, net, rc) and rc.fuse_pointgen:
+        return raymarch.fused_nerf_march(params, rays_o, rays_d, viewdirs,
+                                         z_vals, net, compute_dtype)
+    raw = _plain_raw(params, rays_o, rays_d, viewdirs, z_vals, net, rc, compute_dtype)
     return raw[..., 3], torch.movedim(raw[..., :3], -1, 0)
 
 

@@ -129,13 +129,15 @@ def test_twin_gradient_matches_jax_vjp(rng):
 
 
 def test_autograd_function_recomputes_through_twin(rng, monkeypatch):
-    """_FusedMarch's backward, exercised on the CPU with the launch stood in
-    by the twin: the gradients equal plain autograd through the twin."""
+    """The kernel route's autograd.Function, exercised on the CPU with the
+    kernel predicate forced and the launch stood in by the twin: the
+    gradients equal plain autograd through the twin."""
     def fake_launch(params, o, d, vd, z, net, compute_dtype):
         with torch.no_grad():
             return tmarch.march_channels_ref(params, o, d, vd, z, net, compute_dtype)
 
     monkeypatch.setattr(tmarch, "_launch", fake_launch)
+    monkeypatch.setattr(tmarch, "uses_kernel", lambda t: True)
     params, o, d, vd, z = _inputs(rng, 9, 16, "box")
     keys = tuple(tmarch.param_keys(SMALL["netdepth"]))
     ct = torch.from_numpy(rng.randn(9, 16).astype(np.float32))
@@ -148,8 +150,8 @@ def test_autograd_function_recomputes_through_twin(rng, monkeypatch):
         ((sigma * ct).sum() + rgb.square().sum()).backward()
         return [leaf.grad for leaf in leaves]
 
-    got = grads(lambda tp, to, td, tvd, tz: tmarch._FusedMarch.apply(
-        TNET, torch.float32, keys, to, td, tvd, tz, *[tp[k] for k in keys]))
+    got = grads(lambda tp, to, td, tvd, tz: tmarch.fused_nerf_march(
+        tp, to, td, tvd, tz, TNET))
     want = grads(lambda tp, to, td, tvd, tz: tmarch.march_channels_ref(
         tp, to, td, tvd, tz, TNET))
     for g, w in zip(got, want):

@@ -212,10 +212,35 @@ def test_default_device_needs_cuda(monkeypatch):
         trender.render_poses({}, torch.eye(4)[None], 4, 4, np.eye(3), tc.net, tc.render)
 
 
+@pytest.mark.parametrize("override", [
+    dict(pe_projection=False), dict(fuse_pointgen=False), dict(fuse_compositing=True),
+], ids=["pe_projection_false", "fuse_pointgen_false", "fuse_compositing"])
+@pytest.mark.parametrize("scene", ["random", "box"])
+def test_render_routes_match_jax_on_cpu(rng, scene, override):
+    """The render routes that differ on the card render through the plain
+    path on the CPU, as the JAX package does off the TPU, and match it:
+    with pe_projection=False both sides encode with a true cos."""
+    jc, tc = _configs(**override)
+    models = _models(scene)
+    k = 2
+    g = (-np.log(-np.log(rng.rand(k, 8)))).astype(np.float32)
+    u = rng.rand(k).astype(np.float32)
+    th = (85 + 10 * rng.rand(k)).astype(np.float32)
+    psi = np.array([0.02, 0.02, 0.02, 0.02, 0.86, 0.02, 0.02, 0.02], np.float32)
+
+    want = JaxRenderer(jc, models=models)._render_fn(psi, JaxNoise(g, u, th))
+    port = NeuralSimRenderer(tc, models=models, device="cpu")
+    got = port._render_impl(torch.from_numpy(psi),
+                            PoseNoise(*map(torch.from_numpy, (g, u, th))))
+    if scene == "box":
+        assert float(np.asarray(want[2]).max()) > 0.5            # the box is hit
+    for name, a, b in zip(("rgb", "disp", "acc"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **_tol(scene, name))
+
+
 @pytest.mark.parametrize("override, route", [
     (dict(reuse_coarse=True), "reuse_coarse"),
     (dict(fine_fraction=0.5), "fine_fraction"),
-    (dict(fuse_compositing=True), "fuse_compositing"),
 ])
 def test_routes_outside_the_slice_raise(override, route):
     _, tc = _configs(**override)
