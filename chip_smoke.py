@@ -18,7 +18,11 @@ Phases, each of which exits nonzero when it fails:
        - fused_nerf_mlp_widepe, fused_nerf_mlp_pe and fused_nerf_mlp at
          M = 8192*64 and 8192*192 points, plus the ragged M = 1001*48 and 15;
      and the times of kernel and twin at the main path's shapes (CUDA
-     events, median of 7 after warm-up) beside each kernel's bound;
+     events, median of 7 after warm-up) beside each kernel's bound, and
+     beside them the time of the same MLP as a chain of per-layer bf16
+     torch.matmul + bias + ReLU on encodings computed beforehand
+     (chain_ms, a yardstick of the unfused tensor-core path that the port
+     never calls);
   4. backward: one backward through each differentiable wrapper's
      autograd.Function against plain autograd through the recompute it
      stands for; the render tile refuses a gradient on the card;
@@ -29,12 +33,18 @@ Phases, each of which exits nonzero when it fails:
      fuse_compositing=True (fused march + compositing kernel). Each route's
      kernel counter must read 2 per ray chunk and every other counter 0;
      the images must be finite, in [0, 1], not empty, and within 2e-3 of
-     the ray-march route's and of the plain twin's render;
+     the ray-march route's and of the plain twin's render. Then the same
+     render in bfloat16 through the ray march and fuse_compositing=True
+     (the tensor-core kernels): the same launch and image checks, rgb
+     within BF16_RENDER_TOL of the bf16 twin render, and at most
+     BF16_VS_F32_FRAC of it beyond that of the float32 render (none
+     beyond BF16_VS_F32_MAX);
   6. entry points: the exported fused_nerf_mlp (pre-encoded inputs) and
      fused_nerf_mlp_pe on the coarse sample points of the same K=8 render,
      one launch each, held against the ray-march kernel's raw field there;
-  7. a JSON line of the kernels' numbers, then the last line
-     {"ok": true, "device": {...}}.
+  7. a JSON line of the kernels' numbers (float32 times under the
+     contract's keys, bf16 times, chain_ms and each dtype's MLP core
+     beside them), then the last line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits nonzero and prints no result.
@@ -68,6 +78,19 @@ from neuralsim_tpu_torch.sampler.poses import poses_from_noise, psi_to_probs
 DEVICE = torch.device("cuda")
 N_RAYS = 8192          # one ray_chunk
 F32_TOL = 2e-3         # tests_tpu/test_kernels_tpu.py:55-58
+# bf16 render vs the bf16 twin render: the two round at the same places
+# and sum in other orders, so an activation can land one bf16 step apart;
+# the port's bf16 tolerance (tests/test_torch_mlp_kernels.py)
+BF16_RENDER_TOL = 2e-2
+# bf16 render vs the float32 render: every activation is rounded to 8
+# mantissa bits through 13 layers, and the fine samples follow the coarse
+# weights, so a pixel at the box's edge can move by a few 1e-2 (6.6e-2 at
+# a mean of 1.8e-4 measured on an NVIDIA H100 80GB HBM3). The looser
+# rule, in the manner of the bf16 rule: at most BF16_VS_F32_FRAC of the rgb
+# values beyond BF16_RENDER_TOL of the float32 render, none beyond
+# BF16_VS_F32_MAX
+BF16_VS_F32_FRAC = 1e-3
+BF16_VS_F32_MAX = 0.25
 K_POSES = 8
 ACC_FLOOR = 1e-3       # disparity is compared where acc reaches it
 RAY_SHAPES = ((N_RAYS, 64, True), (N_RAYS, 192, True), (1001, 48, False), (3, 5, False))
@@ -85,6 +108,12 @@ PEAKS = {
     "H100 NVL": (60e12, 835e12, 3.9e12),
 }
 SOURCE = "neuralsim_tpu_torch/kernels/csrc/"
+# the MLP core each kernel's dtypes run: the FP32 CUDA cores of
+# nerf_mlp.cuh or wgmma on the tensor cores (nerf_mlp_wgmma.cuh)
+CORES = {k: {"float32": "fp32", "bfloat16": "wgmma" if k in (
+    "fused_nerf_march", "fused_render_tile") else "fp32"}
+    for k in ("fused_nerf_march", "fused_nerf_mlp_widepe", "fused_render_tile",
+              "fused_nerf_mlp", "fused_nerf_mlp_pe")}
 REPLACES = {
     "fused_nerf_march": ("nerf_march.cu", "neuralsim_tpu/kernels/raymarch.py:857"),
     "fused_nerf_mlp_widepe": ("nerf_mlp.cu", "neuralsim_tpu/kernels/raymarch.py:469"),
@@ -175,6 +204,34 @@ def point_inputs(kernel, net, rays):
     return pts, dirs
 
 
+def chain_mlp(params, x_pe, d_pe, net):
+    """The NeRF MLP as one bf16 torch.matmul per layer plus bias, ReLU and
+    the two concats, on bf16 encodings and weights: the unfused
+    tensor-core path, timed as a yardstick only (raw [M,4], bf16)."""
+    h = x_pe
+    for i in range(net.netdepth):
+        h = torch.relu(h @ params[f"pts_{i}_kernel"] + params[f"pts_{i}_bias"])
+        if i in net.skips:
+            h = torch.cat([x_pe, h], dim=-1)
+    alpha = h @ params["alpha_kernel"] + params["alpha_bias"]
+    feature = h @ params["feature_kernel"] + params["feature_bias"]
+    h = torch.relu(torch.cat([feature, d_pe], dim=-1) @ params["views_0_kernel"]
+                   + params["views_0_bias"])
+    return torch.cat([h @ params["rgb_kernel"] + params["rgb_bias"], alpha], dim=-1)
+
+
+def time_chain(params, net, rays):
+    """chain_mlp's time on the sample points of rays (encodings computed
+    beforehand, outside the timing)."""
+    p16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    x_pe, d_pe = (t.to(torch.bfloat16) for t in point_inputs("fused_nerf_mlp", net, rays))
+    with torch.no_grad():
+        raw = chain_mlp(p16, x_pe, d_pe, net)
+        if not torch.isfinite(raw).all():
+            raise AssertionError("chain yardstick output not finite")
+        return time_ms(lambda: chain_mlp(p16, x_pe, d_pe, net))
+
+
 # kernel name -> (wrapper, twin, inputs from a ray bundle)
 KERNELS = {
     "fused_nerf_march": (rm.fused_nerf_march, rm.march_channels_ref, lambda net, r: r),
@@ -244,8 +301,12 @@ def check(kernel, params, args, net, dtype, tag):
         # disparity = acc / depth: on a ray whose weights sum to more than
         # 0 but below ACC_FLOOR every alpha = 1 - exp(-x) has x ~ 1e-8, a
         # float32 quantisation step on either side, and the ratio is of
-        # that noise (an empty ray gives 1e10 on both)
-        lit = (want[2] >= ACC_FLOOR) | (want[2] == 0)
+        # that noise (an empty ray gives 1e10 on both). So disparity is
+        # compared where both sides are lit or both empty: in bf16 a ray
+        # that one side leaves empty (sigma <= 0 at every sample) can get
+        # a density of one bf16 step on the other, and 1e10 meets ~1.
+        lit = (((want[2] >= ACC_FLOOR) & (got[2] >= ACC_FLOOR))
+               | ((want[2] == 0) & (got[2] == 0)))
         got, want = list(got), list(want)
         got[1], want[1] = got[1][lit], want[1][lit]
         if not lit.all():
@@ -300,8 +361,13 @@ def phase_kernels(net, peaks):
     weight_bytes = sum(t.numel() * 4 for t in weights["random"].values())
     rec = {k: {"err_f32": 0.0, "err_bf16": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {},
                "bound_by": {}} for k in KERNELS}
+    chain = {}
     for n, s, timed in RAY_SHAPES:
         rays = march_inputs(n, s, gen, dev)
+        if timed:
+            chain[f"bfloat16_S{s}"] = time_chain(weights["random"], net, rays)
+            log(f"time chain yardstick (bf16 torch.matmul per layer) S{s} N={n}: "
+                f"{chain[f'bfloat16_S{s}']:.3f} ms")
         for kernel, (wrapper, twin, inputs) in KERNELS.items():
             args = inputs(net, rays)
             errs = {}
@@ -328,11 +394,11 @@ def phase_kernels(net, peaks):
                 b, by = bound(*work(kernel, net, n, s, weight_bytes), peak, peaks[2])
                 rec[kernel]["ms"][key], rec[kernel]["plain_ms"][key] = ms, plain
                 rec[kernel]["bound_ms"][key], rec[kernel]["bound_by"][key] = b, by
-                log(f"time {kernel} {key} N={n}: kernel {ms:.3f} ms, twin {plain:.3f} ms, "
-                    f"bound {b:.3f} ms ({by})")
+                log(f"time {kernel} {key} N={n} ({CORES[kernel][str(dtype)[6:]]} core): "
+                    f"kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {b:.3f} ms ({by})")
         del rays
         torch.cuda.empty_cache()
-    return rec
+    return rec, chain
 
 
 def phase_backward(net):
@@ -365,7 +431,7 @@ def phase_backward(net):
             sum((o * torch.randn(o.shape, device=o.device)).sum() for o in out).backward()
             return [leaves[k].grad for k in sorted(leaves)] + [a.grad for a in ins]
 
-        got = grads(lambda p, *a: wrapper(p, *a, net))
+        got = grads(lambda p, *a: wrapper(p, *a, net, compute_dtype=torch.float32))
         want = grads(ref)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=F32_TOL, atol=F32_TOL)
@@ -374,7 +440,7 @@ def phase_backward(net):
             f"max abs err {err:.3e}")
     leaf = {k: v.clone().requires_grad_(True) for k, v in params.items()}
     try:
-        rm.fused_render_tile(leaf, *rays, net)
+        rm.fused_render_tile(leaf, *rays, net, compute_dtype=torch.float32)
     except RuntimeError as e:
         log(f"backward fused_render_tile: refused on the card ({str(e)[:40]}...)")
     else:
@@ -397,7 +463,8 @@ def drive_route(models, psi, kernel, **render):
     torch.cuda.synchronize()
     seconds = [time.perf_counter() - t0]
     launched = counts()
-    log(f"main path [{kernel}]: K={K_POSES} {renderer.H}x{renderer.W} images, "
+    dtype = renderer.rc.compute_dtype
+    log(f"main path [{kernel}, {dtype}]: K={K_POSES} {renderer.H}x{renderer.W} images, "
         f"{n_rays} rays, launches {launched} (expected {expect} of {kernel})")
     if launched != {k: (expect if k == kernel else 0) for k in launched}:
         raise AssertionError(f"route {render} launched {launched}, expected {expect} "
@@ -409,15 +476,15 @@ def drive_route(models, psi, kernel, **render):
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
     if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1):
-        raise AssertionError(f"[{kernel}] images not finite or outside [0, 1]")
+        raise AssertionError(f"[{kernel}, {dtype}] images not finite or outside [0, 1]")
     if rgb.shape != (K_POSES, renderer.H, renderer.W, 3):
-        raise AssertionError(f"[{kernel}] images have shape {tuple(rgb.shape)}")
+        raise AssertionError(f"[{kernel}, {dtype}] images have shape {tuple(rgb.shape)}")
     hit = (acc > 0.5).float().mean().item()
     if hit == 0.0:
-        raise AssertionError(f"[{kernel}] render is empty: acc <= 0.5 everywhere")
+        raise AssertionError(f"[{kernel}, {dtype}] render is empty: acc <= 0.5 everywhere")
     torch.testing.assert_close(rgb2, rgb, rtol=0, atol=1e-5)
     best = statistics.median(seconds)
-    log(f"main path [{kernel}]: {hit:.3%} of pixels with acc > 0.5; render times (s) "
+    log(f"main path [{kernel}, {dtype}]: {hit:.3%} of pixels with acc > 0.5; render times (s) "
         f"{[round(t, 4) for t in seconds]}; median {best:.4f} s = {n_rays / best:.0f} "
         f"rays/s, {1e3 * best / K_POSES:.2f} ms/image")
     return dict(rgb=rgb, noise=noise, launches=launched[kernel], renderer=renderer,
@@ -458,7 +525,39 @@ def phase_main_path():
         route["err_vs_exact"], route["err_vs_twin"] = e_exact, e_twin
         log(f"main path [{kernel}]: rgb vs ray-march route max abs err {e_exact:.3e}, "
             f"vs twin render {e_twin:.3e}")
-    return routes, box, cfg
+
+    # bf16: the tensor-core kernels on the default route and the render tile
+    bf16 = {
+        "fused_nerf_march": drive_route(models, psi, "fused_nerf_march",
+                                        compute_dtype="bfloat16"),
+        "fused_render_tile": drive_route(models, psi, "fused_render_tile",
+                                         fuse_compositing=True, compute_dtype="bfloat16"),
+    }
+    twin16 = NeuralSimRenderer(cfg.replace(render=dataclasses.replace(
+        cfg.render, use_pallas=False, compute_dtype="bfloat16")), models=models, device=DEVICE)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        rgb_twin16 = twin16._render_impl(psi, exact["noise"])[0]
+        torch.cuda.synchronize()
+        twin16_s = time.perf_counter() - t0
+    log(f"main path bf16 twin render (use_pallas=False): {twin16_s:.4f} s = "
+        f"{n_rays / twin16_s:.0f} rays/s")
+    for kernel, route in bf16.items():
+        for a, b in zip(route["noise"], exact["noise"]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        off = (route["rgb"] - exact["rgb"]).abs()
+        route["err_vs_twin"] = (route["rgb"] - rgb_twin16).abs().max().item()
+        route["err_vs_f32"] = off.max().item()
+        route["frac_off_f32"] = (off > BF16_RENDER_TOL).float().mean().item()
+        log(f"main path [{kernel}, bfloat16]: rgb vs bf16 twin render max abs err "
+            f"{route['err_vs_twin']:.3e} (limit {BF16_RENDER_TOL:g}); vs float32 render max "
+            f"abs err {route['err_vs_f32']:.3e} (limit {BF16_VS_F32_MAX:g}), mean "
+            f"{off.mean().item():.3e}, {route['frac_off_f32']:.2e} of values beyond "
+            f"{BF16_RENDER_TOL:g} (limit {BF16_VS_F32_FRAC:g})")
+        torch.testing.assert_close(route["rgb"], rgb_twin16, rtol=0, atol=BF16_RENDER_TOL)
+        if route["err_vs_f32"] > BF16_VS_F32_MAX or route["frac_off_f32"] > BF16_VS_F32_FRAC:
+            raise AssertionError(f"[{kernel}, bfloat16] rgb too far from the float32 render")
+    return routes, bf16, box, cfg
 
 
 def phase_entry_points(box, cfg, routes):
@@ -482,14 +581,14 @@ def phase_entry_points(box, cfg, routes):
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
-        raw_enc = kernels.fused_nerf_mlp(box, x_pe, d_pe, cfg.net)
+        raw_enc = kernels.fused_nerf_mlp(box, x_pe, d_pe, cfg.net, torch.float32)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        raw_pe = rm.fused_nerf_mlp_pe(box, pts, dirs, cfg.net)
+        raw_pe = rm.fused_nerf_mlp_pe(box, pts, dirs, cfg.net, torch.float32)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launched = counts()
-        sigma, rgb3 = rm.fused_nerf_march(box, o, d, vd, z, cfg.net)
+        sigma, rgb3 = rm.fused_nerf_march(box, o, d, vd, z, cfg.net, torch.float32)
     want = torch.cat([torch.movedim(rgb3, 0, -1), sigma[..., None]], -1).reshape(-1, 4)
     for kernel, raw, secs in (("fused_nerf_mlp", raw_enc, t1 - t0),
                               ("fused_nerf_mlp_pe", raw_pe, t2 - t1)):
@@ -511,15 +610,16 @@ def main():
         f"{peaks[1] / 1e12:.0f} TFLOP/s, memory {peaks[2] / 1e12:.2f} TB/s")
     phase_build()
     net = NeRFNetConfig()
-    rec = phase_kernels(net, peaks)
+    rec, chain = phase_kernels(net, peaks)
     phase_backward(net)
-    routes, box, cfg = phase_main_path()
+    routes, routes16, box, cfg = phase_main_path()
     entries = phase_entry_points(box, cfg, routes)
     records = []
     for kernel in KERNELS:
         src, replaces = REPLACES[kernel]
         r = rec[kernel]
         main = routes.get(kernel) or entries[kernel]
+        main16 = routes16.get(kernel)
         records.append({
             "name": kernel,
             "route": "cuda",
@@ -532,6 +632,11 @@ def main():
             "bound_ms": r["bound_ms"]["float32_S192"],
             "bound_by": r["bound_by"]["float32_S192"],
             "library_ms": None,
+            "core": CORES[kernel],
+            "ms_bf16": r["ms"]["bfloat16_S192"],
+            "plain_ms_bf16": r["plain_ms"]["bfloat16_S192"],
+            "bound_ms_bf16": r["bound_ms"]["bfloat16_S192"],
+            "chain_ms": chain,
             "max_err_f32": r["err_f32"],
             "max_err_bf16": r["err_bf16"],
             "kernel_ms": r["ms"],
@@ -539,8 +644,11 @@ def main():
             "bound_ms_by_shape": r["bound_ms"],
             "main_path": {k: v for k, v in main.items()
                           if k not in ("rgb", "noise", "renderer")},
+            "main_path_bf16": main16 and {k: v for k, v in main16.items()
+                                          if k not in ("rgb", "noise", "renderer")},
             "shape": f"N={N_RAYS} rays x S samples (M = N*S points); "
-                     "ms/plain_ms/bound_ms at float32 S=192",
+                     "ms/plain_ms/bound_ms at float32 S=192, *_bf16 at bfloat16 S=192; "
+                     "chain_ms: the same MLP as bf16 torch.matmul per layer",
             "card": smi,
         })
     print(json.dumps({"kernels": records}), flush=True)

@@ -11,7 +11,12 @@
 
 On a tensor for which ``uses_kernel`` is true (a CUDA tensor) a wrapper
 launches its kernel or raises; on a CPU tensor it computes its plain
-PyTorch twin. Gradients of the first four recompute through a twin in
+PyTorch twin. Every wrapper computes in bfloat16 unless asked for float32,
+as the JAX package's wrappers do. In bfloat16, ``nerf_march.cu`` and
+``render_tile.cu`` multiply on the tensor cores (``nerf_mlp_wgmma.cuh``)
+from weights that ``pack_wgmma_weights`` lays out once per weight set;
+float32, and ``nerf_mlp.cu`` in both types, run the FP32 core
+(``nerf_mlp.cuh``). Gradients of the first four recompute through a twin in
 float32, as the JAX custom_vjp backwards do; ``fused_render_tile`` is
 forward only, as in JAX, and raises when asked for a gradient on the card.
 
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import OrderedDict
 from typing import Dict, List
 
 import torch
@@ -109,15 +115,91 @@ def _depth(params) -> int:
     return sum(1 for k in params if k.startswith("pts_") and k.endswith("kernel"))
 
 
+# wgmma weight chunks (nerf_mlp_wgmma.cuh): 64 input rows each
+CHUNK_K = 64
+
+
+def _swizzled_chunks(w: torch.Tensor) -> torch.Tensor:
+    """A kernel [K, N] as flat bf16 chunks of CHUNK_K input rows (K padded
+    with zero rows), each chunk the shared-memory image that a K-major
+    wgmma B descriptor with 128-byte swizzle reads: row n (one output
+    column) holds its 64 inputs in 8 units of 8, and unit u sits at
+    position u ^ (n % 8)."""
+    k, n = w.shape
+    kp = -(-k // CHUNK_K) * CHUNK_K
+    wt = torch.zeros((n, kp), dtype=torch.bfloat16, device=w.device)
+    wt[:, :k] = w.detach().t().to(torch.bfloat16)
+    units = wt.reshape(n, kp // CHUNK_K, 8, 8).transpose(0, 1)   # [chunk, n, unit, 8]
+    rows = torch.arange(n, device=w.device)[:, None]
+    logical = torch.arange(8, device=w.device)[None, :] ^ (rows % 8)
+    return units[:, rows, logical].reshape(-1)
+
+
+def pack_wgmma_weights(params: Dict[str, torch.Tensor], net: NeRFNetConfig) -> torch.Tensor:
+    """The trunk, feature and views kernels as the flat bf16 chunks that
+    the bf16 kernels stream, in the order they consume them: layer 0
+    (x_pe), each later trunk layer (its x_pe rows first after a skip), the
+    feature layer, then the views layer (feature rows, then d_pe rows).
+    1.196 MB for the default 8x256 net."""
+    depth = _depth(params)
+    parts = [_swizzled_chunks(params["pts_0_kernel"])]
+    for i in range(1, depth):
+        k = params[f"pts_{i}_kernel"]
+        if (i - 1) in net.skips:
+            parts += [_swizzled_chunks(k[:net.input_ch]), _swizzled_chunks(k[net.input_ch:])]
+        else:
+            parts.append(_swizzled_chunks(k))
+    views = params["views_0_kernel"]
+    n_feature = views.shape[0] - net.input_ch_views
+    parts += [_swizzled_chunks(params["feature_kernel"]),
+              _swizzled_chunks(views[:n_feature]), _swizzled_chunks(views[n_feature:])]
+    return torch.cat(parts)
+
+
+def wgmma_bytes(depth: int, n_skips: int, width: int) -> int:
+    """Bytes of ``pack_wgmma_weights`` for a net whose x_pe and d_pe fit one
+    chunk each: the chunk plan of nerf_mlp_wgmma.cuh (width 256: 34 chunks
+    of [256][64] and 5 of [128][64])."""
+    h = -(-width // CHUNK_K)                      # chunks of a width-wide input
+    n_wide = 1 + h * (depth - 1) + n_skips + h
+    return (n_wide * width + (h + 1) * (width // 2)) * CHUNK_K * 2
+
+
+# packed weights of the last few weight sets, keyed by the tensors' ids and
+# versions; the entry holds the tensors, so an id is not reused while cached
+_PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def _packed_weights(params, net: NeRFNetConfig, depth: int, what: str) -> torch.Tensor:
+    """pack_wgmma_weights, once per weight set (an in-place update of a
+    weight packs again); checked against the kernels' chunk plan."""
+    tensors = tuple(params[k] for k in param_keys(depth))
+    key = (tuple((id(t), t._version) for t in tensors), net.input_ch, net.input_ch_views,
+           tuple(net.skips))
+    if key in _PACKED:
+        _PACKED.move_to_end(key)
+        return _PACKED[key][1]
+    packed = pack_wgmma_weights(params, net)
+    width = params["pts_0_kernel"].shape[1]
+    if packed.numel() * 2 != wgmma_bytes(depth, len(net.skips), width) or packed.data_ptr() % 16:
+        raise ValueError(f"{what}: packed weights of {packed.numel() * 2} bytes at "
+                         f"{packed.data_ptr():#x} do not match the kernel's chunk plan")
+    _PACKED[key] = (tensors, packed)
+    if len(_PACKED) > 4:
+        _PACKED.popitem(last=False)
+    return packed
+
+
 _NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_uint,
              ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _ARGTYPES = {
     "nerf_march": ("nerf_march", [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
-                   + _NET_ARGS + [ctypes.c_void_p] * 3),
+                   + _NET_ARGS + [ctypes.c_void_p] * 4),
     "nerf_mlp": ("nerf_mlp", [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int]
                  + _NET_ARGS + [ctypes.c_void_p] * 2),
     "render_tile": ("render_tile", [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
-                    + _NET_ARGS + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6),
+                    + _NET_ARGS + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                    + [ctypes.c_void_p] * 6),
 }
 
 
@@ -203,6 +285,16 @@ def _net_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str):
     return [ptrs, depth, skip_mask, net.input_ch, net.input_ch_views, int(bf16)], weights
 
 
+def _wgmma_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str):
+    """_net_args plus the packed bf16 weights (None in float32) of the
+    sources with a wgmma core."""
+    net_args, weights = _net_args(params, net, device, bf16, lib, what)
+    if not bf16:
+        return net_args + [None], weights
+    packed = _packed_weights(params, net, net_args[1], what)
+    return net_args + [packed.data_ptr()], weights + [packed]
+
+
 def _run(fn, device, what: str, *args):
     """Call a kernel's C entry on the device's current stream; raise on a
     launch it refused."""
@@ -221,7 +313,8 @@ def _launch(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
     n, s = z_vals.shape
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
-    net_args, _weights = _net_args(params, net, device, _is_bf16(compute_dtype, what), lib, what)
+    net_args, _weights = _wgmma_args(params, net, device, _is_bf16(compute_dtype, what), lib,
+                                     what)
     sigma = torch.empty((n, s), dtype=torch.float32, device=device)
     rgb = torch.empty((3, n, s), dtype=torch.float32, device=device)
     if n * s == 0:
@@ -266,11 +359,15 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
     lib = _library("render_tile")
     device = z_vals.device
     n, s = z_vals.shape
-    if s > 2048:
-        raise NotImplementedError(f"{what} kernel: at most 2048 samples per ray, got {s}")
+    bf16 = _is_bf16(compute_dtype, what)
+    # a block keeps its rays' raw field in shared memory beside its MLP core
+    max_samples = 1024 if bf16 else 2048
+    if s > max_samples:
+        raise NotImplementedError(f"{what} kernel: at most {max_samples} samples per ray in "
+                                  f"{compute_dtype}, got {s}")
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
-    net_args, _weights = _net_args(params, net, device, _is_bf16(compute_dtype, what), lib, what)
+    net_args, _weights = _wgmma_args(params, net, device, bf16, lib, what)
     f32 = dict(dtype=torch.float32, device=device)
     rgb, disp, acc = torch.empty((n, 3), **f32), torch.empty(n, **f32), torch.empty(n, **f32)
     weights, depth = torch.empty((n, s), **f32), torch.empty(n, **f32)
@@ -318,7 +415,7 @@ def _apply(launch, ref, params, inputs):
 
 def fused_nerf_march(params: Dict[str, torch.Tensor], rays_o, rays_d,
                      viewdirs, z_vals, net: NeRFNetConfig,
-                     compute_dtype=torch.float32):
+                     compute_dtype=torch.bfloat16):
     """Ray march: rays o, d, unit viewdirs [N,3] and depths z [N,S] ->
     (sigma [N,S] raw density, rgb3 [3,N,S] logits).
 
@@ -335,7 +432,7 @@ def fused_nerf_march(params: Dict[str, torch.Tensor], rays_o, rays_d,
 
 
 def fused_nerf_mlp_widepe(params: Dict[str, torch.Tensor], pts, dirs,
-                          net: NeRFNetConfig, compute_dtype=torch.float32):
+                          net: NeRFNetConfig, compute_dtype=torch.bfloat16):
     """PE (projection form) + MLP, point-major: pts, dirs [M,3] -> raw
     [M,4] (rgb logits, density).
 
@@ -351,7 +448,7 @@ def fused_nerf_mlp_widepe(params: Dict[str, torch.Tensor], pts, dirs,
 
 
 def fused_nerf_mlp_pe(params: Dict[str, torch.Tensor], pts, dirs,
-                      net: NeRFNetConfig, compute_dtype=torch.float32):
+                      net: NeRFNetConfig, compute_dtype=torch.bfloat16):
     """PE with a true cos + MLP, point-major: pts, dirs [M,3] -> raw [M,4].
 
     Gradients recompute through the projection form (``mlp_widepe_ref``)
@@ -366,7 +463,7 @@ def fused_nerf_mlp_pe(params: Dict[str, torch.Tensor], pts, dirs,
 
 
 def fused_nerf_mlp(params: Dict[str, torch.Tensor], x_pe, d_pe,
-                   net: NeRFNetConfig, compute_dtype=torch.float32):
+                   net: NeRFNetConfig, compute_dtype=torch.bfloat16):
     """The MLP on pre-encoded inputs x_pe [M, input_ch], d_pe [M,
     input_ch_views] -> raw [M,4]: ``nerf_apply`` for view-direction nets.
 
@@ -382,7 +479,7 @@ def fused_nerf_mlp(params: Dict[str, torch.Tensor], x_pe, d_pe,
 
 def fused_render_tile(params: Dict[str, torch.Tensor], rays_o, rays_d,
                       viewdirs, z_vals, net: NeRFNetConfig,
-                      white_bkgd: bool = False, compute_dtype=torch.float32,
+                      white_bkgd: bool = False, compute_dtype=torch.bfloat16,
                       fast_epilogue: bool = False):
     """March and composite whole rays: rays o, d, unit viewdirs [N,3] and
     depths z [N,S] -> (rgb [N,3], disp [N], acc [N], weights [N,S],

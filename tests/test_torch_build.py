@@ -18,9 +18,16 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
+# the headers each source includes: the shared core, and in front of it the
+# tensor-core core of the two kernels whose bf16 mode runs wgmma
+HEADERS = {"nerf_march": ["nerf_mlp_wgmma.cuh", "nerf_mlp.cuh"],
+           "nerf_mlp": ["nerf_mlp.cuh"],
+           "render_tile": ["nerf_mlp_wgmma.cuh", "nerf_mlp.cuh"]}
+
+
 @pytest.mark.parametrize("name", build.SOURCES)
 def test_every_source_includes_the_shared_core(name):
-    assert [h.name for h in build.headers(build.CSRC / f"{name}.cu")] == ["nerf_mlp.cuh"]
+    assert [h.name for h in build.headers(build.CSRC / f"{name}.cu")] == HEADERS[name]
 
 
 @pytest.mark.parametrize("name", build.SOURCES)
@@ -32,6 +39,16 @@ def test_editing_a_header_changes_the_library_path(csrc, name):
     header = csrc / "nerf_mlp.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert build.library_path(name) != before
+
+
+def test_editing_the_wgmma_core_rebuilds_only_its_kernels(csrc):
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    header = csrc / "nerf_mlp_wgmma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert after["nerf_march"] != before["nerf_march"]
+    assert after["render_tile"] != before["render_tile"]
+    assert after["nerf_mlp"] == before["nerf_mlp"]
 
 
 def test_nested_headers_are_followed(csrc):

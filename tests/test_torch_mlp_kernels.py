@@ -106,7 +106,7 @@ def test_encoded_twin_matches_pallas_interpret(rng, scene):
     d_pe = np.asarray(jenc.positional_encoding(dirs, 4))
     want = jmarch._fused_forward(params, x_pe, d_pe, JNET,
                                  compute_dtype=jnp.float32, tile=128, interpret=True)
-    got = tmarch.fused_nerf_mlp(*_t(params, x_pe, d_pe), TNET)
+    got = tmarch.fused_nerf_mlp(*_t(params, x_pe, d_pe), TNET, torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

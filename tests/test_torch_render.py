@@ -21,6 +21,7 @@ from neuralsim_tpu_torch.models.convert import params_from_numpy
 from neuralsim_tpu_torch.ops import render as trender
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
 from neuralsim_tpu_torch.sampler.poses import PoseNoise
+from tests.test_torch_render_tile import kernel_route  # noqa: F401  (a fixture)
 
 torch.set_num_threads(2)
 
@@ -265,3 +266,38 @@ def test_production_render_and_gradient_raise():
 def test_to8b():
     x = torch.tensor([-0.5, 0.0, 0.5, 1.0, 2.0])
     np.testing.assert_array_equal(trender.to8b(x), [0, 0, 127, 255, 255])
+
+
+# bf16 on both sides rounds at the same places (encodings, weights, each
+# activation) and sums in other orders (XLA:CPU dot vs torch matmul). On the
+# box scene no activation lands a bf16 step apart (4e-7 measured), so the
+# render is held at the box scene's float32 tolerance; a float32 render is
+# 3e-2 (rgb) and 6e-2 (acc) away from the bf16 one, so the check tells the
+# two dtypes apart.
+BF16_TOL = TOL
+
+
+@pytest.mark.parametrize("override, kernel", [
+    (dict(), "fused_nerf_march"),
+    (dict(fuse_compositing=True), "fused_render_tile"),
+], ids=["march", "fuse_compositing"])
+def test_renderer_bf16_matches_jax(rng, kernel_route, override, kernel):
+    """NeuralSimRenderer in bfloat16 through a kernel route (the launch
+    stood in by its bf16 twin on the CPU) against the JAX renderer in
+    bfloat16, box scene, K=2 images at 16x16."""
+    jc, tc = _configs(compute_dtype="bfloat16", **override)
+    models = _models("box")
+    k = 2
+    g = (-np.log(-np.log(rng.rand(k, 8)))).astype(np.float32)
+    u = rng.rand(k).astype(np.float32)
+    th = (85 + 10 * rng.rand(k)).astype(np.float32)
+    psi = np.array([0.02, 0.02, 0.02, 0.02, 0.86, 0.02, 0.02, 0.02], np.float32)
+
+    want = JaxRenderer(jc, models=models)._render_fn(psi, JaxNoise(g, u, th))
+    port = NeuralSimRenderer(tc, models=models, device="cpu")
+    got = port._render_impl(torch.from_numpy(psi),
+                            PoseNoise(*map(torch.from_numpy, (g, u, th))))
+    assert {name for name, _ in kernel_route} == {kernel}
+    assert float(np.asarray(want[2]).max()) > 0.5                # the box is hit
+    for name, a, b in zip(("rgb", "disp", "acc"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **BF16_TOL)

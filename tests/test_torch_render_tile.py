@@ -123,7 +123,7 @@ def test_fast_epilogue_changes_nothing_in_float32(rng):
 def test_cpu_tensors_take_the_twin_without_launching(rng):
     args = _t(*_inputs(rng, 9, 16, "box"))
     tmarch.fused_render_tile.launches = 0
-    got = tmarch.fused_render_tile(*args, TNET, white_bkgd=True)
+    got = tmarch.fused_render_tile(*args, TNET, white_bkgd=True, compute_dtype=torch.float32)
     want = tmarch.render_tile_ref(*args, TNET, white_bkgd=True)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -201,10 +201,10 @@ def test_render_tile_kernel_route_refuses_gradients(rng, kernel_route):
     params, o, d, vd, z = _t(*_inputs(rng, 8, 16, "box"))
     params["pts_0_kernel"].requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward only"):
-        tmarch.fused_render_tile(params, o, d, vd, z, TNET)
+        tmarch.fused_render_tile(params, o, d, vd, z, TNET, compute_dtype=torch.float32)
     assert kernel_route == []
     with torch.no_grad():
-        tmarch.fused_render_tile(params, o, d, vd, z, TNET)
+        tmarch.fused_render_tile(params, o, d, vd, z, TNET, compute_dtype=torch.float32)
     z.requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward only"):
         trender._march(params, o, d, vd, z, TNET,
