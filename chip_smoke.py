@@ -16,7 +16,8 @@ Phases, each of which exits nonzero when it fails:
        - fused_nerf_march and fused_render_tile at N=8192 rays x S=64 and
          S=192 samples, plus the ragged N x S = 1001x48 and 3x5;
        - fused_nerf_mlp_widepe, fused_nerf_mlp_pe and fused_nerf_mlp at
-         M = 8192*64 and 8192*192 points, plus the ragged M = 1001*48 and 15;
+         M = 8192*64 and 8192*192 points, plus the ragged M = 1001*48 and 15
+         (neither a multiple of the tensor-core kernels' 128-point tile);
      and the times of kernel and twin at the main path's shapes (CUDA
      events, median of 7 after warm-up) beside each kernel's bound, and
      beside them the time of the same MLP as a chain of per-layer bf16
@@ -34,17 +35,21 @@ Phases, each of which exits nonzero when it fails:
      kernel counter must read 2 per ray chunk and every other counter 0;
      the images must be finite, in [0, 1], not empty, and within 2e-3 of
      the ray-march route's and of the plain twin's render. Then the same
-     render in bfloat16 through the ray march and fuse_compositing=True
-     (the tensor-core kernels): the same launch and image checks, rgb
-     within BF16_RENDER_TOL of the bf16 twin render, and at most
+     render in bfloat16 through all three routes (each on a tensor-core
+     kernel): the same launch and image checks, rgb within
+     BF16_RENDER_TOL of the bf16 twin render, and at most
      BF16_VS_F32_FRAC of it beyond that of the float32 render (none
      beyond BF16_VS_F32_MAX);
   6. entry points: the exported fused_nerf_mlp (pre-encoded inputs) and
      fused_nerf_mlp_pe on the coarse sample points of the same K=8 render,
-     one launch each, held against the ray-march kernel's raw field there;
+     one launch each, held against the ray-march kernel's raw field there
+     (float32, 2e-3); then fused_nerf_mlp in bfloat16, one launch, held to
+     the bf16 ray-march kernel's raw field by the bf16 rule;
   7. a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
-     beside them), then the last line {"ok": true, "device": {...}}.
+     beside them), after checking that every kernel whose bf16 mode runs
+     wgmma takes at most WGMMA_FRACTION of the FP32-core kernel's bf16
+     time at S=192; then the last line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits nonzero and prints no result.
@@ -110,10 +115,13 @@ PEAKS = {
 SOURCE = "neuralsim_tpu_torch/kernels/csrc/"
 # the MLP core each kernel's dtypes run: the FP32 CUDA cores of
 # nerf_mlp.cuh or wgmma on the tensor cores (nerf_mlp_wgmma.cuh)
-CORES = {k: {"float32": "fp32", "bfloat16": "wgmma" if k in (
-    "fused_nerf_march", "fused_render_tile") else "fp32"}
-    for k in ("fused_nerf_march", "fused_nerf_mlp_widepe", "fused_render_tile",
-              "fused_nerf_mlp", "fused_nerf_mlp_pe")}
+CORES = {k: {"float32": "fp32", "bfloat16": "fp32" if k == "fused_nerf_mlp_pe" else "wgmma"}
+         for k in ("fused_nerf_march", "fused_nerf_mlp_widepe", "fused_render_tile",
+                   "fused_nerf_mlp", "fused_nerf_mlp_pe")}
+# the same MLP on the tensor cores takes at most this fraction of its time
+# on the FP32 core in bf16 (S = 192): a kernel that misses it did not run
+# on the tensor cores
+WGMMA_FRACTION = 0.25
 REPLACES = {
     "fused_nerf_march": ("nerf_march.cu", "neuralsim_tpu/kernels/raymarch.py:857"),
     "fused_nerf_mlp_widepe": ("nerf_mlp.cu", "neuralsim_tpu/kernels/raymarch.py:469"),
@@ -526,10 +534,12 @@ def phase_main_path():
         log(f"main path [{kernel}]: rgb vs ray-march route max abs err {e_exact:.3e}, "
             f"vs twin render {e_twin:.3e}")
 
-    # bf16: the tensor-core kernels on the default route and the render tile
+    # bf16: the tensor-core kernels of the three routes
     bf16 = {
         "fused_nerf_march": drive_route(models, psi, "fused_nerf_march",
                                         compute_dtype="bfloat16"),
+        "fused_nerf_mlp_widepe": drive_route(models, psi, "fused_nerf_mlp_widepe",
+                                             fuse_pointgen=False, compute_dtype="bfloat16"),
         "fused_render_tile": drive_route(models, psi, "fused_render_tile",
                                          fuse_compositing=True, compute_dtype="bfloat16"),
     }
@@ -560,10 +570,16 @@ def phase_main_path():
     return routes, bf16, box, cfg
 
 
+def raw_field(sigma, rgb3):
+    """The march kernel's planes as raw [M,4]."""
+    return torch.cat([torch.movedim(rgb3, 0, -1), sigma[..., None]], -1).reshape(-1, 4)
+
+
 def phase_entry_points(box, cfg, routes):
     """The exported point-major entries on the coarse sample points of the
     K=8 render (80,000 rays x 64 samples): one launch each, against the
-    ray-march kernel's raw field at the same points."""
+    ray-march kernel's raw field at the same points; fused_nerf_mlp also
+    in bf16 (tensor cores), against the bf16 ray-march kernel's."""
     exact = routes["fused_nerf_march"]
     r = exact["renderer"]
     dev = DEVICE
@@ -588,19 +604,40 @@ def phase_entry_points(box, cfg, routes):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launched = counts()
-        sigma, rgb3 = rm.fused_nerf_march(box, o, d, vd, z, cfg.net, torch.float32)
-    want = torch.cat([torch.movedim(rgb3, 0, -1), sigma[..., None]], -1).reshape(-1, 4)
+        want = raw_field(*rm.fused_nerf_march(box, o, d, vd, z, cfg.net, torch.float32))
+        torch.cuda.synchronize()  # the march must not run into the timed launch
+        zero_counts()
+        t3 = time.perf_counter()
+        raw16 = kernels.fused_nerf_mlp(box, x_pe, d_pe, cfg.net, torch.bfloat16)
+        torch.cuda.synchronize()
+        secs16 = time.perf_counter() - t3
+        launched16 = counts()
+        want16 = raw_field(*rm.fused_nerf_march(box, o, d, vd, z, cfg.net, torch.bfloat16))
     for kernel, raw, secs in (("fused_nerf_mlp", raw_enc, t1 - t0),
                               ("fused_nerf_mlp_pe", raw_pe, t2 - t1)):
         if launched[kernel] != 1 or sum(launched.values()) != 2:
             raise AssertionError(f"entry points launched {launched}")
         torch.testing.assert_close(raw, want, rtol=F32_TOL, atol=F32_TOL)
         err = (raw - want).abs().max().item()
-        out[kernel] = dict(launches=launched[kernel], err_vs_march=err)
+        out[kernel] = dict(launches=launched[kernel], err_vs_march=err, host_ms=1e3 * secs)
         log(f"entry point {kernel}: {raw.shape[0]} points, launches {launched[kernel]}, "
             f"{1e3 * secs:.3f} ms (host clock), raw vs ray-march kernel max abs err "
             f"{err:.3e}, sigma max {raw[:, 3].max().item():.2f}")
-    return out
+    if launched16 != {k: int(k == "fused_nerf_mlp") for k in launched16}:
+        raise AssertionError(f"bf16 entry point launched {launched16}")
+    if not torch.isfinite(raw16).all():
+        raise AssertionError("bf16 entry point fused_nerf_mlp: raw not finite")
+    ok, bad = bf16_rule(raw16, want16)
+    err = (raw16 - want16).abs().max().item()
+    log(f"entry point fused_nerf_mlp, bfloat16: {raw16.shape[0]} points, launches "
+        f"{launched16['fused_nerf_mlp']}, {1e3 * secs16:.3f} ms (host clock), raw vs bf16 "
+        f"ray-march kernel max abs err {err:.3e}, {bad:.2e} of values beyond the bf16 rule")
+    if not ok:
+        raise AssertionError("bf16 entry point fused_nerf_mlp fails the bf16 rule against "
+                             "the bf16 ray-march kernel")
+    out16 = {"fused_nerf_mlp": dict(launches=launched16["fused_nerf_mlp"], err_vs_march=err,
+                                    host_ms=1e3 * secs16)}
+    return out, out16
 
 
 def main():
@@ -613,13 +650,21 @@ def main():
     rec, chain = phase_kernels(net, peaks)
     phase_backward(net)
     routes, routes16, box, cfg = phase_main_path()
-    entries = phase_entry_points(box, cfg, routes)
+    entries, entries16 = phase_entry_points(box, cfg, routes)
+    fp32_core = rec["fused_nerf_mlp_pe"]["ms"]["bfloat16_S192"]
+    for kernel in KERNELS:
+        if CORES[kernel]["bfloat16"] == "wgmma":
+            ms = rec[kernel]["ms"]["bfloat16_S192"]
+            log(f"bf16 S192 {kernel}: {ms:.3f} ms = {ms / fp32_core:.3f} of the FP32-core "
+                f"fused_nerf_mlp_pe's {fp32_core:.3f} ms (limit {WGMMA_FRACTION:g})")
+            if ms > WGMMA_FRACTION * fp32_core:
+                raise AssertionError(f"{kernel} in bf16 is not on the tensor cores' time")
     records = []
     for kernel in KERNELS:
         src, replaces = REPLACES[kernel]
         r = rec[kernel]
         main = routes.get(kernel) or entries[kernel]
-        main16 = routes16.get(kernel)
+        main16 = routes16.get(kernel) or entries16.get(kernel)
         records.append({
             "name": kernel,
             "route": "cuda",

@@ -16,17 +16,28 @@
 // for Mosaic's layouts; this kernel takes the unpadded weights and encodes
 // from the coordinates, as nerf_march.cu does.
 //
-// Bound on this card: operations (nerf_mlp.cuh). Per point it reads 24
-// bytes (pts, dirs) or 360 bytes (encoded) and writes 16: even the encoded
-// stage is ~10x below the operations bound in bytes.
+// Bound on this card: operations, the FP32 rate in float32 (nerf_mlp.cuh)
+// and the bf16 tensor-core rate in bf16 (nerf_mlp_wgmma.cuh; 1.887 ms at
+// 8192 x 192 points). Per point it reads 24 bytes (pts, dirs) or 360 bytes
+// (encoded) and writes 16: even the encoded stage moves its bytes (0.18 ms
+// per 8192 x 192 launch) in a tenth of the bf16 operations bound.
 //
-// Design: one block of 256 threads per tile of P=64 consecutive points;
-// the tile's inputs are read with consecutive threads on consecutive
-// addresses (the [M,3] / [M,C] rows of the block are one contiguous run)
-// and scattered into the feature-major [channel][point] tiles of the
-// shared core; the [64,4] output tile is written back the same way.
+// Design:
+//   - float32, and TRUE_COS in both types: one block of 256 threads per
+//     tile of P=64 consecutive points on the FP32 core of nerf_mlp.cuh;
+//     the tile's inputs are read with consecutive threads on consecutive
+//     addresses (the [M,3] / [M,C] rows of the block are one contiguous
+//     run) and scattered into the feature-major [channel][point] tiles of
+//     the core; the [64,4] output tile is written back the same way;
+//   - bf16 PROJECTION and ENCODED: persistent blocks of two warpgroups
+//     over 128-point tiles on the wgmma core of nerf_mlp_wgmma.cuh, the
+//     packed bf16 weights streamed through the core's shared-memory ring,
+//     as in nerf_march.cu. A warpgroup reads its 64 rows as one contiguous
+//     run: points into the core's [6][P] tile (encoded by the core), or
+//     x_pe and d_pe straight into the swizzled A tiles (load_encodings);
+//     raw [64,4] goes back as one contiguous run.
 
-#include "nerf_mlp.cuh"
+#include "nerf_mlp_wgmma.cuh"
 
 using namespace nerf;
 
@@ -92,20 +103,59 @@ nerf_mlp_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (base + p < total) out[base * 4 + tid] = raw[c * P + p];
 }
 
-template <bool BF16>
-int launch_kind(int kind, long long blocks, size_t smem, cudaStream_t s,
-                const float* a, const float* b, long long total, const Net& net,
-                float* out) {
+// bf16 PROJECTION and ENCODED: warpgroup g of a block runs points
+// [64g, 64g+64) of each of the block's 128-point tiles (tiles blockIdx.x,
+// +gridDim.x, ...).
+template <int INPUT>
+__global__ void __launch_bounds__(THREADS, 1)
+nerf_mlp_wgmma(const float* __restrict__ a, const float* __restrict__ b, int total, Net net,
+               wg::Plan plan, float* __restrict__ out) {
+  static_assert(INPUT == PROJECTION || INPUT == ENCODED, "TRUE_COS runs the FP32 core");
+  extern __shared__ float4 smem4[];
+  const int n_tiles = (total + wg::TILE - 1) / wg::TILE;
+  const int mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  wg::Core core = wg::make_core(smem4, plan);
+  core.ring.init(static_cast<long long>(mine) * plan.per_tile);
+  const int t = threadIdx.x & 127;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * wg::TILE + core.group * P;
+    const int here = total - base < P ? total - base : P;  // <= 0 past the end
+    wg::wg_barrier(core.group);  // the previous tile's inputs and raw are read
+    if constexpr (INPUT == ENCODED) {
+      wg::load_encodings(a + static_cast<long long>(base) * net.in_ch,
+                         b + static_cast<long long>(base) * net.in_ch_views, here, core.a, net);
+      wg::mlp_tile<false>(core, net);
+    } else {
+      // a = points, b = view directions: the warpgroup's rows of each are
+      // one run of 3P floats
+      const long long run = static_cast<long long>(base) * 3;
+      for (int idx = t; idx < 6 * P; idx += 128) {
+        const int which = idx / (3 * P), j = idx - which * 3 * P;
+        const int p = j / 3, c = j - 3 * p;
+        const float* src = which ? b : a;
+        core.pts[(3 * which + c) * P + p] = p < here ? src[run + j] : 0.f;
+      }
+      wg::wg_barrier(core.group);
+      wg::run_tile<false>(core, net);  // nerf_mlp.cu has no fast epilogue
+    }
+    // ---- raw [M,4]: thread -> (point, channel), one contiguous run -------
+    for (int idx = t; idx < 4 * P; idx += 128) {
+      const int p = idx >> 2, c = idx & 3;
+      if (p < here) out[static_cast<long long>(base) * 4 + idx] = core.raw[c * P + p];
+    }
+  }
+}
+
+// float32: every kind on the FP32 core.
+int launch_f32(int kind, long long blocks, size_t smem, cudaStream_t s, const float* a,
+               const float* b, long long total, const Net& net, float* out) {
   switch (kind) {
     case PROJECTION:
-      return launch(nerf_mlp_kernel<BF16, PROJECTION>, blocks, smem, s, a, b,
-                    total, net, out);
+      return launch(nerf_mlp_kernel<false, PROJECTION>, blocks, smem, s, a, b, total, net, out);
     case TRUE_COS:
-      return launch(nerf_mlp_kernel<BF16, TRUE_COS>, blocks, smem, s, a, b,
-                    total, net, out);
+      return launch(nerf_mlp_kernel<false, TRUE_COS>, blocks, smem, s, a, b, total, net, out);
     case ENCODED:
-      return launch(nerf_mlp_kernel<BF16, ENCODED>, blocks, smem, s, a, b,
-                    total, net, out);
+      return launch(nerf_mlp_kernel<false, ENCODED>, blocks, smem, s, a, b, total, net, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -118,20 +168,37 @@ extern "C" {
 // a, b: points and view directions [M,3] (kind 0: projection encoding,
 // kind 1: true cos) or x_pe [M,in_ch] and d_pe [M,in_ch_views] (kind 2).
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
-// for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb.
-// out: raw [M,4]. Returns a cudaError_t value: 0 when the launch was
-// accepted.
+// for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb; packed:
+// the bf16 weight chunks of raymarch.py pack_wgmma_weights (bf16 kinds 0
+// and 2 only, 16-byte aligned). out: raw [M,4]. Returns a cudaError_t
+// value: 0 when the launch was accepted.
 int nerf_mlp(const float* a, const float* b, long long total, int kind,
              const void* const* weights, int depth, unsigned skip_mask,
-             int in_ch, int in_ch_views, int bf16, float* out, void* stream) {
+             int in_ch, int in_ch_views, int bf16, const void* packed, float* out,
+             void* stream) {
   Net net;
   const int err = make_net(weights, depth, skip_mask, in_ch, in_ch_views, 0, &net);
   if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16 && (kind == PROJECTION || kind == ENCODED)) {
+    if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16 ||
+        total > 0x7fffffffLL - wg::TILE) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long tiles = (total + wg::TILE - 1) / wg::TILE;
+    const size_t smem = wg::CORE_BYTES + wg::SMEM_ALIGN;
+    const wg::Plan plan = wg::make_plan(packed, depth, skip_mask);
+    return kind == PROJECTION
+        ? wg::launch_persistent(nerf_mlp_wgmma<PROJECTION>, tiles, smem, s, a, b,
+                                static_cast<int>(total), net, plan, out)
+        : wg::launch_persistent(nerf_mlp_wgmma<ENCODED>, tiles, smem, s, a, b,
+                                static_cast<int>(total), net, plan, out);
+  }
   const long long blocks = (total + P - 1) / P;
   const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_kind<true>(kind, blocks, smem, s, a, b, total, net, out);
-  return launch_kind<false>(kind, blocks, smem, s, a, b, total, net, out);
+  if (!bf16) return launch_f32(kind, blocks, smem, s, a, b, total, net, out);
+  if (kind != TRUE_COS) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(nerf_mlp_kernel<true, TRUE_COS>, blocks, smem, s, a, b, total, net, out);
 }
 
 }  // extern "C"

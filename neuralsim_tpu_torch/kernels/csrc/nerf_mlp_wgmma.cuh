@@ -2,11 +2,13 @@
 // bf16 only.
 //
 // The bf16 instantiations of nerf_march.cu (replacing the Pallas TPU kernel
-// `_march_channels_kernel` of neuralsim_tpu/kernels/raymarch.py) and
-// render_tile.cu (replacing `_render_tile_kernel`) run their MLP here; the
-// float32 instantiations and nerf_mlp.cu keep the FP32 core of
-// nerf_mlp.cuh. Same function as that core in bf16 (nerf_mlp.cuh states the
-// rounding), on tiles of 128 points.
+// `_march_channels_kernel` of neuralsim_tpu/kernels/raymarch.py),
+// render_tile.cu (replacing `_render_tile_kernel`) and of nerf_mlp.cu's
+// PROJECTION and ENCODED stages (replacing `_mlp_widepe_kernel` and
+// `_mlp_kernel`) run their MLP here; every float32 instantiation, and
+// nerf_mlp.cu's TRUE_COS stage (`_mlp_pe_kernel`) in both types, keep the
+// FP32 core of nerf_mlp.cuh. Same function as that core in bf16
+// (nerf_mlp.cuh states the rounding), on tiles of 128 points.
 //
 // Bound on the card: operations on the tensor cores. One point costs
 // 593,408 bf16 multiply-adds; at the published 989 TFLOP/s a launch on
@@ -397,6 +399,40 @@ __device__ __forceinline__ void encode_tiles(const float* pts, unsigned char* xt
   }
 }
 
+// Columns [0, COLS) of a warpgroup's A tile from the rows of a pre-encoded
+// input, rounded to bf16: row p < here of the tile is src[p * n_ch ...].
+// Every column the products read is written, zero where the channel is >=
+// n_ch or the row >= here: pad columns must hold zeros, not whatever the
+// tile held (a NaN there times a zero weight is NaN). Lane pair c of a row
+// reads channels 2c, 2c+1, so a row is read by consecutive threads on
+// consecutive addresses (rows are 4-byte aligned only: no vector loads).
+template <int COLS>
+__device__ __forceinline__ void load_encoding(const float* __restrict__ src, int n_ch, int here,
+                                              unsigned char* tile) {
+  constexpr int PAIRS = COLS / 2;
+  const int t = threadIdx.x & 127;
+  const int col = 2 * (t % PAIRS);
+#pragma unroll 4
+  for (int row = t / PAIRS; row < P; row += 128 / PAIRS) {
+    float lo = 0.f, hi = 0.f;
+    if (row < here) {
+      const float* r = src + row * n_ch;
+      if (col < n_ch) lo = __ldg(r + col);
+      if (col + 1 < n_ch) hi = __ldg(r + col + 1);
+    }
+    store_bf16x2(tile, row, col, lo, hi);
+  }
+}
+
+// The warpgroup's x_pe and d_pe A tiles (a: x_pe, h chunks 1-4, d_pe) from
+// rows [0, here) of x_pe [*, in_ch] and d_pe [*, in_ch_views]: all CHUNK_K
+// columns of x_pe, the PD columns of d_pe that the views layer reads.
+__device__ __forceinline__ void load_encodings(const float* x_pe, const float* d_pe, int here,
+                                               unsigned char* a, const Net& net) {
+  load_encoding<CHUNK_K>(x_pe, net.in_ch, here, a);
+  load_encoding<PD>(d_pe, net.in_ch_views, here, a + 5 * A_CHUNK_BYTES);
+}
+
 // The MLP on one warpgroup's 64 points, whose encodings encode_tiles left
 // in its A tiles (a: x_pe, h chunks 1-4, d_pe; published): raw [4][P]
 // (r, g, b logits, sigma) of the warpgroup, written by the lanes that hold
@@ -514,15 +550,22 @@ __device__ __forceinline__ Core make_core(void* dyn, const Plan& plan) {
   return c;
 }
 
-// One tile of a warpgroup, once its [6][P] points are in core.pts
-// (published by a warpgroup barrier): encode, run the MLP, and leave raw
+// The MLP of one tile of a warpgroup, once this thread has written its part
+// of the x_pe and d_pe A tiles: publish them, run the MLP, and leave raw
 // [4][P] in core.raw, readable by the whole warpgroup on return.
 template <bool FAST>
-__device__ __forceinline__ void run_tile(Core& core, const Net& net) {
-  encode_tiles(core.pts, core.a, core.a + 5 * A_CHUNK_BYTES, net);
+__device__ __forceinline__ void mlp_tile(Core& core, const Net& net) {
   wg_publish(core.group);
   mlp_core_wgmma<FAST>(core.a, core.raw, net, core.ring, core.group);
   wg_barrier(core.group);
+}
+
+// One tile of a warpgroup, once its [6][P] points are in core.pts
+// (published by a warpgroup barrier): encode, then mlp_tile.
+template <bool FAST>
+__device__ __forceinline__ void run_tile(Core& core, const Net& net) {
+  encode_tiles(core.pts, core.a, core.a + 5 * A_CHUNK_BYTES, net);
+  mlp_tile<FAST>(core, net);
 }
 
 // Sets the dynamic shared memory and launches `kernel` on one persistent

@@ -12,13 +12,15 @@
 On a tensor for which ``uses_kernel`` is true (a CUDA tensor) a wrapper
 launches its kernel or raises; on a CPU tensor it computes its plain
 PyTorch twin. Every wrapper computes in bfloat16 unless asked for float32,
-as the JAX package's wrappers do. In bfloat16, ``nerf_march.cu`` and
-``render_tile.cu`` multiply on the tensor cores (``nerf_mlp_wgmma.cuh``)
-from weights that ``pack_wgmma_weights`` lays out once per weight set;
-float32, and ``nerf_mlp.cu`` in both types, run the FP32 core
-(``nerf_mlp.cuh``). Gradients of the first four recompute through a twin in
-float32, as the JAX custom_vjp backwards do; ``fused_render_tile`` is
-forward only, as in JAX, and raises when asked for a gradient on the card.
+as the JAX package's wrappers do. In bfloat16, ``nerf_march.cu``,
+``render_tile.cu`` and ``nerf_mlp.cu``'s projection and encoded stages
+(``fused_nerf_mlp_widepe``, ``fused_nerf_mlp``) multiply on the tensor
+cores (``nerf_mlp_wgmma.cuh``) from weights that ``pack_wgmma_weights``
+lays out once per weight set; float32, and ``fused_nerf_mlp_pe`` in both
+types, run the FP32 core (``nerf_mlp.cuh``). Gradients of the first four
+recompute through a twin in float32, as the JAX custom_vjp backwards do;
+``fused_render_tile`` is forward only, as in JAX, and raises when asked for
+a gradient on the card.
 
 Each wrapper's ``launches`` counts its kernel's launches, so a run can show
 that its render went through the kernel.
@@ -196,7 +198,7 @@ _ARGTYPES = {
     "nerf_march": ("nerf_march", [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
                    + _NET_ARGS + [ctypes.c_void_p] * 4),
     "nerf_mlp": ("nerf_mlp", [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int]
-                 + _NET_ARGS + [ctypes.c_void_p] * 2),
+                 + _NET_ARGS + [ctypes.c_void_p] * 3),
     "render_tile": ("render_tile", [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
                     + _NET_ARGS + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                     + [ctypes.c_void_p] * 6),
@@ -339,7 +341,12 @@ def _launch_mlp(kind: str, params, a, b, net: NeRFNetConfig,
     widths = ((net.input_ch, net.input_ch_views) if kind == "encoded" else (3, 3))
     ins = _inputs(what, device, ("first input", a, (m, widths[0])),
                   ("second input", b, (m, widths[1])))
-    net_args, _weights = _net_args(params, net, device, _is_bf16(compute_dtype, what), lib, what)
+    bf16 = _is_bf16(compute_dtype, what)
+    if kind == "pe":  # the true-cos stage runs the FP32 core in both types
+        net_args, _weights = _net_args(params, net, device, bf16, lib, what)
+        net_args.append(None)
+    else:
+        net_args, _weights = _wgmma_args(params, net, device, bf16, lib, what)
     raw = torch.empty((m, 4), dtype=torch.float32, device=device)
     if m == 0:
         return raw

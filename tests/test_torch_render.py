@@ -280,7 +280,8 @@ BF16_TOL = TOL
 @pytest.mark.parametrize("override, kernel", [
     (dict(), "fused_nerf_march"),
     (dict(fuse_compositing=True), "fused_render_tile"),
-], ids=["march", "fuse_compositing"])
+    (dict(fuse_pointgen=False), "mlp_widepe"),
+], ids=["march", "fuse_compositing", "fuse_pointgen_false"])
 def test_renderer_bf16_matches_jax(rng, kernel_route, override, kernel):
     """NeuralSimRenderer in bfloat16 through a kernel route (the launch
     stood in by its bf16 twin on the CPU) against the JAX renderer in

@@ -1,8 +1,8 @@
 """The bf16 weight image of the tensor-core kernels
 (``neuralsim_tpu_torch.kernels.raymarch.pack_wgmma_weights``).
 
-nerf_march.cu and render_tile.cu stream it chunk by chunk into shared
-memory and read each chunk through a K-major wgmma descriptor with 128-byte
+nerf_march.cu, render_tile.cu and nerf_mlp.cu (projection and encoded
+stages) stream it chunk by chunk into shared memory and read each chunk through a K-major wgmma descriptor with 128-byte
 swizzle. These tests read the image back through that layout, written out
 here on its own: in a chunk of N rows, input k of output column n lies at
 byte n*128 + ((k // 8) ^ (n % 8))*16 + (k % 8)*2."""
@@ -73,3 +73,65 @@ def test_packed_weights_are_cached_per_weight_set():
     again = rm._packed_weights(params, net, depth, "test")
     assert again is not first
     torch.testing.assert_close(again, rm.pack_wgmma_weights(params, net), rtol=0, atol=0)
+
+
+class _FakeMlpLibrary:
+    """Stands in for the built nerf_mlp library: reports the kernels' shape
+    limits and records each call of the C entry."""
+
+    def __init__(self, width):
+        self.width = width
+        self.calls = []
+
+    def nerf_width(self):
+        return self.width
+
+    def nerf_max_layers(self):
+        return 20
+
+    def nerf_max_in_ch(self):
+        return 64
+
+    def nerf_max_in_ch_views(self):
+        return 32
+
+    def nerf_mlp(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("wrapper, kind", [
+    ("fused_nerf_mlp_widepe", "widepe"), ("fused_nerf_mlp", "encoded"),
+    ("fused_nerf_mlp_pe", "pe")])
+def test_mlp_launch_passes_packed_weights_to_the_wgmma_stages(monkeypatch, wrapper, kind,
+                                                             dtype):
+    """On the kernel route, nerf_mlp's C entry gets the packed bf16 weights
+    for the two stages on the tensor cores in bf16 (the very image that
+    pack_wgmma_weights makes), and no packed pointer for the true-cos stage
+    or in float32; its argument count is the one the library is bound with."""
+    net = NeRFNetConfig(**SMALL)
+    params = init_nerf_params(net, generator=torch.Generator().manual_seed(2))
+    lib = _FakeMlpLibrary(net.netwidth)
+    monkeypatch.setattr(rm, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(rm, "_library", lambda name: lib)
+    monkeypatch.setattr(rm, "_run", lambda fn, device, what, *args: fn(*args, None))
+    m = 10
+    widths = (net.input_ch, net.input_ch_views) if kind == "encoded" else (3, 3)
+    a, b = torch.rand(m, widths[0]), torch.rand(m, widths[1])
+    fn = getattr(rm, wrapper)
+    fn.launches = 0
+    with torch.no_grad():
+        raw = fn(params, a, b, net, compute_dtype=dtype)
+    assert raw.shape == (m, 4) and fn.launches == 1
+    (args,) = lib.calls
+    assert len(args) == len(rm._ARGTYPES["nerf_mlp"][1])
+    assert args[3] == rm._KINDS[kind] and args[9] == int(dtype == torch.bfloat16)
+    packed = args[10]
+    if dtype == torch.bfloat16 and kind != "pe":
+        assert packed is not None and packed % 16 == 0
+        image = rm._packed_weights(params, net, rm._depth(params), wrapper)
+        assert packed == image.data_ptr()
+        torch.testing.assert_close(image, rm.pack_wgmma_weights(params, net), rtol=0, atol=0)
+    else:
+        assert packed is None
