@@ -14,10 +14,13 @@ Phases, each of which exits nonzero when it fails:
      float32 and bfloat16, on random-init (default and He-scaled) and
      box-scene weights:
        - fused_nerf_march and fused_render_tile at N=8192 rays x S=64 and
-         S=192 samples, plus the ragged N x S = 1001x48 and 3x5;
+         S=192 samples (the exact render), S=16 (the production single
+         pass, also at N=32768, bench.py's ray chunk) and S=144 (the
+         hierarchical culled fine march), plus the ragged N x S = 1001x48
+         and 3x5;
        - fused_nerf_mlp_widepe, fused_nerf_mlp_pe and fused_nerf_mlp at
-         M = 8192*64 and 8192*192 points, plus the ragged M = 1001*48 and 15
-         (neither a multiple of the tensor-core kernels' 128-point tile);
+         M = 8192*S points for the same S, plus the ragged M = 1001*48 and
+         15 (neither a multiple of the tensor-core kernels' 128-point tile);
      and the times of kernel and twin at the main path's shapes (CUDA
      events, median of 7 after warm-up) beside each kernel's bound, and
      beside them the time of the same MLP as a chain of per-layer bf16
@@ -45,11 +48,26 @@ Phases, each of which exits nonzero when it fails:
      one launch each, held against the ray-march kernel's raw field there
      (float32, 2e-3); then fused_nerf_mlp in bfloat16, one launch, held to
      the bf16 ray-march kernel's raw field by the bf16 rule;
-  7. a JSON line of the kernels' numbers (float32 times under the
+  7. production: NeuralSimRenderer with production_mode() at the same
+     config, float32 and bfloat16 (grid built and budget calibrated in the
+     constructor, both timed on the host clock): the effective hit_budget
+     must be below 1, fused_nerf_march must launch once per chunk of routed
+     rays (every other counter 0), rgb within 2e-3 (f32) / 2e-2 (bf16) of
+     the twin's production render and > 40 dB from the exact render of the
+     same poses (and not equal to it); then through render_poses in
+     float32 the hierarchical culled render (n_importance_culled=None),
+     reuse_coarse and fine_fraction=0.25 (two launches per chunk, rgb
+     within 2e-3 of the twin's); then bench.py's production shape, 16 poses
+     x 400^2 in bfloat16 with ray_chunk 32768 (grid from build_scene_grid,
+     budget from calibrate_hit_budget): exact and production rays/s and
+     PSNR > 40 dB;
+  8. a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
-     beside them), after checking that every kernel whose bf16 mode runs
-     wgmma takes at most WGMMA_FRACTION of the FP32-core kernel's bf16
-     time at S=192; then the last line {"ok": true, "device": {...}}.
+     beside them, the production runs' launches, and the production
+     numbers in fused_nerf_march's record), after checking that every
+     kernel whose bf16 mode runs wgmma takes at most WGMMA_FRACTION of the
+     FP32-core kernel's bf16 time at S=192; then the last line
+     {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits nonzero and prints no result.
@@ -73,12 +91,18 @@ from neuralsim_tpu_torch.config import NeRFNetConfig, NeuralSimConfig
 from neuralsim_tpu_torch.kernels import build
 from neuralsim_tpu_torch.kernels import raymarch as rm
 from neuralsim_tpu_torch.models.box_scene import box_scene_params
-from neuralsim_tpu_torch.models.nerf import init_nerf_params, nerf_apply
+from neuralsim_tpu_torch.models.nerf import init_nerf_params, make_sigma_fn, nerf_apply
 from neuralsim_tpu_torch.ops.encoding import positional_encoding
+from neuralsim_tpu_torch.ops.occupancy import (
+    build_scene_grid,
+    calibrate_hit_budget,
+    scene_half_extent,
+)
 from neuralsim_tpu_torch.ops.rays import get_rays
+from neuralsim_tpu_torch.ops.render import render_poses
 from neuralsim_tpu_torch.ops.volume import stratified_z_vals
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
-from neuralsim_tpu_torch.sampler.poses import poses_from_noise, psi_to_probs
+from neuralsim_tpu_torch.sampler.poses import pose_spherical, poses_from_noise, psi_to_probs
 
 DEVICE = torch.device("cuda")
 N_RAYS = 8192          # one ray_chunk
@@ -98,7 +122,15 @@ BF16_VS_F32_FRAC = 1e-3
 BF16_VS_F32_MAX = 0.25
 K_POSES = 8
 ACC_FLOOR = 1e-3       # disparity is compared where acc reaches it
-RAY_SHAPES = ((N_RAYS, 64, True), (N_RAYS, 192, True), (1001, 48, False), (3, 5, False))
+RAGGED = (1001, 48)
+# (N, S, timed): the exact render's coarse and fine marches (64, 192), the
+# production single pass (16; also in bench.py's 32768-ray chunks) and the
+# hierarchical culled fine march (16 + 128), and ragged shapes
+RAY_SHAPES = ((N_RAYS, 64, True), (N_RAYS, 192, True), (N_RAYS, 16, True),
+              (32768, 16, True), (N_RAYS, 144, False), RAGGED + (False,), (3, 5, False))
+# bench.py's production cell (bench.py:139-194): 16 poses x 400^2, its camera
+BENCH_POSES, BENCH_HW = 16, 400
+BENCH_K = [[1333.3334, 0.0, 195.42932], [0.0, 1334.2196, 200.6318], [0.0, 0.0, 1.0]]
 # compositing per sample: distance, exp, alpha, weight, transmittance,
 # three sigmoids and five running sums, in FLOP
 COMPOSITE_FLOP = 28
@@ -182,6 +214,12 @@ def time_ms(fn, reps=7, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def shape_key(dtype: str, n: int, s: int) -> str:
+    """Key of a timed shape: dtype_S{s} at N_RAYS rays, dtype_N{n}_S{s}
+    otherwise."""
+    return f"{dtype}_S{s}" if n == N_RAYS else f"{dtype}_N{n}_S{s}"
 
 
 def bf16_rule(got, want):
@@ -373,9 +411,10 @@ def phase_kernels(net, peaks):
     for n, s, timed in RAY_SHAPES:
         rays = march_inputs(n, s, gen, dev)
         if timed:
-            chain[f"bfloat16_S{s}"] = time_chain(weights["random"], net, rays)
+            key = shape_key("bfloat16", n, s)
+            chain[key] = time_chain(weights["random"], net, rays)
             log(f"time chain yardstick (bf16 torch.matmul per layer) S{s} N={n}: "
-                f"{chain[f'bfloat16_S{s}']:.3f} ms")
+                f"{chain[key]:.3f} ms")
         for kernel, (wrapper, twin, inputs) in KERNELS.items():
             args = inputs(net, rays)
             errs = {}
@@ -388,13 +427,13 @@ def phase_kernels(net, peaks):
                     rec[kernel][key] = max(rec[kernel][key], e)
             log(f"kernel vs twin {kernel} N={n} S={s}: max abs err "
                 + ", ".join(f"{sc} {k[4:]} {e:.2e}" for (sc, k), e in errs.items()))
-            if kernel == "fused_render_tile" and (n, s) == RAY_SHAPES[2][:2]:
+            if kernel == "fused_render_tile" and (n, s) == RAGGED:
                 check_render_tile_options(weights["box"], args, net)
             if not timed:
                 continue
             params = weights["random"]
             for dtype in (torch.float32, torch.bfloat16):
-                key = f"{str(dtype)[6:]}_S{s}"
+                key = shape_key(str(dtype)[6:], n, s)
                 with torch.no_grad():
                     ms = time_ms(lambda: wrapper(params, *args, net, compute_dtype=dtype))
                     plain = time_ms(lambda: twin(params, *args, net, compute_dtype=dtype))
@@ -455,14 +494,35 @@ def phase_backward(net):
         raise AssertionError("fused_render_tile returned outputs to a gradient request")
 
 
-def drive_route(models, psi, kernel, **render):
+def routed_rays(rc, n):
+    """The rays a render of n rays marches: all of them, or k_sel of
+    ops/render.py's culled route when rc.hit_budget < 1 (with a grid)."""
+    if rc.hit_budget >= 1.0:
+        return n
+    k = int(round(n * rc.hit_budget))
+    return max(8, min(n, -(-k // 8) * 8))
+
+
+def psnr(a, b):
+    return -10.0 * math.log10(max(((a - b) ** 2).mean().item(), 1e-12))
+
+
+def drive_route(models, psi, kernel, per_chunk=2, production=False, **render):
     """render_images at the default config through one march route: the
-    kernel's counter must read 2 per ray chunk and the others 0."""
+    kernel's counter must read per_chunk per chunk of marched rays and the
+    others 0. production: the config's production_mode(), whose renderer
+    builds the grid and calibrates the budget (timed as setup_s)."""
     cfg = NeuralSimConfig()
-    cfg = cfg.replace(render=dataclasses.replace(cfg.render, **render))
+    rc = dataclasses.replace(cfg.render, **render)
+    cfg = cfg.replace(render=rc.production_mode() if production else rc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     renderer = NeuralSimRenderer(cfg, models=models, device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
     n_rays = K_POSES * renderer.H * renderer.W
-    expect = 2 * math.ceil(n_rays / renderer.rc.ray_chunk)
+    n_routed = routed_rays(renderer.rc, n_rays)
+    expect = per_chunk * math.ceil(n_routed / renderer.rc.ray_chunk)
 
     torch.cuda.synchronize()
     zero_counts()
@@ -472,8 +532,10 @@ def drive_route(models, psi, kernel, **render):
     seconds = [time.perf_counter() - t0]
     launched = counts()
     dtype = renderer.rc.compute_dtype
-    log(f"main path [{kernel}, {dtype}]: K={K_POSES} {renderer.H}x{renderer.W} images, "
-        f"{n_rays} rays, launches {launched} (expected {expect} of {kernel})")
+    tag = f"{kernel}, {dtype}" + (", production" if production else "")
+    log(f"main path [{tag}]: K={K_POSES} {renderer.H}x{renderer.W} images, "
+        f"{n_rays} rays ({n_routed} marched), launches {launched} (expected {expect} of "
+        f"{kernel})")
     if launched != {k: (expect if k == kernel else 0) for k in launched}:
         raise AssertionError(f"route {render} launched {launched}, expected {expect} "
                              f"of {kernel} and no other kernel")
@@ -484,19 +546,20 @@ def drive_route(models, psi, kernel, **render):
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
     if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1):
-        raise AssertionError(f"[{kernel}, {dtype}] images not finite or outside [0, 1]")
+        raise AssertionError(f"[{tag}] images not finite or outside [0, 1]")
     if rgb.shape != (K_POSES, renderer.H, renderer.W, 3):
-        raise AssertionError(f"[{kernel}, {dtype}] images have shape {tuple(rgb.shape)}")
+        raise AssertionError(f"[{tag}] images have shape {tuple(rgb.shape)}")
     hit = (acc > 0.5).float().mean().item()
     if hit == 0.0:
-        raise AssertionError(f"[{kernel}, {dtype}] render is empty: acc <= 0.5 everywhere")
+        raise AssertionError(f"[{tag}] render is empty: acc <= 0.5 everywhere")
     torch.testing.assert_close(rgb2, rgb, rtol=0, atol=1e-5)
     best = statistics.median(seconds)
-    log(f"main path [{kernel}, {dtype}]: {hit:.3%} of pixels with acc > 0.5; render times (s) "
+    log(f"main path [{tag}]: {hit:.3%} of pixels with acc > 0.5; render times (s) "
         f"{[round(t, 4) for t in seconds]}; median {best:.4f} s = {n_rays / best:.0f} "
         f"rays/s, {1e3 * best / K_POSES:.2f} ms/image")
     return dict(rgb=rgb, noise=noise, launches=launched[kernel], renderer=renderer,
-                rays_per_s=n_rays / best, ms_per_image=1e3 * best / K_POSES)
+                rays_per_s=n_rays / best, ms_per_image=1e3 * best / K_POSES,
+                setup_s=setup_s, launched=launched)
 
 
 def phase_main_path():
@@ -640,6 +703,225 @@ def phase_entry_points(box, cfg, routes):
     return out, out16
 
 
+def poses_of(cfg, noise, psi):
+    """The K poses that render_images draws from psi and noise."""
+    psi = torch.as_tensor(psi, dtype=torch.float32, device=DEVICE)
+    return poses_from_noise(psi_to_probs(psi, cfg.sampler), noise.to(DEVICE), cfg.sampler)
+
+
+def production_pipeline(models, psi, exact, dtype):
+    """(a) NeuralSimRenderer(production_mode()) in one dtype: budget below 1,
+    one march launch per chunk of routed rays, rgb within the dtype's
+    tolerance of the twin's production render and > 40 dB from the exact
+    render of the same poses (exact: phase 5's route in the same dtype)."""
+    run = drive_route(models, psi, "fused_nerf_march", per_chunk=1, production=True,
+                      compute_dtype=dtype)
+    r = run["renderer"]
+    budget = r.rc.hit_budget
+    if not budget < 1.0:
+        raise AssertionError(f"[production, {dtype}] calibrated budget {budget}: the "
+                             "production render would be the exact one")
+    for a, b in zip(run["noise"], exact["noise"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    cfg = r.cfg
+    # grid build and calibration on their own (the constructor's run above
+    # includes first-call set-up), and the render's diagnostics
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = r.occupancy_grid()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        measured = calibrate_hit_budget(grid, r.calibration_poses(), r.H, r.W, r.K, r.rc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = render_poses(r.models, poses_of(cfg, run["noise"], psi), r.H, r.W, r.K,
+                           cfg.net, r.rc, grid=r.grid, device=DEVICE)
+    if not all(torch.equal(a, b) for a, b in zip(grid, r.grid)):
+        raise AssertionError(f"[production, {dtype}] the grid differs between two builds")
+    if max(cfg.render.hit_budget, measured) != budget:
+        raise AssertionError(f"[production, {dtype}] calibration gave {measured}, the "
+                             f"renderer holds {budget}")
+    hits, k_sel = int(out["occ_hit_count"]), int(out["occ_budget"])
+    n_rays = K_POSES * r.H * r.W
+    if k_sel != routed_rays(r.rc, n_rays) or hits > k_sel:
+        raise AssertionError(f"[production, {dtype}] occ_hit_count {hits}, occ_budget {k_sel}")
+    torch.testing.assert_close(out["rgb_map"], run["rgb"], rtol=0, atol=1e-5)
+
+    twin_cfg = cfg.replace(render=dataclasses.replace(cfg.render, use_pallas=False))
+    twin = NeuralSimRenderer(twin_cfg, models=models, device=DEVICE)
+    with torch.no_grad():
+        rgb_twin = twin._render_impl(psi, run["noise"])[0]
+    tol = F32_TOL if dtype == "float32" else BF16_RENDER_TOL
+    err_twin = (run["rgb"] - rgb_twin).abs().max().item()
+    diff = (run["rgb"] - exact["rgb"]).abs().max().item()
+    run.update(budget=budget, hits=hits, k_sel=k_sel, grid_s=t1 - t0, calibrate_s=t2 - t1,
+               err_vs_twin=err_twin, psnr_vs_exact=psnr(run["rgb"], exact["rgb"]),
+               max_diff_vs_exact=diff, exact_rays_per_s=exact["rays_per_s"])
+    occ = grid[0]
+    log(f"production [{dtype}]: grid {tuple(occ.shape)} over {grid[1].tolist()}..."
+        f"{grid[2].tolist()}, {occ.mean().item():.4f} occupied; grid build "
+        f"{run['grid_s']:.4f} s, calibration {run['calibrate_s']:.4f} s, renderer set-up "
+        f"{run['setup_s']:.4f} s (host clock)")
+    log(f"production [{dtype}]: effective hit_budget {budget} (floor "
+        f"{cfg.render.hit_budget}), occ_hit_count {hits} / occ_budget {k_sel} of {n_rays} "
+        f"rays; {run['rays_per_s']:.0f} rays/s vs exact {exact['rays_per_s']:.0f}; rgb vs "
+        f"twin max abs err {err_twin:.3e} (limit {tol:g}); vs exact PSNR "
+        f"{run['psnr_vs_exact']:.2f} dB (limit 40), max abs diff {diff:.3e}")
+    if twin.rc.hit_budget != budget:
+        raise AssertionError(f"[production, {dtype}] twin budget {twin.rc.hit_budget}")
+    torch.testing.assert_close(run["rgb"], rgb_twin, rtol=0, atol=tol)
+    if not run["psnr_vs_exact"] > 40.0 or diff == 0.0:
+        raise AssertionError(f"[production, {dtype}] PSNR vs exact {run['psnr_vs_exact']:.2f}"
+                             f" dB, max diff {diff}: must be > 40 dB and not exact")
+    return run
+
+
+def production_route(name, r, rc, poses, exact_rgb, per_chunk, grid=None):
+    """(b) one more production route through render_poses (float32) at the
+    K=8 pipeline shape: its launches of the march kernel, its rgb against
+    the twin's (2e-3), its PSNR against the exact render."""
+    kernel = "fused_nerf_march"
+    n_rays = K_POSES * r.H * r.W
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = render_poses(r.models, poses, r.H, r.W, r.K, r.cfg.net, rc, grid=grid,
+                           device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = counts()
+        twin = render_poses(r.models, poses, r.H, r.W, r.K, r.cfg.net,
+                            dataclasses.replace(rc, use_pallas=False), grid=grid,
+                            device=DEVICE)
+    n_routed = routed_rays(rc, n_rays) if grid is not None else n_rays
+    expect = per_chunk * math.ceil(n_routed / rc.ray_chunk)
+    rgb = out["rgb_map"]
+    err = (rgb - twin["rgb_map"]).abs().max().item()
+    quality = psnr(rgb, exact_rgb)
+    log(f"production route [{name}]: {n_routed} of {n_rays} rays marched, launches "
+        f"{launched} (expected {expect} of {kernel}); {secs:.4f} s = {n_rays / secs:.0f} "
+        f"rays/s (host clock, first call); rgb vs twin max abs err {err:.3e} (limit "
+        f"{F32_TOL:g}); vs exact PSNR {quality:.2f} dB")
+    if launched != {k: (expect if k == kernel else 0) for k in launched}:
+        raise AssertionError(f"production route {name} launched {launched}")
+    # the culled route scatters into the empty outputs: hit rays are in the budget
+    if grid is not None and int(out["occ_hit_count"]) > int(out["occ_budget"]):
+        raise AssertionError(f"production route {name}: {int(out['occ_hit_count'])} hit "
+                             f"rays, budget {int(out['occ_budget'])}")
+    if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1):
+        raise AssertionError(f"production route {name}: images not finite or outside [0, 1]")
+    torch.testing.assert_close(rgb, twin["rgb_map"], rtol=F32_TOL, atol=F32_TOL)
+    return dict(launches=launched[kernel], launched=launched, err_vs_twin=err,
+                psnr_vs_exact=quality, rays_per_s=n_rays / secs, routed=n_routed)
+
+
+def production_bench_shape(box):
+    """(c) bench.py's production cell on the port: BENCH_POSES poses x
+    BENCH_HW^2 from pose_spherical(linspace(0, 300), -30, 1.01), bfloat16,
+    ray_chunk 32768, the grid of build_scene_grid, the budget of
+    calibrate_hit_budget on the same poses, the single pass of
+    production_mode(); exact and production rays/s, PSNR > 40 dB."""
+    net = NeRFNetConfig()
+    rc = dataclasses.replace(NeuralSimConfig().render, ray_chunk=32768,
+                             compute_dtype="bfloat16").test_mode()
+    h = w = BENCH_HW
+    k = BENCH_K
+    models = {"coarse": box, "fine": box}
+    poses = pose_spherical(torch.linspace(0.0, 300.0, BENCH_POSES, device=DEVICE),
+                           torch.full((BENCH_POSES,), -30.0, device=DEVICE), 1.01)
+    n_rays = BENCH_POSES * h * w
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = build_scene_grid(make_sigma_fn(box, net), scene_half_extent(1.01, rc.far, h, w, k),
+                                resolution=96, threshold=1e-2, dilate=2, device=DEVICE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        budget = calibrate_hit_budget(grid, poses, h, w, k, rc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    rc_prod = dataclasses.replace(rc.production_mode(), hit_budget=budget)
+    if not (rc_prod.tighten_bounds and rc_prod.n_importance_culled == 0
+            and rc_prod.n_samples_culled == 16 and budget < 1.0):
+        raise AssertionError(f"bench shape: production config {rc_prod}, budget {budget}")
+
+    def timed(rc_, grid_, reps):
+        outs, seconds = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            zero_counts()
+            t = time.perf_counter()
+            with torch.no_grad():
+                outs = render_poses(models, poses, h, w, k, net, rc_, grid=grid_, device=DEVICE)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+        return outs, seconds, counts()
+
+    exact, exact_s, exact_launched = timed(rc, None, 2)
+    prod, prod_s, prod_launched = timed(rc_prod, grid, 4)
+    k_sel = routed_rays(rc_prod, n_rays)
+    expect = {"exact": 2 * math.ceil(n_rays / rc.ray_chunk),
+              "production": math.ceil(k_sel / rc.ray_chunk)}
+    for name, launched in (("exact", exact_launched), ("production", prod_launched)):
+        if launched != {kk: (expect[name] if kk == "fused_nerf_march" else 0) for kk in launched}:
+            raise AssertionError(f"bench shape {name}: launched {launched}, expected "
+                                 f"{expect[name]} of fused_nerf_march")
+    rgb, rgb_exact = prod["rgb_map"], exact["rgb_map"]
+    if not (torch.isfinite(rgb).all() and torch.isfinite(rgb_exact).all()):
+        raise AssertionError("bench shape: images not finite")
+    quality = psnr(rgb, rgb_exact)
+    # the first of each set of renders runs cold (allocations, first packing)
+    exact_t, prod_t = min(exact_s[1:]), statistics.median(prod_s[1:])
+    rec = dict(poses=BENCH_POSES, hw=h, n_rays=n_rays, budget=budget,
+               hits=int(prod["occ_hit_count"]), k_sel=int(prod["occ_budget"]),
+               grid_s=t1 - t0, calibrate_s=t2 - t1, exact_s=exact_s, production_s=prod_s,
+               exact_rays_per_s=n_rays / exact_t, production_rays_per_s=n_rays / prod_t,
+               psnr_vs_exact=quality, launched=dict(exact=exact_launched,
+                                                    production=prod_launched))
+    log(f"bench shape ({BENCH_POSES} x {h}x{w}, bfloat16, ray_chunk {rc.ray_chunk}): grid "
+        f"{rec['grid_s']:.4f} s, calibration {rec['calibrate_s']:.4f} s; hit_budget {budget}, "
+        f"occ_hit_count {rec['hits']} / occ_budget {rec['k_sel']} of {n_rays} rays; exact "
+        f"{[round(t, 4) for t in exact_s]} s -> {rec['exact_rays_per_s']:.0f} rays/s, "
+        f"{expect['exact']} launches; production {[round(t, 4) for t in prod_s]} s -> "
+        f"{rec['production_rays_per_s']:.0f} rays/s, {expect['production']} launches; PSNR vs "
+        f"exact {quality:.2f} dB (limit 40)")
+    if not quality > 40.0 or rec["hits"] > rec["k_sel"]:
+        raise AssertionError(f"bench shape: PSNR {quality:.2f} dB, hits {rec['hits']} of "
+                             f"budget {rec['k_sel']}")
+    return rec
+
+
+def phase_production(box, routes, routes16):
+    """Phase 7: the production render of the K=8 pipeline shape in float32
+    and bfloat16, three more production routes, and bench.py's shape."""
+    models = {"coarse": box, "fine": box}
+    psi = psi_init("5")
+    pipeline = {dtype: production_pipeline(models, psi, exact, dtype)
+                for dtype, exact in (("float32", routes["fused_nerf_march"]),
+                                     ("bfloat16", routes16["fused_nerf_march"]))}
+    run = pipeline["float32"]
+    r = run["renderer"]
+    poses = poses_of(r.cfg, run["noise"], psi)
+    exact_rgb = routes["fused_nerf_march"]["rgb"]
+    exact_rc = NeuralSimConfig().render.test_mode()
+    others = {
+        "hierarchical": production_route(
+            "hierarchical culled, n_importance_culled=None", r,
+            dataclasses.replace(r.rc, n_importance_culled=None), poses, exact_rgb, 2,
+            grid=r.grid),
+        "reuse_coarse": production_route(
+            "reuse_coarse", r, dataclasses.replace(exact_rc, reuse_coarse=True), poses,
+            exact_rgb, 2),
+        "fine_fraction": production_route(
+            "fine_fraction=0.25", r, dataclasses.replace(exact_rc, fine_fraction=0.25), poses,
+            exact_rgb, 2),
+    }
+    bench = production_bench_shape(box)
+    return pipeline, others, bench
+
+
 def main():
     name, smi = phase_device()
     peak_key, peaks = peaks_for(name)
@@ -651,6 +933,19 @@ def main():
     phase_backward(net)
     routes, routes16, box, cfg = phase_main_path()
     entries, entries16 = phase_entry_points(box, cfg, routes)
+    pipeline, others, bench = phase_production(box, routes, routes16)
+    production_launched = {f"pipeline_{dtype}": run["launched"] for dtype, run in pipeline.items()}
+    production_launched.update({name: run["launched"] for name, run in others.items()})
+    production_launched.update({f"bench_{k}": v for k, v in bench["launched"].items()})
+    production = {
+        "pipeline": {dtype: {k: run[k] for k in (
+            "budget", "hits", "k_sel", "grid_s", "calibrate_s", "setup_s", "rays_per_s",
+            "exact_rays_per_s", "psnr_vs_exact", "err_vs_twin", "max_diff_vs_exact")}
+            for dtype, run in pipeline.items()},
+        "routes": {name: {k: v for k, v in run.items() if k != "launched"}
+                   for name, run in others.items()},
+        "bench_shape": {k: v for k, v in bench.items() if k != "launched"},
+    }
     fp32_core = rec["fused_nerf_mlp_pe"]["ms"]["bfloat16_S192"]
     for kernel in KERNELS:
         if CORES[kernel]["bfloat16"] == "wgmma":
@@ -691,8 +986,12 @@ def main():
                           if k not in ("rgb", "noise", "renderer")},
             "main_path_bf16": main16 and {k: v for k, v in main16.items()
                                           if k not in ("rgb", "noise", "renderer")},
+            "production_launches": {run: launched[kernel]
+                                    for run, launched in production_launched.items()},
+            "production": production if kernel == "fused_nerf_march" else None,
             "shape": f"N={N_RAYS} rays x S samples (M = N*S points); "
                      "ms/plain_ms/bound_ms at float32 S=192, *_bf16 at bfloat16 S=192; "
+                     "kernel_ms etc. by dtype and S (S=16: the production single pass); "
                      "chain_ms: the same MLP as bf16 torch.matmul per layer",
             "card": smi,
         })

@@ -9,9 +9,12 @@ it keeps as its own copies.
 Slices ported so far: the exact K-pose render of the outer iteration
 (``pipeline.NeuralSimRenderer.render_images``) on its three march routes
 (the ray march, the point-major MLP with ``fuse_pointgen=False``, the fused
-march + compositing with ``fuse_compositing=True``), and every kernel the
-JAX package wrote in Pallas, each as a CUDA kernel written for Hopper
-(``kernels/raymarch.py``, sources in ``kernels/csrc/``).
+march + compositing with ``fuse_compositing=True``); the production render
+(``RenderConfig.production_mode()``: occupancy grid, ray culling, the
+z-tightened single-pass march, ``ops/occupancy.py``) with coarse-raw reuse
+and the sparse fine pass; and every kernel the JAX package wrote in Pallas,
+each as a CUDA kernel written for Hopper (``kernels/raymarch.py``, sources
+in ``kernels/csrc/``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present they raise.

@@ -47,10 +47,16 @@ class NeRFNetConfig:
 @dataclass(frozen=True)
 class RenderConfig:
     """Volume-rendering options (reference render_rays,
-    run_nerf_noscale.py:390-501). Routes outside the ported slices
-    (culling, coarse reuse, sparse fine) keep their fields so configs
-    carry over, and raise NotImplementedError where the renderer would
-    take them."""
+    run_nerf_noscale.py:390-501). The production fields, as in the JAX
+    package: ``fine_fraction`` < 1 runs the fine pass on that fraction of
+    the rays (highest coarse opacity first); ``hit_budget`` < 1 with an
+    occupancy grid renders only that fraction of the rays (top grid scores,
+    the rest empty); ``tighten_bounds`` samples each routed ray inside its
+    occupied z interval at ``n_samples_culled`` coarse samples, with
+    ``n_importance_culled`` fine samples (0: one single-pass march, None:
+    ``n_importance``); ``reuse_coarse`` merges the coarse raws into the
+    fine composite; ``cull_mode`` scores rays by a slab test against the
+    occupied box ("aabb") or by voxel probes ("grid")."""
 
     n_samples: int = 64
     n_importance: int = 128
@@ -89,8 +95,11 @@ class RenderConfig:
 
     def production_mode(self, n_samples: int = 16,
                         hit_budget_floor: float = 0.25) -> "RenderConfig":
-        """Occupancy cull + z tightening + single-pass march. The port
-        renders this route in a later slice; the renderer raises on it."""
+        """The data-generation preset: occupancy cull + per-ray z
+        tightening + one single-pass march of ``n_samples`` samples inside
+        the tightened interval. ``hit_budget_floor`` is a floor only:
+        ``NeuralSimRenderer`` raises the budget to the calibrated hit
+        fraction of the scene."""
         return dataclasses.replace(
             self.test_mode(), hit_budget=hit_budget_floor,
             tighten_bounds=True, n_samples_culled=n_samples,

@@ -18,8 +18,12 @@ On a CPU tensor, or with ``rc.use_pallas=False``, every route takes the
 plain ``query_points`` (encoding form from ``rc.pe_projection``) plus
 ``raw2outputs``, as the JAX package does off the TPU.
 
-Routes the port has not reached yet raise NotImplementedError naming the
-route: occupancy-grid culling, coarse-raw reuse and the sparse fine pass.
+Production routes, as in the JAX package: with an occupancy grid and
+``rc.hit_budget < 1`` only a top-k budget of rays is rendered
+(``_render_ray_batch_culled``, optionally in a tightened z interval and as
+one single-pass march); ``rc.reuse_coarse`` merges the coarse raws into the
+fine composite; ``rc.fine_fraction < 1`` runs the fine pass on the rays of
+highest coarse opacity only.
 """
 
 from __future__ import annotations
@@ -35,6 +39,12 @@ from neuralsim_tpu_torch.config import NeRFNetConfig, RenderConfig
 from neuralsim_tpu_torch.kernels import raymarch
 from neuralsim_tpu_torch.kernels.raymarch import as_dtype
 from neuralsim_tpu_torch.models.nerf import query_points
+from neuralsim_tpu_torch.ops.occupancy import (
+    empty_ray_outputs,
+    ray_aabb_bounds,
+    ray_hit_scores,
+    ray_z_bounds,
+)
 from neuralsim_tpu_torch.ops.rays import get_rays, ndc_rays
 from neuralsim_tpu_torch.ops.volume import (
     raw2outputs,
@@ -44,11 +54,12 @@ from neuralsim_tpu_torch.ops.volume import (
 )
 
 
-def _check_slice(rc: RenderConfig):
-    if rc.reuse_coarse and rc.n_importance > 0:
-        raise NotImplementedError("reuse_coarse (coarse-raw reuse fine pass): later slice")
-    if rc.fine_fraction < 1.0:
-        raise NotImplementedError("fine_fraction < 1 (sparse fine pass): later slice")
+def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest scores, ties in ascending index order: the
+    order of ``jax.lax.top_k``. A stable descending sort gives it on any
+    device; ``torch.topk`` promises no order among equal values, and the
+    cull scores are mostly ties (0/1 floats, zero opacities)."""
+    return torch.sort(scores, descending=True, stable=True).indices[:k]
 
 
 def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
@@ -63,23 +74,52 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
 
     Returns rgb_map/disp_map/acc_map/depth_map, plus rgb0/disp0/acc0 and
     z_std when n_importance > 0.
+
+    ``rc.reuse_coarse`` keeps the coarse raws and marches the fine net on
+    the importance depths only (``_fine_pass_reuse``); ``rc.fine_fraction
+    < 1`` gives the fine pass to the rays of highest coarse opacity only,
+    the others keep their coarse maps (and z_std 0).
     """
-    _check_slice(rc)
+    n_rays = rays_o.shape[0]
     compute_dtype = as_dtype(rc.compute_dtype)
     z_vals = stratified_z_vals(
-        rays_o.shape[0], rc.n_samples,
+        n_rays, rc.n_samples,
         rc.near if near is None else near, rc.far if far is None else far,
         perturb=rc.perturb, lindisp=rc.lindisp, generator=generator,
         device=rays_o.device)
-    rgb_map, disp_map, acc_map, weights, depth_map = _march(
-        models["coarse"], rays_o, rays_d, viewdirs, z_vals, net, rc,
-        compute_dtype, generator)
+    use_reuse = rc.reuse_coarse and rc.n_importance > 0 and rc.fine_fraction >= 1.0
+    if use_reuse:
+        sigma_c, rgb3_c = _march_raw(models["coarse"], rays_o, rays_d, viewdirs,
+                                     z_vals, net, rc, compute_dtype)
+        rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs_channels(
+            sigma_c, rgb3_c, z_vals, rays_d, raw_noise_std=rc.raw_noise_std,
+            white_bkgd=rc.white_bkgd, generator=generator)
+    else:
+        rgb_map, disp_map, acc_map, weights, depth_map = _march(
+            models["coarse"], rays_o, rays_d, viewdirs, z_vals, net, rc,
+            compute_dtype, generator)
 
     out = {}
     if rc.n_importance > 0:
         out["rgb0"], out["disp0"], out["acc0"] = rgb_map, disp_map, acc_map
-        f_out = _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
-                           net, rc, compute_dtype, generator)
+        if use_reuse:
+            f_out = _fine_pass_reuse(models, rays_o, rays_d, viewdirs, z_vals,
+                                     sigma_c, rgb3_c, weights, net, rc,
+                                     compute_dtype, generator)
+        elif rc.fine_fraction < 1.0:
+            k_sel = max(8, int(round(n_rays * rc.fine_fraction)))
+            k_sel = min(n_rays, -(-k_sel // 8) * 8)
+            sel = top_k_indices(acc_map.detach(), k_sel)
+            f_sel = _fine_pass(models, rays_o[sel], rays_d[sel],
+                               None if viewdirs is None else viewdirs[sel],
+                               z_vals[sel], weights[sel], net, rc, compute_dtype,
+                               generator)
+            f_out = {k: base.index_copy(0, sel, f_sel[k]) for k, base in (
+                ("rgb_map", rgb_map), ("disp_map", disp_map), ("acc_map", acc_map),
+                ("depth_map", depth_map), ("z_std", torch.zeros_like(acc_map)))}
+        else:
+            f_out = _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
+                               net, rc, compute_dtype, generator)
         rgb_map, disp_map, acc_map, depth_map = (
             f_out["rgb_map"], f_out["disp_map"], f_out["acc_map"], f_out["depth_map"])
         out["z_std"] = f_out["z_std"]
@@ -156,33 +196,137 @@ def _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
             "z_std": torch.std(z_samples, dim=-1, correction=0)}
 
 
+def _fine_pass_reuse(models, rays_o, rays_d, viewdirs, z_vals, sigma_c, rgb3_c,
+                     weights, net: NeRFNetConfig, rc: RenderConfig, compute_dtype,
+                     generator=None):
+    """Fine pass that reuses the coarse raws (rc.reuse_coarse): the fine
+    net marches the importance depths only, and the composite runs over
+    the depth-sorted union of (coarse z, coarse raw) and (fine z, fine
+    raw). The JAX package's lax.sort with the raws as payload becomes a
+    stable sort of the depths and a gather of each payload."""
+    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    z_samples = sample_pdf(z_mid, weights[..., 1:-1], rc.n_importance,
+                           det=not rc.perturb, generator=generator).detach()
+    fine_params = models.get("fine") or models["coarse"]
+    sigma_f, rgb3_f = _march_raw(fine_params, rays_o, rays_d, viewdirs, z_samples,
+                                 net, rc, compute_dtype)
+    z_all, order = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1, stable=True)
+    sig_all = torch.gather(torch.cat([sigma_c, sigma_f], dim=-1), -1, order)
+    rgb_all = torch.gather(torch.cat([rgb3_c, rgb3_f], dim=-1), -1,
+                           order.expand(3, *order.shape))
+    rgb_map, disp_map, acc_map, _, depth_map = raw2outputs_channels(
+        sig_all, rgb_all, z_all, rays_d, raw_noise_std=rc.raw_noise_std,
+        white_bkgd=rc.white_bkgd, generator=generator)
+    return {"rgb_map": rgb_map, "disp_map": disp_map, "acc_map": acc_map,
+            "depth_map": depth_map,
+            "z_std": torch.std(z_samples, dim=-1, correction=0)}
+
+
 def render_ray_batch(models, rays_o, rays_d, net: NeRFNetConfig,
                      rc: RenderConfig, generator: Optional[torch.Generator] = None,
                      grid=None) -> Dict[str, torch.Tensor]:
     """Render a flat ray batch [N,3] in tiles of rc.ray_chunk rays.
 
-    A Python loop over tiles replaces the JAX package's lax.map. The last
-    tile is simply shorter: rays are independent, so no padding is needed
-    and the N outputs are those of the padded JAX version.
+    With an OccupancyGrid and rc.hit_budget < 1 the rays are culled first
+    (``_render_ray_batch_culled``): only a top-k budget of rays, ranked by
+    their grid score, is rendered, and the others get the analytic empty
+    outputs; the output then also holds the scalars ``occ_hit_count`` (rays
+    that hit the grid) and ``occ_budget`` (rays rendered).
     """
-    if grid is not None:
-        raise NotImplementedError(
-            "occupancy-grid culling (hit_budget < 1, ops/occupancy.py): later slice")
+    if grid is not None and rc.hit_budget < 1.0:
+        return _render_ray_batch_culled(models, grid, rays_o, rays_d, net, rc, generator)
+    return _render_ray_batch_dense(models, rays_o, rays_d, net, rc, generator)
+
+
+def _render_ray_batch_culled(models, grid, rays_o, rays_d, net: NeRFNetConfig,
+                             rc: RenderConfig, generator=None):
+    """Score, select the top k_sel rays (ties in index order, as
+    jax.lax.top_k), render them, scatter into the empty outputs. With
+    rc.tighten_bounds the routed rays sample their occupied z interval at
+    rc.n_samples_culled coarse samples, and rc.n_importance_culled sets
+    their fine count (0: one single-pass march, None: rc.n_importance)."""
     n = rays_o.shape[0]
+    if rc.cull_mode == "aabb":
+        # closed-form slab test against the occupied box, intervals widened
+        # by 2 probe steps like the grid prober's margin_samples
+        z_margin = 2.0 * (rc.far - rc.near) / rc.n_samples
+        hit, near_all, far_all = ray_aabb_bounds(grid, rays_o, rays_d, rc.near, rc.far,
+                                                 z_margin=z_margin)
+        scores = hit.to(torch.float32)
+    else:
+        # deterministic per-sample voxel probes; stratified jitter is
+        # covered by the grid's dilation
+        z_probe = stratified_z_vals(n, rc.n_samples, rc.near, rc.far, perturb=False,
+                                    lindisp=rc.lindisp, device=rays_o.device)
+        scores = ray_hit_scores(grid, rays_o, rays_d, z_probe)
+    k_sel = int(round(n * rc.hit_budget))
+    k_sel = max(8, min(n, -(-k_sel // 8) * 8))
+    sel = top_k_indices(scores.detach(), k_sel)
+
+    near = far = None
+    rc_sel = rc
+    if rc.tighten_bounds:
+        if rc.cull_mode != "aabb":
+            near_all, far_all = ray_z_bounds(grid, rays_o, rays_d, z_probe)
+        near, far = near_all[sel], far_all[sel]
+        overrides = {}
+        if rc.n_samples_culled:
+            overrides["n_samples"] = rc.n_samples_culled
+        if rc.n_importance_culled is not None and rc.n_importance > 0:
+            overrides["n_importance"] = rc.n_importance_culled
+        rc_sel = dataclasses.replace(rc, **overrides)
+
+    out_sel = _render_ray_batch_dense(models, rays_o[sel], rays_d[sel], net, rc_sel,
+                                      generator, near=near, far=far)
+    # only the keys the routed render has: a single pass has no coarse maps
+    empty = empty_ray_outputs(n, rc, device=rays_o.device)
+    out = {k: empty[k].index_copy(0, sel, v) for k, v in out_sel.items()}
+    out["occ_hit_count"] = (scores > 0).sum().to(torch.int32)
+    out["occ_budget"] = torch.tensor(k_sel, dtype=torch.int32, device=rays_o.device)
+    return out
+
+
+def _pad_rows(x: torch.Tensor, n_target: int) -> torch.Tensor:
+    """x [m, ...] padded to n_target rows by repeating its last row."""
+    pad = n_target - x.shape[0]
+    if pad == 0:
+        return x
+    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], dim=0)
+
+
+def _render_ray_batch_dense(models, rays_o, rays_d, net: NeRFNetConfig,
+                            rc: RenderConfig, generator=None, near=None, far=None):
+    """The chunk loop: a Python loop over tiles of rc.ray_chunk rays
+    replaces the JAX package's lax.map. near, far: optional per-ray [N]
+    bounds.
+
+    The last tile is simply shorter where rays are independent, and the N
+    outputs are those of the padded JAX version. The sparse fine pass ranks
+    rays within a tile, so with fine_fraction < 1 the last tile is padded
+    as the JAX package pads it, by repeating its last ray."""
+    n = rays_o.shape[0]
+    chunk = min(rc.ray_chunk, n) if n > 0 else rc.ray_chunk
+    pad_tail = rc.fine_fraction < 1.0 and rc.n_importance > 0
     viewdirs = None
     if net.use_viewdirs:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     chunks = []
-    for start in range(0, n, rc.ray_chunk):
-        sl = slice(start, start + rc.ray_chunk)
-        chunks.append(render_rays(models, rays_o[sl], rays_d[sl],
-                                  None if viewdirs is None else viewdirs[sl],
-                                  net, rc, generator))
+    for start in range(0, n, chunk):
+        sl = slice(start, start + chunk)
+        tile = [None if t is None else t[sl] for t in (rays_o, rays_d, viewdirs, near, far)]
+        m = tile[0].shape[0]
+        if pad_tail:
+            tile = [None if t is None else _pad_rows(t, chunk) for t in tile]
+        out = render_rays(models, tile[0], tile[1], tile[2], net, rc, generator,
+                          near=tile[3], far=tile[4])
+        chunks.append({k: v[:m] for k, v in out.items()})
     return {k: torch.cat([c[k] for c in chunks], dim=0) for k in chunks[0]}
 
 
 def _reshape_maps(out: Dict[str, torch.Tensor], lead) -> Dict[str, torch.Tensor]:
-    return {k: v.reshape(tuple(lead) + tuple(v.shape[1:])) for k, v in out.items()}
+    """Maps to [*lead, ...]; the occ_* diagnostics stay scalars."""
+    return {k: v if k.startswith("occ_") else v.reshape(tuple(lead) + tuple(v.shape[1:]))
+            for k, v in out.items()}
 
 
 def apply_ndc(rays_o, rays_d, H: int, W: int, K, rc: RenderConfig, grid=None):

@@ -5,9 +5,10 @@
 ``NeuralSimRenderer`` loads the camera from ``nerf_traindata_info.json``
 (with the pipeline's half_res /4), loads or initializes the NeRF pair
 (reference ``.tar`` or ``.npz``), and renders K images from poses sampled
-from psi (``render_images``). The exact ``test_mode()`` render is the
-ported route; the occupancy-culled production render and the render
-gradient come in later slices and raise here.
+from psi (``render_images``), in ``test_mode()``: exact, or, with
+``cfg.render.production_mode()`` (``hit_budget < 1``), the occupancy-culled
+production render, whose grid is built and budget calibrated once in
+``__init__``. The render gradient comes in a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -26,7 +27,14 @@ from neuralsim_tpu_torch.models.convert import (
     load_params_npz,
     params_from_numpy,
 )
-from neuralsim_tpu_torch.models.nerf import init_nerf_pipeline_params
+from neuralsim_tpu_torch.models.nerf import init_nerf_pipeline_params, make_sigma_fn
+from neuralsim_tpu_torch.ops.occupancy import (
+    OccupancyGrid,
+    build_occupancy_grid,
+    build_scene_grid,
+    calibrate_hit_budget,
+    scene_half_extent,
+)
 from neuralsim_tpu_torch.ops.render import render_poses, to8b
 from neuralsim_tpu_torch.sampler.poses import (
     PoseNoise,
@@ -52,10 +60,6 @@ class NeuralSimRenderer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.rc = cfg.render.test_mode()
-        if self.rc.hit_budget < 1.0:
-            raise NotImplementedError(
-                "occupancy-culled production render (hit_budget < 1, "
-                "ops/occupancy.py): later slice")
 
         info = os.path.join(cfg.data.datadir, "nerf_traindata_info.json")
         if os.path.exists(info):
@@ -78,6 +82,45 @@ class NeuralSimRenderer:
             models = self._load_models(generator)
         self.models = params_from_numpy(models, self.device)
 
+        # production empty-space skipping: the grid is built once per scene
+        # from the coarse density, then the budget is raised to the measured
+        # worst-case hit fraction over the calibration poses (a budget below
+        # it drops visible rays)
+        self.grid = None
+        if self.rc.hit_budget < 1.0:
+            self.grid = self.occupancy_grid()
+            budget = calibrate_hit_budget(self.grid, self.calibration_poses(), self.H,
+                                          self.W, self.K, self.rc)
+            self.rc = dataclasses.replace(self.rc,
+                                          hit_budget=max(self.rc.hit_budget, budget))
+
+    def calibration_poses(self) -> torch.Tensor:
+        """The 8 poses [8, 4, 4] the budget is calibrated on, drawn over all
+        bins alike from a generator of their own seeded with cfg.seed, so
+        calibration draws nothing from a caller's generator."""
+        noise = draw_pose_noise(torch.Generator().manual_seed(self.cfg.seed),
+                                self.cfg.sampler, num_k=8, device=self.device)
+        return poses_from_noise(torch.full((8,), 0.125, device=self.device), noise,
+                                self.cfg.sampler)
+
+    def occupancy_grid(self, resolution: int = 96, threshold: float = 1e-2,
+                       dilate: int = 2, bbox_half: float = None) -> OccupancyGrid:
+        """Conservative occupancy grid from the coarse model's density, on
+        the renderer's device (the constructor keeps one when
+        hit_budget < 1). The box is derived from the density over the cube
+        every frustum sample can reach (``build_scene_grid``); pass
+        ``bbox_half`` for the fixed cube [-bbox_half, bbox_half]^3."""
+        sigma_fn = make_sigma_fn(self.models["coarse"], self.cfg.net)
+        if bbox_half is None:
+            return build_scene_grid(
+                sigma_fn, scene_half_extent(self.cfg.sampler.radius, self.rc.far,
+                                            self.H, self.W, self.K),
+                resolution=resolution, threshold=threshold, dilate=dilate,
+                device=self.device)
+        return build_occupancy_grid(
+            sigma_fn, bbox_min=(-bbox_half,) * 3, bbox_max=(bbox_half,) * 3,
+            resolution=resolution, threshold=threshold, dilate=dilate, device=self.device)
+
     def _load_models(self, generator: torch.Generator):
         cfg = self.cfg
         # the reference pins ft_path to logs/nerf_models/ycbvid{id}.tar
@@ -99,7 +142,7 @@ class NeuralSimRenderer:
         probs = psi_to_probs(psi, self.cfg.sampler)
         poses = poses_from_noise(probs, noise.to(self.device), self.cfg.sampler)
         out = render_poses(self.models, poses, self.H, self.W, self.K,
-                           self.cfg.net, self.rc, device=self.device)
+                           self.cfg.net, self.rc, grid=self.grid, device=self.device)
         return out["rgb_map"], out["disp_map"], out["acc_map"]
 
     def render_images(self, psi, generator: Optional[torch.Generator] = None,

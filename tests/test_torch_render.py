@@ -239,28 +239,13 @@ def test_render_routes_match_jax_on_cpu(rng, scene, override):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **_tol(scene, name))
 
 
-@pytest.mark.parametrize("override, route", [
-    (dict(reuse_coarse=True), "reuse_coarse"),
-    (dict(fine_fraction=0.5), "fine_fraction"),
-])
-def test_routes_outside_the_slice_raise(override, route):
-    _, tc = _configs(**override)
-    r = NeuralSimRenderer(tc, generator=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=route):
-        r.render_images(torch.zeros(8), torch.Generator().manual_seed(0), num_k=1)
-
-
 def test_production_render_and_gradient_raise():
+    """The render gradient is a later slice; the production render itself
+    is ported (tests/test_torch_production*.py)."""
     _, tc = _configs()
-    prod = tc.replace(render=tc.render.production_mode())
-    with pytest.raises(NotImplementedError, match="hit_budget"):
-        NeuralSimRenderer(prod, device="cpu")
     r = NeuralSimRenderer(tc, generator=torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="render gradient"):
         r.render_images_grad(torch.zeros(8), None, None)
-    with pytest.raises(NotImplementedError, match="occupancy"):
-        trender.render_ray_batch(r.models, torch.zeros(2, 3), torch.ones(2, 3),
-                                 tc.net, r.rc, grid=object())
 
 
 def test_to8b():
