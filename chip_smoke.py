@@ -20,13 +20,16 @@ Phases, each of which exits nonzero when it fails:
          and 3x5;
        - fused_nerf_mlp_widepe, fused_nerf_mlp_pe and fused_nerf_mlp at
          M = 8192*S points for the same S, plus the ragged M = 1001*48 and
-         15 (neither a multiple of the tensor-core kernels' 128-point tile);
+         15 (neither a multiple of the kernels' 128-point tile);
      and the times of kernel and twin at the main path's shapes (CUDA
      events, median of 7 after warm-up) beside each kernel's bound, and
-     beside them the time of the same MLP as a chain of per-layer bf16
-     torch.matmul + bias + ReLU on encodings computed beforehand
-     (chain_ms, a yardstick of the unfused tensor-core path that the port
-     never calls);
+     beside them the time of the same MLP as a chain of per-layer
+     torch.matmul + bias + ReLU on encodings computed beforehand, in bf16
+     and in float32 with TF32 off (chain_ms, yardsticks of the unfused
+     library path that the port never calls); then every kernel vs its
+     twin in both dtypes on two more nets, which the kernels take
+     zero-padded to the cores' width: 4x128, and 8x100 with multires 12 /
+     multires_views 6 (encodings past the default 64 / 32 rows);
   4. backward: one backward through each differentiable wrapper's
      autograd.Function against plain autograd through the recompute it
      stands for; the render tile refuses a gradient on the card;
@@ -43,6 +46,10 @@ Phases, each of which exits nonzero when it fails:
      BF16_RENDER_TOL of the bf16 twin render, and at most
      BF16_VS_F32_FRAC of it beyond that of the float32 render (none
      beyond BF16_VS_F32_MAX);
+  5b. a net without view directions (use_viewdirs=False; the box trunk with
+     an output head): its K=8 render on the card must launch no kernel (it
+     takes the plain query_points + raw2outputs, as the JAX package does)
+     and equal the same rays' render on the CPU within 2e-3;
   6. entry points: the exported fused_nerf_mlp (pre-encoded inputs) and
      fused_nerf_mlp_pe on the coarse sample points of the same K=8 render,
      one launch each, held against the ray-march kernel's raw field there
@@ -99,7 +106,7 @@ from neuralsim_tpu_torch.ops.occupancy import (
     scene_half_extent,
 )
 from neuralsim_tpu_torch.ops.rays import get_rays
-from neuralsim_tpu_torch.ops.render import render_poses
+from neuralsim_tpu_torch.ops.render import render_poses, render_ray_batch
 from neuralsim_tpu_torch.ops.volume import stratified_z_vals
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
 from neuralsim_tpu_torch.sampler.poses import pose_spherical, poses_from_noise, psi_to_probs
@@ -127,7 +134,14 @@ RAGGED = (1001, 48)
 # production single pass (16; also in bench.py's 32768-ray chunks) and the
 # hierarchical culled fine march (16 + 128), and ragged shapes
 RAY_SHAPES = ((N_RAYS, 64, True), (N_RAYS, 192, True), (N_RAYS, 16, True),
-              (32768, 16, True), (N_RAYS, 144, False), RAGGED + (False,), (3, 5, False))
+              (32768, 16, True), (N_RAYS, 144, True), RAGGED + (False,), (3, 5, False))
+# nets beyond the default that the kernels take zero-padded to the cores'
+# 256 width, checked at these (N, S)
+EXTRA_NETS = {
+    "4x128": dict(netdepth=4, netwidth=128, netdepth_fine=4, netwidth_fine=128, skips=(2,)),
+    "8x100_pe12_6": dict(netwidth=100, netwidth_fine=100, multires=12, multires_views=6),
+}
+EXTRA_SHAPES = ((N_RAYS, 64), RAGGED, (3, 5))
 # bench.py's production cell (bench.py:139-194): 16 poses x 400^2, its camera
 BENCH_POSES, BENCH_HW = 16, 400
 BENCH_K = [[1333.3334, 0.0, 195.42932], [0.0, 1334.2196, 200.6318], [0.0, 0.0, 1.0]]
@@ -251,9 +265,10 @@ def point_inputs(kernel, net, rays):
 
 
 def chain_mlp(params, x_pe, d_pe, net):
-    """The NeRF MLP as one bf16 torch.matmul per layer plus bias, ReLU and
-    the two concats, on bf16 encodings and weights: the unfused
-    tensor-core path, timed as a yardstick only (raw [M,4], bf16)."""
+    """The NeRF MLP as one torch.matmul per layer plus bias, ReLU and the
+    two concats, in the type of its inputs: the unfused library path (bf16
+    on the tensor cores, float32 SGEMM with TF32 off), timed as a yardstick
+    only (raw [M,4])."""
     h = x_pe
     for i in range(net.netdepth):
         h = torch.relu(h @ params[f"pts_{i}_kernel"] + params[f"pts_{i}_bias"])
@@ -266,16 +281,21 @@ def chain_mlp(params, x_pe, d_pe, net):
     return torch.cat([h @ params["rgb_kernel"] + params["rgb_bias"], alpha], dim=-1)
 
 
-def time_chain(params, net, rays):
-    """chain_mlp's time on the sample points of rays (encodings computed
-    beforehand, outside the timing)."""
-    p16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
-    x_pe, d_pe = (t.to(torch.bfloat16) for t in point_inputs("fused_nerf_mlp", net, rays))
+def time_chain(params, net, rays, dtype):
+    """chain_mlp's time in dtype on the sample points of rays (encodings
+    computed beforehand, outside the timing)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the float32 chain must run with TF32 off")
+    p = {k: v.to(dtype) for k, v in params.items()}
+    x_pe, d_pe = (t.to(dtype) for t in point_inputs("fused_nerf_mlp", net, rays))
     with torch.no_grad():
-        raw = chain_mlp(p16, x_pe, d_pe, net)
+        raw = chain_mlp(p, x_pe, d_pe, net)
         if not torch.isfinite(raw).all():
             raise AssertionError("chain yardstick output not finite")
-        return time_ms(lambda: chain_mlp(p16, x_pe, d_pe, net))
+        ms = time_ms(lambda: chain_mlp(p, x_pe, d_pe, net))
+    del x_pe, d_pe
+    torch.cuda.empty_cache()
+    return ms
 
 
 # kernel name -> (wrapper, twin, inputs from a ray bundle)
@@ -411,10 +431,11 @@ def phase_kernels(net, peaks):
     for n, s, timed in RAY_SHAPES:
         rays = march_inputs(n, s, gen, dev)
         if timed:
-            key = shape_key("bfloat16", n, s)
-            chain[key] = time_chain(weights["random"], net, rays)
-            log(f"time chain yardstick (bf16 torch.matmul per layer) S{s} N={n}: "
-                f"{chain[key]:.3f} ms")
+            for dtype in (torch.bfloat16, torch.float32):
+                key = shape_key(str(dtype)[6:], n, s)
+                chain[key] = time_chain(weights["random"], net, rays, dtype)
+                log(f"time chain yardstick ({str(dtype)[6:]} torch.matmul per layer) S{s} N={n}: "
+                    f"{chain[key]:.3f} ms")
         for kernel, (wrapper, twin, inputs) in KERNELS.items():
             args = inputs(net, rays)
             errs = {}
@@ -445,7 +466,35 @@ def phase_kernels(net, peaks):
                     f"kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {b:.3f} ms ({by})")
         del rays
         torch.cuda.empty_cache()
+    for name, kw in EXTRA_NETS.items():
+        rec_net = check_net(NeRFNetConfig(**kw), name, gen)
+        for kernel, errs in rec_net.items():
+            rec[kernel].setdefault("err_nets", {})[name] = errs
     return rec, chain
+
+
+def check_net(net, name, gen):
+    """Every kernel vs its twin on one more net (random and He-scaled
+    weights, both dtypes) at EXTRA_SHAPES: {kernel: {dtype: max abs err}}."""
+    random = init_nerf_params(net, generator=gen, device=DEVICE)
+    weights = {"random": random,
+               "random_he": {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0)
+                             for k, v in random.items()}}
+    out = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in KERNELS}
+    for n, s in EXTRA_SHAPES:
+        rays = march_inputs(n, s, gen, DEVICE)
+        for kernel, (_, _, inputs) in KERNELS.items():
+            args = inputs(net, rays)
+            for scene, params in weights.items():
+                for dtype in (torch.float32, torch.bfloat16):
+                    e = check(kernel, params, args, net, dtype,
+                              f"{kernel} net {name} {scene} N={n} S={s} {str(dtype)[6:]}")
+                    out[kernel][str(dtype)[6:]] = max(out[kernel][str(dtype)[6:]], e)
+    log(f"kernel vs twin on net {name} ({net.netdepth}x{net.netwidth}, multires "
+        f"{net.multires}/{net.multires_views}): max abs err "
+        + ", ".join(f"{k} f32 {v['float32']:.2e} bf16 {v['bfloat16']:.2e}"
+                    for k, v in out.items()))
+    return out
 
 
 def phase_backward(net):
@@ -631,6 +680,49 @@ def phase_main_path():
         if route["err_vs_f32"] > BF16_VS_F32_MAX or route["frac_off_f32"] > BF16_VS_F32_FRAC:
             raise AssertionError(f"[{kernel}, bfloat16] rgb too far from the float32 render")
     return routes, bf16, box, cfg
+
+
+def phase_plain_net(psi):
+    """5b: the K=8 render of a net without view directions launches no
+    kernel on the card and equals the same rays' render on the CPU."""
+    net = NeRFNetConfig(use_viewdirs=False)
+    gen = torch.Generator().manual_seed(2)
+    box = box_scene_params(NeRFNetConfig(), generator=gen, device=DEVICE)
+    params = {k: v for k, v in box.items() if k.startswith("pts_")}
+    rgb_head = 0.3 * torch.randn(net.netwidth, 3, generator=gen).to(DEVICE)
+    params["output_kernel"] = torch.cat([rgb_head, box["alpha_kernel"]], dim=1)
+    params["output_bias"] = torch.zeros(4, device=DEVICE)
+    models = {"coarse": params, "fine": params}
+    cfg = NeuralSimConfig().replace(net=net)
+    renderer = NeuralSimRenderer(cfg, models=models, device=DEVICE)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rgb, noise = renderer.render_images(psi, torch.Generator().manual_seed(0), num_k=K_POSES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = counts()
+    if any(launched.values()):
+        raise AssertionError(f"use_viewdirs=False render launched {launched}")
+    if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1):
+        raise AssertionError("use_viewdirs=False render: images not finite or outside [0, 1]")
+    # the same rays on the CPU: every 5th ray of the first image
+    pose = poses_of(cfg, noise, psi)[:1]
+    o, d = (t.reshape(-1, 3)[::5] for t in get_rays(renderer.H, renderer.W, renderer.K, pose))
+    with torch.no_grad():
+        got = render_ray_batch(models, o, d, net, renderer.rc)["rgb_map"]
+        cpu = {k: {n: v.cpu() for n, v in p.items()} for k, p in models.items()}
+        want = render_ray_batch(cpu, o.cpu(), d.cpu(), net, renderer.rc)["rgb_map"]
+    torch.testing.assert_close(got.cpu(), want, rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(got, rgb[0].reshape(-1, 3)[::5], rtol=0, atol=1e-5)
+    err = (got.cpu() - want).abs().max().item()
+    hit = (rgb.amax(-1) > 0.05).float().mean().item()
+    log(f"plain net [use_viewdirs=False]: K={K_POSES} render {secs:.4f} s (host clock, first "
+        f"call), launches {launched}; {hit:.3%} of pixels lit; {o.shape[0]} rays vs the CPU "
+        f"render max abs err {err:.3e} (limit {F32_TOL:g})")
+    if hit == 0.0:
+        raise AssertionError("use_viewdirs=False render is empty")
+    return dict(launches=sum(launched.values()), err_vs_cpu=err, seconds=secs)
 
 
 def raw_field(sigma, rgb3):
@@ -932,6 +1024,7 @@ def main():
     rec, chain = phase_kernels(net, peaks)
     phase_backward(net)
     routes, routes16, box, cfg = phase_main_path()
+    plain_net = phase_plain_net(psi_init("5"))
     entries, entries16 = phase_entry_points(box, cfg, routes)
     pipeline, others, bench = phase_production(box, routes, routes16)
     production_launched = {f"pipeline_{dtype}": run["launched"] for dtype, run in pipeline.items()}
@@ -989,10 +1082,14 @@ def main():
             "production_launches": {run: launched[kernel]
                                     for run, launched in production_launched.items()},
             "production": production if kernel == "fused_nerf_march" else None,
+            "plain_net": plain_net if kernel == "fused_nerf_march" else None,
+            "max_err_nets": r["err_nets"],
             "shape": f"N={N_RAYS} rays x S samples (M = N*S points); "
                      "ms/plain_ms/bound_ms at float32 S=192, *_bf16 at bfloat16 S=192; "
                      "kernel_ms etc. by dtype and S (S=16: the production single pass); "
-                     "chain_ms: the same MLP as bf16 torch.matmul per layer",
+                     "chain_ms: the same MLP as torch.matmul per layer (bf16; float32 "
+                     "with TF32 off); max_err_nets: twin checks on the 4x128 and "
+                     "8x100 (PE 12/6) nets",
             "card": smi,
         })
     print(json.dumps({"kernels": records}), flush=True)

@@ -1,51 +1,73 @@
-// nerf_mlp.cuh - the NeRF MLP core shared by the port's Hopper kernels.
+// nerf_mlp.cuh - what the port's Hopper kernels share: the NeRF MLP's shape
+// limits, the positional encoding, the weight ring, and the FP32 MLP core.
 //
 // Every TPU kernel of neuralsim_tpu/kernels/raymarch.py runs the same
 // 13-layer NeRF MLP (8x256 trunk with a skip, alpha / feature / views /
 // rgb heads) on a tile of points and differs only in what goes in and what
-// comes out. This header holds that common part:
+// comes out. This header holds the common part:
 //
-//   - the shape limits the kernels were written for (and, once per shared
-//     library, the C functions that report them to the Python wrapper);
-//   - the positional encoding of a [6][P] point tile (xyz, view xyz) into
-//     shared memory, with cos as sin(y + pi/2) (the JAX projection form)
-//     or as a true cosf (TRUE_COS, the form of fused_nerf_mlp_pe);
-//   - mlp_core: the whole MLP on a 64-point tile whose encodings are in
-//     shared memory, leaving the raw outputs in a shared [4][P] tile
-//     (rows r, g, b logits, then the raw density sigma).
+//   - the shape limits of the two MLP cores (and, once per shared library,
+//     the C functions that report them to the Python wrapper): a trunk of
+//     W = 256 (the wrapper zero-pads a narrower net's weights to it, which
+//     is exact: pad columns hold ReLU(0 + 0) = 0 and meet zero rows), at
+//     most MAX_X rows of position encoding (multires <= 20) and MAX_D of
+//     view encoding (multires_views <= 10);
+//   - the positional encoding of a point, with cos as sin(y + pi/2) (the
+//     JAX projection form) or as a true cosf (TRUE_COS, the form of
+//     fused_nerf_mlp_pe);
+//   - Plan and Ring: a net's weights, packed on the host into chunks in the
+//     order a core consumes them, streamed by thread 0 with cp.async.bulk
+//     through an mbarrier ring in shared memory (both cores);
+//   - namespace f32: the FP32 core, which every float32 instantiation runs,
+//     and nerf_mlp.cu's TRUE_COS stage in bf16 too. The bf16 tensor-core
+//     core is nerf_mlp_wgmma.cuh.
 //
-// Bound on the card: operations. One point costs 593,408 multiply-adds
-// (1.19 MFLOP) and moves at most 360 bytes (pre-encoded input), so every
-// kernel built on this core is bound by the FP32 rate (67 TFLOP/s on an
-// H100 SXM). The products run on the FP32 CUDA cores: true float32 like
-// the JAX package's Precision.HIGHEST, never TF32.
+// FP32 core. Bound on the card: operations. One point of the default net
+// costs 593,408 multiply-adds (1.19 MFLOP) and moves at most 376 bytes, so a
+// kernel on this core is bound by the FP32 rate (67 TFLOP/s on an H100 SXM:
+// 27.86 ms for 8192 rays x 192 samples). The products are fmaf on the FP32
+// pipes: true float32 like the JAX package's Precision.HIGHEST, never TF32.
 //
-// Design, simple first:
-//   - one block of 256 threads per tile of P=64 points; the encodings and
-//     the activation tile stay in shared memory (feature-major
-//     [channel][point]); no activation touches device memory;
-//   - the weights stream from device memory layer by layer; one net's
-//     ~2.2 MB stays resident in the 50 MB L2, and the 8 warps of a block
-//     read the same rows, so they hit L1;
-//   - each thread owns an 8-point x 8-output register tile of the
-//     [64 x 256] layer product (8 x 4 for the 128-wide views layer) and
-//     accumulates with fmaf;
-//   - the skip concat [x_pe, h] and the views concat [feature, d_pe] are
-//     two partial sums each into the same accumulators.
-// Not yet done (later work): tensor cores (wgmma) for the bf16 mode, and
-// larger tiles to cut the per-block weight traffic.
+// What bounds such a core below that rate: the weight reads (a 256-wide
+// layer product feeds each FMA a weight; read by every warp from L1 they
+// compete with the FMAs), the weight stream from L2 (the whole net per
+// tile), the issue slots of the shared-memory loads, and bank conflicts in
+// the epilogue's column stores. The design:
+//   - persistent blocks (one per SM) of 256 threads over tiles of TILE = 128
+//     points (64 when a net's encodings leave no room for 128: 0.85 of the
+//     speed per point);
+//   - the host packs the weights once per weight set (raymarch.py
+//     pack_f32_weights) into chunks of KC = 16 input rows, in the order the
+//     core consumes them, each row's columns permuted so that a thread's 16
+//     columns {cg + 16j} are four float4 lying beside its neighbours'. The
+//     chunks run through a 2-stage ring (Ring below), so the weights are
+//     shared-memory reads common to all eight warps, and the next chunk
+//     lands while this one multiplies. Each 128-point tile reads the
+//     2.38 MB of chunks from L2: 29 GB per launch at 8192 x 192 points,
+//     0.8 TB/s at 38 ms, well inside the L2's rate;
+//   - each thread owns a PT x 16 register tile (8 points x 16 columns at
+//     TILE = 128): per input row two float4 activation loads (broadcast
+//     within a half-warp) and four conflict-free float4 weight loads feed
+//     128 fmaf;
+//   - activations never leave shared memory: feature-major [row][point]
+//     tiles with a row stride of TILE + 4 floats, so the epilogue's stores
+//     by 16 lanes to 16 rows fall in distinct banks;
+//   - the skip concat [x_pe, h] and the views concat [feature, d_pe] are one
+//     run of chunks each, read from two tiles; the alpha and rgb heads are
+//     reduced from the registers of the last trunk and the views layer over
+//     the 16 lanes that share a point group.
+// It runs at 68-71% of the FP32 peak at 8192 x 64 and x 192 points on an
+// H100 (PERF.md); variants of it are timed by chip_variants.py.
 //
 // bf16 mode rounds where the JAX package rounds: the encodings, the weight
 // matrices (rounded by the caller) and each post-ReLU activation; the
 // feature is rounded after its bias. Products of bf16 values are exact in
-// float32, accumulation and biases are float32. fast_epilogue (the JAX
-// kernels' option) rounds the product and the bias to bf16 before adding
-// them in the ReLU layers; in float32 it changes nothing.
+// float32, accumulation and biases are float32.
 //
 // The encoding uses the accurate sinf / cosf, never the fast intrinsics:
-// arguments reach 2^9 * |x| (hundreds of radians), where the intrinsics
-// lose all accuracy. For the same reason the build never turns on nvcc's
-// fast-math flag (tests/test_torch_imports.py checks both).
+// arguments reach 2^19 * |x|, where the intrinsics lose all accuracy. For
+// the same reason the build never turns on nvcc's fast-math flag
+// (tests/test_torch_imports.py checks both).
 
 #pragma once
 
@@ -56,20 +78,17 @@
 
 namespace nerf {
 
-constexpr int P = 64;          // points per tile
-constexpr int THREADS = 256;   // 8 warps; warp w owns points [8w, 8w+8)
-constexpr int W = 256;         // trunk width
-constexpr int PX = 64;         // rows of the position encoding (>= 63)
-constexpr int PD = 32;         // rows of the view encoding (>= 27)
+constexpr int P = 64;          // points per warpgroup of the wgmma core
+constexpr int THREADS = 256;   // 8 warps per block, both cores
+constexpr int W = 256;         // trunk width of both cores
+constexpr int MAX_X = 128;     // rows of the position encoding (>= 3 + 6 * 20)
+constexpr int MAX_D = 64;      // rows of the view encoding (>= 3 + 6 * 10)
 constexpr int MAX_LAYERS = 20; // trunk depth + 4 heads
 constexpr float HALF_PI = 1.57079632679489661923f;
 
-// shared floats of the core: encodings, activations, raw outputs
-constexpr int CORE_FLOATS = (PX + PD + W + 4) * P;
-
 struct Net {
   // pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb: kernel [in][out]
-  // row-major, bias [out]
+  // row-major, bias [out], padded to the core's width
   const float* k[MAX_LAYERS];
   const float* b[MAX_LAYERS];
   int depth;
@@ -83,7 +102,8 @@ struct Net {
 // pointers, kernel then bias per layer. Returns a cudaError_t value.
 inline int make_net(const void* const* weights, int depth, unsigned skip_mask,
                     int in_ch, int in_ch_views, int fast_epilogue, Net* net) {
-  if (depth + 4 > MAX_LAYERS || depth < 1 || in_ch > PX || in_ch_views > PD) {
+  if (depth + 4 > MAX_LAYERS || depth < 1 || in_ch < 1 || in_ch > MAX_X ||
+      in_ch_views < 1 || in_ch_views > MAX_D) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *net = Net{};
@@ -97,6 +117,16 @@ inline int make_net(const void* const* weights, int depth, unsigned skip_mask,
   net->in_ch_views = in_ch_views;
   net->fast_epilogue = fast_epilogue;
   return 0;
+}
+
+// The dynamic shared memory a block of the current device may opt into.
+inline int smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return static_cast<int>(err);
 }
 
 // Sets the dynamic shared memory a kernel needs and launches it on
@@ -116,6 +146,23 @@ int launch(void (*kernel)(Params...), long long blocks, size_t smem_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches `kernel` on one persistent block per SM (at most `work` blocks).
+// Returns a cudaError_t value.
+template <typename... Params, typename... Args>
+int launch_persistent(void (*kernel)(Params...), long long work, size_t smem_bytes,
+                      cudaStream_t stream, Args... args) {
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int e = smem_optin(&smem_max);
+  if (e != 0) return e;
+  if (smem_bytes > static_cast<size_t>(smem_max)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(kernel, work < sms ? work : sms, smem_bytes, stream, args...);
+}
+
 template <bool BF16>
 __device__ __forceinline__ float round_cd(float x) {
   if constexpr (BF16) {
@@ -125,87 +172,20 @@ __device__ __forceinline__ float round_cd(float x) {
   }
 }
 
-// acc[i][j] += sum_k act[k][8*pg + i] * w[k][col(j)] for k < K, where the
-// lane's columns are {v*128 + 4*lane + c}: act is a shared [K][P] tile,
-// w a [K][NOUT] row-major matrix in device memory.
-template <int NOUT>
-__device__ __forceinline__ void accumulate(float (&acc)[8][NOUT / 32],
-                                           const float* act, int K,
-                                           const float* __restrict__ w,
-                                           int pg, int lane) {
-  constexpr int NV = NOUT / 128;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(act + k * P + pg * 8);
-    const float4 a1 = *reinterpret_cast<const float4*>(act + k * P + pg * 8 + 4);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const float4 wv = __ldg(reinterpret_cast<const float4*>(
-          w + static_cast<size_t>(k) * NOUT + v * 128 + lane * 4));
-      const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[i][v * 4 + c] = fmaf(a[i], ww[c], acc[i][v * 4 + c]);
-        }
-      }
-    }
-  }
-}
-
-template <int NOUT>
-__device__ __forceinline__ void zero(float (&acc)[8][NOUT / 32]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < NOUT / 32; ++j) acc[i][j] = 0.f;
-  }
-}
-
-// out[col][8*pg + i] = round(act(acc + bias[col])): the layer epilogue.
-// With `fast` the product and the bias are rounded before the add.
-template <int NOUT, bool BF16, bool RELU>
-__device__ __forceinline__ void store(const float (&acc)[8][NOUT / 32],
-                                      const float* __restrict__ bias,
-                                      float* out, int pg, int lane, bool fast) {
-#pragma unroll
-  for (int v = 0; v < NOUT / 128; ++v) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = v * 128 + lane * 4 + c;
-      const float b = __ldg(bias + col);
-      const float bf = round_cd<BF16>(b);
-      float r[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float a = acc[i][v * 4 + c];
-        float x = fast ? round_cd<BF16>(a) + bf : a + b;
-        if (RELU) x = fmaxf(x, 0.f);
-        r[i] = round_cd<BF16>(x);
-      }
-      float4* dst = reinterpret_cast<float4*>(out + col * P + pg * 8);
-      dst[0] = make_float4(r[0], r[1], r[2], r[3]);
-      dst[1] = make_float4(r[4], r[5], r[6], r[7]);
-    }
-  }
-}
-
 // Encoding channel c of a point (order of ops/encoding.py):
 // [x0, x1, x2, sin(2^0 x), cos(2^0 x), ..., sin(2^{L-1} x), cos(...)].
-// xyz points at the point's first coordinate in a [3][P] tile. cos(y) is
-// sin(y + pi/2) like the JAX projection form, or cosf(y) with TRUE_COS;
-// y = x * 2^k is exact either way.
+// xyz points at the point's first coordinate in a [3][stride] tile; zero
+// for c >= n_ch. cos(y) is sin(y + pi/2) like the JAX projection form, or
+// cosf(y) with TRUE_COS; y = x * 2^k is exact either way.
 template <bool TRUE_COS>
-__device__ __forceinline__ float encode(const float* xyz, int c, int n_ch) {
-  if (c < 3) return xyz[c * P];
+__device__ __forceinline__ float encode(const float* xyz, int stride, int c, int n_ch) {
+  if (c < 3) return xyz[c * stride];
   if (c >= n_ch) return 0.f;
   const int j = c - 3;
   const int k = j / 6;
   const int r = j - 6 * k;
   const int dim = r % 3;
-  const float y = __fmul_rn(xyz[dim * P], static_cast<float>(1 << k));
+  const float y = __fmul_rn(xyz[dim * stride], static_cast<float>(1 << k));
   if constexpr (TRUE_COS) {
     return r < 3 ? sinf(y) : cosf(y);
   } else {
@@ -213,98 +193,413 @@ __device__ __forceinline__ float encode(const float* xyz, int c, int n_ch) {
   }
 }
 
-// pts: shared [6][P] (x, y, z, vx, vy, vz) -> pex [PX][P], ped [PD][P],
-// rounded to the compute type; rows past the encoding are zero.
-template <bool BF16, bool TRUE_COS>
-__device__ __forceinline__ void encode_tile(const float* pts, float* pex,
-                                            float* ped, const Net& net) {
-  for (int idx = threadIdx.x; idx < PX * P; idx += THREADS) {
-    const int c = idx / P, p = idx % P;
-    pex[idx] = round_cd<BF16>(encode<TRUE_COS>(pts + p, c, net.in_ch));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A net's packed weights and their chunk order per tile: chunks [0,
+// n_wide) of a tile (trunk and feature layers, W columns) take wide_bytes
+// each, the rest (the views layer, W/2 columns) narrow_bytes.
+struct Plan {
+  const unsigned char* packed;
+  int per_tile;
+  int n_wide;
+  int wide_bytes;
+  int narrow_bytes;
+
+  long long tile_bytes() const {
+    return static_cast<long long>(n_wide) * wide_bytes +
+           static_cast<long long>(per_tile - n_wide) * narrow_bytes;
   }
-  for (int idx = threadIdx.x; idx < PD * P; idx += THREADS) {
-    const int c = idx / P, p = idx % P;
-    ped[idx] = round_cd<BF16>(encode<TRUE_COS>(pts + 3 * P + p, c, net.in_ch_views));
+};
+
+// The weight ring: the block's chunks go round STAGES stages (of
+// plan.wide_bytes each) in order; full[s] completes when a chunk's bytes
+// landed, empty[s] when all 8 warps are done with it. Thread 0 issues every
+// copy. Every thread tracks the stage and phase of the chunk it acquires
+// next and of the oldest chunk it still holds; thread 0 also the next
+// chunk to issue. No 64-bit division: its subroutine call would spill.
+template <int STAGES>
+struct Ring {
+  unsigned char* buf;
+  uint64_t* full;
+  uint64_t* empty;
+  Plan plan;
+  long long left;     // thread 0: chunks still to issue
+  int next_q;         // thread 0: index within its tile of the next chunk to issue
+  int read_stage;     // the chunk acquired next
+  uint32_t read_phase;
+  int free_stage;     // the oldest chunk held
+  uint32_t free_phase;
+
+  // Every thread calls it once, with the block's number of chunks.
+  __device__ void init(long long total) {
+    read_stage = free_stage = 0;
+    read_phase = free_phase = 0;
+    left = total;
+    next_q = 0;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(full + s)));
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                     ::"r"(smem_addr(empty + s)), "r"(THREADS / 32));
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES && left > 0; ++s) issue(s);
+    }
+  }
+
+  // Thread 0: the next chunk of the sequence into stage s.
+  __device__ void issue(int s) {
+    const int q = next_q;
+    const bool wide = q < plan.n_wide;
+    const int bytes = wide ? plan.wide_bytes : plan.narrow_bytes;
+    const size_t off = wide
+        ? static_cast<size_t>(q) * plan.wide_bytes
+        : static_cast<size_t>(plan.n_wide) * plan.wide_bytes +
+              static_cast<size_t>(q - plan.n_wide) * plan.narrow_bytes;
+    const uint32_t bar = smem_addr(full + s);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        ::"r"(smem_addr(buf + s * plan.wide_bytes)), "l"(plan.packed + off), "r"(bytes),
+          "r"(bar) : "memory");
+    next_q = q + 1 == plan.per_tile ? 0 : q + 1;
+    --left;
+  }
+
+  __device__ static void wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    }
+  }
+
+  // The stage of the next chunk, once it has landed.
+  __device__ int next_stage() {
+    wait(full + read_stage, read_phase);
+    const int s = read_stage;
+    if (++read_stage == STAGES) {
+      read_stage = 0;
+      read_phase ^= 1u;
+    }
+    return s;
+  }
+
+  // The next chunk's shared address (for wgmma descriptors) ...
+  __device__ uint32_t acquire() { return smem_addr(buf + next_stage() * plan.wide_bytes); }
+
+  // ... or its floats.
+  __device__ const float* acquire_floats() {
+    return reinterpret_cast<const float*>(buf + next_stage() * plan.wide_bytes);
+  }
+
+  // This warp is done with its oldest chunk (its reads of the stage have
+  // completed); thread 0 then refills the stage with the chunk STAGES
+  // further on, once every warp is done with it.
+  __device__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                   ::"r"(smem_addr(empty + free_stage)) : "memory");
+    }
+    if (threadIdx.x == 0 && left > 0) {
+      wait(empty + free_stage, free_phase);
+      issue(free_stage);
+    }
+    __syncwarp();
+    if (++free_stage == STAGES) {
+      free_stage = 0;
+      free_phase ^= 1u;
+    }
+  }
+};
+
+namespace f32 {
+
+constexpr int STAGES = 2;                          // weight ring depth
+constexpr int KC = 16;                             // input rows per chunk
+constexpr int WIDE_BYTES = KC * W * 4;             // 16 KB: W columns
+constexpr int NARROW_BYTES = KC * (W / 2) * 4;     // 8 KB: the views layer
+
+// Rows of an encoding tile: the channels rounded up to whole chunks.
+inline int rows(int channels) { return (channels + KC - 1) / KC * KC; }
+
+// The chunk order per tile: layer 0 (x_pe), each trunk layer i >= 1 (x_pe
+// first after a skip, then 16 h chunks), the feature layer (16), then the
+// views layer (16 feature chunks, then the d_pe chunks, W/2 columns).
+inline Plan make_plan(const void* packed, int depth, unsigned skip_mask, int in_ch,
+                      int in_ch_views) {
+  const int nx = rows(in_ch) / KC, nd = rows(in_ch_views) / KC;
+  const int n_wide = nx + (W / KC) * (depth - 1) + nx * __builtin_popcount(skip_mask) + W / KC;
+  return Plan{static_cast<const unsigned char*>(packed), n_wide + W / KC + nd, n_wide,
+              WIDE_BYTES, NARROW_BYTES};
+}
+
+// Shared memory of the core for tiles of `tile` points, rx rows of x_pe and
+// rd of d_pe: the ring, the activation tiles h [W], x [rx], d [rd] (row
+// stride tile + 4), the points [6][tile], the raw outputs [4][tile], then
+// the ring's barriers. Every part starts 16-byte aligned.
+__host__ __device__ constexpr int core_bytes(int tile, int rx, int rd) {
+  return STAGES * WIDE_BYTES + (W + rx + rd) * (tile + 4) * 4 + 10 * tile * 4 + 2 * STAGES * 8;
+}
+
+// The tile of a launch: 128 points where the core and `extra` bytes fit
+// the device's shared memory, else 64; 0 when neither fits.
+inline int pick_tile(int rx, int rd, long long extra, int* tile) {
+  int smem_max = 0;
+  const int err = smem_optin(&smem_max);
+  if (err != 0) return err;
+  *tile = core_bytes(128, rx, rd) + extra <= smem_max ? 128
+        : core_bytes(64, rx, rd) + extra <= smem_max ? 64 : 0;
+  return 0;
+}
+
+template <int TILE>
+struct Core {
+  Ring<STAGES> ring;
+  float* h;    // [W][TILE + 4] activations
+  float* x;    // [rx][TILE + 4] position encoding
+  float* d;    // [rd][TILE + 4] view encoding
+  float* pts;  // [6][TILE] x, y, z, vx, vy, vz
+  float* raw;  // [4][TILE] r, g, b logits, sigma
+  int rx;
+  int rd;
+};
+
+// Pointers into the core's shared memory at the start of the kernel's
+// dynamic shared buffer (core_bytes(TILE, rx, rd) of it); the ring is set
+// up by Ring::init, called by every thread.
+template <int TILE>
+__device__ __forceinline__ Core<TILE> make_core(void* dyn, const Plan& plan, int rx, int rd) {
+  constexpr int HS = TILE + 4;
+  Core<TILE> c;
+  unsigned char* base = static_cast<unsigned char*>(dyn);
+  c.ring.buf = base;
+  c.h = reinterpret_cast<float*>(base + STAGES * WIDE_BYTES);
+  c.x = c.h + W * HS;
+  c.d = c.x + rx * HS;
+  c.pts = c.d + rd * HS;
+  c.raw = c.pts + 6 * TILE;
+  c.ring.full = reinterpret_cast<uint64_t*>(c.raw + 4 * TILE);
+  c.ring.empty = c.ring.full + STAGES;
+  c.ring.plan = plan;
+  c.rx = rx;
+  c.rd = rd;
+  return c;
+}
+
+// Thread roles: column group cg (columns {cg + 16j}) and point group pg
+// (points [PT*pg, PT*pg + PT)); a half-warp shares its point group.
+__device__ __forceinline__ int col_group() { return threadIdx.x & 15; }
+__device__ __forceinline__ int point_group() { return threadIdx.x >> 4; }
+
+// acc[p][4q + e] += sum over the chunk's KC rows k of act[k][p] *
+// w[k][cg + 16 (4q + e)]: act points at the thread's first point in row 0
+// of a [KC][HS] activation block, w at the thread's first float4 in row 0
+// of a packed chunk (NQ float4 of each row per thread, 64 floats apart).
+template <int PT, int NQ, int HS>
+__device__ __forceinline__ void chunk_fma(float (&acc)[PT][4 * NQ], const float* act,
+                                          const float* w) {
+#pragma unroll 8
+  for (int k = 0; k < KC; ++k) {
+    float a[PT];
+#pragma unroll
+    for (int v = 0; v < PT / 4; ++v) {
+      const float4 t = *reinterpret_cast<const float4*>(act + k * HS + 4 * v);
+      a[4 * v] = t.x;
+      a[4 * v + 1] = t.y;
+      a[4 * v + 2] = t.z;
+      a[4 * v + 3] = t.w;
+    }
+    float b[4 * NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float4 t = *reinterpret_cast<const float4*>(w + k * (64 * NQ) + 64 * q);
+      b[4 * q] = t.x;
+      b[4 * q + 1] = t.y;
+      b[4 * q + 2] = t.z;
+      b[4 * q + 3] = t.w;
+    }
+#pragma unroll
+    for (int p = 0; p < PT; ++p) {
+#pragma unroll
+      for (int j = 0; j < 4 * NQ; ++j) acc[p][j] = fmaf(a[p], b[j], acc[p][j]);
+    }
   }
 }
 
-// The MLP on one tile: pex [PX][P] and ped [PD][P] in shared memory (ready
-// and synchronised) -> raw [4][P] in shared memory (r, g, b logits, sigma),
-// synchronised on return. h is the shared [W][P] activation tile.
-template <bool BF16>
-__device__ __forceinline__ void mlp_core(const float* pex, const float* ped,
-                                         float* h, float* raw, const Net& net) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int pg = tid >> 5;
-  const bool fast = net.fast_epilogue != 0;
-  const int depth = net.depth;
+// The products of one layer: acc += [a0 (n0 chunks of rows), a1 (n1)] . W
+// over the next n0 + n1 chunks of the ring.
+template <int PT, int NQ, int HS>
+__device__ __forceinline__ void layer(float (&acc)[PT][4 * NQ], const float* a0, int n0,
+                                      const float* a1, int n1, Ring<STAGES>& ring) {
+  const int off = point_group() * PT;
+  const int wcol = 4 * col_group();
+#pragma unroll 1
+  for (int c = 0; c < n0 + n1; ++c) {
+    const float* act = c < n0 ? a0 + c * (KC * HS) : a1 + (c - n0) * (KC * HS);
+    chunk_fma<PT, NQ, HS>(acc, act + off, ring.acquire_floats() + wcol);
+    ring.release();
+  }
+}
 
-  // ---- trunk -------------------------------------------------------------
-  float acc[8][8];
-  for (int i = 0; i < depth; ++i) {
-    zero<W>(acc);
-    const float* k = net.k[i];
-    if (i == 0) {
-      accumulate<W>(acc, pex, net.in_ch, k, pg, lane);
-    } else {
-      if ((net.skip_mask >> (i - 1)) & 1u) {
-        // layer input is [x_pe, h]: two partial sums
-        accumulate<W>(acc, pex, net.in_ch, k, pg, lane);
-        k += static_cast<size_t>(net.in_ch) * W;
-      }
-      accumulate<W>(acc, h, W, k, pg, lane);
-    }
+template <int PT, int N>
+__device__ __forceinline__ void zero(float (&acc)[PT][N]) {
+#pragma unroll
+  for (int p = 0; p < PT; ++p) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[p][j] = 0.f;
+  }
+}
+
+// Sum over the 16 lanes of a half-warp (one point group).
+__device__ __forceinline__ float group_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  return v + __shfl_xor_sync(0xffffffffu, v, 8);
+}
+
+// The MLP on one tile whose encodings are in core.x and core.d (written and
+// synchronised): raw [4][TILE] (r, g, b logits, sigma) in core.raw,
+// synchronised on return. Consumes the tile's plan.per_tile chunks.
+template <int TILE, bool BF16>
+__device__ __forceinline__ void mlp_tile(Core<TILE>& core, const Net& net) {
+  constexpr int PT = TILE / 16;
+  constexpr int HS = TILE + 4;
+  const int cg = col_group();
+  const int p0 = point_group() * PT;
+  const int depth = net.depth;
+  const int nx = core.rx / KC, nd = core.rd / KC;
+  float acc[PT][16];
+
+  // ---- trunk layers 0 .. depth-1, then the feature layer (i == depth) -----
+#pragma unroll 1
+  for (int i = 0; i <= depth; ++i) {
+    zero(acc);
+    const bool with_x = i == 0 || (i < depth && ((net.skip_mask >> (i - 1)) & 1u));
+    layer<PT, 4, HS>(acc, core.x, with_x ? nx : 0, core.h, i == 0 ? 0 : W / KC, core.ring);
     __syncthreads();  // every warp has read h
-    store<W, BF16, true>(acc, net.b[i], h, pg, lane, fast);
+    const float* bias = net.b[i];
+    const bool relu = i < depth;  // the feature layer has none
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = cg + 16 * j;
+      const float b = __ldg(bias + col);
+#pragma unroll
+      for (int p = 0; p < PT; ++p) {
+        float v = acc[p][j] + b;
+        if (relu) v = fmaxf(v, 0.f);
+        acc[p][j] = round_cd<BF16>(v);
+      }
+      float4* dst = reinterpret_cast<float4*>(core.h + col * HS + p0);
+#pragma unroll
+      for (int v = 0; v < PT / 4; ++v) {
+        dst[v] = make_float4(acc[4 * v][j], acc[4 * v + 1][j], acc[4 * v + 2][j],
+                             acc[4 * v + 3][j]);
+      }
+    }
+    if (i == depth - 1) {
+      // density head (alpha [W][1]) on the trunk output in the registers
+      const float* ak = net.k[depth + 1];
+      float s[PT];
+#pragma unroll
+      for (int p = 0; p < PT; ++p) s[p] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float w = __ldg(ak + cg + 16 * j);
+#pragma unroll
+        for (int p = 0; p < PT; ++p) s[p] = fmaf(acc[p][j], w, s[p]);
+      }
+      const float b = __ldg(net.b[depth + 1]);
+#pragma unroll
+      for (int p = 0; p < PT; ++p) {
+        const float t = group_sum(s[p]);
+        if (cg == 0) core.raw[3 * TILE + p0 + p] = t + b;
+      }
+    }
     __syncthreads();
   }
 
-  // ---- density head (alpha [W][1]) on the trunk output ------------------
-  if (tid < P) {
-    const float* ak = net.k[depth + 1];
-    float s = 0.f;
-    for (int k = 0; k < W; ++k) s = fmaf(h[k * P + tid], __ldg(ak + k), s);
-    raw[3 * P + tid] = s + __ldg(net.b[depth + 1]);
+  // ---- views layer: [feature, d_pe] -> W/2, ReLU; then the rgb head ------
+  float accv[PT][8];
+  zero(accv);
+  layer<PT, 2, HS>(accv, core.h, W / KC, core.d, nd, core.ring);
+  const float* vb = net.b[depth + 2];
+  const float* rk = net.k[depth + 3];
+  float s[3][PT];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int p = 0; p < PT; ++p) s[c][p] = 0.f;
   }
-
-  // ---- feature layer (no ReLU), written back over h ---------------------
-  zero<W>(acc);
-  accumulate<W>(acc, h, W, net.k[depth], pg, lane);
-  __syncthreads();
-  store<W, BF16, false>(acc, net.b[depth], h, pg, lane, false);
-  __syncthreads();
-
-  // ---- views layer: [feature, d_pe] -> W/2, ReLU ------------------------
-  float accv[8][4];
-  zero<W / 2>(accv);
-  const float* vk = net.k[depth + 2];
-  accumulate<W / 2>(accv, h, W, vk, pg, lane);
-  accumulate<W / 2>(accv, ped, net.in_ch_views,
-                    vk + static_cast<size_t>(W) * (W / 2), pg, lane);
-  __syncthreads();
-  store<W / 2, BF16, true>(accv, net.b[depth + 2], h, pg, lane, fast);
-  __syncthreads();
-
-  // ---- rgb head (rgb [W/2][3]): thread -> (channel, point) ---------------
-  if (tid < 3 * P) {
-    const int c = tid / P, p = tid % P;
-    const float* rk = net.k[depth + 3];
-    float s = 0.f;
-    for (int k = 0; k < W / 2; ++k) s = fmaf(h[k * P + p], __ldg(rk + k * 3 + c), s);
-    raw[c * P + p] = s + __ldg(net.b[depth + 3] + c);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = cg + 16 * j;
+    const float b = __ldg(vb + col);
+    const float w[3] = {__ldg(rk + 3 * col), __ldg(rk + 3 * col + 1), __ldg(rk + 3 * col + 2)};
+#pragma unroll
+    for (int p = 0; p < PT; ++p) {
+      const float v = round_cd<BF16>(fmaxf(accv[p][j] + b, 0.f));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s[c][p] = fmaf(v, w[c], s[c][p]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float b = __ldg(net.b[depth + 3] + c);
+#pragma unroll
+    for (int p = 0; p < PT; ++p) {
+      const float t = group_sum(s[c][p]);
+      if (cg == 0) core.raw[c * TILE + p0 + p] = t + b;
+    }
   }
   __syncthreads();
 }
 
+// core.pts [6][TILE] (written and synchronised) -> the encodings in core.x
+// and core.d, rounded to the compute type (zero past each encoding's
+// channels), then mlp_tile.
+template <int TILE, bool BF16, bool TRUE_COS>
+__device__ __forceinline__ void run_tile(Core<TILE>& core, const Net& net) {
+  constexpr int HS = TILE + 4;
+  for (int idx = threadIdx.x; idx < core.rx * TILE; idx += THREADS) {
+    const int c = idx / TILE, p = idx % TILE;
+    core.x[c * HS + p] = round_cd<BF16>(encode<TRUE_COS>(core.pts + p, TILE, c, net.in_ch));
+  }
+  for (int idx = threadIdx.x; idx < core.rd * TILE; idx += THREADS) {
+    const int c = idx / TILE, p = idx % TILE;
+    core.d[c * HS + p] =
+        round_cd<BF16>(encode<TRUE_COS>(core.pts + 3 * TILE + p, TILE, c, net.in_ch_views));
+  }
+  __syncthreads();
+  mlp_tile<TILE, BF16>(core, net);
+}
+
+}  // namespace f32
 }  // namespace nerf
 
-// The shape limits the kernels were written for; the Python wrapper checks
-// them before every launch and raises on anything else. Defined once in
-// each shared library (each includes this header from one source).
+// The shape limits of the cores and the bytes of a net's packed weights;
+// the Python wrapper checks them before every launch and raises on anything
+// else. Defined once in each shared library (each includes this header
+// from one source).
 extern "C" {
 int nerf_width() { return nerf::W; }
 int nerf_max_layers() { return nerf::MAX_LAYERS; }
-int nerf_max_in_ch() { return nerf::PX; }
-int nerf_max_in_ch_views() { return nerf::PD; }
+int nerf_max_in_ch() { return nerf::MAX_X; }
+int nerf_max_in_ch_views() { return nerf::MAX_D; }
+// bytes of the FP32 core's packed weights (raymarch.py pack_f32_weights)
+long long nerf_f32_plan_bytes(int depth, unsigned skip_mask, int in_ch, int in_ch_views) {
+  return nerf::f32::make_plan(nullptr, depth, skip_mask, in_ch, in_ch_views).tile_bytes();
+}
 }

@@ -6,9 +6,10 @@
 // render_tile.cu (replacing `_render_tile_kernel`) and of nerf_mlp.cu's
 // PROJECTION and ENCODED stages (replacing `_mlp_widepe_kernel` and
 // `_mlp_kernel`) run their MLP here; every float32 instantiation, and
-// nerf_mlp.cu's TRUE_COS stage (`_mlp_pe_kernel`) in both types, keep the
+// nerf_mlp.cu's TRUE_COS stage (`_mlp_pe_kernel`) in both types, run the
 // FP32 core of nerf_mlp.cuh. Same function as that core in bf16
-// (nerf_mlp.cuh states the rounding), on tiles of 128 points.
+// (nerf_mlp.cuh states the rounding and the net shapes taken: a narrower
+// net comes zero-padded to W = 256), on tiles of 128 points.
 //
 // Bound on the card: operations on the tensor cores. One point costs
 // 593,408 bf16 multiply-adds; at the published 989 TFLOP/s a launch on
@@ -26,8 +27,11 @@
 //     swizzle), so one warpgroup barrier, not a block barrier, stands
 //     between layers. (Kept in registers as the next layer's A fragments,
 //     the 64 packed registers beside the 128 accumulators spilled.);
-//   - the encodings x_pe (63 -> 64 channels) and d_pe (27 -> 32, in a
-//     64-wide chunk) are written once per tile into A tiles of their own;
+//   - the encodings x_pe (up to 128 channels, in one or two 64-wide
+//     chunks; 63 -> 64 by default) and d_pe (up to 64, in one chunk, of
+//     which the views layer multiplies the k16 steps that hold channels:
+//     27 -> 32 by default) are written once per tile into A tiles of their
+//     own, zero past the channels;
 //     the skip layer [x_pe, h] and the views layer [feature, d_pe] are two
 //     partial sums into the same accumulators;
 //   - the alpha (256 -> 1) and rgb (128 -> 3) heads run on the CUDA cores
@@ -37,10 +41,11 @@
 // pack_wgmma_weights) into bf16 chunks of 64 input rows, each in the exact
 // shared-memory image the B descriptor reads ([N][64], 128-byte swizzle):
 // 34 chunks of 32 KB (N = 256) and 5 of 16 KB (views, N = 128), 1.196 MB
-// for the default 8x256 net. Thread 0 streams them with one
-// cp.async.bulk each into a ring of STAGES = 3 stages, so two chunks are in
-// flight while one multiplies, and a warpgroup frees a chunk only after
-// issuing its next one, so the tensor core has the next product queued.
+// for the default 8x256 net. Thread 0 streams them with one cp.async.bulk
+// each through a ring of STAGES = 3 stages (the Ring of nerf_mlp.cuh, which
+// the FP32 core shares), so two chunks are in flight while one multiplies,
+// and a warpgroup frees a chunk only after issuing its next one, so the
+// tensor core has the next product queued.
 // Blocks are persistent (one per SM) and the ring runs on from one tile
 // into the next. Each 128-point tile still reads all 1.196 MB from L2: at
 // S = 192, 12,288 tiles read 14.7 GB per launch, served by the 50 MB L2.
@@ -60,38 +65,32 @@ constexpr int CHUNK_K = 64;                       // input rows per chunk
 constexpr int CHUNK_BYTES = W * CHUNK_K * 2;      // 32 KB, N = 256
 constexpr int VIEWS_CHUNK_BYTES = (W / 2) * CHUNK_K * 2;  // 16 KB, N = 128
 constexpr int A_CHUNK_BYTES = P * CHUNK_K * 2;    // 8 KB: [64 rows][64] bf16
-constexpr int A_BYTES = (W / CHUNK_K + 2) * A_CHUNK_BYTES;  // x_pe, h, d_pe
+constexpr int SMEM_ALIGN = 1024;                  // the swizzle's repeat
+
+using Ring = nerf::Ring<STAGES>;
+
+// A chunks of a net's x_pe: 1, or 2 when it has more than 64 channels.
+inline int x_chunks(int in_ch) { return (in_ch + CHUNK_K - 1) / CHUNK_K; }
 
 // Shared memory of the core, in bytes from a 1024-aligned base: the ring,
-// each warpgroup's A tiles (x_pe, h in 4 chunks, d_pe: every layer's input
-// chunks lie contiguous, in the order the ring delivers the weights), each
-// warpgroup's [6][P] points and [4][P] raw outputs, then the ring's
-// barriers.
-constexpr int RING_OFF = 0;
-constexpr int A_OFF = RING_OFF + STAGES * CHUNK_BYTES;
-constexpr int PTS_OFF = A_OFF + 2 * A_BYTES;
-constexpr int RAW_OFF = PTS_OFF + 2 * 6 * P * 4;
-constexpr int BAR_OFF = RAW_OFF + 2 * 4 * P * 4;
-constexpr int CORE_BYTES = BAR_OFF + 2 * STAGES * 8;
-constexpr int SMEM_ALIGN = 1024;                  // the swizzle's repeat
+// each warpgroup's A tiles (nx x_pe chunks, h in 4, d_pe in 1: every
+// layer's input chunks lie contiguous, in the order the ring delivers the
+// weights), each warpgroup's [6][P] points and [4][P] raw outputs, then
+// the ring's barriers.
+__host__ __device__ constexpr int a_bytes(int nx) { return (nx + W / CHUNK_K + 1) * A_CHUNK_BYTES; }
+__host__ __device__ constexpr int core_bytes(int nx) {
+  return STAGES * CHUNK_BYTES + 2 * a_bytes(nx) + 2 * 10 * P * 4 + 2 * STAGES * 8;
+}
 
 // The packed weights of one net and its chunk order per tile: layer 0
 // (x_pe), each trunk layer i >= 1 (x_pe first after a skip, then four h
 // chunks), feature (four), then views (four feature chunks and one d_pe
 // chunk, N = 128).
-struct Plan {
-  const unsigned char* packed;
-  int per_tile;  // chunks per tile
-  int n256;      // of which N = 256 (all but the views layer's five)
-};
-
-inline Plan make_plan(const void* packed, int depth, unsigned skip_mask) {
-  const int n256 = 1 + 4 * (depth - 1) + __builtin_popcount(skip_mask) + 4;
-  return Plan{static_cast<const unsigned char*>(packed), n256 + 5, n256};
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+inline Plan make_plan(const void* packed, int depth, unsigned skip_mask, int in_ch) {
+  const int nx = x_chunks(in_ch), h = W / CHUNK_K;
+  const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcount(skip_mask) + h;
+  return Plan{static_cast<const unsigned char*>(packed), n_wide + h + 1, n_wide, CHUNK_BYTES,
+              VIEWS_CHUNK_BYTES};
 }
 
 // wgmma descriptor of a K-major bf16 operand with 128-byte swizzle: rows of
@@ -125,106 +124,6 @@ __device__ __forceinline__ void wg_publish(int group) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   wg_barrier(group);
 }
-
-// The weight ring: the block's chunks go round STAGES stages in order;
-// full[s] completes when a chunk's bytes landed, empty[s] when all 8 warps
-// are done with it. Thread 0 issues every copy. Every thread tracks the
-// stage and phase of the chunk it acquires next and of the oldest chunk it
-// still holds; thread 0 also the next chunk to issue. No 64-bit division:
-// its subroutine call would spill the accumulators.
-struct Ring {
-  unsigned char* buf;
-  uint64_t* full;
-  uint64_t* empty;
-  Plan plan;
-  long long left;     // thread 0: chunks still to issue
-  int next_q;         // thread 0: index within its tile of the next chunk to issue
-  int read_stage;     // the chunk acquired next
-  uint32_t read_phase;
-  int free_stage;     // the oldest chunk held
-  uint32_t free_phase;
-
-  __device__ void init(long long total) {
-    read_stage = free_stage = 0;
-    read_phase = free_phase = 0;
-    left = total;
-    next_q = 0;
-    if (threadIdx.x == 0) {
-      for (int s = 0; s < STAGES; ++s) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(full + s)));
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                     ::"r"(smem_addr(empty + s)), "r"(THREADS / 32));
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int s = 0; s < STAGES && left > 0; ++s) issue(s);
-    }
-  }
-
-  // Thread 0: the next chunk of the sequence into stage s.
-  __device__ void issue(int s) {
-    const int q = next_q;
-    const int bytes = q < plan.n256 ? CHUNK_BYTES : VIEWS_CHUNK_BYTES;
-    const size_t off = q < plan.n256
-        ? static_cast<size_t>(q) * CHUNK_BYTES
-        : static_cast<size_t>(plan.n256) * CHUNK_BYTES +
-              static_cast<size_t>(q - plan.n256) * VIEWS_CHUNK_BYTES;
-    const uint32_t bar = smem_addr(full + s);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(bar), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        ::"r"(smem_addr(buf + s * CHUNK_BYTES)), "l"(plan.packed + off), "r"(bytes),
-          "r"(bar) : "memory");
-    next_q = q + 1 == plan.per_tile ? 0 : q + 1;
-    --left;
-  }
-
-  __device__ static void wait(uint64_t* bar, uint32_t parity) {
-    uint32_t done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n.reg .pred p;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-    }
-  }
-
-  // The shared address of the next chunk, once it has landed.
-  __device__ uint32_t acquire() {
-    wait(full + read_stage, read_phase);
-    const uint32_t addr = smem_addr(buf + read_stage * CHUNK_BYTES);
-    if (++read_stage == STAGES) {
-      read_stage = 0;
-      read_phase ^= 1u;
-    }
-    return addr;
-  }
-
-  // This warp is done with its oldest chunk (the wgmma that read it
-  // completed); thread 0 then refills the stage with the chunk STAGES
-  // further on, once every warp is done with it.
-  __device__ void release() {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) {
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                   ::"r"(smem_addr(empty + free_stage)) : "memory");
-    }
-    if (threadIdx.x == 0 && left > 0) {
-      wait(empty + free_stage, free_phase);
-      issue(free_stage);
-    }
-    __syncwarp();
-    if (++free_stage == STAGES) {
-      free_stage = 0;
-      free_phase ^= 1u;
-    }
-  }
-};
 
 // acc += A B on one k16 step, m64n256k16: A [64 x 16] and B [16 x 256] bf16 in
 // shared memory behind their descriptors (K-major, 128-byte swizzle).
@@ -379,23 +278,25 @@ __device__ __forceinline__ float row_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The warpgroup's encodings, bf16, into its x_pe and d_pe A tiles; pts is
-// its [6][P] point tile. Thread lane of warp w writes rows 16w + lane/4
-// (+8), channel pairs 2*(lane%4) + 8i.
+// The warpgroup's encodings, bf16, into its nx x_pe A chunks and its d_pe
+// chunk (every column, zero past each encoding's channels); pts is its
+// [6][P] point tile. Thread lane of warp w writes rows 16w + lane/4 (+8),
+// channel pairs 2*(lane%4) + 8i.
 __device__ __forceinline__ void encode_tiles(const float* pts, unsigned char* xt,
-                                             unsigned char* dt, const Net& net) {
+                                             unsigned char* dt, const Net& net, int nx) {
   const int lane = threadIdx.x & 31;
   const int row0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int n_x = 2 * (CHUNK_K / 8) * nx;  // steps over the x_pe chunks
 #pragma unroll 1
-  for (int i = 0; i < 2 * (CHUNK_K / 8 + PD / 8); ++i) {
-    const bool view = i >= 2 * (CHUNK_K / 8);
-    const int k = view ? i - 2 * (CHUNK_K / 8) : i;
+  for (int i = 0; i < n_x + 2 * (CHUNK_K / 8); ++i) {
+    const bool view = i >= n_x;
+    const int k = view ? i - n_x : i;
     const int row = row0 + 8 * (k & 1);
     const int col = 8 * (k >> 1) + 2 * (lane & 3);
     const float* xyz = pts + (view ? 3 * P : 0) + row;
     const int n_ch = view ? net.in_ch_views : net.in_ch;
-    store_bf16x2(view ? dt : xt, row, col, encode<false>(xyz, col, n_ch),
-                 encode<false>(xyz, col + 1, n_ch));
+    store_bf16x2(view ? dt : xt, row, col, encode<false>(xyz, P, col, n_ch),
+                 encode<false>(xyz, P, col + 1, n_ch));
   }
 }
 
@@ -424,37 +325,44 @@ __device__ __forceinline__ void load_encoding(const float* __restrict__ src, int
   }
 }
 
-// The warpgroup's x_pe and d_pe A tiles (a: x_pe, h chunks 1-4, d_pe) from
-// rows [0, here) of x_pe [*, in_ch] and d_pe [*, in_ch_views]: all CHUNK_K
-// columns of x_pe, the PD columns of d_pe that the views layer reads.
+// The warpgroup's x_pe and d_pe A tiles (a: nx x_pe chunks, 4 h chunks,
+// d_pe) from rows [0, here) of x_pe [*, in_ch] and d_pe [*, in_ch_views]:
+// every column of each.
 __device__ __forceinline__ void load_encodings(const float* x_pe, const float* d_pe, int here,
-                                               unsigned char* a, const Net& net) {
-  load_encoding<CHUNK_K>(x_pe, net.in_ch, here, a);
-  load_encoding<PD>(d_pe, net.in_ch_views, here, a + 5 * A_CHUNK_BYTES);
+                                               unsigned char* a, const Net& net, int nx) {
+  if (nx == 1) {
+    load_encoding<CHUNK_K>(x_pe, net.in_ch, here, a);
+  } else {
+    load_encoding<2 * CHUNK_K>(x_pe, net.in_ch, here, a);
+  }
+  load_encoding<CHUNK_K>(d_pe, net.in_ch_views, here, a + (nx + W / CHUNK_K) * A_CHUNK_BYTES);
 }
 
 // The MLP on one warpgroup's 64 points, whose encodings encode_tiles left
-// in its A tiles (a: x_pe, h chunks 1-4, d_pe; published): raw [4][P]
+// in its A tiles (a: nx x_pe chunks, 4 h chunks, d_pe; published): raw [4][P]
 // (r, g, b logits, sigma) of the warpgroup, written by the lanes that hold
-// each row. Consumes the tile's plan.per_tile chunks from the ring. FAST:
-// net.fast_epilogue, as a template flag.
-template <bool FAST>
+// each row. Consumes the tile's plan.per_tile chunks from the ring. FAST
+// (net.fast_epilogue), nx (the x_pe chunks, 1 or 2) and the views layer's
+// last k16 steps are template flags: as runtime values they cost the
+// registers the 128 accumulators need: the kernel spills and runs slower
+// (chip_variants.py times the runtime-nx variant).
+template <bool FAST, int nx>
 __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, const Net& net,
                                                Ring& ring, int group) {
   const int lane = threadIdx.x & 31;
   const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   const uint32_t x = smem_addr(a);            // x_pe, then h, then d_pe
-  const uint32_t h = x + A_CHUNK_BYTES;
-  unsigned char* h_tile = a + A_CHUNK_BYTES;
+  const uint32_t h = x + nx * A_CHUNK_BYTES;
+  unsigned char* h_tile = a + nx * A_CHUNK_BYTES;
   float acc[W / 2];
 
   // ---- trunk -------------------------------------------------------------
   for (int i = 0; i < net.depth; ++i) {
     zero<W>(acc);
     if (i == 0) {
-      layer_mma<W, 4>(acc, x, 1, ring);
+      layer_mma<W, 4>(acc, x, nx, ring);
     } else if ((net.skip_mask >> (i - 1)) & 1u) {
-      layer_mma<W, 4>(acc, x, 5, ring);    // [x_pe, h]
+      layer_mma<W, 4>(acc, x, nx + 4, ring);  // [x_pe, h]
     } else {
       layer_mma<W, 4>(acc, h, 4, ring);
     }
@@ -492,7 +400,13 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
   // ---- views layer: [feature, d_pe] -> W/2, ReLU -------------------------
   float accv[W / 4];
   zero<W / 2>(accv);
-  layer_mma<W / 2, PD / 16>(accv, h, 5, ring);   // [feature, d_pe]
+  // [feature, d_pe], over the d_pe chunk's k16 steps that hold channels
+  switch ((net.in_ch_views + 15) / 16) {
+    case 1: layer_mma<W / 2, 1>(accv, h, 5, ring); break;
+    case 2: layer_mma<W / 2, 2>(accv, h, 5, ring); break;
+    case 3: layer_mma<W / 2, 3>(accv, h, 5, ring); break;
+    default: layer_mma<W / 2, 4>(accv, h, 5, ring); break;
+  }
   // the rgb head reads the registers: nothing to store
   epilogue<W / 2, true, FAST>(accv, net.b[net.depth + 2], nullptr);
 
@@ -522,31 +436,34 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
 
 // Pointers into the core's shared memory, from the kernel's dynamic
 // shared buffer (aligned up to SMEM_ALIGN here; launches ask for
-// CORE_BYTES + SMEM_ALIGN plus their own part).
+// core_bytes(nx) + SMEM_ALIGN plus their own part).
 struct Core {
   unsigned char* base;  // 1024-aligned
   Ring ring;
-  unsigned char* a;     // this warpgroup's A tiles: x_pe, h (4 chunks), d_pe
+  unsigned char* a;     // this warpgroup's A tiles: x_pe (nx chunks), h (4), d_pe
   float* pts;           // this warpgroup's [6][P]
   float* raw;           // this warpgroup's [4][P]
   int group;            // warpgroup 0 or 1
+  int nx;               // x_pe chunks
 };
 
 // The ring is set up by Ring::init, called by every thread.
-__device__ __forceinline__ Core make_core(void* dyn, const Plan& plan) {
+__device__ __forceinline__ Core make_core(void* dyn, const Plan& plan, int nx) {
   Core c;
   // offset from the shared array itself, so the compiler still knows every
   // pointer below is shared (plain st.shared / ld.shared, 32-bit addresses)
   const uint32_t pad = (SMEM_ALIGN - (smem_addr(dyn) & (SMEM_ALIGN - 1))) & (SMEM_ALIGN - 1);
   c.base = static_cast<unsigned char*>(dyn) + pad;
-  c.ring.buf = c.base + RING_OFF;
-  c.ring.full = reinterpret_cast<uint64_t*>(c.base + BAR_OFF);
-  c.ring.empty = c.ring.full + STAGES;
+  unsigned char* tiles = c.base + STAGES * CHUNK_BYTES;  // after the ring
+  c.ring.buf = c.base;
   c.ring.plan = plan;
   c.group = threadIdx.x >> 7;
-  c.a = c.base + A_OFF + c.group * A_BYTES;
-  c.pts = reinterpret_cast<float*>(c.base + PTS_OFF) + c.group * 6 * P;
-  c.raw = reinterpret_cast<float*>(c.base + RAW_OFF) + c.group * 4 * P;
+  c.nx = nx;
+  c.a = tiles + c.group * a_bytes(nx);
+  c.pts = reinterpret_cast<float*>(tiles + 2 * a_bytes(nx)) + c.group * 6 * P;
+  c.raw = reinterpret_cast<float*>(tiles + 2 * a_bytes(nx)) + 2 * 6 * P + c.group * 4 * P;
+  c.ring.full = reinterpret_cast<uint64_t*>(tiles + 2 * a_bytes(nx) + 2 * 10 * P * 4);
+  c.ring.empty = c.ring.full + STAGES;
   return c;
 }
 
@@ -556,7 +473,11 @@ __device__ __forceinline__ Core make_core(void* dyn, const Plan& plan) {
 template <bool FAST>
 __device__ __forceinline__ void mlp_tile(Core& core, const Net& net) {
   wg_publish(core.group);
-  mlp_core_wgmma<FAST>(core.a, core.raw, net, core.ring, core.group);
+  if (core.nx == 1) {
+    mlp_core_wgmma<FAST, 1>(core.a, core.raw, net, core.ring, core.group);
+  } else {
+    mlp_core_wgmma<FAST, 2>(core.a, core.raw, net, core.ring, core.group);
+  }
   wg_barrier(core.group);
 }
 
@@ -564,27 +485,18 @@ __device__ __forceinline__ void mlp_tile(Core& core, const Net& net) {
 // (published by a warpgroup barrier): encode, then mlp_tile.
 template <bool FAST>
 __device__ __forceinline__ void run_tile(Core& core, const Net& net) {
-  encode_tiles(core.pts, core.a, core.a + 5 * A_CHUNK_BYTES, net);
+  encode_tiles(core.pts, core.a, core.a + (core.nx + W / CHUNK_K) * A_CHUNK_BYTES, net, core.nx);
   mlp_tile<FAST>(core, net);
-}
-
-// Sets the dynamic shared memory and launches `kernel` on one persistent
-// block per SM (at most `work` blocks). Returns a cudaError_t value.
-template <typename... Params, typename... Args>
-int launch_persistent(void (*kernel)(Params...), long long work, size_t smem_bytes,
-                      cudaStream_t stream, Args... args) {
-  int dev = 0, sms = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem_bytes > static_cast<size_t>(smem_max)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch(kernel, work < sms ? work : sms, smem_bytes, stream, args...);
 }
 
 }  // namespace wg
 }  // namespace nerf
+
+// Bytes of the wgmma core's packed weights (raymarch.py pack_wgmma_weights);
+// the view encoding always fits its one chunk. Defined once in each shared
+// library, as the limits of nerf_mlp.cuh.
+extern "C" long long nerf_wgmma_plan_bytes(int depth, unsigned skip_mask, int in_ch,
+                                           int in_ch_views) {
+  (void)in_ch_views;
+  return nerf::wg::make_plan(nullptr, depth, skip_mask, in_ch).tile_bytes();
+}

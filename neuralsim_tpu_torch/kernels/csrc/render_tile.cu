@@ -18,23 +18,25 @@
 // Outputs: rgb [N,3], disp [N], acc [N], weights [N,S], depth [N]. The raw
 // field never leaves the chip. Forward only, as the TPU kernel.
 //
-// Bound on this card: operations, the FP32 rate in float32 (nerf_mlp.cuh)
-// and the bf16 tensor-core rate in bf16 (nerf_mlp_wgmma.cuh; 1.888 ms at
-// 8192 rays x 192 samples); per sample it reads 4 bytes of z and writes 4
-// bytes of weight.
+// Bound on this card: operations, the FP32 rate in float32 (nerf_mlp.cuh;
+// 27.86 ms at 8192 rays x 192 samples) and the bf16 tensor-core rate in
+// bf16 (nerf_mlp_wgmma.cuh; 1.888 ms); per sample it reads 4 bytes of z and
+// writes 4 bytes of weight.
 //
-// Design: a block owns R whole rays (R*S points) and runs the MLP over
-// them in sub-tiles, keeping each sub-tile's raw outputs and depths in
-// shared [4][R*S] and [R*S] buffers:
-//   - float32: R = 64 / gcd(S, 64) where that keeps R*S <= 1024 (R = 1 for
-//     S = 64 and 192), 64-point sub-tiles on the FP32 core of nerf_mlp.cuh,
-//     one block per R rays;
-//   - bf16: R = 128 / gcd(S, 128) where that keeps R*S <= 1024 (R = 2 for
-//     S = 64 and 192), 128-point sub-tiles on the wgmma core of
-//     nerf_mlp_wgmma.cuh, persistent blocks that walk ray groups
-//     blockIdx.x, +gridDim.x, ... while the packed bf16 weights stream
-//     through the core's shared-memory ring (the header reckons the weight
-//     traffic).
+// Design: persistent blocks walk groups of R whole rays (R*S points,
+// groups blockIdx.x, +gridDim.x, ...) and run the MLP over each group in
+// sub-tiles of the core's tile, keeping the raw outputs and depths in
+// shared [4][R*S] and [R*S] buffers beside the core. The MLP:
+//   - float32: sub-tiles of 128 or 64 points on the FP32 core of
+//     nerf_mlp.cuh, R up to 128 / gcd(S, 128) (or 64 / gcd(S, 64)): the tile
+//     and R that waste the least of the FP32 pipes, given what the buffers
+//     leave room for (128 points and R = 2 for S = 64 and 192, 64 points
+//     and R = 4 for S = 144);
+//   - bf16: 128-point sub-tiles on the wgmma core of nerf_mlp_wgmma.cuh,
+//     R = 128 / gcd(S, 128) where the buffers fit (R = 2 for S = 64 and
+//     192), else the fewest rays that fill one sub-tile.
+// Both stream their packed weights through the core's shared-memory ring
+// (each header reckons the weight traffic).
 // When all of a block's points are in, the block turns every point's
 // density into alpha and its logits into sigmoids in parallel; then thread
 // r runs ray r's exclusive product and sums over shared memory in sample
@@ -49,9 +51,8 @@ using namespace nerf;
 
 namespace {
 
-// R * S limit of the gcd rule: [5][R*S] floats of shared memory beside
-// the FP32 core's 89 KB, or the wgmma core's 198 KB
-constexpr int MAX_POINTS = 1024;
+// shared bytes per point of a ray group: raw [4] and z
+constexpr int POINT_BYTES = 5 * 4;
 
 // Alpha-composites the block's n_here rays from shared ray_raw [4][stride]
 // (r, g, b logits, sigma; sigma and the logits are overwritten) and ray_z
@@ -117,12 +118,13 @@ __device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, in
 
 // Point l of the block's T = n_here * S points (rays from ray0): its
 // depth into ray_z[l] and x = o + d * z (no fma, like the reference) into
-// column p of a [6][P] tile; zero past T.
+// column p of a [6][stride] tile; zero past T.
 __device__ __forceinline__ void ray_point(const float* __restrict__ rays_o,
                                           const float* __restrict__ rays_d,
                                           const float* __restrict__ viewdirs,
                                           const float* __restrict__ z_vals, long long ray0,
-                                          int S, int l, int T, float* ray_z, float* pts, int p) {
+                                          int S, int l, int T, float* ray_z, float* pts,
+                                          int stride, int p) {
   float x[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (l < T) {
     const long long ray = ray0 + l / S;
@@ -135,49 +137,63 @@ __device__ __forceinline__ void ray_point(const float* __restrict__ rays_o,
     }
   }
 #pragma unroll
-  for (int c = 0; c < 6; ++c) pts[c * P + p] = x[c];
+  for (int c = 0; c < 6; ++c) pts[c * stride + p] = x[c];
 }
 
-__global__ void __launch_bounds__(THREADS)
-render_tile_kernel(const float* __restrict__ rays_o,
-                   const float* __restrict__ rays_d,
-                   const float* __restrict__ viewdirs,
-                   const float* __restrict__ z_vals, long long n_rays,
-                   int n_samples, int rays_per_block, Net net, int white_bkgd,
-                   float* __restrict__ rgb_map, float* __restrict__ disp_map,
-                   float* __restrict__ acc_map, float* __restrict__ weights,
-                   float* __restrict__ depth_map) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* pex = smem;              // [PX][P] position encoding
-  float* ped = pex + PX * P;      // [PD][P] view encoding
-  float* h = ped + PD * P;        // [W][P]  activations
-  float* raw = h + W * P;         // [4][P]  r, g, b logits, sigma
-  float* pts = raw + 4 * P;       // [6][P]  x, y, z, vx, vy, vz
-  float* ray_raw = pts + 6 * P;   // [4][R*S] the block's raw field
-  float* ray_z = ray_raw + 4 * rays_per_block * n_samples;  // [R*S] depths
+// The sub-tiles of TILE points that a block runs over its ray groups.
+template <int TILE>
+__device__ __forceinline__ long long block_tiles(long long n_rays, int S, int R) {
+  const long long groups = (n_rays + R - 1) / R;
+  long long tiles = 0;
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long long n_here = n_rays - grp * R < R ? n_rays - grp * R : R;
+    tiles += (n_here * S + TILE - 1) / TILE;
+  }
+  return tiles;
+}
 
+// float32: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays
+// in sub-tiles of TILE points on the FP32 core.
+template <int TILE>
+__global__ void __launch_bounds__(THREADS, 1)
+render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+                const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
+                long long n_rays, int n_samples, int rays_per_block, Net net, Plan plan,
+                int rx, int rd, int white_bkgd, float* __restrict__ rgb_map,
+                float* __restrict__ disp_map, float* __restrict__ acc_map,
+                float* __restrict__ weights, float* __restrict__ depth_map) {
+  extern __shared__ float4 smem4[];
   const int tid = threadIdx.x;
   const int S = n_samples;
-  const int stride = rays_per_block * S;
-  const long long ray0 = static_cast<long long>(blockIdx.x) * rays_per_block;
-  const int n_here = static_cast<int>(
-      n_rays - ray0 < rays_per_block ? n_rays - ray0 : rays_per_block);
-  const int T = n_here * S;
-
-  for (int t0 = 0; t0 < T; t0 += P) {
-    // ---- point generation: x = o + d * z (no fma, like the reference) ----
-    if (tid < P) ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, t0 + tid, T, ray_z, pts, tid);
-    __syncthreads();
-    encode_tile<false, false>(pts, pex, ped, net);
-    __syncthreads();
-    mlp_core<false>(pex, ped, h, raw, net);
-    // raw is next written after two more barriers of the next sub-tile
-    const int c = tid / P, p = tid % P;  // THREADS == 4 * P
-    if (t0 + p < T) ray_raw[c * stride + t0 + p] = raw[c * P + p];
+  const int R = rays_per_block;
+  const int stride = R * S;
+  const long long groups = (n_rays + R - 1) / R;
+  f32::Core<TILE> core = f32::make_core<TILE>(smem4, plan, rx, rd);
+  // [4][R*S] the group's raw field, then [R*S] its depths
+  unsigned char* core_end = reinterpret_cast<unsigned char*>(smem4) + f32::core_bytes(TILE, rx, rd);
+  float* ray_raw = reinterpret_cast<float*>(core_end);
+  float* ray_z = ray_raw + 4 * stride;
+  core.ring.init(block_tiles<TILE>(n_rays, S, R) * plan.per_tile);
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long long ray0 = grp * R;
+    const int n_here = static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R);
+    const int T = n_here * S;
+    for (int t0 = 0; t0 < T; t0 += TILE) {
+      __syncthreads();  // the previous sub-tile's raw outputs are read
+      if (tid < TILE) {
+        ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, t0 + tid, T, ray_z, core.pts, TILE,
+                  tid);
+      }
+      __syncthreads();
+      f32::run_tile<TILE, false, false>(core, net);
+      for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
+        const int c = idx / TILE, p = idx % TILE;
+        if (t0 + p < T) ray_raw[c * stride + t0 + p] = core.raw[c * TILE + p];
+      }
+    }
+    composite(ray_raw, ray_z, stride, n_here, S, ray0, rays_d, white_bkgd, rgb_map, disp_map,
+              acc_map, weights, depth_map);
   }
-  composite(ray_raw, ray_z, stride, n_here, S, ray0, rays_d, white_bkgd, rgb_map, disp_map,
-            acc_map, weights, depth_map);
 }
 
 // bf16: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays;
@@ -188,7 +204,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                   const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
                   long long n_rays, int n_samples, int rays_per_block, Net net,
-                  wg::Plan plan, int white_bkgd, float* __restrict__ rgb_map,
+                  Plan plan, int nx, int white_bkgd, float* __restrict__ rgb_map,
                   float* __restrict__ disp_map, float* __restrict__ acc_map,
                   float* __restrict__ weights, float* __restrict__ depth_map) {
   extern __shared__ float4 smem4[];
@@ -196,15 +212,10 @@ render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ra
   const int R = rays_per_block;
   const int stride = R * S;
   const long long groups = (n_rays + R - 1) / R;
-  long long tiles = 0;  // 128-point sub-tiles this block runs
-  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
-    const long long n_here = n_rays - grp * R < R ? n_rays - grp * R : R;
-    tiles += (n_here * S + wg::TILE - 1) / wg::TILE;
-  }
-  wg::Core core = wg::make_core(smem4, plan);
-  float* ray_raw = reinterpret_cast<float*>(core.base + wg::CORE_BYTES);  // [4][R*S]
-  float* ray_z = ray_raw + 4 * stride;                                    // [R*S]
-  core.ring.init(tiles * plan.per_tile);
+  wg::Core core = wg::make_core(smem4, plan, nx);
+  float* ray_raw = reinterpret_cast<float*>(core.base + wg::core_bytes(nx));  // [4][R*S]
+  float* ray_z = ray_raw + 4 * stride;                                        // [R*S]
+  core.ring.init(block_tiles<wg::TILE>(n_rays, S, R) * plan.per_tile);
   const int t = threadIdx.x & 127;
   for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const long long ray0 = grp * R;
@@ -213,7 +224,9 @@ render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ra
     for (int t0 = 0; t0 < T; t0 += wg::TILE) {
       const int l0 = t0 + core.group * P;  // this warpgroup's first point
       wg::wg_barrier(core.group);          // the previous sub-tile's pts and raw are read
-      if (t < P) ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, l0 + t, T, ray_z, core.pts, t);
+      if (t < P) {
+        ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, l0 + t, T, ray_z, core.pts, P, t);
+      }
       wg::wg_barrier(core.group);
       wg::run_tile<FAST>(core, net);
       for (int idx = t; idx < 4 * P; idx += 128) {
@@ -235,24 +248,68 @@ int gcd(int a, int b) {
   return a;
 }
 
-// Rays per block for S samples per ray: R*S a multiple of the `tile`-point
-// sub-tile where that keeps R*S <= max_points, else the fewest rays that
-// fill one sub-tile.
+// bf16 rays per group for S samples per ray: R*S a multiple of the
+// `tile`-point sub-tile where that keeps R*S <= max_points, else the fewest
+// rays that fill one sub-tile.
 int block_rays(int n_samples, int tile, int max_points) {
   const int r = tile / gcd(n_samples, tile);
   if (r * n_samples <= max_points) return r;
   return n_samples >= tile ? 1 : (tile + n_samples - 1) / n_samples;
 }
 
+// 64-point tiles run the FP32 core at this fraction of the 128-point
+// tiles' rate per point (kernel 1, float32, on an H100: 0.80-0.87)
+constexpr float TILE64_RATE = 0.85f;
+
+// The float32 sub-tile (128 or 64) and rays per group for S samples: of the
+// ray counts up to tile / gcd(S, tile) whose buffers fit beside each tile's
+// core, the pair that runs the group's points fastest, counting the pad
+// points of its last sub-tile and TILE64_RATE; 0 if none fits.
+int pick_f32(int n_samples, int rx, int rd, int smem_max, int* tile, int* rays) {
+  float best = 0.f;
+  const int tiles[2] = {128, 64};
+  for (const int t : tiles) {
+    const long long room = smem_max - f32::core_bytes(t, rx, rd);
+    const int most = t / gcd(n_samples, t);
+    for (int r = 1; r <= most && static_cast<long long>(r) * n_samples * POINT_BYTES <= room;
+         ++r) {
+      const long long points = static_cast<long long>(r) * n_samples;
+      const float rate = (t == 128 ? 1.f : TILE64_RATE) * static_cast<float>(points) /
+                         static_cast<float>((points + t - 1) / t * t);
+      if (rate > best) {
+        best = rate;
+        *tile = t;
+        *rays = r;
+      }
+    }
+  }
+  return best > 0.f;
+}
+
+// Shared bytes of the bf16 kernel's core (aligned) for a net's x_pe.
+int wgmma_core(int in_ch) { return wg::core_bytes(wg::x_chunks(in_ch)) + wg::SMEM_ALIGN; }
+
 }  // namespace
 
 extern "C" {
 
+// The most samples per ray the kernel takes in this dtype for a net's
+// encodings (one ray per group), from the device's shared memory; 0 when
+// the core alone does not fit.
+int render_tile_max_samples(int bf16, int in_ch, int in_ch_views) {
+  int smem_max = 0;
+  if (smem_optin(&smem_max) != 0) return 0;
+  const int core = bf16 ? wgmma_core(in_ch)
+                        : f32::core_bytes(64, f32::rows(in_ch), f32::rows(in_ch_views));
+  return smem_max > core ? (smem_max - core) / POINT_BYTES : 0;
+}
+
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
-// for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb; packed:
-// the bf16 weight chunks of raymarch.py pack_wgmma_weights (bf16 only,
-// 16-byte aligned). Returns a cudaError_t value: 0 when the launch was
-// accepted.
+// for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
+// to the cores' width; packed: the weight chunks of the core this dtype
+// runs (raymarch.py pack_f32_weights in float32, pack_wgmma_weights in
+// bf16; 16-byte aligned). Returns a cudaError_t value: 0 when the launch
+// was accepted.
 int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
                 const float* z_vals, long long n_rays, int n_samples,
                 const void* const* weights, int depth, unsigned skip_mask,
@@ -263,31 +320,39 @@ int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
   const int err = make_net(weights, depth, skip_mask, in_ch, in_ch_views,
                            fast_epilogue, &net);
   if (err != 0) return err;
-  if (n_samples < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_samples < 1 || packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int smem_max = 0;
+  const int e = smem_optin(&smem_max);
+  if (e != 0) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16) {
+    const int nx = wg::x_chunks(in_ch);
+    const int room = smem_max - wgmma_core(in_ch);
+    const int rays = block_rays(n_samples, wg::TILE, room / POINT_BYTES);
+    if (room < 0 || static_cast<long long>(rays) * n_samples * POINT_BYTES > room) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int rays = block_rays(n_samples, wg::TILE, MAX_POINTS);
-    if (static_cast<long long>(rays) * n_samples > MAX_POINTS) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const size_t smem = wg::CORE_BYTES + wg::SMEM_ALIGN +
-                        5 * static_cast<size_t>(rays) * n_samples * sizeof(float);
-    return wg::launch_persistent(fast_epilogue ? render_tile_wgmma<true> : render_tile_wgmma<false>,
-                                 (n_rays + rays - 1) / rays, smem, s,
-                                 rays_o, rays_d, viewdirs, z_vals, n_rays, n_samples, rays,
-                                 net, wg::make_plan(packed, depth, skip_mask), white_bkgd,
-                                 rgb_map, disp_map, acc_map, weights_out, depth_map);
+    const size_t smem = wgmma_core(in_ch) + static_cast<size_t>(rays) * n_samples * POINT_BYTES;
+    return launch_persistent(fast_epilogue ? render_tile_wgmma<true> : render_tile_wgmma<false>,
+                             (n_rays + rays - 1) / rays, smem, s,
+                             rays_o, rays_d, viewdirs, z_vals, n_rays, n_samples, rays,
+                             net, wg::make_plan(packed, depth, skip_mask, in_ch), nx, white_bkgd,
+                             rgb_map, disp_map, acc_map, weights_out, depth_map);
   }
-  const int rays = block_rays(n_samples, P, MAX_POINTS);
-  const long long blocks = (n_rays + rays - 1) / rays;
+  const int rx = f32::rows(in_ch), rd = f32::rows(in_ch_views);
+  int tile = 0, rays = 0;
+  if (!pick_f32(n_samples, rx, rd, smem_max, &tile, &rays)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Plan plan = f32::make_plan(packed, depth, skip_mask, in_ch, in_ch_views);
   const size_t smem =
-      (CORE_FLOATS + 6 * P + 5 * static_cast<size_t>(rays) * n_samples) * sizeof(float);
-  return launch(render_tile_kernel, blocks, smem, s, rays_o, rays_d, viewdirs, z_vals,
-                n_rays, n_samples, rays, net, white_bkgd, rgb_map, disp_map, acc_map,
-                weights_out, depth_map);
+      f32::core_bytes(tile, rx, rd) + static_cast<size_t>(rays) * n_samples * POINT_BYTES;
+  return launch_persistent(tile == 128 ? render_tile_f32<128> : render_tile_f32<64>,
+                           (n_rays + rays - 1) / rays, smem, s, rays_o, rays_d, viewdirs, z_vals,
+                           n_rays, n_samples, rays, net, plan, rx, rd, white_bkgd, rgb_map,
+                           disp_map, acc_map, weights_out, depth_map);
 }
 
 }  // extern "C"

@@ -15,9 +15,13 @@ PyTorch twin. Every wrapper computes in bfloat16 unless asked for float32,
 as the JAX package's wrappers do. In bfloat16, ``nerf_march.cu``,
 ``render_tile.cu`` and ``nerf_mlp.cu``'s projection and encoded stages
 (``fused_nerf_mlp_widepe``, ``fused_nerf_mlp``) multiply on the tensor
-cores (``nerf_mlp_wgmma.cuh``) from weights that ``pack_wgmma_weights``
-lays out once per weight set; float32, and ``fused_nerf_mlp_pe`` in both
-types, run the FP32 core (``nerf_mlp.cuh``). Gradients of the first four
+cores (``nerf_mlp_wgmma.cuh``) from the chunks of ``pack_wgmma_weights``;
+float32, and ``fused_nerf_mlp_pe`` in both types, run the FP32 core
+(``nerf_mlp.cuh``) from the chunks of ``pack_f32_weights``. Both cores take
+a trunk of up to 256 (a narrower net is zero-padded to it by ``pad_params``,
+which is exact) and encodings of multires <= 20, multires_views <= 10; the
+padded weights and their chunks are prepared once per weight set, dtype and
+core (``_packed_weights``). Gradients of the first four
 recompute through a twin in float32, as the JAX custom_vjp backwards do;
 ``fused_render_tile`` is forward only, as in JAX, and raises when asked for
 a gradient on the card.
@@ -117,8 +121,68 @@ def _depth(params) -> int:
     return sum(1 for k in params if k.startswith("pts_") and k.endswith("kernel"))
 
 
+# ------------------------------------------------------ weight layouts --
+
+def _pad_kernel(k: torch.Tensor, blocks, cols: int) -> torch.Tensor:
+    """k [sum n, c] as [sum m, cols]: for each (n, m) of ``blocks`` the next
+    n rows of k, then m - n zero rows; zero columns past c."""
+    out = k.new_zeros((sum(m for _, m in blocks), cols))
+    src = dst = 0
+    for n, m in blocks:
+        out[dst:dst + n, :k.shape[1]] = k[src:src + n]
+        src, dst = src + n, dst + m
+    return out
+
+
+def pad_params(params: Dict[str, torch.Tensor], net: NeRFNetConfig,
+               width: int) -> Dict[str, torch.Tensor]:
+    """A view-direction net's kernels and biases zero-padded to a trunk of
+    ``width`` (views layer ``width // 2``), the shapes the CUDA cores take.
+
+    Exact: a pad column has zero weights and a zero bias, so it holds +0
+    after its ReLU (and after the feature layer's plain bias); the pad rows
+    of the next layer and of the alpha, views and rgb heads are zero and
+    multiply those zeros; adding +0 to a float32 (or bf16) sum leaves it as
+    it was. Returns ``params`` itself when it has that width already."""
+    depth = _depth(params)
+    w = params["pts_0_kernel"].shape[1]
+    w2 = params["views_0_kernel"].shape[1]
+    if w == width and w2 == width // 2:
+        return params
+    x, v = net.input_ch, params["views_0_kernel"].shape[0] - w
+    layers = {f"pts_{i}": ([(x, x)] if i == 0 else
+                           [(x, x), (w, width)] if (i - 1) in net.skips else [(w, width)], width)
+              for i in range(depth)}
+    layers.update(feature=([(w, width)], width), alpha=([(w, width)], 1),
+                  views_0=([(w, width), (v, v)], width // 2), rgb=([(w2, width // 2)], 3))
+    out = {}
+    for name, (blocks, cols) in layers.items():
+        out[f"{name}_kernel"] = _pad_kernel(params[f"{name}_kernel"], blocks, cols)
+        bias = params[f"{name}_bias"]
+        out[f"{name}_bias"] = bias.new_zeros(cols)
+        out[f"{name}_bias"][:bias.shape[0]] = bias
+    return out
+
+
+def _segments(params, net: NeRFNetConfig) -> List[torch.Tensor]:
+    """The [K, N] kernel slices the trunk, feature and views layers multiply,
+    in the order the cores consume them: layer 0 (x_pe), each later trunk
+    layer (its x_pe rows first after a skip), the feature layer, then the
+    views layer (feature rows, then d_pe rows)."""
+    depth = _depth(params)
+    segs = [params["pts_0_kernel"]]
+    for i in range(1, depth):
+        k = params[f"pts_{i}_kernel"]
+        segs += [k[:net.input_ch], k[net.input_ch:]] if (i - 1) in net.skips else [k]
+    views = params["views_0_kernel"]
+    n_feature = views.shape[0] - net.input_ch_views
+    return segs + [params["feature_kernel"], views[:n_feature], views[n_feature:]]
+
+
 # wgmma weight chunks (nerf_mlp_wgmma.cuh): 64 input rows each
 CHUNK_K = 64
+# FP32-core weight chunks (nerf_mlp.cuh): 16 input rows each
+F32_CHUNK_K = 16
 
 
 def _swizzled_chunks(w: torch.Tensor) -> torch.Tensor:
@@ -137,59 +201,102 @@ def _swizzled_chunks(w: torch.Tensor) -> torch.Tensor:
     return units[:, rows, logical].reshape(-1)
 
 
+def _f32_chunks(w: torch.Tensor) -> torch.Tensor:
+    """A kernel [K, N] (N a multiple of 64) as flat float32 chunks of
+    F32_CHUNK_K input rows (K padded with zero rows), each row's columns in
+    the order the FP32 core's threads read them: position 64q + 4cg + e of
+    a row holds column cg + 16 (4q + e), so column group cg's four float4
+    lie beside its neighbours'."""
+    k, n = w.shape
+    kp = -(-k // F32_CHUNK_K) * F32_CHUNK_K
+    rows = torch.zeros((kp, n), dtype=torch.float32, device=w.device)
+    rows[:k] = w.detach().to(torch.float32)
+    pos = torch.arange(n, device=w.device)
+    return rows[:, (pos // 4) % 16 + 16 * (4 * (pos // 64) + pos % 4)].reshape(-1)
+
+
 def pack_wgmma_weights(params: Dict[str, torch.Tensor], net: NeRFNetConfig) -> torch.Tensor:
     """The trunk, feature and views kernels as the flat bf16 chunks that
-    the bf16 kernels stream, in the order they consume them: layer 0
-    (x_pe), each later trunk layer (its x_pe rows first after a skip), the
-    feature layer, then the views layer (feature rows, then d_pe rows).
+    the bf16 kernels stream, in the order they consume them (``_segments``).
     1.196 MB for the default 8x256 net."""
-    depth = _depth(params)
-    parts = [_swizzled_chunks(params["pts_0_kernel"])]
-    for i in range(1, depth):
-        k = params[f"pts_{i}_kernel"]
-        if (i - 1) in net.skips:
-            parts += [_swizzled_chunks(k[:net.input_ch]), _swizzled_chunks(k[net.input_ch:])]
-        else:
-            parts.append(_swizzled_chunks(k))
-    views = params["views_0_kernel"]
-    n_feature = views.shape[0] - net.input_ch_views
-    parts += [_swizzled_chunks(params["feature_kernel"]),
-              _swizzled_chunks(views[:n_feature]), _swizzled_chunks(views[n_feature:])]
-    return torch.cat(parts)
+    return torch.cat([_swizzled_chunks(w) for w in _segments(params, net)])
 
 
-def wgmma_bytes(depth: int, n_skips: int, width: int) -> int:
-    """Bytes of ``pack_wgmma_weights`` for a net whose x_pe and d_pe fit one
-    chunk each: the chunk plan of nerf_mlp_wgmma.cuh (width 256: 34 chunks
-    of [256][64] and 5 of [128][64])."""
-    h = -(-width // CHUNK_K)                      # chunks of a width-wide input
-    n_wide = 1 + h * (depth - 1) + n_skips + h
+def pack_f32_weights(params: Dict[str, torch.Tensor], net: NeRFNetConfig) -> torch.Tensor:
+    """The trunk, feature and views kernels as the flat float32 chunks that
+    the FP32 core streams, in the order it consumes them (``_segments``).
+    2.376 MB for the default 8x256 net."""
+    return torch.cat([_f32_chunks(w) for w in _segments(params, net)])
+
+
+def wgmma_bytes(depth: int, n_skips: int, width: int, in_ch: int = CHUNK_K) -> int:
+    """Bytes of ``pack_wgmma_weights`` for a net of trunk ``width`` whose
+    x_pe has ``in_ch`` channels and whose d_pe fits one chunk: the chunk
+    plan of nerf_mlp_wgmma.cuh (width 256, in_ch 63: 34 chunks of
+    [256][64] and 5 of [128][64])."""
+    h, nx = -(-width // CHUNK_K), -(-in_ch // CHUNK_K)
+    n_wide = nx + h * (depth - 1) + nx * n_skips + h
     return (n_wide * width + (h + 1) * (width // 2)) * CHUNK_K * 2
 
 
-# packed weights of the last few weight sets, keyed by the tensors' ids and
-# versions; the entry holds the tensors, so an id is not reused while cached
+def f32_bytes(depth: int, n_skips: int, width: int, in_ch: int, in_ch_views: int) -> int:
+    """Bytes of ``pack_f32_weights`` for a net of trunk ``width``: the chunk
+    plan of nerf_mlp.cuh (width 256, encodings 63 / 27: 136 chunks of
+    [16][256] and 18 of [16][128])."""
+    h, nx, nd = (-(-c // F32_CHUNK_K) for c in (width, in_ch, in_ch_views))
+    n_wide = nx + h * (depth - 1) + nx * n_skips + h
+    return (n_wide * width + (h + nd) * (width // 2)) * F32_CHUNK_K * 4
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+# prepared weights of the last few (weight set, dtype, core), keyed by the
+# tensors' ids and versions; the entry holds the tensors, so an id is not
+# reused while cached
 _PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PACKED_SETS = 8
 
 
-def _packed_weights(params, net: NeRFNetConfig, depth: int, what: str) -> torch.Tensor:
-    """pack_wgmma_weights, once per weight set (an in-place update of a
-    weight packs again); checked against the kernels' chunk plan."""
-    tensors = tuple(params[k] for k in param_keys(depth))
+def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, wgmma: bool, lib,
+                    what: str):
+    """(padded weights in ``param_keys`` order, packed chunks) of one weight
+    set for a launch: every weight zero-padded to the cores' width
+    (``pad_params``) and each kernel rounded to bf16 in bf16; from them the
+    chunks of ``pack_wgmma_weights`` (wgmma) or ``pack_f32_weights`` (the
+    FP32 core), checked against the library's chunk plan. Once per weight
+    set, dtype and core; an in-place update of a weight prepares again."""
+    keys = param_keys(depth)
+    tensors = tuple(params[k] for k in keys)
     key = (tuple((id(t), t._version) for t in tensors), net.input_ch, net.input_ch_views,
-           tuple(net.skips))
+           tuple(net.skips), bf16, wgmma)
     if key in _PACKED:
         _PACKED.move_to_end(key)
-        return _PACKED[key][1]
-    packed = pack_wgmma_weights(params, net)
-    width = params["pts_0_kernel"].shape[1]
-    if packed.numel() * 2 != wgmma_bytes(depth, len(net.skips), width) or packed.data_ptr() % 16:
-        raise ValueError(f"{what}: packed weights of {packed.numel() * 2} bytes at "
-                         f"{packed.data_ptr():#x} do not match the kernel's chunk plan")
-    _PACKED[key] = (tensors, packed)
-    if len(_PACKED) > 4:
+        return _PACKED[key][1:]
+    padded = pad_params({k: t.detach().to(torch.float32) for k, t in zip(keys, tensors)}, net,
+                        lib.nerf_width())
+    if bf16:
+        padded = {k: round_to(t, torch.bfloat16) if k.endswith("kernel") else t
+                  for k, t in padded.items()}
+    weights = [_aligned(padded[k]) for k in keys]
+    skip_mask = sum(1 << sk for sk in net.skips)
+    if wgmma:
+        packed = pack_wgmma_weights(padded, net)
+        want = lib.nerf_wgmma_plan_bytes(depth, skip_mask, net.input_ch, net.input_ch_views)
+    else:
+        packed = pack_f32_weights(padded, net)
+        want = lib.nerf_f32_plan_bytes(depth, skip_mask, net.input_ch, net.input_ch_views)
+    nbytes = packed.numel() * packed.element_size()
+    if nbytes != want or packed.data_ptr() % 16:
+        raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
+                         f"{packed.data_ptr():#x} do not match the kernel's chunk plan "
+                         f"({want} bytes)")
+    _PACKED[key] = (tensors, weights, packed)
+    if len(_PACKED) > _PACKED_SETS:
         _PACKED.popitem(last=False)
-    return packed
+    return weights, packed
 
 
 _NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_uint,
@@ -203,36 +310,44 @@ _ARGTYPES = {
                     + _NET_ARGS + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                     + [ctypes.c_void_p] * 6),
 }
+# every library's queries: (name, argtypes, restype)
+_QUERIES = [(fn, [], ctypes.c_int) for fn in ("nerf_width", "nerf_max_layers",
+                                              "nerf_max_in_ch", "nerf_max_in_ch_views")] + [
+    (fn, [ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
+    for fn in ("nerf_f32_plan_bytes", "nerf_wgmma_plan_bytes")]
 
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     fn_name, argtypes = _ARGTYPES[name]
-    getattr(lib, fn_name).argtypes = argtypes
-    getattr(lib, fn_name).restype = ctypes.c_int
-    for fn in ("nerf_width", "nerf_max_layers", "nerf_max_in_ch", "nerf_max_in_ch_views"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = ctypes.c_int
+    queries = _QUERIES + ([("render_tile_max_samples", [ctypes.c_int] * 3, ctypes.c_int)]
+                          if name == "render_tile" else [])
+    for fn, args, res in [(fn_name, argtypes, ctypes.c_int)] + queries:
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = res
     return lib
 
 
 def _check_supported(params, net: NeRFNetConfig, lib, what: str) -> int:
-    """Raise NotImplementedError for a net the kernels were not written
-    for; returns the trunk depth."""
+    """Raise NotImplementedError for a net the kernels do not take (a width
+    below the cores' is padded); returns the trunk depth."""
     depth = _depth(params)
-    width = lib.nerf_width()
     if not net.use_viewdirs or net.i_embed != 0:
         raise NotImplementedError(f"{what} kernel: needs use_viewdirs=True and i_embed=0")
-    if (net.input_ch > lib.nerf_max_in_ch()
-            or net.input_ch_views > lib.nerf_max_in_ch_views()
+    max_x, max_d = lib.nerf_max_in_ch(), lib.nerf_max_in_ch_views()
+    if (net.input_ch > max_x or net.input_ch_views > max_d
             or depth + 4 > lib.nerf_max_layers()):
         raise NotImplementedError(
-            f"{what} kernel: multires<=10, multires_views<=4 and "
-            f"depth<={lib.nerf_max_layers() - 4} only, got {net}")
+            f"{what} kernel: multires<={(max_x - 3) // 6}, multires_views<={(max_d - 3) // 6} "
+            f"and depth<={lib.nerf_max_layers() - 4} only, got {net}")
     if any(s >= depth - 1 for s in net.skips):
         raise NotImplementedError(f"{what} kernel: a skip after the last "
                                   "trunk layer is not supported")
+    width = params["pts_0_kernel"].shape[1]
+    if width > lib.nerf_width():
+        raise NotImplementedError(f"{what} kernel: trunk width {width} exceeds the kernels' "
+                                  f"{lib.nerf_width()}")
     expect = {"pts_0_kernel": (net.input_ch, width),
               "feature_kernel": (width, width), "alpha_kernel": (width, 1),
               "views_0_kernel": (width + net.input_ch_views, width // 2),
@@ -244,7 +359,7 @@ def _check_supported(params, net: NeRFNetConfig, lib, what: str) -> int:
         if tuple(params[key].shape) != shape:
             raise NotImplementedError(
                 f"{what} kernel: {key} is {tuple(params[key].shape)}, "
-                f"the kernel takes {shape} (trunk width {width})")
+                f"expected {shape} for trunk width {width}")
     return depth
 
 
@@ -266,35 +381,19 @@ def _inputs(what: str, device, *specs):
     return out
 
 
-def _net_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str):
-    """The C interface's net arguments, and the weight tensors to keep
-    alive until the launch has been queued."""
+def _net_args(params, net: NeRFNetConfig, device, bf16: bool, wgmma: bool, lib, what: str):
+    """The C interface's net arguments (the packed chunks of the core the
+    launch runs: wgmma or the FP32 core), and the tensors to keep alive
+    until the launch has been queued."""
     depth = _check_supported(params, net, lib, what)
-    weights = []
     for key in param_keys(depth):
-        w = params[key].detach()
-        if w.device != device:
-            raise ValueError(f"{what}: {key} is on {w.device}, the inputs on {device}")
-        w = w.to(torch.float32)
-        if bf16 and key.endswith("kernel"):
-            w = round_to(w, torch.bfloat16)
-        w = w.contiguous()
-        if w.data_ptr() % 16:
-            w = w.clone()
-        weights.append(w)
+        if params[key].device != device:
+            raise ValueError(f"{what}: {key} is on {params[key].device}, the inputs on {device}")
+    weights, packed = _packed_weights(params, net, depth, bf16, wgmma, lib, what)
     ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
     skip_mask = sum(1 << sk for sk in net.skips)
-    return [ptrs, depth, skip_mask, net.input_ch, net.input_ch_views, int(bf16)], weights
-
-
-def _wgmma_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str):
-    """_net_args plus the packed bf16 weights (None in float32) of the
-    sources with a wgmma core."""
-    net_args, weights = _net_args(params, net, device, bf16, lib, what)
-    if not bf16:
-        return net_args + [None], weights
-    packed = _packed_weights(params, net, net_args[1], what)
-    return net_args + [packed.data_ptr()], weights + [packed]
+    return ([ptrs, depth, skip_mask, net.input_ch, net.input_ch_views, int(bf16),
+             packed.data_ptr()], weights + [packed])
 
 
 def _run(fn, device, what: str, *args):
@@ -315,8 +414,8 @@ def _launch(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
     n, s = z_vals.shape
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
-    net_args, _weights = _wgmma_args(params, net, device, _is_bf16(compute_dtype, what), lib,
-                                     what)
+    bf16 = _is_bf16(compute_dtype, what)
+    net_args, _weights = _net_args(params, net, device, bf16, bf16, lib, what)
     sigma = torch.empty((n, s), dtype=torch.float32, device=device)
     rgb = torch.empty((3, n, s), dtype=torch.float32, device=device)
     if n * s == 0:
@@ -342,11 +441,8 @@ def _launch_mlp(kind: str, params, a, b, net: NeRFNetConfig,
     ins = _inputs(what, device, ("first input", a, (m, widths[0])),
                   ("second input", b, (m, widths[1])))
     bf16 = _is_bf16(compute_dtype, what)
-    if kind == "pe":  # the true-cos stage runs the FP32 core in both types
-        net_args, _weights = _net_args(params, net, device, bf16, lib, what)
-        net_args.append(None)
-    else:
-        net_args, _weights = _wgmma_args(params, net, device, bf16, lib, what)
+    # the true-cos stage runs the FP32 core in both types
+    net_args, _weights = _net_args(params, net, device, bf16, bf16 and kind != "pe", lib, what)
     raw = torch.empty((m, 4), dtype=torch.float32, device=device)
     if m == 0:
         return raw
@@ -367,14 +463,15 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
     device = z_vals.device
     n, s = z_vals.shape
     bf16 = _is_bf16(compute_dtype, what)
-    # a block keeps its rays' raw field in shared memory beside its MLP core
-    max_samples = 1024 if bf16 else 2048
-    if s > max_samples:
-        raise NotImplementedError(f"{what} kernel: at most {max_samples} samples per ray in "
-                                  f"{compute_dtype}, got {s}")
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
-    net_args, _weights = _wgmma_args(params, net, device, bf16, lib, what)
+    net_args, _weights = _net_args(params, net, device, bf16, bf16, lib, what)
+    # a block keeps its rays' raw field in shared memory beside its MLP core
+    with torch.cuda.device(device):
+        max_samples = lib.render_tile_max_samples(int(bf16), net.input_ch, net.input_ch_views)
+    if s > max_samples:
+        raise NotImplementedError(f"{what} kernel: at most {max_samples} samples per ray in "
+                                  f"{compute_dtype} for this net, got {s}")
     f32 = dict(dtype=torch.float32, device=device)
     rgb, disp, acc = torch.empty((n, 3), **f32), torch.empty(n, **f32), torch.empty(n, **f32)
     weights, depth = torch.empty((n, s), **f32), torch.empty(n, **f32)

@@ -14,9 +14,11 @@ with ``rc.use_pallas``:
 - else the point-major kernel (``fused_nerf_mlp_widepe``, through
   ``query_points``) and ``raw2outputs``.
 
-On a CPU tensor, or with ``rc.use_pallas=False``, every route takes the
-plain ``query_points`` (encoding form from ``rc.pe_projection``) plus
-``raw2outputs``, as the JAX package does off the TPU.
+On a CPU tensor, with ``rc.use_pallas=False``, or for a net without view
+directions or without an encoding, every route takes the plain
+``query_points`` (encoding form from ``rc.pe_projection``) plus
+``raw2outputs``, as the JAX package does off the TPU (and for such nets on
+it).
 
 Production routes, as in the JAX package: with an occupancy grid and
 ``rc.hit_budget < 1`` only a top-k budget of rays is rendered
@@ -129,14 +131,12 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
 
 
 def _kernel_route(rays_o, net: NeRFNetConfig, rc: RenderConfig) -> bool:
-    """Whether a march goes through a CUDA kernel; raises for a net the
-    port's kernel routes do not cover on the card."""
-    if not (raymarch.uses_kernel(rays_o) and rc.use_pallas):
-        return False
-    if not (net.use_viewdirs and net.i_embed != -1):
-        raise NotImplementedError(
-            "march without view directions or encoding on the card: later slice")
-    return True
+    """Whether a march goes through a CUDA kernel: on the card with
+    ``rc.use_pallas``, for a net with view directions and an encoding. A net
+    without either marches through the plain ``query_points`` +
+    ``raw2outputs`` on any device, as the JAX package's ``_march`` does."""
+    return (raymarch.uses_kernel(rays_o) and rc.use_pallas and net.use_viewdirs
+            and net.i_embed != -1)
 
 
 def _plain_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,

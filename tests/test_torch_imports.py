@@ -1,5 +1,6 @@
-"""Guard: the port and its chip check import neither JAX nor the JAX
-package, and its kernel sources never ask for fast-math sines."""
+"""Guard: the port and its chip scripts import neither JAX nor the JAX
+package, its kernel sources never ask for fast-math sines, and its
+subpackages export the names of the JAX ones that are ported."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "neuralsim_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
 KERNELS = sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cuh"))
 
 
@@ -50,3 +51,41 @@ def test_kernels_use_accurate_sines():
         text = path.read_text()
         assert "use_fast_math" not in text, path
         assert "__sinf" not in text and "__cosf" not in text, path
+
+
+SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackages_export_the_ported_names(sub):
+    """Each subpackage's __all__ names import, each is a name of the JAX
+    counterpart's __all__, and every name of that list that the port
+    defines anywhere is exported (what is left out is not ported yet)."""
+    import importlib
+
+    port = importlib.import_module(f"neuralsim_tpu_torch.{sub}")
+    ref = importlib.import_module(f"neuralsim_tpu.{sub}")
+    assert port.__all__ and len(set(port.__all__)) == len(port.__all__)
+    assert set(port.__all__) <= set(ref.__all__)
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    defined = "\n".join(p.read_text() for p in PORT.rglob("*.py"))
+    for name in set(ref.__all__) - set(port.__all__):
+        assert f"def {name}(" not in defined and f"class {name}(" not in defined, name
+
+
+def test_from_imports_of_the_subpackages():
+    from neuralsim_tpu_torch.bilevel import psi_init
+    from neuralsim_tpu_torch.data import load_nerf_checkpoint
+    from neuralsim_tpu_torch.models import nerf_apply
+    from neuralsim_tpu_torch.ops import get_rays, render_poses
+    from neuralsim_tpu_torch.ops import render as render_module
+    from neuralsim_tpu_torch.sampler import poses_from_noise
+
+    assert render_poses is render_module.render_poses
+    assert all(callable(f) for f in (psi_init, load_nerf_checkpoint, nerf_apply, get_rays,
+                                     poses_from_noise))
+    with pytest.raises(AttributeError):
+        import neuralsim_tpu_torch.ops as ops
+
+        ops.not_a_name

@@ -1,0 +1,357 @@
+"""Net shapes beyond the default on the port's kernel path.
+
+- A net without view directions or without an encoding marches through the
+  plain ``query_points`` + ``raw2outputs`` on the card too, as in the JAX
+  package: no kernel launches, and the render equals the JAX one.
+- A trunk narrower than the cores' 256 is zero-padded to it
+  (``raymarch.pad_params``), which is exact; encodings up to multires 20 /
+  multires_views 10 fit the cores. The padded weights are packed into the
+  FP32 core's float32 chunks (``pack_f32_weights``) and the wgmma core's
+  bf16 chunks; the FP32 core's consumption of its chunks is emulated here
+  layer by layer, as ``csrc/nerf_mlp.cuh`` runs it.
+
+The CUDA kernels themselves run only on the card, where chip_smoke.py holds
+them against their twins on the same nets.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from bench import box_scene_params as jax_box_scene
+from neuralsim_tpu import config as jcfg
+from neuralsim_tpu.ops.render import render_ray_batch as jax_render_ray_batch
+from neuralsim_tpu_torch import config as tcfg
+from neuralsim_tpu_torch.kernels import raymarch as rm
+from neuralsim_tpu_torch.models import nerf as tnerf
+from neuralsim_tpu_torch.models.convert import params_from_numpy
+from neuralsim_tpu_torch.models.nerf import init_nerf_params, nerf_apply, round_to
+from neuralsim_tpu_torch.ops import render as trender
+from neuralsim_tpu_torch.ops.encoding import positional_encoding
+from tests.test_torch_render_tile import kernel_route  # noqa: F401  (a fixture)
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+# the nets the chip check also runs: 4 x 128, and 100 wide with longer
+# encodings (75 and 39 channels, past the default 64 / 32 rows)
+NETS = {
+    "default": dict(),
+    "w128x4": dict(netdepth=4, netwidth=128, netdepth_fine=4, netwidth_fine=128, skips=(2,)),
+    "w100_m12_6": dict(netdepth=4, netwidth=100, netdepth_fine=4, netwidth_fine=100, skips=(2,),
+                       multires=12, multires_views=6),
+}
+
+
+def _rays(rng, n):
+    rays_o = (rng.randn(n, 3) * 0.02 + np.array([0, 0, 1.01])).astype(np.float32)
+    rays_d = (rng.randn(n, 3) * 0.05 + np.array([0, 0, -1.0])).astype(np.float32)
+    return rays_o, rays_d
+
+
+def _render_both(rng, jnet, tnet, models, **render):
+    """The JAX package's render_ray_batch and the port's on the same numpy
+    rays and weights (test mode; rays from the pipeline's camera sphere
+    toward the box, the default near and far)."""
+    render = dict(n_samples=16, n_importance=16, ray_chunk=16, **render)
+    rays_o, rays_d = _rays(rng, 40)
+    want = jax_render_ray_batch(models, rays_o, rays_d, None, jnet,
+                                jcfg.RenderConfig(**render).test_mode())
+    got = trender.render_ray_batch(params_from_numpy(models, "cpu"), torch.from_numpy(rays_o),
+                                   torch.from_numpy(rays_d), tnet,
+                                   tcfg.RenderConfig(**render).test_mode())
+    assert set(got) == set(want)
+    assert float(np.asarray(want["acc_map"]).max()) > 0.5        # rays hit the box
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), err_msg=k, **TOL)
+
+
+def _no_viewdirs_box(net_kw):
+    """The box scene as a net without view directions: the box trunk, and
+    an output head [W, 4] whose density column is the box's alpha head and
+    whose rgb columns are small random weights."""
+    jnet = jcfg.NeRFNetConfig(**net_kw)
+    box = {k: np.array(v) for k, v in jax_box_scene(jnet, jax.random.PRNGKey(0)).items()}
+    rgb = np.random.RandomState(0).randn(jnet.netwidth, 3).astype(np.float32) * 0.3
+    head = np.concatenate([rgb, box["alpha_kernel"]], axis=1)
+    params = {k: v for k, v in box.items()
+              if k.startswith("pts_")}
+    params.update(output_kernel=head, output_bias=np.zeros(4, np.float32))
+    return params
+
+
+SMALL = dict(netdepth=4, netwidth=32, netdepth_fine=4, netwidth_fine=32, skips=(2,))
+
+
+@pytest.mark.parametrize("which", ["no_viewdirs", "identity_embed"])
+def test_plain_nets_march_without_kernels_on_the_card(rng, kernel_route, which):
+    """(d) With the kernel predicate forced (the card's dispatch) and
+    use_pallas, a use_viewdirs=False net and an i_embed=-1 net render
+    through the plain query_points + raw2outputs: no launch of any kernel,
+    and the render equals the JAX package's."""
+    if which == "no_viewdirs":
+        net_kw = dict(SMALL, use_viewdirs=False)
+        params = _no_viewdirs_box(dict(SMALL))
+    else:
+        net_kw = dict(SMALL, i_embed=-1)
+        params = {k: np.array(v) for k, v in jax_box_scene(
+            jcfg.NeRFNetConfig(**net_kw), jax.random.PRNGKey(0)).items()}
+    for fn in (rm.fused_nerf_march, rm.fused_nerf_mlp_widepe, rm.fused_render_tile):
+        fn.launches = 0
+    tnet = tcfg.NeRFNetConfig(**net_kw)
+    for override in (dict(), dict(fuse_pointgen=False), dict(fuse_compositing=True),
+                     dict(reuse_coarse=True), dict(fine_fraction=0.5)):
+        _render_both(rng, jcfg.NeRFNetConfig(**net_kw), tnet,
+                     {"coarse": params, "fine": params}, **override)
+        assert trender._kernel_route(torch.zeros(1, 3), tnet, tcfg.RenderConfig()) is False
+    assert kernel_route == []
+    assert (rm.fused_nerf_march.launches, rm.fused_nerf_mlp_widepe.launches,
+            rm.fused_render_tile.launches) == (0, 0, 0)
+
+
+def test_view_direction_nets_still_take_the_kernel(kernel_route):
+    """The predicate stays true for a net with view directions and an
+    encoding: (d) adds no fallback."""
+    net = tcfg.NeRFNetConfig(**SMALL)
+    assert trender._kernel_route(torch.zeros(1, 3), net, tcfg.RenderConfig()) is True
+    assert trender._kernel_route(torch.zeros(1, 3), net,
+                                 tcfg.RenderConfig(use_pallas=False)) is False
+
+
+def _dense_in_order(h, kernel, bias, compute_dtype):
+    """_dense with the products summed in input-row order, one row at a
+    time, as the FP32 core sums them (BLAS may block a longer K otherwise)."""
+    h, k = round_to(h, compute_dtype), round_to(kernel, compute_dtype)
+    acc = torch.zeros(h.shape[0], k.shape[1])
+    for i in range(k.shape[0]):
+        acc = acc + h[:, i:i + 1] * k[i]
+    return acc + bias.to(torch.float32)
+
+
+def _encoded(net, m, seed):
+    g = torch.Generator().manual_seed(seed)
+    pts, dirs = torch.rand(m, 3, generator=g) * 2 - 1, torch.randn(m, 3, generator=g)
+    return (positional_encoding(pts, net.multires),
+            positional_encoding(dirs / dirs.norm(dim=-1, keepdim=True), net.multires_views))
+
+
+def _he(params):
+    """He-scaled kernels: activations of order 1 through the chain."""
+    return {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("width", [64, 100, 128, 256])
+def test_padded_twin_is_bit_equal(monkeypatch, width, dtype):
+    """(e) The twin on the weights padded to 256 equals the twin on the net's
+    own weights to the bit, with products summed in input order (the
+    FP32 core's order); with BLAS products, within float32 rounding."""
+    net = tcfg.NeRFNetConfig(netdepth=4, netwidth=width, netdepth_fine=4,
+                             netwidth_fine=width, skips=(2,))
+    params = _he(init_nerf_params(net, generator=torch.Generator().manual_seed(width)))
+    padded = rm.pad_params(params, net, 256)
+    assert padded["pts_1_kernel"].shape == (256, 256)
+    assert padded["pts_3_kernel"].shape == (net.input_ch + 256, 256)
+    assert padded["views_0_kernel"].shape == (256 + net.input_ch_views, 128)
+    assert padded["rgb_kernel"].shape == (128, 3) and padded["alpha_kernel"].shape == (256, 1)
+    x_pe, d_pe = _encoded(net, 64, width)
+    blas = (nerf_apply(params, x_pe, d_pe, net, compute_dtype=dtype),
+            nerf_apply(padded, x_pe, d_pe, net, compute_dtype=dtype))
+    monkeypatch.setattr(tnerf, "_dense", _dense_in_order)
+    got = nerf_apply(padded, x_pe, d_pe, net, compute_dtype=dtype)
+    want = nerf_apply(params, x_pe, d_pe, net, compute_dtype=dtype)
+    assert want.abs().max() > 0.1                             # not a vacuous zero field
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(blas[1], blas[0], rtol=1e-5, atol=1e-5)
+    if width == 256:
+        assert padded is params
+
+
+def _net(name):
+    return tcfg.NeRFNetConfig(**NETS[name])
+
+
+def _unpermute(chunk):
+    """A packed FP32-core chunk [16, N] back in column order."""
+    n = chunk.shape[1]
+    pos = torch.arange(n)
+    cols = (pos // 4) % 16 + 16 * (4 * (pos // 64) + pos % 4)
+    out = torch.empty_like(chunk)
+    out[:, cols] = chunk
+    return out
+
+
+class _Chunks:
+    """Reads a pack_f32_weights stream chunk by chunk, as the core's ring
+    delivers it."""
+
+    def __init__(self, packed):
+        self.packed, self.off = packed, 0
+
+    def next(self, n_cols):
+        size = rm.F32_CHUNK_K * n_cols
+        chunk = self.packed[self.off:self.off + size].reshape(rm.F32_CHUNK_K, n_cols)
+        self.off += size
+        return _unpermute(chunk)
+
+
+def _emulate_f32_core(packed, padded, net, x_pe, d_pe):
+    """raw [M,4] as csrc/nerf_mlp.cuh's mlp_tile computes it from the packed
+    chunks: x_pe and d_pe in tiles of 16-row chunks (zero rows past the
+    channels), layer i reads [x_pe chunks if i == 0 or after a skip, then 16
+    h chunks], the feature layer 16 h chunks, the views layer 16 feature
+    chunks then the d_pe chunks; heads from the layer outputs."""
+    def tiles(a):
+        rows = -(-a.shape[1] // rm.F32_CHUNK_K) * rm.F32_CHUNK_K
+        a = torch.nn.functional.pad(a, (0, rows - a.shape[1]))
+        return list(a.split(rm.F32_CHUNK_K, dim=1))
+
+    depth = rm._depth(padded)
+    ring = _Chunks(packed)
+    x_tiles, d_tiles = tiles(x_pe), tiles(d_pe)
+    h = None
+    for i in range(depth + 1):
+        with_x = i == 0 or (i < depth and (i - 1) in net.skips)
+        acts = (x_tiles if with_x else []) + (tiles(h) if i > 0 else [])
+        acc = sum(a @ ring.next(256) for a in acts)
+        name = f"pts_{i}" if i < depth else "feature"
+        v = acc + padded[f"{name}_bias"]
+        h = torch.relu(v) if i < depth else v
+        if i == depth - 1:
+            alpha = h @ padded["alpha_kernel"] + padded["alpha_bias"]
+    acc = sum(a @ ring.next(128) for a in tiles(h) + d_tiles)
+    v = torch.relu(acc + padded["views_0_bias"])
+    rgb = v @ padded["rgb_kernel"] + padded["rgb_bias"]
+    assert ring.off == packed.numel()                     # every chunk consumed once
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+@pytest.mark.parametrize("name", list(NETS))
+def test_f32_chunks_read_back_as_the_padded_weights(name):
+    """FP32 packing: each segment's 16-row chunks, read back through the
+    core's column order, are the padded kernel (zero rows past its K); the
+    byte count is the chunk plan of nerf_mlp.cuh."""
+    net = _net(name)
+    params = init_nerf_params(net, generator=torch.Generator().manual_seed(3))
+    padded = rm.pad_params(params, net, 256)
+    packed = rm.pack_f32_weights(padded, net)
+    assert packed.dtype == torch.float32 and packed.dim() == 1
+    ring = _Chunks(packed)
+    for seg in rm._segments(padded, net):
+        k, n = seg.shape
+        got = torch.cat([ring.next(n) for _ in range(-(-k // rm.F32_CHUNK_K))])
+        torch.testing.assert_close(got[:k], seg, rtol=0, atol=0)
+        assert not got[k:].any()
+    assert ring.off * 4 == packed.numel() * 4 == rm.f32_bytes(
+        net.netdepth, len(net.skips), 256, net.input_ch, net.input_ch_views)
+    if name == "default":
+        # 136 chunks of [16][256] and 18 of [16][128] float32
+        assert packed.numel() * 4 == (136 * 256 + 18 * 128) * 16 * 4 == 2_375_680
+    wgmma = rm.pack_wgmma_weights(padded, net)
+    assert wgmma.numel() * 2 == rm.wgmma_bytes(net.netdepth, len(net.skips), 256, net.input_ch)
+
+
+@pytest.mark.parametrize("name", list(NETS))
+def test_f32_core_order_computes_the_twin(name):
+    """The chunk stream consumed in the core's order gives the twin's raw
+    outputs: the packing, the plan and the layer walk of nerf_mlp.cuh agree."""
+    net = _net(name)
+    params = _he(init_nerf_params(net, generator=torch.Generator().manual_seed(4)))
+    padded = rm.pad_params(params, net, 256)
+    x_pe, d_pe = _encoded(net, 40, 5)
+    got = _emulate_f32_core(rm.pack_f32_weights(padded, net), padded, net, x_pe, d_pe)
+    want = nerf_apply(params, x_pe, d_pe, net)
+    assert want.abs().max() > 0.1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+class _FakeMarchLibrary:
+    """Stands in for the built nerf_march library (the CUDA headers' limits
+    and chunk plans) and records each call of the C entry."""
+
+    def __init__(self):
+        self.calls = []
+
+    nerf_width = staticmethod(lambda: 256)
+    nerf_max_layers = staticmethod(lambda: 20)
+    nerf_max_in_ch = staticmethod(lambda: 128)
+    nerf_max_in_ch_views = staticmethod(lambda: 64)
+
+    @staticmethod
+    def nerf_f32_plan_bytes(depth, skip_mask, in_ch, in_ch_views):
+        return rm.f32_bytes(depth, bin(skip_mask).count("1"), 256, in_ch, in_ch_views)
+
+    @staticmethod
+    def nerf_wgmma_plan_bytes(depth, skip_mask, in_ch, in_ch_views):
+        return rm.wgmma_bytes(depth, bin(skip_mask).count("1"), 256, in_ch)
+
+    def nerf_march(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_march(monkeypatch):
+    lib = _FakeMarchLibrary()
+    monkeypatch.setattr(rm, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(rm, "_library", lambda name: lib)
+    monkeypatch.setattr(rm, "_run", lambda fn, device, what, *args: fn(*args, None))
+    return lib
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6"])
+def test_march_launch_pads_and_packs(fake_march, name, dtype):
+    """(e) On the kernel route a narrow net with longer encodings reaches the
+    C entry padded to 256: every weight pointer is the padded tensor (bf16
+    kernels rounded), the packed pointer is the chunk stream of the core the
+    dtype runs, and the encodings' channel counts are the net's."""
+    net = _net(name)
+    params = init_nerf_params(net, generator=torch.Generator().manual_seed(6))
+    n, s = 5, 7
+    rays = [torch.rand(n, 3), torch.rand(n, 3), torch.rand(n, 3), torch.rand(n, s)]
+    rm.fused_nerf_march.launches = 0
+    with torch.no_grad():
+        rm.fused_nerf_march(params, *rays, net, compute_dtype=dtype)
+    (args,) = fake_march.calls
+    assert rm.fused_nerf_march.launches == 1
+    assert len(args) == len(rm._ARGTYPES["nerf_march"][1])
+    ptrs, depth, skip_mask, in_ch, in_ch_views, bf16, packed = args[6:13]
+    assert (depth, skip_mask, in_ch, in_ch_views) == (
+        net.netdepth, 1 << net.skips[0], net.input_ch, net.input_ch_views)
+    assert bf16 == int(dtype == torch.bfloat16)
+    weights, image = rm._packed_weights(params, net, depth, bool(bf16), bool(bf16),
+                                        fake_march, "test")
+    assert packed == image.data_ptr() and list(ptrs) == [w.data_ptr() for w in weights]
+    padded = {k: round_to(v, dtype) if k.endswith("kernel") else v
+              for k, v in rm.pad_params(params, net, 256).items()}
+    for key, w in zip(rm.param_keys(depth), weights):
+        torch.testing.assert_close(w, padded[key], rtol=0, atol=0, msg=key)
+    want = rm.pack_wgmma_weights(padded, net) if bf16 else rm.pack_f32_weights(padded, net)
+    torch.testing.assert_close(image, want, rtol=0, atol=0)
+
+
+def test_kernels_refuse_what_the_cores_do_not_take(fake_march):
+    """Width above 256, encodings past multires 20 / multires_views 10:
+    NotImplementedError, naming the limit."""
+    rays = [torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 4)]
+    cases = {"trunk width 300": dict(netwidth=300, netwidth_fine=300),
+             "multires<=20": dict(multires=21),
+             "multires_views<=10": dict(multires_views=11)}
+    for message, kw in cases.items():
+        net = tcfg.NeRFNetConfig(netdepth=4, netdepth_fine=4, skips=(2,), **kw)
+        params = init_nerf_params(net, generator=torch.Generator().manual_seed(7))
+        with pytest.raises(NotImplementedError, match=message):
+            rm.fused_nerf_march(params, *rays, net, compute_dtype=torch.float32)
+    assert fake_march.calls == []
+
+
+@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6"])
+def test_plain_render_of_narrow_nets_matches_jax(rng, name):
+    """The port's plain render of a 4x128 net and of a 100-wide net with
+    multires 12 / multires_views 6 (box scene) equals the JAX package's."""
+    jnet, tnet = jcfg.NeRFNetConfig(**NETS[name]), _net(name)
+    box = {k: np.array(v) for k, v in jax_box_scene(jnet, jax.random.PRNGKey(0)).items()}
+    _render_both(rng, jnet, tnet, {"coarse": box, "fine": box})
+

@@ -63,21 +63,11 @@ def test_image_reads_back_as_the_bf16_weights(small):
         assert offset == (34 * 256 + 5 * 128) * 64 * 2 == 1_196_032
 
 
-def test_packed_weights_are_cached_per_weight_set():
-    net = NeRFNetConfig(**SMALL)
-    params = init_nerf_params(net, generator=torch.Generator().manual_seed(1))
-    depth = rm._depth(params)
-    first = rm._packed_weights(params, net, depth, "test")
-    assert rm._packed_weights(params, net, depth, "test") is first
-    params["pts_1_kernel"].mul_(2.0)                # an in-place update packs again
-    again = rm._packed_weights(params, net, depth, "test")
-    assert again is not first
-    torch.testing.assert_close(again, rm.pack_wgmma_weights(params, net), rtol=0, atol=0)
-
-
 class _FakeMlpLibrary:
     """Stands in for the built nerf_mlp library: reports the kernels' shape
-    limits and records each call of the C entry."""
+    limits and chunk plans (the formulas of the CUDA headers, as
+    ``rm.wgmma_bytes`` / ``rm.f32_bytes`` write them out) and records each
+    call of the C entry."""
 
     def __init__(self, width):
         self.width = width
@@ -90,14 +80,45 @@ class _FakeMlpLibrary:
         return 20
 
     def nerf_max_in_ch(self):
-        return 64
+        return 128
 
     def nerf_max_in_ch_views(self):
-        return 32
+        return 64
+
+    def nerf_wgmma_plan_bytes(self, depth, skip_mask, in_ch, in_ch_views):
+        return rm.wgmma_bytes(depth, bin(skip_mask).count("1"), self.width, in_ch)
+
+    def nerf_f32_plan_bytes(self, depth, skip_mask, in_ch, in_ch_views):
+        return rm.f32_bytes(depth, bin(skip_mask).count("1"), self.width, in_ch, in_ch_views)
 
     def nerf_mlp(self, *args):
         self.calls.append(args)
         return 0
+
+
+@pytest.mark.parametrize("bf16, wgmma", [(True, True), (False, False), (True, False)],
+                         ids=["bf16_wgmma", "f32", "bf16_fp32_core"])
+def test_packed_weights_are_cached_per_weight_set(bf16, wgmma):
+    """One preparation per weight set, dtype and core: padded weights (bf16
+    kernels rounded) and the core's chunks of them; an in-place update of a
+    weight prepares again."""
+    net = NeRFNetConfig(**SMALL)
+    params = init_nerf_params(net, generator=torch.Generator().manual_seed(1))
+    depth = rm._depth(params)
+    lib = _FakeMlpLibrary(256)
+    first = rm._packed_weights(params, net, depth, bf16, wgmma, lib, "test")
+    assert rm._packed_weights(params, net, depth, bf16, wgmma, lib, "test")[1] is first[1]
+    params["pts_1_kernel"].mul_(2.0)                # an in-place update packs again
+    weights, again = rm._packed_weights(params, net, depth, bf16, wgmma, lib, "test")
+    assert again is not first[1]
+    padded = rm.pad_params(params, net, 256)
+    if bf16:
+        padded = {k: round_to(v, torch.bfloat16) if k.endswith("kernel") else v
+                  for k, v in padded.items()}
+    for key, w in zip(rm.param_keys(depth), weights):
+        torch.testing.assert_close(w, padded[key], rtol=0, atol=0, msg=key)
+    pack = rm.pack_wgmma_weights if wgmma else rm.pack_f32_weights
+    torch.testing.assert_close(again, pack(padded, net), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -108,11 +129,12 @@ def test_mlp_launch_passes_packed_weights_to_the_wgmma_stages(monkeypatch, wrapp
                                                              dtype):
     """On the kernel route, nerf_mlp's C entry gets the packed bf16 weights
     for the two stages on the tensor cores in bf16 (the very image that
-    pack_wgmma_weights makes), and no packed pointer for the true-cos stage
-    or in float32; its argument count is the one the library is bound with."""
+    pack_wgmma_weights makes), and the FP32 core's float32 chunks
+    (pack_f32_weights) for the true-cos stage and in float32; its argument
+    count is the one the library is bound with."""
     net = NeRFNetConfig(**SMALL)
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(2))
-    lib = _FakeMlpLibrary(net.netwidth)
+    lib = _FakeMlpLibrary(256)                      # pads the 32-wide net
     monkeypatch.setattr(rm, "uses_kernel", lambda t: True)
     monkeypatch.setattr(rm, "_library", lambda name: lib)
     monkeypatch.setattr(rm, "_run", lambda fn, device, what, *args: fn(*args, None))
@@ -128,10 +150,12 @@ def test_mlp_launch_passes_packed_weights_to_the_wgmma_stages(monkeypatch, wrapp
     assert len(args) == len(rm._ARGTYPES["nerf_mlp"][1])
     assert args[3] == rm._KINDS[kind] and args[9] == int(dtype == torch.bfloat16)
     packed = args[10]
-    if dtype == torch.bfloat16 and kind != "pe":
-        assert packed is not None and packed % 16 == 0
-        image = rm._packed_weights(params, net, rm._depth(params), wrapper)
-        assert packed == image.data_ptr()
-        torch.testing.assert_close(image, rm.pack_wgmma_weights(params, net), rtol=0, atol=0)
-    else:
-        assert packed is None
+    bf16 = dtype == torch.bfloat16
+    wgmma = bf16 and kind != "pe"
+    assert packed is not None and packed % 16 == 0
+    _, image = rm._packed_weights(params, net, rm._depth(params), bf16, wgmma, lib, wrapper)
+    assert packed == image.data_ptr()
+    padded = {k: round_to(v, dtype) if k.endswith("kernel") else v
+              for k, v in rm.pad_params(params, net, 256).items()}
+    want = rm.pack_wgmma_weights(padded, net) if wgmma else rm.pack_f32_weights(padded, net)
+    torch.testing.assert_close(image, want, rtol=0, atol=0)
