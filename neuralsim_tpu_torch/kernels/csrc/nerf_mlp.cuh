@@ -83,7 +83,8 @@ constexpr int THREADS = 256;   // 8 warps per block, both cores
 constexpr int W = 256;         // trunk width of both cores
 constexpr int MAX_X = 128;     // rows of the position encoding (>= 3 + 6 * 20)
 constexpr int MAX_D = 64;      // rows of the view encoding (>= 3 + 6 * 10)
-constexpr int MAX_LAYERS = 20; // trunk depth + 4 heads
+constexpr int MAX_DEPTH = 32;  // trunk layers: the bits of a skip mask
+constexpr int MAX_LAYERS = MAX_DEPTH + 4;  // trunk + feature, alpha, views, rgb
 constexpr float HALF_PI = 1.57079632679489661923f;
 
 struct Net {
@@ -97,6 +98,9 @@ struct Net {
   int in_ch_views;
   int fast_epilogue;
 };
+// a kernel parameter, passed by value beside a Plan and a few pointers:
+// far inside the 4 KB a launch's parameters may take
+static_assert(sizeof(Net) <= 1024, "Net outgrows the kernel parameter space");
 
 // The Net of a C call: weights is a host array of 2 * (depth + 4) device
 // pointers, kernel then bias per layer. Returns a cudaError_t value.

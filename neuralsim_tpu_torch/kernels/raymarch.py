@@ -340,7 +340,7 @@ def _check_supported(params, net: NeRFNetConfig, lib, what: str) -> int:
             or depth + 4 > lib.nerf_max_layers()):
         raise NotImplementedError(
             f"{what} kernel: multires<={(max_x - 3) // 6}, multires_views<={(max_d - 3) // 6} "
-            f"and depth<={lib.nerf_max_layers() - 4} only, got {net}")
+            f"and depth<={lib.nerf_max_layers() - 4} only, got depth {depth} and {net}")
     if any(s >= depth - 1 for s in net.skips):
         raise NotImplementedError(f"{what} kernel: a skip after the last "
                                   "trunk layer is not supported")

@@ -41,6 +41,8 @@ NETS = {
     "w128x4": dict(netdepth=4, netwidth=128, netdepth_fine=4, netwidth_fine=128, skips=(2,)),
     "w100_m12_6": dict(netdepth=4, netwidth=100, netdepth_fine=4, netwidth_fine=100, skips=(2,),
                        multires=12, multires_views=6),
+    # 24 deep with two skips (the cores take up to 32 layers)
+    "24x256": dict(netdepth=24, netdepth_fine=24, skips=(4, 12)),
 }
 
 
@@ -274,7 +276,7 @@ class _FakeMarchLibrary:
         self.calls = []
 
     nerf_width = staticmethod(lambda: 256)
-    nerf_max_layers = staticmethod(lambda: 20)
+    nerf_max_layers = staticmethod(lambda: 36)
     nerf_max_in_ch = staticmethod(lambda: 128)
     nerf_max_in_ch_views = staticmethod(lambda: 64)
 
@@ -301,7 +303,7 @@ def fake_march(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6"])
+@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "24x256"])
 def test_march_launch_pads_and_packs(fake_march, name, dtype):
     """(e) On the kernel route a narrow net with longer encodings reaches the
     C entry padded to 256: every weight pointer is the padded tensor (bf16
@@ -319,7 +321,7 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
     assert len(args) == len(rm._ARGTYPES["nerf_march"][1])
     ptrs, depth, skip_mask, in_ch, in_ch_views, bf16, packed = args[6:13]
     assert (depth, skip_mask, in_ch, in_ch_views) == (
-        net.netdepth, 1 << net.skips[0], net.input_ch, net.input_ch_views)
+        net.netdepth, sum(1 << sk for sk in net.skips), net.input_ch, net.input_ch_views)
     assert bf16 == int(dtype == torch.bfloat16)
     weights, image = rm._packed_weights(params, net, depth, bool(bf16), bool(bf16),
                                         fake_march, "test")
