@@ -18,11 +18,13 @@
 // each point finds its ray (idx / S), so a tile need not align with rays
 // and the ragged tail is masked. Point generation (no fma) and the
 // channel-plane output are this file's; the MLP is a core's:
-//   - float32: tiles of 128 points (64 for nets with long encodings) on the
-//     FP32 core of nerf_mlp.cuh, its packed float32 weights streamed through
-//     the core's shared-memory ring;
-//   - bf16: blocks of two warpgroups over 128-point tiles on the wgmma core
-//     of nerf_mlp_wgmma.cuh, its packed bf16 weights streamed the same way.
+//   - float32: tiles of 128 points at W = 256 and 64 at W = 512 (half that
+//     for nets with long encodings) on the FP32 core of nerf_mlp.cuh, its
+//     packed float32 weights streamed through the core's shared-memory ring;
+//   - bf16: blocks of two warpgroups on the wgmma core of
+//     nerf_mlp_wgmma.cuh (128-point tiles at W = 256, 64-point tiles whose
+//     columns the warpgroups split at W = 512), its packed bf16 weights
+//     streamed the same way.
 // Each header reckons its core's weight traffic.
 
 #include "nerf_mlp_wgmma.cuh"
@@ -55,7 +57,7 @@ __device__ __forceinline__ void make_point(const float* __restrict__ rays_o,
 }
 
 // float32: the block runs tiles blockIdx.x, +gridDim.x, ... of TILE points.
-template <int TILE>
+template <int TILE, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 nerf_march_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
@@ -64,7 +66,7 @@ nerf_march_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_
   extern __shared__ float4 smem4[];
   const int n_tiles = (total + TILE - 1) / TILE;
   const int mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-  f32::Core<TILE> core = f32::make_core<TILE>(smem4, plan, rx, rd);
+  f32::Core<TILE, W> core = f32::make_core<TILE, W>(smem4, plan, rx, rd);
   core.ring.init(static_cast<long long>(mine) * plan.per_tile);
   const int tid = threadIdx.x;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -75,7 +77,7 @@ nerf_march_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_
                  tid);
     }
     __syncthreads();
-    f32::run_tile<TILE, false, false>(core, net);
+    f32::run_tile<TILE, W, false>(core, net);
     // ---- channel planes: sigma [N,S], rgb [3,N,S] ------------------------
     for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
       const int c = idx / TILE, p = idx % TILE;
@@ -91,40 +93,70 @@ nerf_march_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_
   }
 }
 
-// bf16: warpgroup g of a block runs points [64g, 64g+64) of each of the
-// block's 128-point tiles (tiles blockIdx.x, +gridDim.x, ...).
+// bf16: blocks of two warpgroups over tiles of wg::Shape<W>::TILE points
+// (tiles blockIdx.x, +gridDim.x, ...): at W = 256 warpgroup g runs points
+// [64g, 64g+64) of each 128-point tile, at W = 512 both run the columns of
+// one 64-point tile.
+template <int W, int NX>
 __global__ void __launch_bounds__(THREADS, 1)
 nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                  const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
-                 int total, int n_samples, Net net, Plan plan, int nx,
+                 int total, int n_samples, Net net, Plan plan, int nd,
                  float* __restrict__ sigma, float* __restrict__ rgb) {
   extern __shared__ float4 smem4[];
-  const int n_tiles = (total + wg::TILE - 1) / wg::TILE;
+  constexpr int TILE = wg::Shape<W>::TILE;
+  const int n_tiles = (total + TILE - 1) / TILE;
   const int mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-  wg::Core core = wg::make_core(smem4, plan, nx);
+  wg::Core<W, NX> core = wg::make_core<W, NX>(smem4, plan, nd);
   core.ring.init(static_cast<long long>(mine) * plan.per_tile);
   const int t = threadIdx.x & 127;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * wg::TILE + core.group * P;
-    wg::wg_barrier(core.group);  // the previous tile's points and raw are read
-    if (t < P) {
+    const int base = tile * TILE + core.point0();
+    core.sync();  // the previous tile's points and raw are read
+    if (core.io() && t < P) {
       make_point(rays_o, rays_d, viewdirs, z_vals, base + t, total, n_samples, core.pts, P, t);
     }
-    wg::wg_barrier(core.group);
-    wg::run_tile<false>(core, net);  // the march has no fast epilogue
-    for (int idx = t; idx < 4 * P; idx += 128) {
-      const int c = idx / P, p = idx % P;
-      const int gp = base + p;
-      if (gp < total) {
-        if (c == 3) {
-          sigma[gp] = core.raw[3 * P + p];
-        } else {
-          rgb[static_cast<long long>(c) * total + gp] = core.raw[c * P + p];
+    core.sync();
+    wg::run_tile<W, NX, false, false>(core, net);  // the march has no fast epilogue
+    if (core.io()) {
+      for (int idx = t; idx < 4 * P; idx += 128) {
+        const int c = idx / P, p = idx % P;
+        const int gp = base + p;
+        if (gp < total) {
+          if (c == 3) {
+            sigma[gp] = core.raw[3 * P + p];
+          } else {
+            rgb[static_cast<long long>(c) * total + gp] = core.raw[c * P + p];
+          }
         }
       }
     }
   }
 }
+
+// The launches of one instantiation, for the cores' dispatch.
+struct MarchF32 {
+  template <int TILE, int W>
+  static int run(long long total, size_t smem, cudaStream_t s, const float* rays_o,
+                 const float* rays_d, const float* viewdirs, const float* z_vals, int n_samples,
+                 Net net, Plan plan, int rx, int rd, float* sigma, float* rgb) {
+    return launch_persistent(nerf_march_f32<TILE, W>, (total + TILE - 1) / TILE, smem, s, rays_o,
+                             rays_d, viewdirs, z_vals, static_cast<int>(total), n_samples, net,
+                             plan, rx, rd, sigma, rgb);
+  }
+};
+
+struct MarchWgmma {
+  template <int W, int NX>
+  static int run(long long total, size_t smem, cudaStream_t s, const float* rays_o,
+                 const float* rays_d, const float* viewdirs, const float* z_vals, int n_samples,
+                 Net net, Plan plan, int nd, float* sigma, float* rgb) {
+    constexpr int TILE = wg::Shape<W>::TILE;
+    return launch_persistent(nerf_march_wgmma<W, NX>, (total + TILE - 1) / TILE, smem, s, rays_o,
+                             rays_d, viewdirs, z_vals, static_cast<int>(total), n_samples, net,
+                             plan, nd, sigma, rgb);
+  }
+};
 
 }  // namespace
 
@@ -132,48 +164,40 @@ extern "C" {
 
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
 // for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
-// to the cores' width; packed: the weight chunks of the core this dtype
-// runs (raymarch.py pack_f32_weights in float32, pack_wgmma_weights in
-// bf16; 16-byte aligned). Returns a cudaError_t value: 0 when the launch
-// was accepted.
+// to a trunk of `width` (256 or 512); packed: the weight chunks of the core
+// this dtype runs (raymarch.py pack_f32_weights in float32,
+// pack_wgmma_weights in bf16; 16-byte aligned). Returns a cudaError_t
+// value: 0 when the launch was accepted.
 int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
                const float* z_vals, long long n_rays, int n_samples,
-               const void* const* weights, int depth, unsigned skip_mask,
+               const void* const* weights, int width, int depth, unsigned skip_mask,
                int in_ch, int in_ch_views, int bf16, const void* packed, float* sigma,
                float* rgb, void* stream) {
   Net net;
-  const int err = make_net(weights, depth, skip_mask, in_ch, in_ch_views, 0, &net);
+  const int err = make_net(weights, width, depth, skip_mask, in_ch, in_ch_views, 0, &net);
   if (err != 0) return err;
   const long long total = n_rays * n_samples;
   if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16 ||
-      total > 0x7fffffffLL - wg::TILE) {
+      total > 0x7fffffffLL - 2 * P) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    const int nx = wg::x_chunks(in_ch);
-    return launch_persistent(nerf_march_wgmma, (total + wg::TILE - 1) / wg::TILE,
-                             wg::core_bytes(nx) + wg::SMEM_ALIGN, s, rays_o, rays_d, viewdirs,
-                             z_vals, static_cast<int>(total), n_samples, net,
-                             wg::make_plan(packed, depth, skip_mask, in_ch), nx, sigma, rgb);
+    const Plan plan = wg::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
+    return wg::dispatch<MarchWgmma>(width, wg::x_chunks(in_ch), total,
+                                    static_cast<size_t>(wg::launch_bytes(width, in_ch, in_ch_views)),
+                                    s, rays_o, rays_d, viewdirs, z_vals, n_samples, net, plan,
+                                    wg::d_chunks(in_ch_views), sigma, rgb);
   }
   const int rx = f32::rows(in_ch), rd = f32::rows(in_ch_views);
   int tile = 0;
-  const int e = f32::pick_tile(rx, rd, 0, &tile);
+  const int e = f32::pick_tile(width, rx, rd, 0, &tile);
   if (e != 0) return e;
-  const Plan plan = f32::make_plan(packed, depth, skip_mask, in_ch, in_ch_views);
-  const size_t smem = f32::core_bytes(tile, rx, rd);
-  if (tile == 128) {
-    return launch_persistent(nerf_march_f32<128>, (total + 127) / 128, smem, s, rays_o, rays_d,
-                             viewdirs, z_vals, static_cast<int>(total), n_samples, net, plan, rx,
-                             rd, sigma, rgb);
-  }
-  if (tile == 64) {
-    return launch_persistent(nerf_march_f32<64>, (total + 63) / 64, smem, s, rays_o, rays_d,
-                             viewdirs, z_vals, static_cast<int>(total), n_samples, net, plan, rx,
-                             rd, sigma, rgb);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Plan plan = f32::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
+  return f32::dispatch<MarchF32>(width, tile, total,
+                                 static_cast<size_t>(f32::core_bytes(tile, width, rx, rd)), s,
+                                 rays_o, rays_d, viewdirs, z_vals, n_samples, net, plan, rx, rd,
+                                 sigma, rgb);
 }
 
 }  // extern "C"

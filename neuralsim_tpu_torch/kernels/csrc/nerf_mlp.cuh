@@ -2,25 +2,27 @@
 // limits, the positional encoding, the weight ring, and the FP32 MLP core.
 //
 // Every TPU kernel of neuralsim_tpu/kernels/raymarch.py runs the same
-// 13-layer NeRF MLP (8x256 trunk with a skip, alpha / feature / views /
-// rgb heads) on a tile of points and differs only in what goes in and what
-// comes out. This header holds the common part:
+// NeRF MLP (by default a 13-layer net: 8x256 trunk with a skip, alpha /
+// feature / views / rgb heads) on a tile of points and differs only in what
+// goes in and what comes out. This header holds the common part:
 //
 //   - the shape limits of the two MLP cores (and, once per shared library,
 //     the C functions that report them to the Python wrapper): a trunk of
-//     W = 256 (the wrapper zero-pads a narrower net's weights to it, which
-//     is exact: pad columns hold ReLU(0 + 0) = 0 and meet zero rows), at
+//     W = 256 or 512 (the wrapper zero-pads a narrower net's weights to the
+//     next of the two, which is exact: pad columns hold ReLU(0 + 0) = 0 and
+//     meet zero rows), at most MAX_DEPTH trunk layers with any skips, at
 //     most MAX_X rows of position encoding (multires <= 20) and MAX_D of
-//     view encoding (multires_views <= 10);
+//     view encoding (multires_views <= 10), and what fits in a block's
+//     shared memory (the cores' *_smem_bytes);
 //   - the positional encoding of a point, with cos as sin(y + pi/2) (the
 //     JAX projection form) or as a true cosf (TRUE_COS, the form of
 //     fused_nerf_mlp_pe);
 //   - Plan and Ring: a net's weights, packed on the host into chunks in the
 //     order a core consumes them, streamed by thread 0 with cp.async.bulk
 //     through an mbarrier ring in shared memory (both cores);
-//   - namespace f32: the FP32 core, which every float32 instantiation runs,
-//     and nerf_mlp.cu's TRUE_COS stage in bf16 too. The bf16 tensor-core
-//     core is nerf_mlp_wgmma.cuh.
+//   - namespace f32: the FP32 core, which every float32 instantiation runs.
+//     The bf16 tensor-core core, which every bf16 instantiation runs, is
+//     nerf_mlp_wgmma.cuh.
 //
 // FP32 core. Bound on the card: operations. One point of the default net
 // costs 593,408 multiply-adds (1.19 MFLOP) and moves at most 376 bytes, so a
@@ -28,27 +30,32 @@
 // 27.86 ms for 8192 rays x 192 samples). The products are fmaf on the FP32
 // pipes: true float32 like the JAX package's Precision.HIGHEST, never TF32.
 //
-// What bounds such a core below that rate: the weight reads (a 256-wide
+// What bounds such a core below that rate: the weight reads (a W-wide
 // layer product feeds each FMA a weight; read by every warp from L1 they
 // compete with the FMAs), the weight stream from L2 (the whole net per
 // tile), the issue slots of the shared-memory loads, and bank conflicts in
 // the epilogue's column stores. The design:
-//   - persistent blocks (one per SM) of 256 threads over tiles of TILE = 128
-//     points (64 when a net's encodings leave no room for 128: 0.85 of the
-//     speed per point);
+//   - persistent blocks (one per SM) of 256 threads over tiles of TILE
+//     points: 128 at W = 256 and 64 at W = 512, so that a block's layer
+//     output stays W x TILE = 32,768 values, 128 accumulators a thread; half
+//     that where a net's encodings leave no room (0.85 of the speed per
+//     point at W = 256);
 //   - the host packs the weights once per weight set (raymarch.py
-//     pack_f32_weights) into chunks of KC = 16 input rows, in the order the
-//     core consumes them, each row's columns permuted so that a thread's 16
-//     columns {cg + 16j} are four float4 lying beside its neighbours'. The
-//     chunks run through a 2-stage ring (Ring below), so the weights are
-//     shared-memory reads common to all eight warps, and the next chunk
-//     lands while this one multiplies. Each 128-point tile reads the
+//     pack_f32_weights) into chunks of 16 input rows, in the order the core
+//     consumes them, each row's columns permuted so that a thread's columns
+//     {cg + 16j} are float4 lying beside its neighbours'. The chunks run
+//     through a 2-stage ring (Ring below) of 16 KB stages, KC = 16 rows of
+//     W = 256 (or 8 rows of W = 512: the ring delivers each packed chunk as
+//     two; with 16-row stages a 64-point tile of W = 512 needs 233,504 B,
+//     1 KB over what a block may have), so the weights are shared-memory
+//     reads common to all eight warps, and the next chunk lands while this
+//     one multiplies. Each 128-point tile of the default net reads the
 //     2.38 MB of chunks from L2: 29 GB per launch at 8192 x 192 points,
 //     0.8 TB/s at 38 ms, well inside the L2's rate;
-//   - each thread owns a PT x 16 register tile (8 points x 16 columns at
-//     TILE = 128): per input row two float4 activation loads (broadcast
-//     within a half-warp) and four conflict-free float4 weight loads feed
-//     128 fmaf;
+//   - each thread owns a PT x W/16 register tile (8 points x 16 columns at
+//     W = 256, 4 x 32 at 512): per input row one or two float4 activation
+//     loads (broadcast within a half-warp) and W/64 conflict-free float4
+//     weight loads feed 128 fmaf;
 //   - activations never leave shared memory: feature-major [row][point]
 //     tiles with a row stride of TILE + 4 floats, so the epilogue's stores
 //     by 16 lanes to 16 rows fall in distinct banks;
@@ -59,10 +66,10 @@
 // It runs at 68-71% of the FP32 peak at 8192 x 64 and x 192 points on an
 // H100 (PERF.md); variants of it are timed by chip_variants.py.
 //
-// bf16 mode rounds where the JAX package rounds: the encodings, the weight
-// matrices (rounded by the caller) and each post-ReLU activation; the
-// feature is rounded after its bias. Products of bf16 values are exact in
-// float32, accumulation and biases are float32.
+// bf16 (the wgmma core) rounds where the JAX package rounds: the encodings,
+// the weight matrices (rounded by the caller) and each post-ReLU
+// activation; the feature is rounded after its bias. Products of bf16
+// values are exact in float32, accumulation and biases are float32.
 //
 // The encoding uses the accurate sinf / cosf, never the fast intrinsics:
 // arguments reach 2^19 * |x|, where the intrinsics lose all accuracy. For
@@ -80,7 +87,7 @@ namespace nerf {
 
 constexpr int P = 64;          // points per warpgroup of the wgmma core
 constexpr int THREADS = 256;   // 8 warps per block, both cores
-constexpr int W = 256;         // trunk width of both cores
+constexpr int MAX_W = 512;     // widest trunk; both cores take W = 256 and 512
 constexpr int MAX_X = 128;     // rows of the position encoding (>= 3 + 6 * 20)
 constexpr int MAX_D = 64;      // rows of the view encoding (>= 3 + 6 * 10)
 constexpr int MAX_DEPTH = 32;  // trunk layers: the bits of a skip mask
@@ -103,11 +110,12 @@ struct Net {
 static_assert(sizeof(Net) <= 1024, "Net outgrows the kernel parameter space");
 
 // The Net of a C call: weights is a host array of 2 * (depth + 4) device
-// pointers, kernel then bias per layer. Returns a cudaError_t value.
-inline int make_net(const void* const* weights, int depth, unsigned skip_mask,
+// pointers, kernel then bias per layer, padded to a trunk of `width` (256 or
+// 512). Returns a cudaError_t value.
+inline int make_net(const void* const* weights, int width, int depth, unsigned skip_mask,
                     int in_ch, int in_ch_views, int fast_epilogue, Net* net) {
-  if (depth + 4 > MAX_LAYERS || depth < 1 || in_ch < 1 || in_ch > MAX_X ||
-      in_ch_views < 1 || in_ch_views > MAX_D) {
+  if ((width != 256 && width != MAX_W) || depth + 4 > MAX_LAYERS || depth < 1 || in_ch < 1 ||
+      in_ch > MAX_X || in_ch_views < 1 || in_ch_views > MAX_D) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *net = Net{};
@@ -330,45 +338,70 @@ struct Ring {
 
 namespace f32 {
 
-constexpr int STAGES = 2;                          // weight ring depth
-constexpr int KC = 16;                             // input rows per chunk
-constexpr int WIDE_BYTES = KC * W * 4;             // 16 KB: W columns
-constexpr int NARROW_BYTES = KC * (W / 2) * 4;     // 8 KB: the views layer
+constexpr int STAGES = 2;                     // weight ring depth
+constexpr int PACK_ROWS = 16;                 // input rows of a packed chunk
+constexpr int WIDE_BYTES = 16 * 1024;         // a ring stage: KC rows of W columns
+constexpr int NARROW_BYTES = WIDE_BYTES / 2;  // the same rows of the views layer's W/2
 
-// Rows of an encoding tile: the channels rounded up to whole chunks.
-inline int rows(int channels) { return (channels + KC - 1) / KC * KC; }
+// Input rows per ring stage at trunk width W: 16 at W = 256, 8 at 512.
+__host__ __device__ constexpr int kc(int width) { return WIDE_BYTES / (4 * width); }
 
-// The chunk order per tile: layer 0 (x_pe), each trunk layer i >= 1 (x_pe
-// first after a skip, then 16 h chunks), the feature layer (16), then the
-// views layer (16 feature chunks, then the d_pe chunks, W/2 columns).
-inline Plan make_plan(const void* packed, int depth, unsigned skip_mask, int in_ch,
+// Points per tile at trunk width W, and the smaller tile where a net's
+// encodings leave no room for it: 128 / 64 at W = 256, 64 / 32 at 512.
+__host__ __device__ constexpr int big_tile(int width) { return 128 * 256 / width; }
+
+// Rows of an encoding tile: the channels rounded up to whole packed chunks.
+inline int rows(int channels) { return (channels + PACK_ROWS - 1) / PACK_ROWS * PACK_ROWS; }
+
+// The chunk order per tile, in ring stages of kc(width) rows: layer 0
+// (x_pe), each trunk layer i >= 1 (x_pe first after a skip, then the h
+// chunks), the feature layer, then the views layer (the feature's h chunks,
+// then the d_pe chunks, W/2 columns). A packed chunk of 16 rows is two
+// stages at W = 512: its rows lie contiguous.
+inline Plan make_plan(const void* packed, int width, int depth, unsigned skip_mask, int in_ch,
                       int in_ch_views) {
-  const int nx = rows(in_ch) / KC, nd = rows(in_ch_views) / KC;
-  const int n_wide = nx + (W / KC) * (depth - 1) + nx * __builtin_popcount(skip_mask) + W / KC;
-  return Plan{static_cast<const unsigned char*>(packed), n_wide + W / KC + nd, n_wide,
-              WIDE_BYTES, NARROW_BYTES};
+  const int k = kc(width);
+  const int nx = rows(in_ch) / k, nd = rows(in_ch_views) / k, h = width / k;
+  const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcount(skip_mask) + h;
+  return Plan{static_cast<const unsigned char*>(packed), n_wide + h + nd, n_wide, WIDE_BYTES,
+              NARROW_BYTES};
 }
 
-// Shared memory of the core for tiles of `tile` points, rx rows of x_pe and
-// rd of d_pe: the ring, the activation tiles h [W], x [rx], d [rd] (row
-// stride tile + 4), the points [6][tile], the raw outputs [4][tile], then
-// the ring's barriers. Every part starts 16-byte aligned.
-__host__ __device__ constexpr int core_bytes(int tile, int rx, int rd) {
-  return STAGES * WIDE_BYTES + (W + rx + rd) * (tile + 4) * 4 + 10 * tile * 4 + 2 * STAGES * 8;
+// Shared memory of the core for tiles of `tile` points at trunk width
+// `width`, rx rows of x_pe and rd of d_pe: the ring, the activation tiles h
+// [W], x [rx], d [rd] (row stride tile + 4), the points [6][tile], the raw
+// outputs [4][tile], then the ring's barriers. Every part starts 16-byte
+// aligned.
+__host__ __device__ constexpr int core_bytes(int tile, int width, int rx, int rd) {
+  return STAGES * WIDE_BYTES + (width + rx + rd) * (tile + 4) * 4 + 10 * tile * 4 +
+         2 * STAGES * 8;
 }
 
-// The tile of a launch: 128 points where the core and `extra` bytes fit
-// the device's shared memory, else 64; 0 when neither fits.
-inline int pick_tile(int rx, int rd, long long extra, int* tile) {
+// The tile of a launch: the width's big tile where the core and `extra`
+// bytes fit the device's shared memory, else half of it; 0 when neither
+// fits.
+inline int pick_tile(int width, int rx, int rd, long long extra, int* tile) {
   int smem_max = 0;
   const int err = smem_optin(&smem_max);
   if (err != 0) return err;
-  *tile = core_bytes(128, rx, rd) + extra <= smem_max ? 128
-        : core_bytes(64, rx, rd) + extra <= smem_max ? 64 : 0;
+  const int big = big_tile(width);
+  *tile = core_bytes(big, width, rx, rd) + extra <= smem_max ? big
+        : core_bytes(big / 2, width, rx, rd) + extra <= smem_max ? big / 2 : 0;
   return 0;
 }
 
-template <int TILE>
+// Calls L::run<TILE, W>(args...) for a launch's tile and trunk width (the
+// instantiations of the core); cudaErrorInvalidValue for any other.
+template <typename L, typename... Args>
+int dispatch(int width, int tile, Args... args) {
+  if (width == 256 && tile == 128) return L::template run<128, 256>(args...);
+  if (width == 256 && tile == 64) return L::template run<64, 256>(args...);
+  if (width == 512 && tile == 64) return L::template run<64, 512>(args...);
+  if (width == 512 && tile == 32) return L::template run<32, 512>(args...);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int TILE, int W>
 struct Core {
   Ring<STAGES> ring;
   float* h;    // [W][TILE + 4] activations
@@ -381,12 +414,12 @@ struct Core {
 };
 
 // Pointers into the core's shared memory at the start of the kernel's
-// dynamic shared buffer (core_bytes(TILE, rx, rd) of it); the ring is set
+// dynamic shared buffer (core_bytes(TILE, W, rx, rd) of it); the ring is set
 // up by Ring::init, called by every thread.
-template <int TILE>
-__device__ __forceinline__ Core<TILE> make_core(void* dyn, const Plan& plan, int rx, int rd) {
+template <int TILE, int W>
+__device__ __forceinline__ Core<TILE, W> make_core(void* dyn, const Plan& plan, int rx, int rd) {
   constexpr int HS = TILE + 4;
-  Core<TILE> c;
+  Core<TILE, W> c;
   unsigned char* base = static_cast<unsigned char*>(dyn);
   c.ring.buf = base;
   c.h = reinterpret_cast<float*>(base + STAGES * WIDE_BYTES);
@@ -407,24 +440,37 @@ __device__ __forceinline__ Core<TILE> make_core(void* dyn, const Plan& plan, int
 __device__ __forceinline__ int col_group() { return threadIdx.x & 15; }
 __device__ __forceinline__ int point_group() { return threadIdx.x >> 4; }
 
+// The PT floats at p (16-byte aligned for PT >= 4, else 8-byte) into v.
+template <int PT>
+__device__ __forceinline__ void load_points(float (&v)[PT], const float* p) {
+  if constexpr (PT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < PT / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = t.x;
+      v[4 * i + 1] = t.y;
+      v[4 * i + 2] = t.z;
+      v[4 * i + 3] = t.w;
+    }
+  } else {
+    static_assert(PT == 2, "a point group holds 2, 4 or 8 points");
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  }
+}
+
 // acc[p][4q + e] += sum over the chunk's KC rows k of act[k][p] *
 // w[k][cg + 16 (4q + e)]: act points at the thread's first point in row 0
 // of a [KC][HS] activation block, w at the thread's first float4 in row 0
 // of a packed chunk (NQ float4 of each row per thread, 64 floats apart).
-template <int PT, int NQ, int HS>
+template <int PT, int NQ, int HS, int KC>
 __device__ __forceinline__ void chunk_fma(float (&acc)[PT][4 * NQ], const float* act,
                                           const float* w) {
 #pragma unroll 8
   for (int k = 0; k < KC; ++k) {
     float a[PT];
-#pragma unroll
-    for (int v = 0; v < PT / 4; ++v) {
-      const float4 t = *reinterpret_cast<const float4*>(act + k * HS + 4 * v);
-      a[4 * v] = t.x;
-      a[4 * v + 1] = t.y;
-      a[4 * v + 2] = t.z;
-      a[4 * v + 3] = t.w;
-    }
+    load_points<PT>(a, act + k * HS);
     float b[4 * NQ];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
@@ -444,7 +490,7 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[PT][4 * NQ], const float*
 
 // The products of one layer: acc += [a0 (n0 chunks of rows), a1 (n1)] . W
 // over the next n0 + n1 chunks of the ring.
-template <int PT, int NQ, int HS>
+template <int PT, int NQ, int HS, int KC>
 __device__ __forceinline__ void layer(float (&acc)[PT][4 * NQ], const float* a0, int n0,
                                       const float* a1, int n1, Ring<STAGES>& ring) {
   const int off = point_group() * PT;
@@ -452,7 +498,7 @@ __device__ __forceinline__ void layer(float (&acc)[PT][4 * NQ], const float* a0,
 #pragma unroll 1
   for (int c = 0; c < n0 + n1; ++c) {
     const float* act = c < n0 ? a0 + c * (KC * HS) : a1 + (c - n0) * (KC * HS);
-    chunk_fma<PT, NQ, HS>(acc, act + off, ring.acquire_floats() + wcol);
+    chunk_fma<PT, NQ, HS, KC>(acc, act + off, ring.acquire_floats() + wcol);
     ring.release();
   }
 }
@@ -477,40 +523,47 @@ __device__ __forceinline__ float group_sum(float v) {
 // The MLP on one tile whose encodings are in core.x and core.d (written and
 // synchronised): raw [4][TILE] (r, g, b logits, sigma) in core.raw,
 // synchronised on return. Consumes the tile's plan.per_tile chunks.
-template <int TILE, bool BF16>
-__device__ __forceinline__ void mlp_tile(Core<TILE>& core, const Net& net) {
-  constexpr int PT = TILE / 16;
+template <int TILE, int W>
+__device__ __forceinline__ void mlp_tile(Core<TILE, W>& core, const Net& net) {
+  constexpr int PT = TILE / 16;   // points of a thread
+  constexpr int C = W / 16;       // columns of a thread
   constexpr int HS = TILE + 4;
+  constexpr int KC = kc(W);
   const int cg = col_group();
   const int p0 = point_group() * PT;
   const int depth = net.depth;
   const int nx = core.rx / KC, nd = core.rd / KC;
-  float acc[PT][16];
+  float acc[PT][C];
 
   // ---- trunk layers 0 .. depth-1, then the feature layer (i == depth) -----
 #pragma unroll 1
   for (int i = 0; i <= depth; ++i) {
     zero(acc);
     const bool with_x = i == 0 || (i < depth && ((net.skip_mask >> (i - 1)) & 1u));
-    layer<PT, 4, HS>(acc, core.x, with_x ? nx : 0, core.h, i == 0 ? 0 : W / KC, core.ring);
+    layer<PT, C / 4, HS, KC>(acc, core.x, with_x ? nx : 0, core.h, i == 0 ? 0 : W / KC,
+                             core.ring);
     __syncthreads();  // every warp has read h
     const float* bias = net.b[i];
     const bool relu = i < depth;  // the feature layer has none
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < C; ++j) {
       const int col = cg + 16 * j;
       const float b = __ldg(bias + col);
 #pragma unroll
       for (int p = 0; p < PT; ++p) {
         float v = acc[p][j] + b;
         if (relu) v = fmaxf(v, 0.f);
-        acc[p][j] = round_cd<BF16>(v);
+        acc[p][j] = v;
       }
-      float4* dst = reinterpret_cast<float4*>(core.h + col * HS + p0);
+      float* dst = core.h + col * HS + p0;
+      if constexpr (PT % 4 == 0) {
 #pragma unroll
-      for (int v = 0; v < PT / 4; ++v) {
-        dst[v] = make_float4(acc[4 * v][j], acc[4 * v + 1][j], acc[4 * v + 2][j],
-                             acc[4 * v + 3][j]);
+        for (int v = 0; v < PT / 4; ++v) {
+          reinterpret_cast<float4*>(dst)[v] = make_float4(acc[4 * v][j], acc[4 * v + 1][j],
+                                                          acc[4 * v + 2][j], acc[4 * v + 3][j]);
+        }
+      } else {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[0][j], acc[1][j]);
       }
     }
     if (i == depth - 1) {
@@ -520,7 +573,7 @@ __device__ __forceinline__ void mlp_tile(Core<TILE>& core, const Net& net) {
 #pragma unroll
       for (int p = 0; p < PT; ++p) s[p] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < C; ++j) {
         const float w = __ldg(ak + cg + 16 * j);
 #pragma unroll
         for (int p = 0; p < PT; ++p) s[p] = fmaf(acc[p][j], w, s[p]);
@@ -536,9 +589,9 @@ __device__ __forceinline__ void mlp_tile(Core<TILE>& core, const Net& net) {
   }
 
   // ---- views layer: [feature, d_pe] -> W/2, ReLU; then the rgb head ------
-  float accv[PT][8];
+  float accv[PT][C / 2];
   zero(accv);
-  layer<PT, 2, HS>(accv, core.h, W / KC, core.d, nd, core.ring);
+  layer<PT, C / 8, HS, KC>(accv, core.h, W / KC, core.d, nd, core.ring);
   const float* vb = net.b[depth + 2];
   const float* rk = net.k[depth + 3];
   float s[3][PT];
@@ -548,13 +601,13 @@ __device__ __forceinline__ void mlp_tile(Core<TILE>& core, const Net& net) {
     for (int p = 0; p < PT; ++p) s[c][p] = 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < C / 2; ++j) {
     const int col = cg + 16 * j;
     const float b = __ldg(vb + col);
     const float w[3] = {__ldg(rk + 3 * col), __ldg(rk + 3 * col + 1), __ldg(rk + 3 * col + 2)};
 #pragma unroll
     for (int p = 0; p < PT; ++p) {
-      const float v = round_cd<BF16>(fmaxf(accv[p][j] + b, 0.f));
+      const float v = fmaxf(accv[p][j] + b, 0.f);
 #pragma unroll
       for (int c = 0; c < 3; ++c) s[c][p] = fmaf(v, w[c], s[c][p]);
     }
@@ -572,38 +625,51 @@ __device__ __forceinline__ void mlp_tile(Core<TILE>& core, const Net& net) {
 }
 
 // core.pts [6][TILE] (written and synchronised) -> the encodings in core.x
-// and core.d, rounded to the compute type (zero past each encoding's
-// channels), then mlp_tile.
-template <int TILE, bool BF16, bool TRUE_COS>
-__device__ __forceinline__ void run_tile(Core<TILE>& core, const Net& net) {
+// and core.d (zero past each encoding's channels), then mlp_tile.
+template <int TILE, int W, bool TRUE_COS>
+__device__ __forceinline__ void run_tile(Core<TILE, W>& core, const Net& net) {
   constexpr int HS = TILE + 4;
   for (int idx = threadIdx.x; idx < core.rx * TILE; idx += THREADS) {
     const int c = idx / TILE, p = idx % TILE;
-    core.x[c * HS + p] = round_cd<BF16>(encode<TRUE_COS>(core.pts + p, TILE, c, net.in_ch));
+    core.x[c * HS + p] = encode<TRUE_COS>(core.pts + p, TILE, c, net.in_ch);
   }
   for (int idx = threadIdx.x; idx < core.rd * TILE; idx += THREADS) {
     const int c = idx / TILE, p = idx % TILE;
-    core.d[c * HS + p] =
-        round_cd<BF16>(encode<TRUE_COS>(core.pts + 3 * TILE + p, TILE, c, net.in_ch_views));
+    core.d[c * HS + p] = encode<TRUE_COS>(core.pts + 3 * TILE + p, TILE, c, net.in_ch_views);
   }
   __syncthreads();
-  mlp_tile<TILE, BF16>(core, net);
+  mlp_tile<TILE, W>(core, net);
+}
+
+// Shared memory of the core's smallest tile for a net.
+inline int smallest_bytes(int width, int in_ch, int in_ch_views) {
+  return core_bytes(big_tile(width) / 2, width, rows(in_ch), rows(in_ch_views));
 }
 
 }  // namespace f32
 }  // namespace nerf
 
-// The shape limits of the cores and the bytes of a net's packed weights;
-// the Python wrapper checks them before every launch and raises on anything
-// else. Defined once in each shared library (each includes this header
-// from one source).
+// The shape limits of the cores, the bytes of a net's packed weights and
+// of the shared memory a core needs for it; the Python wrapper checks them
+// before every launch and raises on anything else. Defined once in each
+// shared library (each includes this header from one source).
 extern "C" {
-int nerf_width() { return nerf::W; }
+int nerf_width() { return nerf::MAX_W; }
 int nerf_max_layers() { return nerf::MAX_LAYERS; }
 int nerf_max_in_ch() { return nerf::MAX_X; }
 int nerf_max_in_ch_views() { return nerf::MAX_D; }
+// the dynamic shared memory a block of the current device may opt into
+int nerf_smem_optin() {
+  int bytes = 0;
+  return nerf::smem_optin(&bytes) == 0 ? bytes : 0;
+}
 // bytes of the FP32 core's packed weights (raymarch.py pack_f32_weights)
-long long nerf_f32_plan_bytes(int depth, unsigned skip_mask, int in_ch, int in_ch_views) {
-  return nerf::f32::make_plan(nullptr, depth, skip_mask, in_ch, in_ch_views).tile_bytes();
+long long nerf_f32_plan_bytes(int width, int depth, unsigned skip_mask, int in_ch,
+                              int in_ch_views) {
+  return nerf::f32::make_plan(nullptr, width, depth, skip_mask, in_ch, in_ch_views).tile_bytes();
+}
+// shared memory of the FP32 core's smallest tile for a net
+int nerf_f32_smem_bytes(int width, int in_ch, int in_ch_views) {
+  return nerf::f32::smallest_bytes(width, in_ch, in_ch_views);
 }
 }

@@ -1,56 +1,78 @@
 // nerf_mlp_wgmma.cuh - the NeRF MLP core on Hopper's tensor cores (wgmma),
 // bf16 only.
 //
-// The bf16 instantiations of nerf_march.cu (replacing the Pallas TPU kernel
-// `_march_channels_kernel` of neuralsim_tpu/kernels/raymarch.py),
-// render_tile.cu (replacing `_render_tile_kernel`) and of nerf_mlp.cu's
-// PROJECTION and ENCODED stages (replacing `_mlp_widepe_kernel` and
-// `_mlp_kernel`) run their MLP here; every float32 instantiation, and
-// nerf_mlp.cu's TRUE_COS stage (`_mlp_pe_kernel`) in both types, run the
-// FP32 core of nerf_mlp.cuh. Same function as that core in bf16
-// (nerf_mlp.cuh states the rounding and the net shapes taken: a narrower
-// net comes zero-padded to W = 256), on tiles of 128 points.
+// Every bf16 instantiation of the port's kernels runs its MLP here:
+// nerf_march.cu (replacing the Pallas TPU kernel `_march_channels_kernel` of
+// neuralsim_tpu/kernels/raymarch.py), render_tile.cu (`_render_tile_kernel`)
+// and nerf_mlp.cu's three stages (`_mlp_widepe_kernel`, `_mlp_pe_kernel`,
+// `_mlp_kernel`); every float32 instantiation runs the FP32 core of
+// nerf_mlp.cuh. Same function as that core in bf16 (nerf_mlp.cuh states the
+// rounding and the net shapes taken: a narrower net comes zero-padded to a
+// trunk of W = 256 or 512).
 //
-// Bound on the card: operations on the tensor cores. One point costs
-// 593,408 bf16 multiply-adds; at the published 989 TFLOP/s a launch on
-// 8192 rays x 192 samples takes at least 1.887 ms.
+// Bound on the card: operations on the tensor cores. One point of the
+// default 8x256 net costs 593,408 bf16 multiply-adds; at the published 989
+// TFLOP/s a launch on 8192 rays x 192 samples takes at least 1.887 ms.
 //
 // Design:
-//   - a block is two consumer warpgroups (256 threads); warpgroup g owns
-//     points [64g, 64g+64) of the block's 128-point tile and issues
-//     wgmma.mma_async m64n256k16 (trunk, feature) and m64n128k16 (views)
-//     with f32 accumulators in registers; every trunk, feature and views
-//     product runs on the tensor cores;
+//   - a block is two consumer warpgroups (256 threads). Each warpgroup
+//     issues wgmma.mma_async m64n256k16 (trunk, feature) and m64n128k16
+//     (views) over 64 points, with f32 accumulators in registers (128 per
+//     thread, the most a thread can hold beside its addresses); every
+//     trunk, feature and views product runs on the tensor cores;
+//   - W = 256: warpgroup g owns points [64g, 64g+64) of the block's
+//     128-point tile and all columns, in A tiles of its own, so one
+//     warpgroup barrier, not a block barrier, stands between layers;
+//   - W = 512: the two warpgroups split the columns of one 64-point tile
+//     (g owns trunk columns [256g, 256g+256) and views columns [128g,
+//     128g+128)) over one shared A tile; a block barrier between a layer's
+//     products and its epilogue lets both finish reading A before either
+//     writes, and the alpha and rgb heads add the two halves' partial sums;
 //   - activations never touch device memory: a layer's epilogue (bias in
-//     f32, ReLU, round to bf16) writes the warpgroup's own 64 rows into a
-//     shared A tile in the layout wgmma reads ([64][64] K-chunks, 128-byte
-//     swizzle), so one warpgroup barrier, not a block barrier, stands
-//     between layers. (Kept in registers as the next layer's A fragments,
-//     the 64 packed registers beside the 128 accumulators spilled.);
-//   - the encodings x_pe (up to 128 channels, in one or two 64-wide
-//     chunks; 63 -> 64 by default) and d_pe (up to 64, in one chunk, of
-//     which the views layer multiplies the k16 steps that hold channels:
-//     27 -> 32 by default) are written once per tile into A tiles of their
-//     own, zero past the channels;
-//     the skip layer [x_pe, h] and the views layer [feature, d_pe] are two
-//     partial sums into the same accumulators;
-//   - the alpha (256 -> 1) and rgb (128 -> 3) heads run on the CUDA cores
-//     from the accumulator registers, reduced over the four lanes of a row.
+//     f32, ReLU, round to bf16) writes its rows and columns into the A tile
+//     in the layout wgmma reads ([64][64] K-chunks, 128-byte swizzle). (Kept
+//     in registers as the next layer's A fragments, the 64 packed registers
+//     beside the 128 accumulators spilled.);
+//   - the encodings x_pe (up to 256 channels, in NX = 1-4 chunks of 64; 63
+//     -> 64 by default) and d_pe (up to 128 channels, in nd = 1 or 2 chunks,
+//     of which the views layer multiplies the last chunk's k16 steps that
+//     hold channels: 27 -> 32 by default) are written once per tile into A
+//     tiles of their own, zero past the channels, with cos as sin(y + pi/2)
+//     (the JAX projection form) or, with TRUE_COS, a true cosf (the form of
+//     `_mlp_pe_kernel`); the skip layer [x_pe, h] and the views layer
+//     [feature, d_pe] are two partial sums into the same accumulators;
+//   - the alpha (W -> 1) and rgb (W/2 -> 3) heads run on the CUDA cores from
+//     the accumulator registers, reduced over the four lanes of a row.
+//
+// Shared memory, in bytes from a 1024-aligned base (core_bytes): the ring
+// (STAGES x one chunk of [W][64] bf16: 32 KB at W = 256, 64 KB at 512),
+// the A tiles (W = 256: one set per warpgroup; 512: one shared set) of NX
+// x_pe, W/64 h and nd d_pe chunks of 8 KB, then the ring's barriers. A
+// tile's [6][64] points live in its h tiles and its raw outputs in its first
+// x_pe tile: both are dead there when the other is live. Default nets:
+//   W = 256, NX = nd = 1: 3 x 32 KB + 2 x 6 x 8 KB + 48 = 196,656 B (+ 1024
+//     to align), leaving 34,768 B of the 232,448 a block may have, where
+//     the render tile keeps its rays' raw field;
+//   W = 512, NX = nd = 1: 2 x 64 KB + 10 x 8 KB + 32 = 213,024 B (+ 1024).
+// Three stages where they fit (W = 256 and NX <= 2), else two; W = 512
+// takes NX + nd <= 4 chunks of encodings, W = 256 all of them (NX = 4 and
+// nd = 2 on two stages: 229,408 B + 1024).
 //
 // Weight traffic. The host packs the weights once (raymarch.py
 // pack_wgmma_weights) into bf16 chunks of 64 input rows, each in the exact
 // shared-memory image the B descriptor reads ([N][64], 128-byte swizzle):
 // 34 chunks of 32 KB (N = 256) and 5 of 16 KB (views, N = 128), 1.196 MB
 // for the default 8x256 net. Thread 0 streams them with one cp.async.bulk
-// each through a ring of STAGES = 3 stages (the Ring of nerf_mlp.cuh, which
-// the FP32 core shares), so two chunks are in flight while one multiplies,
-// and a warpgroup frees a chunk only after issuing its next one, so the
-// tensor core has the next product queued.
+// each through the ring (the Ring of nerf_mlp.cuh, which the FP32 core
+// shares), so the next chunks are in flight while one multiplies, and a
+// warpgroup frees a chunk only after issuing its next one, so the tensor
+// core has the next product queued. At W = 512 a chunk holds both
+// warpgroups' columns, each reading its half through an offset descriptor.
 // Blocks are persistent (one per SM) and the ring runs on from one tile
-// into the next. Each 128-point tile still reads all 1.196 MB from L2: at
-// S = 192, 12,288 tiles read 14.7 GB per launch, served by the 50 MB L2.
-// Larger tiles, and cluster multicast of each chunk, are what cut that
-// next.
+// into the next. Each tile still reads all of the chunks from L2: at
+// S = 192, 12,288 tiles of the default net read 14.7 GB per launch, served
+// by the 50 MB L2. Larger tiles, and cluster multicast of each chunk, are
+// what cut that next.
 
 #pragma once
 
@@ -59,38 +81,57 @@
 namespace nerf {
 namespace wg {
 
-constexpr int TILE = 2 * P;                       // points per block tile
-constexpr int STAGES = 3;                         // weight ring depth
 constexpr int CHUNK_K = 64;                       // input rows per chunk
-constexpr int CHUNK_BYTES = W * CHUNK_K * 2;      // 32 KB, N = 256
-constexpr int VIEWS_CHUNK_BYTES = (W / 2) * CHUNK_K * 2;  // 16 KB, N = 128
+constexpr int N = 256;                            // trunk columns of one product
+constexpr int NV = N / 2;                         // views columns of one product
 constexpr int A_CHUNK_BYTES = P * CHUNK_K * 2;    // 8 KB: [64 rows][64] bf16
 constexpr int SMEM_ALIGN = 1024;                  // the swizzle's repeat
+static_assert(4 * P == THREADS, "W = 512 sums the heads' halves one value a thread");
 
-using Ring = nerf::Ring<STAGES>;
+// What the trunk width sets: W = 256 runs two 64-point tiles per block, one
+// per warpgroup; W = 512 one, its columns split between the warpgroups.
+template <int W>
+struct Shape {
+  static_assert(W == N || W == 2 * N, "the core takes trunks of 256 or 512");
+  static constexpr bool SPLIT = W == 2 * N;
+  static constexpr int TILE = SPLIT ? P : 2 * P;   // points per block tile
+  static constexpr int GROUPS = SPLIT ? 1 : 2;     // sets of A tiles
+  static constexpr int H = W / CHUNK_K;            // h chunks
+};
 
-// A chunks of a net's x_pe: 1, or 2 when it has more than 64 channels.
+__host__ __device__ constexpr int chunk_bytes(int width) { return width * CHUNK_K * 2; }
+// Ring stages: three where they fit, else two.
+__host__ __device__ constexpr int stages(int width, int nx) {
+  return width == N && nx <= 2 ? 3 : 2;
+}
+
+// A chunks of a net's encodings: x_pe 1-4, d_pe 1-2.
 inline int x_chunks(int in_ch) { return (in_ch + CHUNK_K - 1) / CHUNK_K; }
+inline int d_chunks(int in_ch_views) { return (in_ch_views + CHUNK_K - 1) / CHUNK_K; }
 
 // Shared memory of the core, in bytes from a 1024-aligned base: the ring,
-// each warpgroup's A tiles (nx x_pe chunks, h in 4, d_pe in 1: every
-// layer's input chunks lie contiguous, in the order the ring delivers the
-// weights), each warpgroup's [6][P] points and [4][P] raw outputs, then
-// the ring's barriers.
-__host__ __device__ constexpr int a_bytes(int nx) { return (nx + W / CHUNK_K + 1) * A_CHUNK_BYTES; }
-__host__ __device__ constexpr int core_bytes(int nx) {
-  return STAGES * CHUNK_BYTES + 2 * a_bytes(nx) + 2 * 10 * P * 4 + 2 * STAGES * 8;
+// the A tiles (nx x_pe chunks, h, nd d_pe chunks: every layer's input
+// chunks lie contiguous, in the order the ring delivers the weights; one
+// set per warpgroup at W = 256, one shared set at 512), then the ring's
+// barriers. Launches ask for SMEM_ALIGN more.
+__host__ __device__ constexpr int a_bytes(int width, int nx, int nd) {
+  return (nx + width / CHUNK_K + nd) * A_CHUNK_BYTES;
+}
+__host__ __device__ constexpr int core_bytes(int width, int nx, int nd) {
+  return stages(width, nx) * chunk_bytes(width) + (width == N ? 2 : 1) * a_bytes(width, nx, nd) +
+         2 * stages(width, nx) * 8;
 }
 
 // The packed weights of one net and its chunk order per tile: layer 0
-// (x_pe), each trunk layer i >= 1 (x_pe first after a skip, then four h
-// chunks), feature (four), then views (four feature chunks and one d_pe
-// chunk, N = 128).
-inline Plan make_plan(const void* packed, int depth, unsigned skip_mask, int in_ch) {
-  const int nx = x_chunks(in_ch), h = W / CHUNK_K;
+// (x_pe), each trunk layer i >= 1 (x_pe first after a skip, then the h
+// chunks), feature (h), then views (the feature's h chunks and the d_pe
+// chunks, N = W/2).
+inline Plan make_plan(const void* packed, int width, int depth, unsigned skip_mask, int in_ch,
+                      int in_ch_views) {
+  const int nx = x_chunks(in_ch), h = width / CHUNK_K;
   const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcount(skip_mask) + h;
-  return Plan{static_cast<const unsigned char*>(packed), n_wide + h + 1, n_wide, CHUNK_BYTES,
-              VIEWS_CHUNK_BYTES};
+  return Plan{static_cast<const unsigned char*>(packed), n_wide + h + d_chunks(in_ch_views),
+              n_wide, chunk_bytes(width), chunk_bytes(width / 2)};
 }
 
 // wgmma descriptor of a K-major bf16 operand with 128-byte swizzle: rows of
@@ -116,13 +157,6 @@ __device__ __forceinline__ void store_bf16x2(unsigned char* tile, int row, int c
 // A barrier of the 128 threads of warpgroup `group` (named barrier 1 or 2).
 __device__ __forceinline__ void wg_barrier(int group) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
-}
-
-// The warpgroup's generic-proxy writes of its A tiles become visible to
-// its wgmma (async proxy) reads.
-__device__ __forceinline__ void wg_publish(int group) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  wg_barrier(group);
 }
 
 // acc += A B on one k16 step, m64n256k16: A [64 x 16] and B [16 x 256] bf16 in
@@ -183,9 +217,9 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b) {
-  if constexpr (N == 256) {
+template <int NC>
+__device__ __forceinline__ void wgmma_k16(float (&d)[NC / 2], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (NC == 256) {
     wgmma_n256(d, desc_a, desc_b);
   } else {
     wgmma_n128(d, desc_a, desc_b);
@@ -203,22 +237,23 @@ __device__ __forceinline__ void fence_regs(float (&d)[NR]) {
 
 // The products of one layer: acc += A . W over `chunks` consecutive
 // chunks of the ring, A chunk c at shared address a + c * A_CHUNK_BYTES
-// (K-major [64][64], 128-byte swizzle), LAST_KSTEPS k16 steps of the last
-// chunk (4 for the others). Each chunk's products queue behind the
+// (K-major [64][64], 128-byte swizzle), each chunk's B operand at byte
+// b_rows of the chunk (this warpgroup's columns), LAST_KSTEPS k16 steps of
+// the last chunk (4 for the others). Each chunk's products queue behind the
 // previous chunk's; the previous chunk is freed once they are issued, the
 // last once all completed.
-template <int N, int LAST_KSTEPS>
-__device__ __forceinline__ void layer_mma(float (&acc)[N / 2], uint32_t a, int chunks,
-                                          Ring& ring) {
+template <int NC, int LAST_KSTEPS, typename R>
+__device__ __forceinline__ void layer_mma(float (&acc)[NC / 2], uint32_t a, uint32_t b_rows,
+                                          int chunks, R& ring) {
 #pragma unroll 1
   for (int c = 0; c < chunks; ++c) {
-    const uint32_t b = ring.acquire();
+    const uint32_t b = ring.acquire() + b_rows;
     const uint32_t ac = a + c * A_CHUNK_BYTES;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     const int ksteps = c + 1 == chunks ? LAST_KSTEPS : 4;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      if (kk < ksteps) wgmma_k16<N>(acc, desc_sw128(ac + 32 * kk), desc_sw128(b + 32 * kk));
+      if (kk < ksteps) wgmma_k16<NC>(acc, desc_sw128(ac + 32 * kk), desc_sw128(b + 32 * kk));
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     if (c > 0) {
@@ -236,25 +271,26 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N / 2]) {
+template <int NC>
+__device__ __forceinline__ void zero(float (&acc)[NC / 2]) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
 }
 
 // Bias, optional ReLU and the bf16 rounding of a layer, left in acc and,
-// unless h is null, written into the warpgroup's h tiles. Accumulator slot 4j + e
-// holds row 16*warp + lane/4 + 8*(e/2) and column 8j + 2*(lane%4) + e%2.
+// unless h is null, written into columns [col0, col0 + NC) of the h tiles.
+// Accumulator slot 4j + e holds row 16*warp + lane/4 + 8*(e/2) and column
+// 8j + 2*(lane%4) + e%2 of the product (bias points at its column 0).
 // With FAST the product and the bias are rounded to bf16 before the add (a
 // template flag: as a runtime one the compiler computes both forms of all
 // 128 values under a predicate).
-template <int N, bool RELU, bool FAST>
-__device__ __forceinline__ void epilogue(float (&acc)[N / 2], const float* bias,
-                                         unsigned char* h) {
+template <int NC, bool RELU, bool FAST>
+__device__ __forceinline__ void epilogue(float (&acc)[NC / 2], const float* bias,
+                                         unsigned char* h, int col0) {
   const int lane = threadIdx.x & 31;
   const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
+  for (int j = 0; j < NC / 8; ++j) {
     const int col = 8 * j + 2 * (lane & 3);
     const float2 b = load2(bias + col);
 #pragma unroll
@@ -266,8 +302,8 @@ __device__ __forceinline__ void epilogue(float (&acc)[N / 2], const float* bias,
       acc[4 * j + e] = round_cd<true>(x);
     }
     if (h != nullptr) {
-      store_bf16x2(h, row, col, acc[4 * j], acc[4 * j + 1]);
-      store_bf16x2(h, row + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
+      store_bf16x2(h, row, col0 + col, acc[4 * j], acc[4 * j + 1]);
+      store_bf16x2(h, row + 8, col0 + col, acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
@@ -278,105 +314,152 @@ __device__ __forceinline__ float row_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The warpgroup's encodings, bf16, into its nx x_pe A chunks and its d_pe
-// chunk (every column, zero past each encoding's channels); pts is its
-// [6][P] point tile. Thread lane of warp w writes rows 16w + lane/4 (+8),
-// channel pairs 2*(lane%4) + 8i.
+// The barrier between the threads that share a set of A tiles: the
+// warpgroup at W = 256, the block at W = 512.
+template <int W>
+__device__ __forceinline__ void tile_sync(int group) {
+  if constexpr (Shape<W>::SPLIT) {
+    __syncthreads();
+  } else {
+    wg_barrier(group);
+  }
+}
+
+// Those threads' generic-proxy writes of their A tiles become visible to
+// their wgmma (async proxy) reads.
+template <int W>
+__device__ __forceinline__ void tile_publish(int group) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  tile_sync<W>(group);
+}
+
+// A tile's encodings, bf16, into its NX x_pe A chunks and nd d_pe chunks
+// (every column, zero past each encoding's channels); pts is its [6][P]
+// point tile. In a step, thread lane of warp w writes row 16w + lane/4 (+8
+// in odd steps), channel pair 2*(lane%4) + 8*(step/2) of a chunk; with
+// SPLIT the two warpgroups take every other step.
+template <int NX, bool TRUE_COS, bool SPLIT>
 __device__ __forceinline__ void encode_tiles(const float* pts, unsigned char* xt,
-                                             unsigned char* dt, const Net& net, int nx) {
+                                             unsigned char* dt, const Net& net, int nd,
+                                             int group) {
   const int lane = threadIdx.x & 31;
   const int row0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-  const int n_x = 2 * (CHUNK_K / 8) * nx;  // steps over the x_pe chunks
+  constexpr int n_x = 2 * (CHUNK_K / 8) * NX;  // steps over the x_pe chunks
+  const int steps = n_x + 2 * (CHUNK_K / 8) * nd;
 #pragma unroll 1
-  for (int i = 0; i < n_x + 2 * (CHUNK_K / 8); ++i) {
+  for (int i = SPLIT ? group : 0; i < steps; i += SPLIT ? 2 : 1) {
     const bool view = i >= n_x;
     const int k = view ? i - n_x : i;
     const int row = row0 + 8 * (k & 1);
     const int col = 8 * (k >> 1) + 2 * (lane & 3);
     const float* xyz = pts + (view ? 3 * P : 0) + row;
     const int n_ch = view ? net.in_ch_views : net.in_ch;
-    store_bf16x2(view ? dt : xt, row, col, encode<false>(xyz, P, col, n_ch),
-                 encode<false>(xyz, P, col + 1, n_ch));
+    store_bf16x2(view ? dt : xt, row, col, encode<TRUE_COS>(xyz, P, col, n_ch),
+                 encode<TRUE_COS>(xyz, P, col + 1, n_ch));
   }
 }
 
-// Columns [0, COLS) of a warpgroup's A tile from the rows of a pre-encoded
-// input, rounded to bf16: row p < here of the tile is src[p * n_ch ...].
-// Every column the products read is written, zero where the channel is >=
-// n_ch or the row >= here: pad columns must hold zeros, not whatever the
-// tile held (a NaN there times a zero weight is NaN). Lane pair c of a row
-// reads channels 2c, 2c+1, so a row is read by consecutive threads on
-// consecutive addresses (rows are 4-byte aligned only: no vector loads).
+// Columns [0, COLS) of a tile of A chunks from channels [col0, col0 + COLS)
+// of the rows of a pre-encoded input, rounded to bf16: row p < here of the
+// tile is src[p * n_ch + col0 ...]. Every column the products read is
+// written, zero where the channel is >= n_ch or the row >= here: pad
+// columns must hold zeros, not whatever the tile held (a NaN there times a
+// zero weight is NaN). Lane pair c of a row reads channels 2c, 2c+1, so a
+// row is read by consecutive threads on consecutive addresses (rows are
+// 4-byte aligned only: no vector loads).
 template <int COLS>
-__device__ __forceinline__ void load_encoding(const float* __restrict__ src, int n_ch, int here,
-                                              unsigned char* tile) {
+__device__ __forceinline__ void load_encoding(const float* __restrict__ src, int n_ch, int col0,
+                                              int here, unsigned char* tile) {
+  static_assert(128 % (COLS / 2) == 0, "a row's channel pairs must divide the warpgroup");
   constexpr int PAIRS = COLS / 2;
   const int t = threadIdx.x & 127;
   const int col = 2 * (t % PAIRS);
+  const int ch = col0 + col;
 #pragma unroll 4
   for (int row = t / PAIRS; row < P; row += 128 / PAIRS) {
     float lo = 0.f, hi = 0.f;
     if (row < here) {
       const float* r = src + row * n_ch;
-      if (col < n_ch) lo = __ldg(r + col);
-      if (col + 1 < n_ch) hi = __ldg(r + col + 1);
+      if (ch < n_ch) lo = __ldg(r + ch);
+      if (ch + 1 < n_ch) hi = __ldg(r + ch + 1);
     }
     store_bf16x2(tile, row, col, lo, hi);
   }
 }
 
-// The warpgroup's x_pe and d_pe A tiles (a: nx x_pe chunks, 4 h chunks,
-// d_pe) from rows [0, here) of x_pe [*, in_ch] and d_pe [*, in_ch_views]:
-// every column of each.
+// A tile's x_pe and d_pe A chunks (a: NX x_pe chunks, the h chunks, nd d_pe
+// chunks) from rows [0, here) of x_pe [*, in_ch] and d_pe [*, in_ch_views]:
+// every column of each. With SPLIT warpgroup 0 loads x_pe and 1 d_pe.
+template <int W, int NX>
 __device__ __forceinline__ void load_encodings(const float* x_pe, const float* d_pe, int here,
-                                               unsigned char* a, const Net& net, int nx) {
-  if (nx == 1) {
-    load_encoding<CHUNK_K>(x_pe, net.in_ch, here, a);
-  } else {
-    load_encoding<2 * CHUNK_K>(x_pe, net.in_ch, here, a);
+                                               unsigned char* a, const Net& net, int nd,
+                                               int group) {
+  constexpr bool SPLIT = Shape<W>::SPLIT;
+  if (!SPLIT || group == 0) {
+    if constexpr (NX == 3) {
+      load_encoding<2 * CHUNK_K>(x_pe, net.in_ch, 0, here, a);
+      load_encoding<CHUNK_K>(x_pe, net.in_ch, 2 * CHUNK_K, here, a + 2 * A_CHUNK_BYTES);
+    } else {
+      load_encoding<NX * CHUNK_K>(x_pe, net.in_ch, 0, here, a);
+    }
   }
-  load_encoding<CHUNK_K>(d_pe, net.in_ch_views, here, a + (nx + W / CHUNK_K) * A_CHUNK_BYTES);
+  if (!SPLIT || group == 1) {
+    unsigned char* d = a + (NX + Shape<W>::H) * A_CHUNK_BYTES;
+    if (nd == 1) {
+      load_encoding<CHUNK_K>(d_pe, net.in_ch_views, 0, here, d);
+    } else {
+      load_encoding<2 * CHUNK_K>(d_pe, net.in_ch_views, 0, here, d);
+    }
+  }
 }
 
-// The MLP on one warpgroup's 64 points, whose encodings encode_tiles left
-// in its A tiles (a: nx x_pe chunks, 4 h chunks, d_pe; published): raw [4][P]
-// (r, g, b logits, sigma) of the warpgroup, written by the lanes that hold
-// each row. Consumes the tile's plan.per_tile chunks from the ring. FAST
-// (net.fast_epilogue), nx (the x_pe chunks, 1 or 2) and the views layer's
-// last k16 steps are template flags: as runtime values they cost the
-// registers the 128 accumulators need: the kernel spills and runs slower
-// (chip_variants.py times the runtime-nx variant).
-template <bool FAST, int nx>
+// The MLP on a tile of 64 points, whose encodings are in the A tiles at a
+// (NX x_pe chunks, the h chunks, nd d_pe chunks; published): raw [4][P]
+// (r, g, b logits, sigma) of this warpgroup's columns, written by the lanes
+// that hold each row (at W = 512 partial sums, the bias in warpgroup 0's).
+// Consumes the tile's plan.per_tile chunks from the ring. FAST
+// (net.fast_epilogue), NX and the views layer's last k16 steps are template
+// flags: as runtime values they cost the registers the 128 accumulators
+// need: the kernel spills and runs slower.
+template <int W, int NX, bool FAST, typename R>
 __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, const Net& net,
-                                               Ring& ring, int group) {
+                                               R& ring, int group, int nd) {
+  using S = Shape<W>;
   const int lane = threadIdx.x & 31;
   const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   const uint32_t x = smem_addr(a);            // x_pe, then h, then d_pe
-  const uint32_t h = x + nx * A_CHUNK_BYTES;
-  unsigned char* h_tile = a + nx * A_CHUNK_BYTES;
-  float acc[W / 2];
+  const uint32_t h = x + NX * A_CHUNK_BYTES;
+  unsigned char* h_tile = a + NX * A_CHUNK_BYTES;
+  // this warpgroup's first trunk and views columns, and their rows of each
+  // packed chunk ([W][64] and [W/2][64], 128 bytes a row)
+  const int col0 = S::SPLIT ? N * group : 0;
+  const int vcol0 = S::SPLIT ? NV * group : 0;
+  const uint32_t b_rows = S::SPLIT ? static_cast<uint32_t>(N * 128 * group) : 0u;
+  const uint32_t bv_rows = S::SPLIT ? static_cast<uint32_t>(NV * 128 * group) : 0u;
+  const bool head_bias = !S::SPLIT || group == 0;
+  float acc[N / 2];
 
   // ---- trunk -------------------------------------------------------------
   for (int i = 0; i < net.depth; ++i) {
-    zero<W>(acc);
+    zero<N>(acc);
     if (i == 0) {
-      layer_mma<W, 4>(acc, x, nx, ring);
+      layer_mma<N, 4>(acc, x, b_rows, NX, ring);
     } else if ((net.skip_mask >> (i - 1)) & 1u) {
-      layer_mma<W, 4>(acc, x, nx + 4, ring);  // [x_pe, h]
+      layer_mma<N, 4>(acc, x, b_rows, NX + S::H, ring);  // [x_pe, h]
     } else {
-      layer_mma<W, 4>(acc, h, 4, ring);
+      layer_mma<N, 4>(acc, h, b_rows, S::H, ring);
     }
-    wg_barrier(group);  // every warp's products that read h are complete
-    epilogue<W, true, FAST>(acc, net.b[i], h_tile);
-    wg_publish(group);
+    tile_sync<W>(group);  // every warp's products that read h are complete
+    epilogue<N, true, FAST>(acc, net.b[i] + col0, h_tile, col0);
+    tile_publish<W>(group);
   }
 
   // ---- density head (alpha [W][1]) on the trunk output, CUDA cores -------
   {
-    const float* ak = net.k[net.depth + 1];
+    const float* ak = net.k[net.depth + 1] + col0;
     float top = 0.f, bot = 0.f;
 #pragma unroll
-    for (int j = 0; j < W / 8; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
       const float2 w = load2(ak + 8 * j + 2 * (lane & 3));
       top = fmaf(acc[4 * j], w.x, fmaf(acc[4 * j + 1], w.y, top));
       bot = fmaf(acc[4 * j + 2], w.x, fmaf(acc[4 * j + 3], w.y, bot));
@@ -384,37 +467,37 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
     top = row_sum(top);
     bot = row_sum(bot);
     if ((lane & 3) == 0) {
-      const float b = __ldg(net.b[net.depth + 1]);
+      const float b = head_bias ? __ldg(net.b[net.depth + 1]) : 0.f;
       raw[3 * P + row] = top + b;
       raw[3 * P + row + 8] = bot + b;
     }
   }
 
   // ---- feature layer (no ReLU, rounded after its bias) -------------------
-  zero<W>(acc);
-  layer_mma<W, 4>(acc, h, 4, ring);
-  wg_barrier(group);
-  epilogue<W, false, false>(acc, net.b[net.depth], h_tile);
-  wg_publish(group);
+  zero<N>(acc);
+  layer_mma<N, 4>(acc, h, b_rows, S::H, ring);
+  tile_sync<W>(group);
+  epilogue<N, false, false>(acc, net.b[net.depth] + col0, h_tile, col0);
+  tile_publish<W>(group);
 
   // ---- views layer: [feature, d_pe] -> W/2, ReLU -------------------------
-  float accv[W / 4];
-  zero<W / 2>(accv);
-  // [feature, d_pe], over the d_pe chunk's k16 steps that hold channels
-  switch ((net.in_ch_views + 15) / 16) {
-    case 1: layer_mma<W / 2, 1>(accv, h, 5, ring); break;
-    case 2: layer_mma<W / 2, 2>(accv, h, 5, ring); break;
-    case 3: layer_mma<W / 2, 3>(accv, h, 5, ring); break;
-    default: layer_mma<W / 2, 4>(accv, h, 5, ring); break;
+  float accv[NV / 2];
+  zero<NV>(accv);
+  // [feature, d_pe], over the last d_pe chunk's k16 steps that hold channels
+  switch ((net.in_ch_views - CHUNK_K * (nd - 1) + 15) / 16) {
+    case 1: layer_mma<NV, 1>(accv, h, bv_rows, S::H + nd, ring); break;
+    case 2: layer_mma<NV, 2>(accv, h, bv_rows, S::H + nd, ring); break;
+    case 3: layer_mma<NV, 3>(accv, h, bv_rows, S::H + nd, ring); break;
+    default: layer_mma<NV, 4>(accv, h, bv_rows, S::H + nd, ring); break;
   }
   // the rgb head reads the registers: nothing to store
-  epilogue<W / 2, true, FAST>(accv, net.b[net.depth + 2], nullptr);
+  epilogue<NV, true, FAST>(accv, net.b[net.depth + 2] + vcol0, nullptr, 0);
 
   // ---- rgb head (rgb [W/2][3]), CUDA cores -------------------------------
-  const float* rk = net.k[net.depth + 3];
+  const float* rk = net.k[net.depth + 3] + 3 * vcol0;
   float top[3] = {0.f, 0.f, 0.f}, bot[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < W / 16; ++j) {
+  for (int j = 0; j < NV / 8; ++j) {
     const int k0 = 8 * j + 2 * (lane & 3);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -427,76 +510,130 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
   for (int c = 0; c < 3; ++c) {
     const float t = row_sum(top[c]), b = row_sum(bot[c]);
     if ((lane & 3) == 0) {
-      const float bias = __ldg(net.b[net.depth + 3] + c);
+      const float bias = head_bias ? __ldg(net.b[net.depth + 3] + c) : 0.f;
       raw[c * P + row] = t + bias;
       raw[c * P + row + 8] = b + bias;
     }
   }
 }
 
-// Pointers into the core's shared memory, from the kernel's dynamic
-// shared buffer (aligned up to SMEM_ALIGN here; launches ask for
-// core_bytes(nx) + SMEM_ALIGN plus their own part).
+// The core of one kernel instantiation: pointers into its shared memory.
+template <int W, int NX>
 struct Core {
+  static constexpr int STAGES = stages(W, NX);
   unsigned char* base;  // 1024-aligned
-  Ring ring;
-  unsigned char* a;     // this warpgroup's A tiles: x_pe (nx chunks), h (4), d_pe
-  float* pts;           // this warpgroup's [6][P]
-  float* raw;           // this warpgroup's [4][P]
+  Ring<STAGES> ring;
+  unsigned char* a;     // this warpgroup's A tiles: x_pe (NX chunks), h, d_pe (nd)
+  float* pts;           // their [6][P] points (in the h tiles)
+  float* raw;           // this warpgroup's [4][P] raw outputs (in the first x_pe tile)
   int group;            // warpgroup 0 or 1
-  int nx;               // x_pe chunks
+  int nd;               // d_pe chunks
+
+  // The first point of this warpgroup's tile within a block tile.
+  __device__ int point0() const { return Shape<W>::SPLIT ? 0 : group * P; }
+  // Whether this warpgroup reads its tile's points and writes its outputs
+  // (both warpgroups at W = 256; warpgroup 0 for the shared tile at 512).
+  __device__ bool io() const { return !Shape<W>::SPLIT || group == 0; }
+  // The barrier of the threads that share this warpgroup's tile.
+  __device__ void sync() const { tile_sync<W>(group); }
 };
 
-// The ring is set up by Ring::init, called by every thread.
-__device__ __forceinline__ Core make_core(void* dyn, const Plan& plan, int nx) {
-  Core c;
+// Pointers into the core's shared memory, from the kernel's dynamic shared
+// buffer (aligned up to SMEM_ALIGN here; launches ask for core_bytes +
+// SMEM_ALIGN plus their own part). The ring is set up by Ring::init,
+// called by every thread.
+template <int W, int NX>
+__device__ __forceinline__ Core<W, NX> make_core(void* dyn, const Plan& plan, int nd) {
+  Core<W, NX> c;
   // offset from the shared array itself, so the compiler still knows every
   // pointer below is shared (plain st.shared / ld.shared, 32-bit addresses)
   const uint32_t pad = (SMEM_ALIGN - (smem_addr(dyn) & (SMEM_ALIGN - 1))) & (SMEM_ALIGN - 1);
   c.base = static_cast<unsigned char*>(dyn) + pad;
-  unsigned char* tiles = c.base + STAGES * CHUNK_BYTES;  // after the ring
+  unsigned char* tiles = c.base + Core<W, NX>::STAGES * chunk_bytes(W);  // after the ring
+  const int ab = a_bytes(W, NX, nd);
   c.ring.buf = c.base;
   c.ring.plan = plan;
   c.group = threadIdx.x >> 7;
-  c.nx = nx;
-  c.a = tiles + c.group * a_bytes(nx);
-  c.pts = reinterpret_cast<float*>(tiles + 2 * a_bytes(nx)) + c.group * 6 * P;
-  c.raw = reinterpret_cast<float*>(tiles + 2 * a_bytes(nx)) + 2 * 6 * P + c.group * 4 * P;
-  c.ring.full = reinterpret_cast<uint64_t*>(tiles + 2 * a_bytes(nx) + 2 * 10 * P * 4);
-  c.ring.empty = c.ring.full + STAGES;
+  c.nd = nd;
+  c.a = tiles + (Shape<W>::SPLIT ? 0 : c.group * ab);
+  c.pts = reinterpret_cast<float*>(c.a + NX * A_CHUNK_BYTES);
+  c.raw = reinterpret_cast<float*>(c.a) + (Shape<W>::SPLIT ? c.group * 4 * P : 0);
+  c.ring.full = reinterpret_cast<uint64_t*>(tiles + Shape<W>::GROUPS * ab);
+  c.ring.empty = c.ring.full + Core<W, NX>::STAGES;
   return c;
 }
 
-// The MLP of one tile of a warpgroup, once this thread has written its part
-// of the x_pe and d_pe A tiles: publish them, run the MLP, and leave raw
-// [4][P] in core.raw, readable by the whole warpgroup on return.
-template <bool FAST>
-__device__ __forceinline__ void mlp_tile(Core& core, const Net& net) {
-  wg_publish(core.group);
-  if (core.nx == 1) {
-    mlp_core_wgmma<FAST, 1>(core.a, core.raw, net, core.ring, core.group);
+// The MLP of one tile, once this thread has written its part of the x_pe
+// and d_pe A tiles: publish them, run the MLP, and leave raw [4][P] in the
+// io() warpgroup's core.raw, readable by it on return.
+template <int W, int NX, bool FAST>
+__device__ __forceinline__ void mlp_tile(Core<W, NX>& core, const Net& net) {
+  tile_publish<W>(core.group);
+  mlp_core_wgmma<W, NX, FAST>(core.a, core.raw, net, core.ring, core.group, core.nd);
+  if constexpr (Shape<W>::SPLIT) {
+    // warpgroup 0's raw += warpgroup 1's partial sums, one value a thread
+    __syncthreads();
+    float* raw0 = reinterpret_cast<float*>(core.a);
+    raw0[threadIdx.x] += raw0[4 * P + threadIdx.x];
+    __syncthreads();
   } else {
-    mlp_core_wgmma<FAST, 2>(core.a, core.raw, net, core.ring, core.group);
+    wg_barrier(core.group);
   }
-  wg_barrier(core.group);
 }
 
-// One tile of a warpgroup, once its [6][P] points are in core.pts
-// (published by a warpgroup barrier): encode, then mlp_tile.
-template <bool FAST>
-__device__ __forceinline__ void run_tile(Core& core, const Net& net) {
-  encode_tiles(core.pts, core.a, core.a + (core.nx + W / CHUNK_K) * A_CHUNK_BYTES, net, core.nx);
-  mlp_tile<FAST>(core, net);
+// One tile, once its [6][P] points are in core.pts (published by
+// core.sync()): encode (cos as sin(y + pi/2), or with TRUE_COS a true
+// cosf), then mlp_tile.
+template <int W, int NX, bool FAST, bool TRUE_COS>
+__device__ __forceinline__ void run_tile(Core<W, NX>& core, const Net& net) {
+  encode_tiles<NX, TRUE_COS, Shape<W>::SPLIT>(
+      core.pts, core.a, core.a + (NX + Shape<W>::H) * A_CHUNK_BYTES, net, core.nd, core.group);
+  mlp_tile<W, NX, FAST>(core, net);
+}
+
+// Calls L::run<W, NX>(args...) for a net's trunk width (256 or 512) and
+// x_pe chunks: the instantiations of the core (W = 512 takes at most three
+// x_pe chunks: four leave no room for the ring). cudaErrorInvalidValue for
+// any other.
+template <typename L, typename... Args>
+int dispatch(int width, int nx, Args... args) {
+  if (width == N) {
+    switch (nx) {
+      case 1: return L::template run<N, 1>(args...);
+      case 2: return L::template run<N, 2>(args...);
+      case 3: return L::template run<N, 3>(args...);
+      case 4: return L::template run<N, 4>(args...);
+      default: break;
+    }
+  } else if (width == 2 * N) {
+    switch (nx) {
+      case 1: return L::template run<2 * N, 1>(args...);
+      case 2: return L::template run<2 * N, 2>(args...);
+      case 3: return L::template run<2 * N, 3>(args...);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory a launch asks for: the core, aligned.
+inline int launch_bytes(int width, int in_ch, int in_ch_views) {
+  return core_bytes(width, x_chunks(in_ch), d_chunks(in_ch_views)) + SMEM_ALIGN;
 }
 
 }  // namespace wg
 }  // namespace nerf
 
-// Bytes of the wgmma core's packed weights (raymarch.py pack_wgmma_weights);
-// the view encoding always fits its one chunk. Defined once in each shared
-// library, as the limits of nerf_mlp.cuh.
-extern "C" long long nerf_wgmma_plan_bytes(int depth, unsigned skip_mask, int in_ch,
-                                           int in_ch_views) {
-  (void)in_ch_views;
-  return nerf::wg::make_plan(nullptr, depth, skip_mask, in_ch).tile_bytes();
+// Bytes of the wgmma core's packed weights (raymarch.py pack_wgmma_weights)
+// and of the shared memory it needs for a net (the library refuses a launch
+// that asks for more than the device's nerf_smem_optin()). Defined once in
+// each shared library, as the limits of nerf_mlp.cuh.
+extern "C" {
+long long nerf_wgmma_plan_bytes(int width, int depth, unsigned skip_mask, int in_ch,
+                                int in_ch_views) {
+  return nerf::wg::make_plan(nullptr, width, depth, skip_mask, in_ch, in_ch_views).tile_bytes();
+}
+int nerf_wgmma_smem_bytes(int width, int in_ch, int in_ch_views) {
+  return nerf::wg::launch_bytes(width, in_ch, in_ch_views);
+}
 }

@@ -27,14 +27,15 @@
 // groups blockIdx.x, +gridDim.x, ...) and run the MLP over each group in
 // sub-tiles of the core's tile, keeping the raw outputs and depths in
 // shared [4][R*S] and [R*S] buffers beside the core. The MLP:
-//   - float32: sub-tiles of 128 or 64 points on the FP32 core of
-//     nerf_mlp.cuh, R up to 128 / gcd(S, 128) (or 64 / gcd(S, 64)): the tile
-//     and R that waste the least of the FP32 pipes, given what the buffers
-//     leave room for (128 points and R = 2 for S = 64 and 192, 64 points
-//     and R = 4 for S = 144);
-//   - bf16: 128-point sub-tiles on the wgmma core of nerf_mlp_wgmma.cuh,
-//     R = 128 / gcd(S, 128) where the buffers fit (R = 2 for S = 64 and
-//     192), else the fewest rays that fill one sub-tile.
+//   - float32: sub-tiles of the FP32 core's tile (nerf_mlp.cuh: 128 or 64
+//     points at W = 256, 64 or 32 at W = 512), R up to tile / gcd(S, tile):
+//     the tile and R that waste the least of the FP32 pipes, given what the
+//     buffers leave room for (at W = 256: 128 points and R = 2 for S = 64
+//     and 192, 64 points and R = 4 for S = 144);
+//   - bf16: sub-tiles of the wgmma core's tile (nerf_mlp_wgmma.cuh: 128
+//     points at W = 256, 64 at W = 512), R = tile / gcd(S, tile) where the
+//     buffers fit (R = 2 for S = 64 and 192 at W = 256), else the fewest
+//     rays that fill one sub-tile.
 // Both stream their packed weights through the core's shared-memory ring
 // (each header reckons the weight traffic).
 // When all of a block's points are in, the block turns every point's
@@ -154,7 +155,7 @@ __device__ __forceinline__ long long block_tiles(long long n_rays, int S, int R)
 
 // float32: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays
 // in sub-tiles of TILE points on the FP32 core.
-template <int TILE>
+template <int TILE, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                 const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
@@ -168,9 +169,10 @@ render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays
   const int R = rays_per_block;
   const int stride = R * S;
   const long long groups = (n_rays + R - 1) / R;
-  f32::Core<TILE> core = f32::make_core<TILE>(smem4, plan, rx, rd);
+  f32::Core<TILE, W> core = f32::make_core<TILE, W>(smem4, plan, rx, rd);
   // [4][R*S] the group's raw field, then [R*S] its depths
-  unsigned char* core_end = reinterpret_cast<unsigned char*>(smem4) + f32::core_bytes(TILE, rx, rd);
+  unsigned char* core_end =
+      reinterpret_cast<unsigned char*>(smem4) + f32::core_bytes(TILE, W, rx, rd);
   float* ray_raw = reinterpret_cast<float*>(core_end);
   float* ray_z = ray_raw + 4 * stride;
   core.ring.init(block_tiles<TILE>(n_rays, S, R) * plan.per_tile);
@@ -185,7 +187,7 @@ render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays
                   tid);
       }
       __syncthreads();
-      f32::run_tile<TILE, false, false>(core, net);
+      f32::run_tile<TILE, W, false>(core, net);
       for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
         const int c = idx / TILE, p = idx % TILE;
         if (t0 + p < T) ray_raw[c * stride + t0 + p] = core.raw[c * TILE + p];
@@ -196,42 +198,47 @@ render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays
   }
 }
 
-// bf16: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays;
-// warpgroup g runs points [64g, 64g+64) of each 128-point sub-tile. FAST:
-// net.fast_epilogue.
-template <bool FAST>
+// bf16: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays in
+// sub-tiles of wg::Shape<W>::TILE points: at W = 256 warpgroup g runs
+// points [64g, 64g+64) of each 128-point sub-tile, at W = 512 both run the
+// columns of one 64-point sub-tile. FAST: net.fast_epilogue.
+template <int W, int NX, bool FAST>
 __global__ void __launch_bounds__(THREADS, 1)
 render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                   const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
                   long long n_rays, int n_samples, int rays_per_block, Net net,
-                  Plan plan, int nx, int white_bkgd, float* __restrict__ rgb_map,
+                  Plan plan, int nd, int white_bkgd, float* __restrict__ rgb_map,
                   float* __restrict__ disp_map, float* __restrict__ acc_map,
                   float* __restrict__ weights, float* __restrict__ depth_map) {
   extern __shared__ float4 smem4[];
+  constexpr int TILE = wg::Shape<W>::TILE;
   const int S = n_samples;
   const int R = rays_per_block;
   const int stride = R * S;
   const long long groups = (n_rays + R - 1) / R;
-  wg::Core core = wg::make_core(smem4, plan, nx);
-  float* ray_raw = reinterpret_cast<float*>(core.base + wg::core_bytes(nx));  // [4][R*S]
-  float* ray_z = ray_raw + 4 * stride;                                        // [R*S]
-  core.ring.init(block_tiles<wg::TILE>(n_rays, S, R) * plan.per_tile);
+  wg::Core<W, NX> core = wg::make_core<W, NX>(smem4, plan, nd);
+  // [4][R*S] the group's raw field, then [R*S] its depths
+  float* ray_raw = reinterpret_cast<float*>(core.base + wg::core_bytes(W, NX, nd));
+  float* ray_z = ray_raw + 4 * stride;
+  core.ring.init(block_tiles<TILE>(n_rays, S, R) * plan.per_tile);
   const int t = threadIdx.x & 127;
   for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const long long ray0 = grp * R;
     const int n_here = static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R);
     const int T = n_here * S;
-    for (int t0 = 0; t0 < T; t0 += wg::TILE) {
-      const int l0 = t0 + core.group * P;  // this warpgroup's first point
-      wg::wg_barrier(core.group);          // the previous sub-tile's pts and raw are read
-      if (t < P) {
+    for (int t0 = 0; t0 < T; t0 += TILE) {
+      const int l0 = t0 + core.point0();  // this warpgroup's first point
+      core.sync();                        // the previous sub-tile's pts and raw are read
+      if (core.io() && t < P) {
         ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, l0 + t, T, ray_z, core.pts, P, t);
       }
-      wg::wg_barrier(core.group);
-      wg::run_tile<FAST>(core, net);
-      for (int idx = t; idx < 4 * P; idx += 128) {
-        const int c = idx / P, p = idx % P;
-        if (l0 + p < T) ray_raw[c * stride + l0 + p] = core.raw[c * P + p];
+      core.sync();
+      wg::run_tile<W, NX, FAST, false>(core, net);
+      if (core.io()) {
+        for (int idx = t; idx < 4 * P; idx += 128) {
+          const int c = idx / P, p = idx % P;
+          if (l0 + p < T) ray_raw[c * stride + l0 + p] = core.raw[c * P + p];
+        }
       }
     }
     composite(ray_raw, ray_z, stride, n_here, S, ray0, rays_d, white_bkgd, rgb_map, disp_map,
@@ -257,24 +264,27 @@ int block_rays(int n_samples, int tile, int max_points) {
   return n_samples >= tile ? 1 : (tile + n_samples - 1) / n_samples;
 }
 
-// 64-point tiles run the FP32 core at this fraction of the 128-point
-// tiles' rate per point (kernel 1, float32, on an H100: 0.80-0.87)
-constexpr float TILE64_RATE = 0.85f;
+// The FP32 core's smaller tile runs at this fraction of its big tile's rate
+// per point (kernel 1, float32, 64- vs 128-point tiles at W = 256 on an
+// H100: 0.80-0.87)
+constexpr float SMALL_TILE_RATE = 0.85f;
 
-// The float32 sub-tile (128 or 64) and rays per group for S samples: of the
-// ray counts up to tile / gcd(S, tile) whose buffers fit beside each tile's
-// core, the pair that runs the group's points fastest, counting the pad
-// points of its last sub-tile and TILE64_RATE; 0 if none fits.
-int pick_f32(int n_samples, int rx, int rd, int smem_max, int* tile, int* rays) {
+// The float32 sub-tile (the width's big tile or half of it) and rays per
+// group for S samples: of the ray counts up to tile / gcd(S, tile) whose
+// buffers fit beside each tile's core, the pair that runs the group's
+// points fastest, counting the pad points of its last sub-tile and
+// SMALL_TILE_RATE; 0 if none fits.
+int pick_f32(int n_samples, int width, int rx, int rd, int smem_max, int* tile, int* rays) {
   float best = 0.f;
-  const int tiles[2] = {128, 64};
+  const int big = f32::big_tile(width);
+  const int tiles[2] = {big, big / 2};
   for (const int t : tiles) {
-    const long long room = smem_max - f32::core_bytes(t, rx, rd);
+    const long long room = smem_max - f32::core_bytes(t, width, rx, rd);
     const int most = t / gcd(n_samples, t);
     for (int r = 1; r <= most && static_cast<long long>(r) * n_samples * POINT_BYTES <= room;
          ++r) {
       const long long points = static_cast<long long>(r) * n_samples;
-      const float rate = (t == 128 ? 1.f : TILE64_RATE) * static_cast<float>(points) /
+      const float rate = (t == big ? 1.f : SMALL_TILE_RATE) * static_cast<float>(points) /
                          static_cast<float>((points + t - 1) / t * t);
       if (rate > best) {
         best = rate;
@@ -286,38 +296,63 @@ int pick_f32(int n_samples, int rx, int rd, int smem_max, int* tile, int* rays) 
   return best > 0.f;
 }
 
-// Shared bytes of the bf16 kernel's core (aligned) for a net's x_pe.
-int wgmma_core(int in_ch) { return wg::core_bytes(wg::x_chunks(in_ch)) + wg::SMEM_ALIGN; }
+// The launches of one instantiation, for the cores' dispatch.
+struct TileF32 {
+  template <int TILE, int W>
+  static int run(long long blocks, size_t smem, cudaStream_t s, const float* rays_o,
+                 const float* rays_d, const float* viewdirs, const float* z_vals, long long n_rays,
+                 int n_samples, int rays, Net net, Plan plan, int rx, int rd, int white_bkgd,
+                 float* rgb_map, float* disp_map, float* acc_map, float* weights_out,
+                 float* depth_map) {
+    return launch_persistent(render_tile_f32<TILE, W>, blocks, smem, s, rays_o, rays_d, viewdirs,
+                             z_vals, n_rays, n_samples, rays, net, plan, rx, rd, white_bkgd,
+                             rgb_map, disp_map, acc_map, weights_out, depth_map);
+  }
+};
+
+template <bool FAST>
+struct TileWgmma {
+  template <int W, int NX>
+  static int run(long long blocks, size_t smem, cudaStream_t s, const float* rays_o,
+                 const float* rays_d, const float* viewdirs, const float* z_vals, long long n_rays,
+                 int n_samples, int rays, Net net, Plan plan, int nd, int white_bkgd,
+                 float* rgb_map, float* disp_map, float* acc_map, float* weights_out,
+                 float* depth_map) {
+    return launch_persistent(render_tile_wgmma<W, NX, FAST>, blocks, smem, s, rays_o, rays_d,
+                             viewdirs, z_vals, n_rays, n_samples, rays, net, plan, nd, white_bkgd,
+                             rgb_map, disp_map, acc_map, weights_out, depth_map);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
 // The most samples per ray the kernel takes in this dtype for a net's
-// encodings (one ray per group), from the device's shared memory; 0 when
-// the core alone does not fit.
-int render_tile_max_samples(int bf16, int in_ch, int in_ch_views) {
+// width and encodings (one ray per group), from the device's shared
+// memory; 0 when the core alone does not fit.
+int render_tile_max_samples(int bf16, int width, int in_ch, int in_ch_views) {
   int smem_max = 0;
   if (smem_optin(&smem_max) != 0) return 0;
-  const int core = bf16 ? wgmma_core(in_ch)
-                        : f32::core_bytes(64, f32::rows(in_ch), f32::rows(in_ch_views));
+  const int core = bf16 ? wg::launch_bytes(width, in_ch, in_ch_views)
+                        : f32::smallest_bytes(width, in_ch, in_ch_views);
   return smem_max > core ? (smem_max - core) / POINT_BYTES : 0;
 }
 
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
 // for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
-// to the cores' width; packed: the weight chunks of the core this dtype
-// runs (raymarch.py pack_f32_weights in float32, pack_wgmma_weights in
-// bf16; 16-byte aligned). Returns a cudaError_t value: 0 when the launch
-// was accepted.
+// to a trunk of `width` (256 or 512); packed: the weight chunks of the core
+// this dtype runs (raymarch.py pack_f32_weights in float32,
+// pack_wgmma_weights in bf16; 16-byte aligned). Returns a cudaError_t
+// value: 0 when the launch was accepted.
 int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
                 const float* z_vals, long long n_rays, int n_samples,
-                const void* const* weights, int depth, unsigned skip_mask,
+                const void* const* weights, int width, int depth, unsigned skip_mask,
                 int in_ch, int in_ch_views, int bf16, const void* packed,
                 int fast_epilogue, int white_bkgd, float* rgb_map, float* disp_map,
                 float* acc_map, float* weights_out, float* depth_map, void* stream) {
   Net net;
-  const int err = make_net(weights, depth, skip_mask, in_ch, in_ch_views,
+  const int err = make_net(weights, width, depth, skip_mask, in_ch, in_ch_views,
                            fast_epilogue, &net);
   if (err != 0) return err;
   if (n_samples < 1 || packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16) {
@@ -328,31 +363,37 @@ int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
   if (e != 0) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    const int nx = wg::x_chunks(in_ch);
-    const int room = smem_max - wgmma_core(in_ch);
-    const int rays = block_rays(n_samples, wg::TILE, room / POINT_BYTES);
+    const int core = wg::launch_bytes(width, in_ch, in_ch_views);
+    const int room = smem_max - core;
+    const int rays = block_rays(n_samples, width == 256 ? 2 * P : P, room / POINT_BYTES);
     if (room < 0 || static_cast<long long>(rays) * n_samples * POINT_BYTES > room) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const size_t smem = wgmma_core(in_ch) + static_cast<size_t>(rays) * n_samples * POINT_BYTES;
-    return launch_persistent(fast_epilogue ? render_tile_wgmma<true> : render_tile_wgmma<false>,
-                             (n_rays + rays - 1) / rays, smem, s,
-                             rays_o, rays_d, viewdirs, z_vals, n_rays, n_samples, rays,
-                             net, wg::make_plan(packed, depth, skip_mask, in_ch), nx, white_bkgd,
-                             rgb_map, disp_map, acc_map, weights_out, depth_map);
+    const size_t smem = core + static_cast<size_t>(rays) * n_samples * POINT_BYTES;
+    const Plan plan = wg::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
+    const int nx = wg::x_chunks(in_ch), nd = wg::d_chunks(in_ch_views);
+    const long long blocks = (n_rays + rays - 1) / rays;
+    return fast_epilogue
+        ? wg::dispatch<TileWgmma<true>>(width, nx, blocks, smem, s, rays_o, rays_d, viewdirs,
+                                        z_vals, n_rays, n_samples, rays, net, plan, nd,
+                                        white_bkgd, rgb_map, disp_map, acc_map, weights_out,
+                                        depth_map)
+        : wg::dispatch<TileWgmma<false>>(width, nx, blocks, smem, s, rays_o, rays_d, viewdirs,
+                                         z_vals, n_rays, n_samples, rays, net, plan, nd,
+                                         white_bkgd, rgb_map, disp_map, acc_map, weights_out,
+                                         depth_map);
   }
   const int rx = f32::rows(in_ch), rd = f32::rows(in_ch_views);
   int tile = 0, rays = 0;
-  if (!pick_f32(n_samples, rx, rd, smem_max, &tile, &rays)) {
+  if (!pick_f32(n_samples, width, rx, rd, smem_max, &tile, &rays)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan plan = f32::make_plan(packed, depth, skip_mask, in_ch, in_ch_views);
+  const Plan plan = f32::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
   const size_t smem =
-      f32::core_bytes(tile, rx, rd) + static_cast<size_t>(rays) * n_samples * POINT_BYTES;
-  return launch_persistent(tile == 128 ? render_tile_f32<128> : render_tile_f32<64>,
-                           (n_rays + rays - 1) / rays, smem, s, rays_o, rays_d, viewdirs, z_vals,
-                           n_rays, n_samples, rays, net, plan, rx, rd, white_bkgd, rgb_map,
-                           disp_map, acc_map, weights_out, depth_map);
+      f32::core_bytes(tile, width, rx, rd) + static_cast<size_t>(rays) * n_samples * POINT_BYTES;
+  return f32::dispatch<TileF32>(width, tile, (n_rays + rays - 1) / rays, smem, s, rays_o, rays_d,
+                                viewdirs, z_vals, n_rays, n_samples, rays, net, plan, rx, rd,
+                                white_bkgd, rgb_map, disp_map, acc_map, weights_out, depth_map);
 }
 
 }  // extern "C"

@@ -12,16 +12,16 @@
 On a tensor for which ``uses_kernel`` is true (a CUDA tensor) a wrapper
 launches its kernel or raises; on a CPU tensor it computes its plain
 PyTorch twin. Every wrapper computes in bfloat16 unless asked for float32,
-as the JAX package's wrappers do. In bfloat16, ``nerf_march.cu``,
-``render_tile.cu`` and ``nerf_mlp.cu``'s projection and encoded stages
-(``fused_nerf_mlp_widepe``, ``fused_nerf_mlp``) multiply on the tensor
-cores (``nerf_mlp_wgmma.cuh``) from the chunks of ``pack_wgmma_weights``;
-float32, and ``fused_nerf_mlp_pe`` in both types, run the FP32 core
-(``nerf_mlp.cuh``) from the chunks of ``pack_f32_weights``. Both cores take
-a trunk of up to 256 (a narrower net is zero-padded to it by ``pad_params``,
-which is exact) and encodings of multires <= 20, multires_views <= 10; the
-padded weights and their chunks are prepared once per weight set, dtype and
-core (``_packed_weights``). Gradients of the first four
+as the JAX package's wrappers do. In bfloat16 every kernel multiplies on
+the tensor cores (``nerf_mlp_wgmma.cuh``) from the chunks of
+``pack_wgmma_weights``; in float32 on the FP32 core (``nerf_mlp.cuh``) from
+the chunks of ``pack_f32_weights``. Both cores take a trunk of 256 or 512
+(a narrower net is zero-padded to the next of the two by ``pad_params``,
+which is exact), up to 32 trunk layers and encodings of multires <= 20,
+multires_views <= 10, where they fit in a block's shared memory
+(``_check_supported`` names what does not); the padded weights and their
+chunks are prepared once per weight set and dtype (``_packed_weights``).
+Gradients of the first four
 recompute through a twin in float32, as the JAX custom_vjp backwards do;
 ``fused_render_tile`` is forward only, as in JAX, and raises when asked for
 a gradient on the card.
@@ -32,6 +32,7 @@ that its render went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from collections import OrderedDict
@@ -179,6 +180,8 @@ def _segments(params, net: NeRFNetConfig) -> List[torch.Tensor]:
     return segs + [params["feature_kernel"], views[:n_feature], views[n_feature:]]
 
 
+# trunk widths the CUDA cores are built for: a net is padded to the next one
+CORE_WIDTHS = (256, 512)
 # wgmma weight chunks (nerf_mlp_wgmma.cuh): 64 input rows each
 CHUNK_K = 64
 # FP32-core weight chunks (nerf_mlp.cuh): 16 input rows each
@@ -229,14 +232,22 @@ def pack_f32_weights(params: Dict[str, torch.Tensor], net: NeRFNetConfig) -> tor
     return torch.cat([_f32_chunks(w) for w in _segments(params, net)])
 
 
-def wgmma_bytes(depth: int, n_skips: int, width: int, in_ch: int = CHUNK_K) -> int:
+def core_width(width: int) -> int:
+    """The trunk width a net of ``width`` runs at on the cores: the
+    narrowest of CORE_WIDTHS that holds it (the widest past them, which the
+    kernels refuse)."""
+    return next((w for w in CORE_WIDTHS if w >= width), CORE_WIDTHS[-1])
+
+
+def wgmma_bytes(depth: int, n_skips: int, width: int, in_ch: int = CHUNK_K,
+                in_ch_views: int = CHUNK_K) -> int:
     """Bytes of ``pack_wgmma_weights`` for a net of trunk ``width`` whose
-    x_pe has ``in_ch`` channels and whose d_pe fits one chunk: the chunk
-    plan of nerf_mlp_wgmma.cuh (width 256, in_ch 63: 34 chunks of
+    x_pe has ``in_ch`` channels and d_pe ``in_ch_views``: the chunk plan of
+    nerf_mlp_wgmma.cuh (width 256, encodings 63 / 27: 34 chunks of
     [256][64] and 5 of [128][64])."""
-    h, nx = -(-width // CHUNK_K), -(-in_ch // CHUNK_K)
+    h, nx, nd = (-(-c // CHUNK_K) for c in (width, in_ch, in_ch_views))
     n_wide = nx + h * (depth - 1) + nx * n_skips + h
-    return (n_wide * width + (h + 1) * (width // 2)) * CHUNK_K * 2
+    return (n_wide * width + (h + nd) * (width // 2)) * CHUNK_K * 2
 
 
 def f32_bytes(depth: int, n_skips: int, width: int, in_ch: int, in_ch_views: int) -> int:
@@ -260,34 +271,36 @@ _PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
 _PACKED_SETS = 8
 
 
-def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, wgmma: bool, lib,
-                    what: str):
+def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, what: str):
     """(padded weights in ``param_keys`` order, packed chunks) of one weight
-    set for a launch: every weight zero-padded to the cores' width
-    (``pad_params``) and each kernel rounded to bf16 in bf16; from them the
-    chunks of ``pack_wgmma_weights`` (wgmma) or ``pack_f32_weights`` (the
-    FP32 core), checked against the library's chunk plan. Once per weight
-    set, dtype and core; an in-place update of a weight prepares again."""
+    set for a launch: every weight zero-padded to the core width of its
+    trunk (``pad_params``, ``core_width``) and each kernel rounded to bf16 in
+    bf16; from them the chunks of the core the dtype runs:
+    ``pack_wgmma_weights`` in bf16, ``pack_f32_weights`` in float32,
+    checked against the library's chunk plan. Once per weight set and dtype;
+    an in-place update of a weight prepares again."""
     keys = param_keys(depth)
     tensors = tuple(params[k] for k in keys)
     key = (tuple((id(t), t._version) for t in tensors), net.input_ch, net.input_ch_views,
-           tuple(net.skips), bf16, wgmma)
+           tuple(net.skips), bf16)
     if key in _PACKED:
         _PACKED.move_to_end(key)
         return _PACKED[key][1:]
+    width = core_width(params["pts_0_kernel"].shape[1])
     padded = pad_params({k: t.detach().to(torch.float32) for k, t in zip(keys, tensors)}, net,
-                        lib.nerf_width())
+                        width)
     if bf16:
         padded = {k: round_to(t, torch.bfloat16) if k.endswith("kernel") else t
                   for k, t in padded.items()}
     weights = [_aligned(padded[k]) for k in keys]
     skip_mask = sum(1 << sk for sk in net.skips)
-    if wgmma:
+    plan = (width, depth, skip_mask, net.input_ch, net.input_ch_views)
+    if bf16:
         packed = pack_wgmma_weights(padded, net)
-        want = lib.nerf_wgmma_plan_bytes(depth, skip_mask, net.input_ch, net.input_ch_views)
+        want = lib.nerf_wgmma_plan_bytes(*plan)
     else:
         packed = pack_f32_weights(padded, net)
-        want = lib.nerf_f32_plan_bytes(depth, skip_mask, net.input_ch, net.input_ch_views)
+        want = lib.nerf_f32_plan_bytes(*plan)
     nbytes = packed.numel() * packed.element_size()
     if nbytes != want or packed.data_ptr() % 16:
         raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
@@ -299,7 +312,7 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, wgmma: b
     return weights, packed
 
 
-_NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_uint,
+_NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int, ctypes.c_uint,
              ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _ARGTYPES = {
     "nerf_march": ("nerf_march", [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
@@ -311,17 +324,20 @@ _ARGTYPES = {
                     + [ctypes.c_void_p] * 6),
 }
 # every library's queries: (name, argtypes, restype)
-_QUERIES = [(fn, [], ctypes.c_int) for fn in ("nerf_width", "nerf_max_layers",
-                                              "nerf_max_in_ch", "nerf_max_in_ch_views")] + [
-    (fn, [ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
-    for fn in ("nerf_f32_plan_bytes", "nerf_wgmma_plan_bytes")]
+_QUERIES = [(fn, [], ctypes.c_int) for fn in (
+    "nerf_width", "nerf_max_layers", "nerf_max_in_ch", "nerf_max_in_ch_views",
+    "nerf_smem_optin")] + [
+    (fn, [ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int],
+     ctypes.c_longlong) for fn in ("nerf_f32_plan_bytes", "nerf_wgmma_plan_bytes")] + [
+    (fn, [ctypes.c_int] * 3, ctypes.c_int)
+    for fn in ("nerf_f32_smem_bytes", "nerf_wgmma_smem_bytes")]
 
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     fn_name, argtypes = _ARGTYPES[name]
-    queries = _QUERIES + ([("render_tile_max_samples", [ctypes.c_int] * 3, ctypes.c_int)]
+    queries = _QUERIES + ([("render_tile_max_samples", [ctypes.c_int] * 4, ctypes.c_int)]
                           if name == "render_tile" else [])
     for fn, args, res in [(fn_name, argtypes, ctypes.c_int)] + queries:
         getattr(lib, fn).argtypes = args
@@ -329,9 +345,15 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check_supported(params, net: NeRFNetConfig, lib, what: str) -> int:
-    """Raise NotImplementedError for a net the kernels do not take (a width
-    below the cores' is padded); returns the trunk depth."""
+def _on(device):
+    """The device a library query reads (a CUDA device's context)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _check_supported(params, net: NeRFNetConfig, lib, what: str, bf16: bool, device) -> int:
+    """Raise NotImplementedError, naming the limit, for a net the kernels do
+    not take (a narrower trunk than a core width is padded to it); returns
+    the trunk depth."""
     depth = _depth(params)
     if not net.use_viewdirs or net.i_embed != 0:
         raise NotImplementedError(f"{what} kernel: needs use_viewdirs=True and i_embed=0")
@@ -348,6 +370,16 @@ def _check_supported(params, net: NeRFNetConfig, lib, what: str) -> int:
     if width > lib.nerf_width():
         raise NotImplementedError(f"{what} kernel: trunk width {width} exceeds the kernels' "
                                   f"{lib.nerf_width()}")
+    # the core's shared memory for this width and these encodings
+    core = lib.nerf_wgmma_smem_bytes if bf16 else lib.nerf_f32_smem_bytes
+    need = core(core_width(width), net.input_ch, net.input_ch_views)
+    with _on(device):
+        have = lib.nerf_smem_optin()
+    if need > have:
+        raise NotImplementedError(
+            f"{what} kernel: a {core_width(width)}-wide trunk with {net.input_ch} x_pe and "
+            f"{net.input_ch_views} d_pe channels needs {need} bytes of shared memory per block "
+            f"in {'bfloat16' if bf16 else 'float32'}; the device gives {have}")
     expect = {"pts_0_kernel": (net.input_ch, width),
               "feature_kernel": (width, width), "alpha_kernel": (width, 1),
               "views_0_kernel": (width + net.input_ch_views, width // 2),
@@ -381,18 +413,20 @@ def _inputs(what: str, device, *specs):
     return out
 
 
-def _net_args(params, net: NeRFNetConfig, device, bf16: bool, wgmma: bool, lib, what: str):
-    """The C interface's net arguments (the packed chunks of the core the
-    launch runs: wgmma or the FP32 core), and the tensors to keep alive
-    until the launch has been queued."""
-    depth = _check_supported(params, net, lib, what)
+def _net_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str):
+    """The C interface's net arguments (the padded core width and the packed
+    chunks of the core the dtype runs: wgmma in bf16, the FP32 core in
+    float32), and the tensors to keep alive until the launch has been
+    queued."""
+    depth = _check_supported(params, net, lib, what, bf16, device)
     for key in param_keys(depth):
         if params[key].device != device:
             raise ValueError(f"{what}: {key} is on {params[key].device}, the inputs on {device}")
-    weights, packed = _packed_weights(params, net, depth, bf16, wgmma, lib, what)
+    weights, packed = _packed_weights(params, net, depth, bf16, lib, what)
     ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
     skip_mask = sum(1 << sk for sk in net.skips)
-    return ([ptrs, depth, skip_mask, net.input_ch, net.input_ch_views, int(bf16),
+    width = core_width(params["pts_0_kernel"].shape[1])
+    return ([ptrs, width, depth, skip_mask, net.input_ch, net.input_ch_views, int(bf16),
              packed.data_ptr()], weights + [packed])
 
 
@@ -415,7 +449,7 @@ def _launch(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
     bf16 = _is_bf16(compute_dtype, what)
-    net_args, _weights = _net_args(params, net, device, bf16, bf16, lib, what)
+    net_args, _weights = _net_args(params, net, device, bf16, lib, what)
     sigma = torch.empty((n, s), dtype=torch.float32, device=device)
     rgb = torch.empty((3, n, s), dtype=torch.float32, device=device)
     if n * s == 0:
@@ -441,8 +475,7 @@ def _launch_mlp(kind: str, params, a, b, net: NeRFNetConfig,
     ins = _inputs(what, device, ("first input", a, (m, widths[0])),
                   ("second input", b, (m, widths[1])))
     bf16 = _is_bf16(compute_dtype, what)
-    # the true-cos stage runs the FP32 core in both types
-    net_args, _weights = _net_args(params, net, device, bf16, bf16 and kind != "pe", lib, what)
+    net_args, _weights = _net_args(params, net, device, bf16, lib, what)
     raw = torch.empty((m, 4), dtype=torch.float32, device=device)
     if m == 0:
         return raw
@@ -465,10 +498,11 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
     bf16 = _is_bf16(compute_dtype, what)
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
-    net_args, _weights = _net_args(params, net, device, bf16, bf16, lib, what)
+    net_args, _weights = _net_args(params, net, device, bf16, lib, what)
     # a block keeps its rays' raw field in shared memory beside its MLP core
-    with torch.cuda.device(device):
-        max_samples = lib.render_tile_max_samples(int(bf16), net.input_ch, net.input_ch_views)
+    with _on(device):
+        max_samples = lib.render_tile_max_samples(int(bf16), net_args[1], net.input_ch,
+                                                  net.input_ch_views)
     if s > max_samples:
         raise NotImplementedError(f"{what} kernel: at most {max_samples} samples per ray in "
                                   f"{compute_dtype} for this net, got {s}")

@@ -3,12 +3,16 @@
 - A net without view directions or without an encoding marches through the
   plain ``query_points`` + ``raw2outputs`` on the card too, as in the JAX
   package: no kernel launches, and the render equals the JAX one.
-- A trunk narrower than the cores' 256 is zero-padded to it
-  (``raymarch.pad_params``), which is exact; encodings up to multires 20 /
-  multires_views 10 fit the cores. The padded weights are packed into the
-  FP32 core's float32 chunks (``pack_f32_weights``) and the wgmma core's
-  bf16 chunks; the FP32 core's consumption of its chunks is emulated here
-  layer by layer, as ``csrc/nerf_mlp.cuh`` runs it.
+- A trunk narrower than a core width (256 or 512) is zero-padded to the
+  next one (``raymarch.pad_params``, ``core_width``), which is exact; the
+  cores take up to 32 trunk layers and encodings up to multires 20 /
+  multires_views 10. The padded weights are packed into the FP32 core's
+  float32 chunks (``pack_f32_weights``) and the wgmma core's bf16 chunks;
+  the FP32 core's consumption of its chunks is emulated here layer by
+  layer, as ``csrc/nerf_mlp.cuh`` runs it, and the chunk plans and shared
+  memory of both cores are written out here from the CUDA headers
+  (``_FakeMarchLibrary``), so that what the wrappers pack and refuse is
+  held to them.
 
 The CUDA kernels themselves run only on the card, where chip_smoke.py holds
 them against their twins on the same nets.
@@ -43,6 +47,9 @@ NETS = {
                        multires=12, multires_views=6),
     # 24 deep with two skips (the cores take up to 32 layers)
     "24x256": dict(netdepth=24, netdepth_fine=24, skips=(4, 12)),
+    # the reference's --netwidth 512, and a width padded to it
+    "8x512": dict(netwidth=512, netwidth_fine=512),
+    "4x384": dict(netdepth=4, netwidth=384, netdepth_fine=4, netwidth_fine=384, skips=(2,)),
 }
 
 
@@ -144,19 +151,22 @@ def _he(params):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("width", [64, 100, 128, 256])
+@pytest.mark.parametrize("width", [64, 100, 128, 256, 300, 384, 512])
 def test_padded_twin_is_bit_equal(monkeypatch, width, dtype):
-    """(e) The twin on the weights padded to 256 equals the twin on the net's
-    own weights to the bit, with products summed in input order (the
-    FP32 core's order); with BLAS products, within float32 rounding."""
+    """(e) The twin on the weights padded to the core width (256, or 512
+    past it) equals the twin on the net's own weights to the bit, with
+    products summed in input order (the FP32 core's order); with BLAS
+    products, within float32 rounding."""
     net = tcfg.NeRFNetConfig(netdepth=4, netwidth=width, netdepth_fine=4,
                              netwidth_fine=width, skips=(2,))
     params = _he(init_nerf_params(net, generator=torch.Generator().manual_seed(width)))
-    padded = rm.pad_params(params, net, 256)
-    assert padded["pts_1_kernel"].shape == (256, 256)
-    assert padded["pts_3_kernel"].shape == (net.input_ch + 256, 256)
-    assert padded["views_0_kernel"].shape == (256 + net.input_ch_views, 128)
-    assert padded["rgb_kernel"].shape == (128, 3) and padded["alpha_kernel"].shape == (256, 1)
+    w = rm.core_width(width)
+    assert w == (256 if width <= 256 else 512)
+    padded = rm.pad_params(params, net, w)
+    assert padded["pts_1_kernel"].shape == (w, w)
+    assert padded["pts_3_kernel"].shape == (net.input_ch + w, w)
+    assert padded["views_0_kernel"].shape == (w + net.input_ch_views, w // 2)
+    assert padded["rgb_kernel"].shape == (w // 2, 3) and padded["alpha_kernel"].shape == (w, 1)
     x_pe, d_pe = _encoded(net, 64, width)
     blas = (nerf_apply(params, x_pe, d_pe, net, compute_dtype=dtype),
             nerf_apply(padded, x_pe, d_pe, net, compute_dtype=dtype))
@@ -166,7 +176,7 @@ def test_padded_twin_is_bit_equal(monkeypatch, width, dtype):
     assert want.abs().max() > 0.1                             # not a vacuous zero field
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(blas[1], blas[0], rtol=1e-5, atol=1e-5)
-    if width == 256:
+    if width == w:
         assert padded is params
 
 
@@ -210,19 +220,20 @@ def _emulate_f32_core(packed, padded, net, x_pe, d_pe):
         return list(a.split(rm.F32_CHUNK_K, dim=1))
 
     depth = rm._depth(padded)
+    width = padded["pts_0_kernel"].shape[1]
     ring = _Chunks(packed)
     x_tiles, d_tiles = tiles(x_pe), tiles(d_pe)
     h = None
     for i in range(depth + 1):
         with_x = i == 0 or (i < depth and (i - 1) in net.skips)
         acts = (x_tiles if with_x else []) + (tiles(h) if i > 0 else [])
-        acc = sum(a @ ring.next(256) for a in acts)
+        acc = sum(a @ ring.next(width) for a in acts)
         name = f"pts_{i}" if i < depth else "feature"
         v = acc + padded[f"{name}_bias"]
         h = torch.relu(v) if i < depth else v
         if i == depth - 1:
             alpha = h @ padded["alpha_kernel"] + padded["alpha_bias"]
-    acc = sum(a @ ring.next(128) for a in tiles(h) + d_tiles)
+    acc = sum(a @ ring.next(width // 2) for a in tiles(h) + d_tiles)
     v = torch.relu(acc + padded["views_0_bias"])
     rgb = v @ padded["rgb_kernel"] + padded["rgb_bias"]
     assert ring.off == packed.numel()                     # every chunk consumed once
@@ -233,10 +244,12 @@ def _emulate_f32_core(packed, padded, net, x_pe, d_pe):
 def test_f32_chunks_read_back_as_the_padded_weights(name):
     """FP32 packing: each segment's 16-row chunks, read back through the
     core's column order, are the padded kernel (zero rows past its K); the
-    byte count is the chunk plan of nerf_mlp.cuh."""
+    byte counts of both cores' packings are their chunk plans in the CUDA
+    headers."""
     net = _net(name)
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(3))
-    padded = rm.pad_params(params, net, 256)
+    width = rm.core_width(net.netwidth)
+    padded = rm.pad_params(params, net, width)
     packed = rm.pack_f32_weights(padded, net)
     assert packed.dtype == torch.float32 and packed.dim() == 1
     ring = _Chunks(packed)
@@ -245,13 +258,18 @@ def test_f32_chunks_read_back_as_the_padded_weights(name):
         got = torch.cat([ring.next(n) for _ in range(-(-k // rm.F32_CHUNK_K))])
         torch.testing.assert_close(got[:k], seg, rtol=0, atol=0)
         assert not got[k:].any()
+    plan = (width, net.netdepth, sum(1 << sk for sk in net.skips), net.input_ch,
+            net.input_ch_views)
     assert ring.off * 4 == packed.numel() * 4 == rm.f32_bytes(
-        net.netdepth, len(net.skips), 256, net.input_ch, net.input_ch_views)
+        net.netdepth, len(net.skips), width, net.input_ch, net.input_ch_views)
+    assert packed.numel() * 4 == _FakeMarchLibrary.nerf_f32_plan_bytes(*plan)
     if name == "default":
         # 136 chunks of [16][256] and 18 of [16][128] float32
         assert packed.numel() * 4 == (136 * 256 + 18 * 128) * 16 * 4 == 2_375_680
     wgmma = rm.pack_wgmma_weights(padded, net)
-    assert wgmma.numel() * 2 == rm.wgmma_bytes(net.netdepth, len(net.skips), 256, net.input_ch)
+    assert wgmma.numel() * 2 == rm.wgmma_bytes(net.netdepth, len(net.skips), width,
+                                               net.input_ch, net.input_ch_views)
+    assert wgmma.numel() * 2 == _FakeMarchLibrary.nerf_wgmma_plan_bytes(*plan)
 
 
 @pytest.mark.parametrize("name", list(NETS))
@@ -260,7 +278,7 @@ def test_f32_core_order_computes_the_twin(name):
     outputs: the packing, the plan and the layer walk of nerf_mlp.cuh agree."""
     net = _net(name)
     params = _he(init_nerf_params(net, generator=torch.Generator().manual_seed(4)))
-    padded = rm.pad_params(params, net, 256)
+    padded = rm.pad_params(params, net, rm.core_width(net.netwidth))
     x_pe, d_pe = _encoded(net, 40, 5)
     got = _emulate_f32_core(rm.pack_f32_weights(padded, net), padded, net, x_pe, d_pe)
     want = nerf_apply(params, x_pe, d_pe, net)
@@ -268,25 +286,66 @@ def test_f32_core_order_computes_the_twin(name):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-class _FakeMarchLibrary:
-    """Stands in for the built nerf_march library (the CUDA headers' limits
-    and chunk plans) and records each call of the C entry."""
+# the shared memory a block of an H100 may opt into
+SMEM_OPTIN = 232_448
 
-    def __init__(self):
+
+class _FakeMarchLibrary:
+    """Stands in for the built nerf_march library and records each call of
+    the C entry. Its limits are parameters (the defaults those of the CUDA
+    headers); its chunk plans and shared-memory sizes are the formulas of
+    csrc/nerf_mlp.cuh (FP32 core: ring stages of 16 KB, kc = 16 KB / 4W
+    rows; smallest tile 64 points at W = 256, 32 at 512) and
+    csrc/nerf_mlp_wgmma.cuh (64-row chunks; three ring stages at W = 256
+    with at most two x_pe chunks, else two; A tiles per warpgroup at W =
+    256, shared at 512), written out here."""
+
+    def __init__(self, width=512, max_layers=36, max_in_ch=128, max_in_ch_views=64,
+                 smem_optin=SMEM_OPTIN):
+        self.limits = (width, max_layers, max_in_ch, max_in_ch_views, smem_optin)
         self.calls = []
 
-    nerf_width = staticmethod(lambda: 256)
-    nerf_max_layers = staticmethod(lambda: 36)
-    nerf_max_in_ch = staticmethod(lambda: 128)
-    nerf_max_in_ch_views = staticmethod(lambda: 64)
+    def nerf_width(self):
+        return self.limits[0]
+
+    def nerf_max_layers(self):
+        return self.limits[1]
+
+    def nerf_max_in_ch(self):
+        return self.limits[2]
+
+    def nerf_max_in_ch_views(self):
+        return self.limits[3]
+
+    def nerf_smem_optin(self):
+        return self.limits[4]
 
     @staticmethod
-    def nerf_f32_plan_bytes(depth, skip_mask, in_ch, in_ch_views):
-        return rm.f32_bytes(depth, bin(skip_mask).count("1"), 256, in_ch, in_ch_views)
+    def nerf_f32_plan_bytes(width, depth, skip_mask, in_ch, in_ch_views):
+        kc = 16384 // (4 * width)
+        nx, nd = (-(-c // 16) * 16 // kc for c in (in_ch, in_ch_views))
+        h = width // kc
+        n_wide = nx + h * (depth - 1) + nx * bin(skip_mask).count("1") + h
+        return n_wide * 16384 + (h + nd) * 8192
 
     @staticmethod
-    def nerf_wgmma_plan_bytes(depth, skip_mask, in_ch, in_ch_views):
-        return rm.wgmma_bytes(depth, bin(skip_mask).count("1"), 256, in_ch)
+    def nerf_wgmma_plan_bytes(width, depth, skip_mask, in_ch, in_ch_views):
+        nx, nd, h = -(-in_ch // 64), -(-in_ch_views // 64), width // 64
+        n_wide = nx + h * (depth - 1) + nx * bin(skip_mask).count("1") + h
+        return n_wide * width * 128 + (h + nd) * (width // 2) * 128
+
+    @staticmethod
+    def nerf_f32_smem_bytes(width, in_ch, in_ch_views):
+        tile = 128 * 256 // width // 2
+        rx, rd = (-(-c // 16) * 16 for c in (in_ch, in_ch_views))
+        return 2 * 16384 + (width + rx + rd) * (tile + 4) * 4 + 10 * tile * 4 + 32
+
+    @staticmethod
+    def nerf_wgmma_smem_bytes(width, in_ch, in_ch_views):
+        nx, nd = -(-in_ch // 64), -(-in_ch_views // 64)
+        stages = 3 if width == 256 and nx <= 2 else 2
+        tiles = (2 if width == 256 else 1) * (nx + width // 64 + nd) * 8192
+        return stages * width * 128 + tiles + 2 * stages * 8 + 1024
 
     def nerf_march(self, *args):
         self.calls.append(args)
@@ -303,12 +362,13 @@ def fake_march(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "24x256"])
+@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "24x256", "8x512", "4x384"])
 def test_march_launch_pads_and_packs(fake_march, name, dtype):
-    """(e) On the kernel route a narrow net with longer encodings reaches the
-    C entry padded to 256: every weight pointer is the padded tensor (bf16
+    """(e) On the kernel route a net reaches the C entry padded to its core
+    width (256 or 512): every weight pointer is the padded tensor (bf16
     kernels rounded), the packed pointer is the chunk stream of the core the
-    dtype runs, and the encodings' channel counts are the net's."""
+    dtype runs, and the width, depth, skips and encodings' channel counts
+    are the net's."""
     net = _net(name)
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(6))
     n, s = 5, 7
@@ -319,15 +379,15 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
     (args,) = fake_march.calls
     assert rm.fused_nerf_march.launches == 1
     assert len(args) == len(rm._ARGTYPES["nerf_march"][1])
-    ptrs, depth, skip_mask, in_ch, in_ch_views, bf16, packed = args[6:13]
+    ptrs, width, depth, skip_mask, in_ch, in_ch_views, bf16, packed = args[6:14]
+    assert width == (256 if net.netwidth <= 256 else 512)
     assert (depth, skip_mask, in_ch, in_ch_views) == (
         net.netdepth, sum(1 << sk for sk in net.skips), net.input_ch, net.input_ch_views)
     assert bf16 == int(dtype == torch.bfloat16)
-    weights, image = rm._packed_weights(params, net, depth, bool(bf16), bool(bf16),
-                                        fake_march, "test")
+    weights, image = rm._packed_weights(params, net, depth, bool(bf16), fake_march, "test")
     assert packed == image.data_ptr() and list(ptrs) == [w.data_ptr() for w in weights]
     padded = {k: round_to(v, dtype) if k.endswith("kernel") else v
-              for k, v in rm.pad_params(params, net, 256).items()}
+              for k, v in rm.pad_params(params, net, width).items()}
     for key, w in zip(rm.param_keys(depth), weights):
         torch.testing.assert_close(w, padded[key], rtol=0, atol=0, msg=key)
     want = rm.pack_wgmma_weights(padded, net) if bf16 else rm.pack_f32_weights(padded, net)
@@ -335,24 +395,28 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
 
 
 def test_kernels_refuse_what_the_cores_do_not_take(fake_march):
-    """Width above 256, encodings past multires 20 / multires_views 10:
-    NotImplementedError, naming the limit."""
+    """Width above 512, depth above 32, encodings past multires 20 /
+    multires_views 10: NotImplementedError, naming the limit, before any
+    launch."""
     rays = [torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 4)]
-    cases = {"trunk width 300": dict(netwidth=300, netwidth_fine=300),
+    cases = {"trunk width 513": dict(netwidth=513, netwidth_fine=513),
+             "depth<=32": dict(netdepth=33, netdepth_fine=33),
              "multires<=20": dict(multires=21),
              "multires_views<=10": dict(multires_views=11)}
     for message, kw in cases.items():
-        net = tcfg.NeRFNetConfig(netdepth=4, netdepth_fine=4, skips=(2,), **kw)
+        net = tcfg.NeRFNetConfig(**{**dict(netdepth=4, netdepth_fine=4, skips=(2,)), **kw})
         params = init_nerf_params(net, generator=torch.Generator().manual_seed(7))
-        with pytest.raises(NotImplementedError, match=message):
-            rm.fused_nerf_march(params, *rays, net, compute_dtype=torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(NotImplementedError, match=message):
+                rm.fused_nerf_march(params, *rays, net, compute_dtype=dtype)
     assert fake_march.calls == []
 
 
-@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6"])
+@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "8x512", "24x256"])
 def test_plain_render_of_narrow_nets_matches_jax(rng, name):
-    """The port's plain render of a 4x128 net and of a 100-wide net with
-    multires 12 / multires_views 6 (box scene) equals the JAX package's."""
+    """The port's plain render of a 4x128 net, of a 100-wide net with
+    multires 12 / multires_views 6, of an 8x512 net and of a 24-deep net
+    with two skips (box scene) equals the JAX package's."""
     jnet, tnet = jcfg.NeRFNetConfig(**NETS[name]), _net(name)
     box = {k: np.array(v) for k, v in jax_box_scene(jnet, jax.random.PRNGKey(0)).items()}
     _render_both(rng, jnet, tnet, {"coarse": box, "fine": box})

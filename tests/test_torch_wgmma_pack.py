@@ -1,9 +1,9 @@
 """The bf16 weight image of the tensor-core kernels
 (``neuralsim_tpu_torch.kernels.raymarch.pack_wgmma_weights``).
 
-nerf_march.cu, render_tile.cu and nerf_mlp.cu (projection and encoded
-stages) stream it chunk by chunk into shared memory and read each chunk through a K-major wgmma descriptor with 128-byte
-swizzle. These tests read the image back through that layout, written out
+Every bf16 kernel (nerf_march.cu, render_tile.cu and nerf_mlp.cu's three
+stages) streams it chunk by chunk into shared memory and reads each chunk
+through a K-major wgmma descriptor with 128-byte swizzle. These tests read the image back through that layout, written out
 here on its own: in a chunk of N rows, input k of output column n lies at
 byte n*128 + ((k // 8) ^ (n % 8))*16 + (k % 8)*2."""
 
@@ -14,8 +14,12 @@ import torch
 from neuralsim_tpu_torch.config import NeRFNetConfig
 from neuralsim_tpu_torch.kernels import raymarch as rm
 from neuralsim_tpu_torch.models.nerf import init_nerf_params, round_to
+from tests.test_torch_net_shapes import _FakeMarchLibrary
 
 SMALL = dict(netdepth=4, netwidth=32, netdepth_fine=4, netwidth_fine=32, skips=(2,))
+NETS = {"default_8x256": dict(), "small_4x32": SMALL,
+        # a 512-wide trunk: each chunk holds both warpgroups' column halves
+        "w512": dict(netdepth=4, netwidth=512, netdepth_fine=4, netwidth_fine=512, skips=(2,))}
 
 
 def _segments(params, net):
@@ -42,9 +46,9 @@ def _read_back(image: np.ndarray, offset: int, k: int, n: int):
     return out, chunks * n * 128
 
 
-@pytest.mark.parametrize("small", [False, True], ids=["default_8x256", "small_4x32"])
-def test_image_reads_back_as_the_bf16_weights(small):
-    net = NeRFNetConfig(**SMALL) if small else NeRFNetConfig()
+@pytest.mark.parametrize("name", list(NETS))
+def test_image_reads_back_as_the_bf16_weights(name):
+    net = NeRFNetConfig(**NETS[name])
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(0))
     packed = rm.pack_wgmma_weights(params, net)
     assert packed.dtype == torch.bfloat16 and packed.dim() == 1
@@ -57,67 +61,47 @@ def test_image_reads_back_as_the_bf16_weights(small):
         assert not got[k:].any()                   # padded input rows are zero
         offset += nbytes
     assert offset == packed.numel() * 2
-    assert offset == rm.wgmma_bytes(net.netdepth, len(net.skips), net.netwidth)
-    if not small:
+    assert offset == rm.wgmma_bytes(net.netdepth, len(net.skips), net.netwidth, net.input_ch,
+                                    net.input_ch_views)
+    if name == "default_8x256":
         # 34 chunks of [256][64] and 5 of [128][64] bf16
         assert offset == (34 * 256 + 5 * 128) * 64 * 2 == 1_196_032
 
 
-class _FakeMlpLibrary:
-    """Stands in for the built nerf_mlp library: reports the kernels' shape
-    limits and chunk plans (the formulas of the CUDA headers, as
-    ``rm.wgmma_bytes`` / ``rm.f32_bytes`` write them out) and records each
+class _FakeMlpLibrary(_FakeMarchLibrary):
+    """Stands in for the built nerf_mlp library: the CUDA headers' shape
+    limits and chunk plans (``_FakeMarchLibrary``), and a record of each
     call of the C entry."""
-
-    def __init__(self, width):
-        self.width = width
-        self.calls = []
-
-    def nerf_width(self):
-        return self.width
-
-    def nerf_max_layers(self):
-        return 20
-
-    def nerf_max_in_ch(self):
-        return 128
-
-    def nerf_max_in_ch_views(self):
-        return 64
-
-    def nerf_wgmma_plan_bytes(self, depth, skip_mask, in_ch, in_ch_views):
-        return rm.wgmma_bytes(depth, bin(skip_mask).count("1"), self.width, in_ch)
-
-    def nerf_f32_plan_bytes(self, depth, skip_mask, in_ch, in_ch_views):
-        return rm.f32_bytes(depth, bin(skip_mask).count("1"), self.width, in_ch, in_ch_views)
 
     def nerf_mlp(self, *args):
         self.calls.append(args)
         return 0
 
 
-@pytest.mark.parametrize("bf16, wgmma", [(True, True), (False, False), (True, False)],
-                         ids=["bf16_wgmma", "f32", "bf16_fp32_core"])
-def test_packed_weights_are_cached_per_weight_set(bf16, wgmma):
-    """One preparation per weight set, dtype and core: padded weights (bf16
-    kernels rounded) and the core's chunks of them; an in-place update of a
+@pytest.mark.parametrize("bf16, name", [(True, "small_4x32"), (False, "small_4x32"),
+                                        (True, "w512")],
+                         ids=["bf16_wgmma", "f32", "bf16_wgmma_w512"])
+def test_packed_weights_are_cached_per_weight_set(bf16, name):
+    """One preparation per weight set and dtype: weights padded to the core
+    width (bf16 kernels rounded) and the chunks of the core the dtype runs
+    (wgmma in bf16, the FP32 core in float32); an in-place update of a
     weight prepares again."""
-    net = NeRFNetConfig(**SMALL)
+    net = NeRFNetConfig(**NETS[name])
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(1))
     depth = rm._depth(params)
-    lib = _FakeMlpLibrary(256)
-    first = rm._packed_weights(params, net, depth, bf16, wgmma, lib, "test")
-    assert rm._packed_weights(params, net, depth, bf16, wgmma, lib, "test")[1] is first[1]
+    lib = _FakeMlpLibrary()
+    first = rm._packed_weights(params, net, depth, bf16, lib, "test")
+    assert rm._packed_weights(params, net, depth, bf16, lib, "test")[1] is first[1]
     params["pts_1_kernel"].mul_(2.0)                # an in-place update packs again
-    weights, again = rm._packed_weights(params, net, depth, bf16, wgmma, lib, "test")
+    weights, again = rm._packed_weights(params, net, depth, bf16, lib, "test")
     assert again is not first[1]
-    padded = rm.pad_params(params, net, 256)
+    padded = rm.pad_params(params, net, rm.core_width(net.netwidth))
     if bf16:
         padded = {k: round_to(v, torch.bfloat16) if k.endswith("kernel") else v
                   for k, v in padded.items()}
     for key, w in zip(rm.param_keys(depth), weights):
         torch.testing.assert_close(w, padded[key], rtol=0, atol=0, msg=key)
-    pack = rm.pack_wgmma_weights if wgmma else rm.pack_f32_weights
+    pack = rm.pack_wgmma_weights if bf16 else rm.pack_f32_weights
     torch.testing.assert_close(again, pack(padded, net), rtol=0, atol=0)
 
 
@@ -128,13 +112,14 @@ def test_packed_weights_are_cached_per_weight_set(bf16, wgmma):
 def test_mlp_launch_passes_packed_weights_to_the_wgmma_stages(monkeypatch, wrapper, kind,
                                                              dtype):
     """On the kernel route, nerf_mlp's C entry gets the packed bf16 weights
-    for the two stages on the tensor cores in bf16 (the very image that
-    pack_wgmma_weights makes), and the FP32 core's float32 chunks
-    (pack_f32_weights) for the true-cos stage and in float32; its argument
-    count is the one the library is bound with."""
+    for every stage in bf16, the true-cos stage of fused_nerf_mlp_pe
+    included (the very image that pack_wgmma_weights makes: all three run
+    on the tensor cores), and the FP32 core's float32 chunks
+    (pack_f32_weights) in float32; its argument count is the one the
+    library is bound with."""
     net = NeRFNetConfig(**SMALL)
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(2))
-    lib = _FakeMlpLibrary(256)                      # pads the 32-wide net
+    lib = _FakeMlpLibrary()                         # pads the 32-wide net to 256
     monkeypatch.setattr(rm, "uses_kernel", lambda t: True)
     monkeypatch.setattr(rm, "_library", lambda name: lib)
     monkeypatch.setattr(rm, "_run", lambda fn, device, what, *args: fn(*args, None))
@@ -148,14 +133,14 @@ def test_mlp_launch_passes_packed_weights_to_the_wgmma_stages(monkeypatch, wrapp
     assert raw.shape == (m, 4) and fn.launches == 1
     (args,) = lib.calls
     assert len(args) == len(rm._ARGTYPES["nerf_mlp"][1])
-    assert args[3] == rm._KINDS[kind] and args[9] == int(dtype == torch.bfloat16)
-    packed = args[10]
+    assert args[3] == rm._KINDS[kind] and args[10] == int(dtype == torch.bfloat16)
+    assert args[5] == 256                           # the core width
+    packed = args[11]
     bf16 = dtype == torch.bfloat16
-    wgmma = bf16 and kind != "pe"
     assert packed is not None and packed % 16 == 0
-    _, image = rm._packed_weights(params, net, rm._depth(params), bf16, wgmma, lib, wrapper)
+    _, image = rm._packed_weights(params, net, rm._depth(params), bf16, lib, wrapper)
     assert packed == image.data_ptr()
     padded = {k: round_to(v, dtype) if k.endswith("kernel") else v
               for k, v in rm.pad_params(params, net, 256).items()}
-    want = rm.pack_wgmma_weights(padded, net) if wgmma else rm.pack_f32_weights(padded, net)
+    want = rm.pack_wgmma_weights(padded, net) if bf16 else rm.pack_f32_weights(padded, net)
     torch.testing.assert_close(image, want, rtol=0, atol=0)
