@@ -11,9 +11,10 @@
 //     W = 256 or 512 (the wrapper zero-pads a narrower net's weights to the
 //     next of the two, which is exact: pad columns hold ReLU(0 + 0) = 0 and
 //     meet zero rows), at most MAX_DEPTH trunk layers with any skips, at
-//     most MAX_X rows of position encoding (multires <= 20) and MAX_D of
-//     view encoding (multires_views <= 10), and what fits in a block's
-//     shared memory (the cores' *_smem_bytes);
+//     most MAX_X rows of position encoding (multires <= 42) and MAX_D of
+//     view encoding (multires_views <= 20), and what fits in a block's
+//     shared memory (the cores' *_smem_bytes: every such net at W = 256,
+//     and at W = 512 all but the longest encodings in bf16);
 //   - the positional encoding of a point, with cos as sin(y + pi/2) (the
 //     JAX projection form) or as a true cosf (TRUE_COS, the form of
 //     fused_nerf_mlp_pe);
@@ -72,9 +73,12 @@
 // values are exact in float32, accumulation and biases are float32.
 //
 // The encoding uses the accurate sinf / cosf, never the fast intrinsics:
-// arguments reach 2^19 * |x|, where the intrinsics lose all accuracy. For
-// the same reason the build never turns on nvcc's fast-math flag
-// (tests/test_torch_imports.py checks both).
+// arguments reach 2^19 * |x| (2^41 * |x| at multires 42), where the
+// intrinsics lose all accuracy. For the same reason the build never turns
+// on nvcc's fast-math flag (tests/test_torch_imports.py checks both).
+// Above multires 20 the top rows are float32 noise in both packages (the
+// ulp of 2^20 * |x| is about 0.1 rad); the JAX kernels compute them
+// anyway, and so does the port.
 
 #pragma once
 
@@ -88,8 +92,8 @@ namespace nerf {
 constexpr int P = 64;          // points per warpgroup of the wgmma core
 constexpr int THREADS = 256;   // 8 warps per block, both cores
 constexpr int MAX_W = 512;     // widest trunk; both cores take W = 256 and 512
-constexpr int MAX_X = 128;     // rows of the position encoding (>= 3 + 6 * 20)
-constexpr int MAX_D = 64;      // rows of the view encoding (>= 3 + 6 * 10)
+constexpr int MAX_X = 256;     // rows of the position encoding (>= 3 + 6 * 42)
+constexpr int MAX_D = 128;     // rows of the view encoding (>= 3 + 6 * 20)
 constexpr int MAX_DEPTH = 32;  // trunk layers: the bits of a skip mask
 constexpr int MAX_LAYERS = MAX_DEPTH + 4;  // trunk + feature, alpha, views, rgb
 constexpr float HALF_PI = 1.57079632679489661923f;
@@ -188,7 +192,8 @@ __device__ __forceinline__ float round_cd(float x) {
 // [x0, x1, x2, sin(2^0 x), cos(2^0 x), ..., sin(2^{L-1} x), cos(...)].
 // xyz points at the point's first coordinate in a [3][stride] tile; zero
 // for c >= n_ch. cos(y) is sin(y + pi/2) like the JAX projection form, or
-// cosf(y) with TRUE_COS; y = x * 2^k is exact either way.
+// cosf(y) with TRUE_COS; y = x * 2^k is exact either way (2^k built from
+// its exponent bits: k reaches 41).
 template <bool TRUE_COS>
 __device__ __forceinline__ float encode(const float* xyz, int stride, int c, int n_ch) {
   if (c < 3) return xyz[c * stride];
@@ -197,7 +202,7 @@ __device__ __forceinline__ float encode(const float* xyz, int stride, int c, int
   const int k = j / 6;
   const int r = j - 6 * k;
   const int dim = r % 3;
-  const float y = __fmul_rn(xyz[dim * stride], static_cast<float>(1 << k));
+  const float y = __fmul_rn(xyz[dim * stride], __int_as_float((127 + k) << 23));
   if constexpr (TRUE_COS) {
     return r < 3 ? sinf(y) : cosf(y);
   } else {

@@ -17,8 +17,8 @@ the tensor cores (``nerf_mlp_wgmma.cuh``) from the chunks of
 ``pack_wgmma_weights``; in float32 on the FP32 core (``nerf_mlp.cuh``) from
 the chunks of ``pack_f32_weights``. Both cores take a trunk of 256 or 512
 (a narrower net is zero-padded to the next of the two by ``pad_params``,
-which is exact), up to 32 trunk layers and encodings of multires <= 20,
-multires_views <= 10, where they fit in a block's shared memory
+which is exact), up to 32 trunk layers and encodings of multires <= 42,
+multires_views <= 20, where they fit in a block's shared memory
 (``_check_supported`` names what does not); the padded weights and their
 chunks are prepared once per weight set and dtype (``_packed_weights``).
 Gradients of the first four

@@ -5,8 +5,8 @@
   package: no kernel launches, and the render equals the JAX one.
 - A trunk narrower than a core width (256 or 512) is zero-padded to the
   next one (``raymarch.pad_params``, ``core_width``), which is exact; the
-  cores take up to 32 trunk layers and encodings up to multires 20 /
-  multires_views 10. The padded weights are packed into the FP32 core's
+  cores take up to 32 trunk layers and encodings up to multires 42 /
+  multires_views 20 (x_pe in up to four 64-row wgmma chunks, d_pe in two). The padded weights are packed into the FP32 core's
   float32 chunks (``pack_f32_weights``) and the wgmma core's bf16 chunks;
   the FP32 core's consumption of its chunks is emulated here layer by
   layer, as ``csrc/nerf_mlp.cuh`` runs it, and the chunk plans and shared
@@ -50,6 +50,10 @@ NETS = {
     # the reference's --netwidth 512, and a width padded to it
     "8x512": dict(netwidth=512, netwidth_fine=512),
     "4x384": dict(netdepth=4, netwidth=384, netdepth_fine=4, netwidth_fine=384, skips=(2,)),
+    # longer encodings: 147 / 75 channels (three x_pe chunks of the wgmma
+    # core, two d_pe chunks) and the longest the cores take, 255 / 123
+    "8x256_pe24_12": dict(multires=24, multires_views=12),
+    "8x256_pe42_20": dict(multires=42, multires_views=20),
 }
 
 
@@ -300,7 +304,7 @@ class _FakeMarchLibrary:
     with at most two x_pe chunks, else two; A tiles per warpgroup at W =
     256, shared at 512), written out here."""
 
-    def __init__(self, width=512, max_layers=36, max_in_ch=128, max_in_ch_views=64,
+    def __init__(self, width=512, max_layers=36, max_in_ch=256, max_in_ch_views=128,
                  smem_optin=SMEM_OPTIN):
         self.limits = (width, max_layers, max_in_ch, max_in_ch_views, smem_optin)
         self.calls = []
@@ -362,7 +366,8 @@ def fake_march(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "24x256", "8x512", "4x384"])
+@pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "24x256", "8x512", "4x384",
+                                  "8x256_pe42_20"])
 def test_march_launch_pads_and_packs(fake_march, name, dtype):
     """(e) On the kernel route a net reaches the C entry padded to its core
     width (256 or 512): every weight pointer is the padded tensor (bf16
@@ -395,21 +400,29 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
 
 
 def test_kernels_refuse_what_the_cores_do_not_take(fake_march):
-    """Width above 512, depth above 32, encodings past multires 20 /
-    multires_views 10: NotImplementedError, naming the limit, before any
-    launch."""
+    """Width above 512, depth above 32, encodings past multires 42 /
+    multires_views 20, and (bf16) a 512-wide trunk with 256 x_pe rows, whose
+    wgmma core does not fit a block's shared memory: NotImplementedError,
+    naming the limit (the bytes for the last), before any launch. The same
+    512-wide net launches in float32 (the FP32 core's 32-point tiles fit)."""
     rays = [torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 4)]
-    cases = {"trunk width 513": dict(netwidth=513, netwidth_fine=513),
-             "depth<=32": dict(netdepth=33, netdepth_fine=33),
-             "multires<=20": dict(multires=21),
-             "multires_views<=10": dict(multires_views=11)}
-    for message, kw in cases.items():
+    both = (torch.float32, torch.bfloat16)
+    cases = {"trunk width 513": (dict(netwidth=513, netwidth_fine=513), both),
+             "depth<=32": (dict(netdepth=33, netdepth_fine=33), both),
+             "multires<=42": (dict(multires=43), both),
+             "multires_views<=20": (dict(multires_views=21), both),
+             "needs 238624 bytes of shared memory": (
+                 dict(netwidth=512, netwidth_fine=512, multires=42), (torch.bfloat16,))}
+    for message, (kw, dtypes) in cases.items():
         net = tcfg.NeRFNetConfig(**{**dict(netdepth=4, netdepth_fine=4, skips=(2,)), **kw})
         params = init_nerf_params(net, generator=torch.Generator().manual_seed(7))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             with pytest.raises(NotImplementedError, match=message):
                 rm.fused_nerf_march(params, *rays, net, compute_dtype=dtype)
     assert fake_march.calls == []
+    with torch.no_grad():
+        rm.fused_nerf_march(params, *rays, net, compute_dtype=torch.float32)
+    assert len(fake_march.calls) == 1
 
 
 @pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "8x512", "24x256"])

@@ -19,7 +19,9 @@ from tests.test_torch_net_shapes import _FakeMarchLibrary
 SMALL = dict(netdepth=4, netwidth=32, netdepth_fine=4, netwidth_fine=32, skips=(2,))
 NETS = {"default_8x256": dict(), "small_4x32": SMALL,
         # a 512-wide trunk: each chunk holds both warpgroups' column halves
-        "w512": dict(netdepth=4, netwidth=512, netdepth_fine=4, netwidth_fine=512, skips=(2,))}
+        "w512": dict(netdepth=4, netwidth=512, netdepth_fine=4, netwidth_fine=512, skips=(2,)),
+        # four x_pe chunks and two d_pe chunks (255 / 123 channels)
+        "pe42_20": dict(netdepth=4, netdepth_fine=4, skips=(2,), multires=42, multires_views=20)}
 
 
 def _segments(params, net):
