@@ -179,15 +179,6 @@ int launch_persistent(void (*kernel)(Params...), long long work, size_t smem_byt
   return launch(kernel, work < sms ? work : sms, smem_bytes, stream, args...);
 }
 
-template <bool BF16>
-__device__ __forceinline__ float round_cd(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
 // Encoding channel c of a point (order of ops/encoding.py):
 // [x0, x1, x2, sin(2^0 x), cos(2^0 x), ..., sin(2^{L-1} x), cos(...)].
 // xyz points at the point's first coordinate in a [3][stride] tile; zero

@@ -267,6 +267,11 @@ __device__ __forceinline__ void layer_mma(float (&acc)[NC / 2], uint32_t a, uint
   ring.release();
 }
 
+// x rounded to the nearest bf16.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -297,9 +302,9 @@ __device__ __forceinline__ void epilogue(float (&acc)[NC / 2], const float* bias
     for (int e = 0; e < 4; ++e) {
       const float bb = (e & 1) ? b.y : b.x;
       float x = acc[4 * j + e];
-      x = FAST ? round_cd<true>(x) + round_cd<true>(bb) : x + bb;
+      x = FAST ? round_bf16(x) + round_bf16(bb) : x + bb;
       if (RELU) x = fmaxf(x, 0.f);
-      acc[4 * j + e] = round_cd<true>(x);
+      acc[4 * j + e] = round_bf16(x);
     }
     if (h != nullptr) {
       store_bf16x2(h, row, col0 + col, acc[4 * j], acc[4 * j + 1]);

@@ -257,11 +257,13 @@ int gcd(int a, int b) {
 
 // bf16 rays per group for S samples per ray: R*S a multiple of the
 // `tile`-point sub-tile where that keeps R*S <= max_points, else the fewest
-// rays that fill one sub-tile.
+// rays that fill one sub-tile, else as many as fit (0 when not one does).
 int block_rays(int n_samples, int tile, int max_points) {
   const int r = tile / gcd(n_samples, tile);
   if (r * n_samples <= max_points) return r;
-  return n_samples >= tile ? 1 : (tile + n_samples - 1) / n_samples;
+  const int fill = n_samples >= tile ? 1 : (tile + n_samples - 1) / n_samples;
+  const int fit = max_points / n_samples;
+  return fill < fit ? fill : fit;
 }
 
 // The FP32 core's smaller tile runs at this fraction of its big tile's rate
@@ -365,8 +367,9 @@ int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
   if (bf16) {
     const int core = wg::launch_bytes(width, in_ch, in_ch_views);
     const int room = smem_max - core;
-    const int rays = block_rays(n_samples, width == 256 ? 2 * P : P, room / POINT_BYTES);
-    if (room < 0 || static_cast<long long>(rays) * n_samples * POINT_BYTES > room) {
+    const int rays = room < 0 ? 0 : block_rays(n_samples, width == 256 ? 2 * P : P,
+                                               room / POINT_BYTES);
+    if (rays < 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const size_t smem = core + static_cast<size_t>(rays) * n_samples * POINT_BYTES;

@@ -371,13 +371,14 @@ def _check_supported(params, net: NeRFNetConfig, lib, what: str, bf16: bool, dev
         raise NotImplementedError(f"{what} kernel: trunk width {width} exceeds the kernels' "
                                   f"{lib.nerf_width()}")
     # the core's shared memory for this width and these encodings
+    padded = core_width(width)
     core = lib.nerf_wgmma_smem_bytes if bf16 else lib.nerf_f32_smem_bytes
-    need = core(core_width(width), net.input_ch, net.input_ch_views)
+    need = core(padded, net.input_ch, net.input_ch_views)
     with _on(device):
         have = lib.nerf_smem_optin()
     if need > have:
         raise NotImplementedError(
-            f"{what} kernel: a {core_width(width)}-wide trunk with {net.input_ch} x_pe and "
+            f"{what} kernel: a {padded}-wide trunk with {net.input_ch} x_pe and "
             f"{net.input_ch_views} d_pe channels needs {need} bytes of shared memory per block "
             f"in {'bfloat16' if bf16 else 'float32'}; the device gives {have}")
     expect = {"pts_0_kernel": (net.input_ch, width),

@@ -98,6 +98,25 @@ def test_pe_twin_matches_pallas_interpret(rng, scene):
     np.testing.assert_allclose(got.numpy(), np.asarray(explicit), **TOL)
 
 
+@pytest.mark.parametrize("dtype, tol", [("float32", TOL),
+                                        ("bfloat16", dict(rtol=2e-2, atol=2e-2))],
+                         ids=["f32", "bf16"])
+def test_pe_twin_matches_pallas_interpret_on_a_512_wide_net(rng, dtype, tol):
+    """The true-cos kernel on an 8x512 net (the reference's --netwidth 512,
+    random weights) against the port's twin, 64 points, in float32 and
+    bfloat16."""
+    wide = dict(netwidth=512, netwidth_fine=512)
+    jnet, tnet = JNet(**wide), TNet(**wide)
+    params = {k: np.array(v) for k, v in init_nerf_params(jax.random.PRNGKey(1), jnet).items()}
+    pts, dirs = _points(rng, 64)
+    want = np.asarray(jmarch._fused_forward_pe(params, pts, dirs, jnet,
+                                               compute_dtype=getattr(jnp, dtype), tile=64,
+                                               interpret=True))
+    got = tmarch.mlp_pe_ref(*_t(params, pts, dirs), tnet, getattr(torch, dtype))
+    assert got.shape == (64, 4) and np.abs(want).max() > 0.1      # not a vacuous field
+    np.testing.assert_allclose(got.numpy(), want, **tol)
+
+
 @pytest.mark.parametrize("scene", ["random", "box"])
 def test_encoded_twin_matches_pallas_interpret(rng, scene):
     params = _params(scene)
