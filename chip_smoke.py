@@ -9,7 +9,8 @@ Run from the root of the repository on a machine with the card:
 Phases, each of which exits nonzero when it fails:
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
   2. build: nvcc builds every kernels/csrc/*.cu for sm_90a, one process per
-     source, all started together; ptxas registers and spills of each;
+     source, all started together; ptxas registers and spills of each
+     instantiation, and a list of those that spill (with their bytes);
   3. every kernel vs its plain twin at full width (8x256 NeRF, PE 10/4) in
      float32 and bfloat16, on random-init (default and He-scaled) and
      box-scene weights:
@@ -26,10 +27,16 @@ Phases, each of which exits nonzero when it fails:
      beside them the time of the same MLP as a chain of per-layer
      torch.matmul + bias + ReLU on encodings computed beforehand, in bf16
      and in float32 with TF32 off (chain_ms, yardsticks of the unfused
-     library path that the port never calls); then every kernel vs its
-     twin in both dtypes on two more nets, which the kernels take
-     zero-padded to the cores' width: 4x128, and 8x100 with multires 12 /
-     multires_views 6 (encodings past the default 64 / 32 rows);
+     library path that the port never calls); the most samples per ray the
+     render tile takes at each core width (256, 512) in each dtype (at
+     least 192); then every kernel vs its twin in both dtypes on the nets of
+     EXTRA_NETS, which the kernels take zero-padded to the next core width:
+     4x128, 8x100 with multires 12 / multires_views 6, 8x512, 4x384 (padded
+     to 512), 24x256 with skips (4, 12), and 8x256 with multires 24 /
+     multires_views 12 and 42 / 20 (the longest encodings, at the ragged
+     shapes only); then the five kernels on the 8x512 net at N=8192 x
+     S=64 and 192 in both dtypes: kernel, twin and bound ms (the bound from
+     the net's own work) and the share of the bound;
   4. backward: one backward through each differentiable wrapper's
      autograd.Function against plain autograd through the recompute it
      stands for; the render tile refuses a gradient on the card;
@@ -50,6 +57,10 @@ Phases, each of which exits nonzero when it fails:
      an output head): its K=8 render on the card must launch no kernel (it
      takes the plain query_points + raw2outputs, as the JAX package does)
      and equal the same rays' render on the CPU within 2e-3;
+  5c. the default-route render of phase 5 (K=8, 100x100, test mode) on
+     8x512 box-scene weights in float32 and bfloat16: 20 launches of
+     fused_nerf_march and 0 of the others, rgb within 2e-3 / BF16_RENDER_TOL
+     of the twin's render, rays/s beside the card's name and power limit;
   6. entry points: the exported fused_nerf_mlp (pre-encoded inputs) and
      fused_nerf_mlp_pe on the coarse sample points of the same K=8 render,
      one launch each, held against the ray-march kernel's raw field there
@@ -70,10 +81,11 @@ Phases, each of which exits nonzero when it fails:
      PSNR > 40 dB;
   8. a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
-     beside them, the production runs' launches, and the production
-     numbers in fused_nerf_march's record), after checking that every
-     kernel whose bf16 mode runs wgmma takes at most WGMMA_FRACTION of the
-     FP32-core kernel's bf16 time at S=192; then the last line
+     beside them, the 8x512 times, the production runs' launches, and the
+     production and 8x512 render numbers in fused_nerf_march's record),
+     after checking that each kernel's bf16 time (tensor cores) is at most
+     WGMMA_FRACTION of its own float32 time at S=192 on the default net,
+     and fused_nerf_march's also on 8x512 at S=64; then the last line
      {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the rest of the repository beside it,
@@ -85,6 +97,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -135,13 +148,29 @@ RAGGED = (1001, 48)
 # hierarchical culled fine march (16 + 128), and ragged shapes
 RAY_SHAPES = ((N_RAYS, 64, True), (N_RAYS, 192, True), (N_RAYS, 16, True),
               (32768, 16, True), (N_RAYS, 144, True), RAGGED + (False,), (3, 5, False))
-# nets beyond the default that the kernels take zero-padded to the cores'
-# 256 width, checked at these (N, S)
+# nets beyond the default, checked at these (N, S): the kernels take a trunk
+# zero-padded to the next core width (256 or 512), up to 32 layers deep, and
+# encodings up to multires 42 / multires_views 20
 EXTRA_NETS = {
     "4x128": dict(netdepth=4, netwidth=128, netdepth_fine=4, netwidth_fine=128, skips=(2,)),
     "8x100_pe12_6": dict(netwidth=100, netwidth_fine=100, multires=12, multires_views=6),
+    # the reference's --netwidth / --netwidth_fine 512, and a width padded to it
+    "8x512": dict(netwidth=512, netwidth_fine=512),
+    "4x384": dict(netdepth=4, netwidth=384, netdepth_fine=4, netwidth_fine=384, skips=(2,)),
+    # 24 trunk layers with two skips
+    "24x256": dict(netdepth=24, netdepth_fine=24, skips=(4, 12)),
+    # longer encodings: 147 / 75 channels (three x_pe and two d_pe chunks of
+    # the wgmma core), and the longest the cores take, 255 / 123
+    "8x256_pe24_12": dict(multires=24, multires_views=12),
+    "8x256_pe42_20": dict(multires=42, multires_views=20),
 }
 EXTRA_SHAPES = ((N_RAYS, 64), RAGGED, (3, 5))
+# nets checked at the ragged shapes only
+RAGGED_ONLY = ("8x256_pe42_20",)
+# the wide net whose kernels are timed (N_RAYS x WIDE_S) and rendered on the
+# main path
+WIDE = "8x512"
+WIDE_S = (64, 192)
 # bench.py's production cell (bench.py:139-194): 16 poses x 400^2, its camera
 BENCH_POSES, BENCH_HW = 16, 400
 BENCH_K = [[1333.3334, 0.0, 195.42932], [0.0, 1334.2196, 200.6318], [0.0, 0.0, 1.0]]
@@ -161,12 +190,13 @@ PEAKS = {
 SOURCE = "neuralsim_tpu_torch/kernels/csrc/"
 # the MLP core each kernel's dtypes run: the FP32 CUDA cores of
 # nerf_mlp.cuh or wgmma on the tensor cores (nerf_mlp_wgmma.cuh)
-CORES = {k: {"float32": "fp32", "bfloat16": "fp32" if k == "fused_nerf_mlp_pe" else "wgmma"}
+CORES = {k: {"float32": "fp32", "bfloat16": "wgmma"}
          for k in ("fused_nerf_march", "fused_nerf_mlp_widepe", "fused_render_tile",
                    "fused_nerf_mlp", "fused_nerf_mlp_pe")}
-# the same MLP on the tensor cores takes at most this fraction of its time
-# on the FP32 core in bf16 (S = 192): a kernel that misses it did not run
-# on the tensor cores
+# a kernel's bf16 time (tensor cores) is at most this fraction of its own
+# float32 time (FP32 core) at S = 192 on the default net, and kernel 1's on
+# the wide net at S = 64: a kernel that misses it did not run on the tensor
+# cores
 WGMMA_FRACTION = 0.25
 REPLACES = {
     "fused_nerf_march": ("nerf_march.cu", "neuralsim_tpu/kernels/raymarch.py:857"),
@@ -342,6 +372,7 @@ def phase_build():
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"build: {len(built)} sources in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    spills = []
     for name, (path, seconds, report) in built.items():
         log(f"build {name}.cu: {seconds:.1f} s -> {path.name}")
         kernel = None
@@ -350,6 +381,11 @@ def phase_build():
                 kernel = line.split("'")[1] if "'" in line else line.strip()
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
+            spilled = [int(b) for b in re.findall(r"(\d+) bytes spill", line)]
+            if any(spilled):
+                spills.append(f"{name}.cu {kernel}: {sum(spilled)} bytes spill (stores + loads)")
+    log("build spills: " + ("; ".join(spills) if spills else "none"))
+    return spills
 
 
 def check(kernel, params, args, net, dtype, tag):
@@ -466,22 +502,76 @@ def phase_kernels(net, peaks):
                     f"kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {b:.3f} ms ({by})")
         del rays
         torch.cuda.empty_cache()
+    rec["fused_render_tile"]["max_samples"] = render_tile_maxima(net)
     for name, kw in EXTRA_NETS.items():
         rec_net = check_net(NeRFNetConfig(**kw), name, gen)
         for kernel, errs in rec_net.items():
             rec[kernel].setdefault("err_nets", {})[name] = errs
+    wide = time_wide_net(gen, peaks)
+    for kernel, times in wide.items():
+        rec[kernel]["wide"] = times
     return rec, chain
+
+
+def render_tile_maxima(net):
+    """The most samples per ray that fused_render_tile takes (one ray per
+    group) for the encodings of net, at each core width in each dtype, from
+    the device's shared memory; each must hold the exact fine pass's 192."""
+    lib = rm._library("render_tile")
+    with torch.cuda.device(DEVICE):
+        out = {f"{dtype}_W{w}": lib.render_tile_max_samples(
+            int(dtype == "bfloat16"), w, net.input_ch, net.input_ch_views)
+            for dtype in ("float32", "bfloat16") for w in rm.CORE_WIDTHS}
+    log("render tile: most samples per ray (PE "
+        f"{net.multires}/{net.multires_views}) " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    if min(out.values()) < 192:
+        raise AssertionError(f"fused_render_tile takes fewer than 192 samples per ray: {out}")
+    return out
+
+
+def time_wide_net(gen, peaks):
+    """The five kernels on the WIDE net at N_RAYS x WIDE_S samples in both
+    dtypes (random weights): kernel, twin and bound ms, the bound from the
+    net's own work (not the zero-padded work), and the kernel's share of
+    its bound: {kernel: {shape key: {...}}}."""
+    net = NeRFNetConfig(**EXTRA_NETS[WIDE])
+    params = init_nerf_params(net, generator=gen, device=DEVICE)
+    weight_bytes = sum(t.numel() * 4 for t in params.values())
+    out = {kernel: {} for kernel in KERNELS}
+    for s in WIDE_S:
+        rays = march_inputs(N_RAYS, s, gen, DEVICE)
+        for kernel, (wrapper, twin, inputs) in KERNELS.items():
+            args = inputs(net, rays)
+            for dtype in (torch.float32, torch.bfloat16):
+                key = shape_key(str(dtype)[6:], N_RAYS, s)
+                with torch.no_grad():
+                    ms = time_ms(lambda: wrapper(params, *args, net, compute_dtype=dtype),
+                                 reps=5, warmup=1)
+                    plain = time_ms(lambda: twin(params, *args, net, compute_dtype=dtype),
+                                    reps=5, warmup=1)
+                peak = peaks[0] if dtype == torch.float32 else peaks[1]
+                b, by = bound(*work(kernel, net, N_RAYS, s, weight_bytes), peak, peaks[2])
+                out[kernel][key] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                                        share=b / ms)
+                log(f"time {WIDE} {kernel} {key} N={N_RAYS} ({CORES[kernel][str(dtype)[6:]]} "
+                    f"core): kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {b:.3f} ms ({by}), "
+                    f"{b / ms:.1%} of the bound")
+        del rays, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_net(net, name, gen):
     """Every kernel vs its twin on one more net (random and He-scaled
-    weights, both dtypes) at EXTRA_SHAPES: {kernel: {dtype: max abs err}}."""
+    weights, both dtypes) at EXTRA_SHAPES (the ragged ones for RAGGED_ONLY):
+    {kernel: {dtype: max abs err}}."""
     random = init_nerf_params(net, generator=gen, device=DEVICE)
     weights = {"random": random,
                "random_he": {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0)
                              for k, v in random.items()}}
     out = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in KERNELS}
-    for n, s in EXTRA_SHAPES:
+    shapes = [sh for sh in EXTRA_SHAPES if name not in RAGGED_ONLY or sh[0] != N_RAYS]
+    for n, s in shapes:
         rays = march_inputs(n, s, gen, DEVICE)
         for kernel, (_, _, inputs) in KERNELS.items():
             args = inputs(net, rays)
@@ -556,12 +646,12 @@ def psnr(a, b):
     return -10.0 * math.log10(max(((a - b) ** 2).mean().item(), 1e-12))
 
 
-def drive_route(models, psi, kernel, per_chunk=2, production=False, **render):
-    """render_images at the default config through one march route: the
-    kernel's counter must read per_chunk per chunk of marched rays and the
-    others 0. production: the config's production_mode(), whose renderer
+def drive_route(models, psi, kernel, per_chunk=2, production=False, cfg=None, **render):
+    """render_images at the default config (or cfg) through one march route:
+    the kernel's counter must read per_chunk per chunk of marched rays and
+    the others 0. production: the config's production_mode(), whose renderer
     builds the grid and calibrates the budget (timed as setup_s)."""
-    cfg = NeuralSimConfig()
+    cfg = cfg or NeuralSimConfig()
     rc = dataclasses.replace(cfg.render, **render)
     cfg = cfg.replace(render=rc.production_mode() if production else rc)
     torch.cuda.synchronize()
@@ -582,6 +672,8 @@ def drive_route(models, psi, kernel, per_chunk=2, production=False, **render):
     launched = counts()
     dtype = renderer.rc.compute_dtype
     tag = f"{kernel}, {dtype}" + (", production" if production else "")
+    if cfg.net != NeRFNetConfig():
+        tag += f", {cfg.net.netdepth}x{cfg.net.netwidth} net"
     log(f"main path [{tag}]: K={K_POSES} {renderer.H}x{renderer.W} images, "
         f"{n_rays} rays ({n_routed} marched), launches {launched} (expected {expect} of "
         f"{kernel})")
@@ -680,6 +772,31 @@ def phase_main_path():
         if route["err_vs_f32"] > BF16_VS_F32_MAX or route["frac_off_f32"] > BF16_VS_F32_FRAC:
             raise AssertionError(f"[{kernel}, bfloat16] rgb too far from the float32 render")
     return routes, bf16, box, cfg
+
+
+def phase_wide_main_path(psi, smi):
+    """5c: render_images at the default config on the WIDE net's box-scene
+    weights, float32 and bfloat16, default route (the ray march): 2 launches
+    of fused_nerf_march per ray chunk and no other kernel, rgb within 2e-3
+    (float32) or BF16_RENDER_TOL (bfloat16) of the twin's render."""
+    net = NeRFNetConfig(**EXTRA_NETS[WIDE])
+    cfg = NeuralSimConfig().replace(net=net)
+    box = box_scene_params(net, generator=torch.Generator().manual_seed(3), device=DEVICE)
+    models = {"coarse": box, "fine": box}
+    out = {}
+    for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_RENDER_TOL)):
+        run = drive_route(models, psi, "fused_nerf_march", cfg=cfg, compute_dtype=dtype)
+        twin = NeuralSimRenderer(cfg.replace(render=dataclasses.replace(
+            run["renderer"].rc, use_pallas=False)), models=models, device=DEVICE)
+        with torch.no_grad():
+            rgb_twin = twin._render_impl(psi, run["noise"])[0]
+        err = (run["rgb"] - rgb_twin).abs().max().item()
+        log(f"main path [{WIDE}, fused_nerf_march, {dtype}]: rgb vs twin render max abs err "
+            f"{err:.3e} (limit {tol:g}); {run['rays_per_s']:.0f} rays/s on {smi}")
+        torch.testing.assert_close(run["rgb"], rgb_twin, rtol=0, atol=tol)
+        out[dtype] = dict(launches=run["launches"], err_vs_twin=err,
+                          rays_per_s=run["rays_per_s"], ms_per_image=run["ms_per_image"])
+    return out
 
 
 def phase_plain_net(psi):
@@ -1019,12 +1136,13 @@ def main():
     peak_key, peaks = peaks_for(name)
     log(f"peaks ({peak_key}): fp32 {peaks[0] / 1e12:.0f} TFLOP/s, bf16 "
         f"{peaks[1] / 1e12:.0f} TFLOP/s, memory {peaks[2] / 1e12:.2f} TB/s")
-    phase_build()
+    spills = phase_build()
     net = NeRFNetConfig()
     rec, chain = phase_kernels(net, peaks)
     phase_backward(net)
     routes, routes16, box, cfg = phase_main_path()
     plain_net = phase_plain_net(psi_init("5"))
+    wide_main = phase_wide_main_path(psi_init("5"), smi)
     entries, entries16 = phase_entry_points(box, cfg, routes)
     pipeline, others, bench = phase_production(box, routes, routes16)
     production_launched = {f"pipeline_{dtype}": run["launched"] for dtype, run in pipeline.items()}
@@ -1039,14 +1157,19 @@ def main():
                    for name, run in others.items()},
         "bench_shape": {k: v for k, v in bench.items() if k != "launched"},
     }
-    fp32_core = rec["fused_nerf_mlp_pe"]["ms"]["bfloat16_S192"]
-    for kernel in KERNELS:
-        if CORES[kernel]["bfloat16"] == "wgmma":
-            ms = rec[kernel]["ms"]["bfloat16_S192"]
-            log(f"bf16 S192 {kernel}: {ms:.3f} ms = {ms / fp32_core:.3f} of the FP32-core "
-                f"fused_nerf_mlp_pe's {fp32_core:.3f} ms (limit {WGMMA_FRACTION:g})")
-            if ms > WGMMA_FRACTION * fp32_core:
-                raise AssertionError(f"{kernel} in bf16 is not on the tensor cores' time")
+    wgmma_checks = [(kernel, "default", rec[kernel]["ms"]["bfloat16_S192"],
+                     rec[kernel]["ms"]["float32_S192"]) for kernel in KERNELS]
+    wide_march = rec["fused_nerf_march"]["wide"]
+    s0 = WIDE_S[0]
+    wgmma_checks.append(("fused_nerf_march", f"{WIDE} S{s0}",
+                         wide_march[shape_key("bfloat16", N_RAYS, s0)]["ms"],
+                         wide_march[shape_key("float32", N_RAYS, s0)]["ms"]))
+    for kernel, where, ms16, ms32 in wgmma_checks:
+        log(f"bf16 vs float32 {kernel} ({where}{', S192' if where == 'default' else ''}): "
+            f"{ms16:.3f} ms = {ms16 / ms32:.3f} of its float32 {ms32:.3f} ms "
+            f"(limit {WGMMA_FRACTION:g})")
+        if ms16 > WGMMA_FRACTION * ms32:
+            raise AssertionError(f"{kernel} in bf16 ({where}) is not on the tensor cores' time")
     records = []
     for kernel in KERNELS:
         src, replaces = REPLACES[kernel]
@@ -1084,12 +1207,17 @@ def main():
             "production": production if kernel == "fused_nerf_march" else None,
             "plain_net": plain_net if kernel == "fused_nerf_march" else None,
             "max_err_nets": r["err_nets"],
+            "wide": r["wide"],
+            "main_path_wide": wide_main if kernel == "fused_nerf_march" else None,
+            "max_samples": r.get("max_samples"),
+            "build_spills": spills,
             "shape": f"N={N_RAYS} rays x S samples (M = N*S points); "
                      "ms/plain_ms/bound_ms at float32 S=192, *_bf16 at bfloat16 S=192; "
                      "kernel_ms etc. by dtype and S (S=16: the production single pass); "
                      "chain_ms: the same MLP as torch.matmul per layer (bf16; float32 "
-                     "with TF32 off); max_err_nets: twin checks on the 4x128 and "
-                     "8x100 (PE 12/6) nets",
+                     "with TF32 off); max_err_nets: twin checks on the nets of "
+                     f"EXTRA_NETS; wide: times on the {WIDE} net (bound from its own work); "
+                     f"main_path_wide: the K=8 render on {WIDE} box-scene weights",
             "card": smi,
         })
     print(json.dumps({"kernels": records}), flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times fused_nerf_march built from variants of the FP32 MLP core on one
-NVIDIA GPU, in one process, so that design choices of the core are compared
-on the same card in the same call.
+"""Times fused_nerf_march built from variants of the MLP cores on one
+NVIDIA GPU, in one process, so that design choices of the cores are
+compared on the same card in the same call.
 
     python3 chip_variants.py [--rounds 3]
 
@@ -11,11 +11,11 @@ below), built with nvcc under ``kernels/_build/variants/`` (gitignored,
 removed at the end). The script prints each variant's ptxas registers and
 spills for the ray-march kernels, then, in turns over the rounds,
 its times in float32 and bf16 (the bf16 kernel runs the tensor-core core,
-which shares the weight ring) at N = 8192 rays x S = 64, 192 and 16, each
+which shares the weight ring) at N = 8192 rays on random weights of the
+default net (S = 64, 192 and 16) and of an 8x512 net (S = 64), each
 checked against the plain twin first (float32 2e-3, bf16 by the bf16 rule
-of chip_smoke.py), on random weights of the default net; then one JSON
-line: the median time of each variant and shape. Without a CUDA device it
-exits nonzero.
+of chip_smoke.py); then one JSON line: the median time of each variant,
+net and shape. Without a CUDA device it exits nonzero.
 """
 
 from __future__ import annotations
@@ -37,9 +37,6 @@ from neuralsim_tpu_torch.kernels import raymarch as rm
 from neuralsim_tpu_torch.models.nerf import init_nerf_params
 
 UNROLL = "#pragma unroll 8\n  for (int k = 0; k < KC; ++k) {"
-KC = "constexpr int KC = 16;                             // input rows per chunk"
-STAGES = "constexpr int STAGES = 2;                          // weight ring depth"
-TILE = "*tile = core_bytes(128, rx, rd) + extra <= smem_max ? 128"
 # the ring with the refill moved to the last warp done with a chunk (a
 # counter per stage in the empty barrier's place; every warp's lane 0
 # follows the issue order), so that no warp waits for the others
@@ -81,36 +78,45 @@ LAST_WARP_RELEASE = """    if ((threadIdx.x & 31) == 0) {
       }
     }
 """
-# the wgmma core with its x_pe chunk count a runtime value, not a template flag
-CORE_NX = ("template <bool FAST, int nx>\n"
-           "__device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, "
-           "const Net& net,\n" + " " * 47 + "Ring& ring, int group) {")
-CALL_NX = ("  if (core.nx == 1) {\n"
-           "    mlp_core_wgmma<FAST, 1>(core.a, core.raw, net, core.ring, core.group);\n"
-           "  } else {\n"
-           "    mlp_core_wgmma<FAST, 2>(core.a, core.raw, net, core.ring, core.group);\n"
-           "  }")
+# the wgmma core's [6][P] points and [4][P] raw outputs in a region of their
+# own behind the ring's barriers (W = 256), not in the dead A tiles
+WG_BYTES = "         2 * stages(width, nx) * 8;"
+WG_IO = ("  c.pts = reinterpret_cast<float*>(c.a + NX * A_CHUNK_BYTES);\n"
+         "  c.raw = reinterpret_cast<float*>(c.a) + (Shape<W>::SPLIT ? c.group * 4 * P : 0);\n")
+WG_IO_APART = (
+    "  float* io = reinterpret_cast<float*>(tiles + Shape<W>::GROUPS * ab +\n"
+    "                                       2 * Core<W, NX>::STAGES * 8) + c.group * 10 * P;\n"
+    "  c.pts = Shape<W>::SPLIT ? reinterpret_cast<float*>(c.a + NX * A_CHUNK_BYTES) : io;\n"
+    "  c.raw = Shape<W>::SPLIT ? reinterpret_cast<float*>(c.a) + c.group * 4 * P : io + 6 * P;\n")
+MAX_DEPTH = "constexpr int MAX_DEPTH = 32;"
+# the FP32 core at W = 512 on 32-point tiles with 16-row ring stages (32 KB;
+# W = 256 then falls to 64-point tiles) instead of 64-point tiles with
+# 8-row stages: the alternative to the committed design the shared memory
+# of a 64-point tile with 16-row stages leaves (233,504 B)
+STAGE_BYTES = "constexpr int WIDE_BYTES = 16 * 1024;"
+BIG_TILE = "constexpr int big_tile(int width) { return 128 * 256 / width; }"
+POW2 = "__int_as_float((127 + k) << 23)"
 F32, WG = "nerf_mlp.cuh", "nerf_mlp_wgmma.cuh"
 # variant -> [(file, old text, new text)]
 VARIANTS = {
     "committed": [],
     "unroll 4": [(F32, UNROLL, UNROLL.replace("unroll 8", "unroll 4"))],
-    "unroll 2": [(F32, UNROLL, UNROLL.replace("unroll 8", "unroll 2"))],
-    "unroll 16": [(F32, UNROLL, UNROLL.replace("unroll 8", "unroll"))],
-    "8-row chunks, 4 stages": [(F32, KC, KC.replace("16;", "8; ")),
-                               (F32, STAGES, STAGES.replace("2;", "4;"))],
-    "64-point tiles": [(F32, TILE, TILE.replace("<= smem_max", "< 0"))],
     "last warp refills": [
         (F32, EMPTY_INIT, "        *reinterpret_cast<int*>(empty + s) = 0;\n"),
         (F32, FIRST_ISSUES, LANE0_FIRST_ISSUES),
         (F32, RELEASE, LAST_WARP_RELEASE)],
-    "runtime x_pe chunks (wgmma)": [
-        (WG, CORE_NX, CORE_NX.replace("template <bool FAST, int nx>", "template <bool FAST>")
-         .replace("int group) {", "int group, int nx) {")),
-        (WG, CALL_NX,
-         "  mlp_core_wgmma<FAST>(core.a, core.raw, net, core.ring, core.group, core.nx);")],
+    "points and raw apart (wgmma)": [
+        (WG, WG_BYTES, WG_BYTES.replace(";", " + (width == N ? 2 * 10 * P * 4 : 0);")),
+        (WG, WG_IO, WG_IO_APART)],
+    "Net of 16 layers": [(F32, MAX_DEPTH, MAX_DEPTH.replace("32", "16"))],
+    "2^k by conversion": [(F32, POW2, "static_cast<float>(1 << k)")],
+    "W = 512: 32-point tiles, 16-row stages": [
+        (F32, STAGE_BYTES, STAGE_BYTES.replace("16 * 1024", "32 * 1024")),
+        (F32, BIG_TILE, BIG_TILE.replace("128 * 256 / width", "width == 512 ? 32 : 128"))],
 }
-SHAPES = (64, 192, 16)
+# the nets timed: the default, and the reference's --netwidth 512 (at S = 64)
+NETS = {"8x256": (NeRFNetConfig(), (64, 192, 16)),
+        "8x512": (NeRFNetConfig(netwidth=512, netwidth_fine=512), (64,))}
 
 
 def build_variants(root: Path):
@@ -130,7 +136,7 @@ def build_variants(root: Path):
         lines, kernel = [], ""
         for line in report.splitlines():
             if "Compiling entry function" in line:
-                kernel = re.search(r"nerf_march_(f32ILi\d+|wgmma)", line).group(1)
+                kernel = re.search(r"nerf_march_(f32|wgmma)ILi(\d+)ELi(\d+)", line).group(0)[11:]
             elif "Used" in line or "spill" in line:
                 lines.append(f"{kernel}: {line.split('ptxas info    :')[-1].strip()}")
         print(f"variant {name}: built in {seconds:.1f} s; ptxas: {lines}", flush=True)
@@ -147,10 +153,10 @@ def main():
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    net = NeRFNetConfig()
     gen = torch.Generator().manual_seed(0)
-    params = init_nerf_params(net, generator=gen, device="cuda")
-    rays = {s: cs.march_inputs(cs.N_RAYS, s, gen, "cuda") for s in SHAPES}
+    cases = [(net_name, net, init_nerf_params(net, generator=gen, device="cuda"), s,
+              cs.march_inputs(cs.N_RAYS, s, gen, "cuda"))
+             for net_name, (net, shapes) in NETS.items() for s in shapes]
     root = build.BUILD_DIR / "variants"
     shutil.rmtree(root, ignore_errors=True)
     try:
@@ -161,14 +167,14 @@ def main():
                 build.CSRC, build.BUILD_DIR = csrc, build_dir
                 build.load.cache_clear()
                 rm._library.cache_clear()
-                for s, r in rays.items():
+                for net_name, net, params, s, r in cases:
                     for dtype in (torch.float32, torch.bfloat16):
+                        key = f"{net_name}_{str(dtype)[6:]}_S{s}"
                         with torch.no_grad():
                             cs.check("fused_nerf_march", params, r, net, dtype,
-                                     f"variant {name} S={s} {str(dtype)[6:]}")
+                                     f"variant {name} {key}")
                             ms = cs.time_ms(lambda: rm.fused_nerf_march(params, *r, net, dtype))
-                        times.setdefault(name, {}).setdefault(
-                            f"{str(dtype)[6:]}_S{s}", []).append(ms)
+                        times.setdefault(name, {}).setdefault(key, []).append(ms)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"card": smi, "rounds": rounds, "median_ms": {
