@@ -20,7 +20,9 @@ SMALL = dict(netdepth=4, netwidth=32, netdepth_fine=4, netwidth_fine=32, skips=(
 NETS = {"default_8x256": dict(), "small_4x32": SMALL,
         # a 512-wide trunk: each chunk holds both warpgroups' column halves
         "w512": dict(netdepth=4, netwidth=512, netdepth_fine=4, netwidth_fine=512, skips=(2,)),
-        # four x_pe chunks and two d_pe chunks (255 / 123 channels)
+        # three x_pe chunks and two d_pe chunks (147 / 75 channels), and four
+        # and two (255 / 123)
+        "pe24_12": dict(netdepth=4, netdepth_fine=4, skips=(2,), multires=24, multires_views=12),
         "pe42_20": dict(netdepth=4, netdepth_fine=4, skips=(2,), multires=42, multires_views=20)}
 
 
