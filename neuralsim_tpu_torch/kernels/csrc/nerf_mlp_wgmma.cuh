@@ -419,16 +419,16 @@ __device__ __forceinline__ void load_encodings(const float* x_pe, const float* d
 }
 
 // The MLP on a tile of 64 points, whose encodings are in the A tiles at a
-// (NX x_pe chunks, the h chunks, nd d_pe chunks; published): raw [4][P]
+// (NX x_pe chunks, the h chunks, ND d_pe chunks; published): raw [4][P]
 // (r, g, b logits, sigma) of this warpgroup's columns, written by the lanes
 // that hold each row (at W = 512 partial sums, the bias in warpgroup 0's).
 // Consumes the tile's plan.per_tile chunks from the ring. FAST
-// (net.fast_epilogue), NX and the views layer's last k16 steps are template
-// flags: as runtime values they cost the registers the 128 accumulators
-// need: the kernel spills and runs slower.
-template <int W, int NX, bool FAST, typename R>
+// (net.fast_epilogue), NX, ND and the views layer's last k16 steps are
+// template flags: as runtime values they cost the registers the 128
+// accumulators need: the kernel spills and runs slower.
+template <int W, int NX, int ND, bool FAST, typename R>
 __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, const Net& net,
-                                               R& ring, int group, int nd) {
+                                               R& ring, int group) {
   using S = Shape<W>;
   const int lane = threadIdx.x & 31;
   const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
@@ -489,11 +489,11 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
   float accv[NV / 2];
   zero<NV>(accv);
   // [feature, d_pe], over the last d_pe chunk's k16 steps that hold channels
-  switch ((net.in_ch_views - CHUNK_K * (nd - 1) + 15) / 16) {
-    case 1: layer_mma<NV, 1>(accv, h, bv_rows, S::H + nd, ring); break;
-    case 2: layer_mma<NV, 2>(accv, h, bv_rows, S::H + nd, ring); break;
-    case 3: layer_mma<NV, 3>(accv, h, bv_rows, S::H + nd, ring); break;
-    default: layer_mma<NV, 4>(accv, h, bv_rows, S::H + nd, ring); break;
+  switch ((net.in_ch_views - CHUNK_K * (ND - 1) + 15) / 16) {
+    case 1: layer_mma<NV, 1>(accv, h, bv_rows, S::H + ND, ring); break;
+    case 2: layer_mma<NV, 2>(accv, h, bv_rows, S::H + ND, ring); break;
+    case 3: layer_mma<NV, 3>(accv, h, bv_rows, S::H + ND, ring); break;
+    default: layer_mma<NV, 4>(accv, h, bv_rows, S::H + ND, ring); break;
   }
   // the rgb head reads the registers: nothing to store
   epilogue<NV, true, FAST>(accv, net.b[net.depth + 2] + vcol0, nullptr, 0);
@@ -574,7 +574,13 @@ __device__ __forceinline__ Core<W, NX> make_core(void* dyn, const Plan& plan, in
 template <int W, int NX, bool FAST>
 __device__ __forceinline__ void mlp_tile(Core<W, NX>& core, const Net& net) {
   tile_publish<W>(core.group);
-  mlp_core_wgmma<W, NX, FAST>(core.a, core.raw, net, core.ring, core.group, core.nd);
+  // the d_pe chunk count picks one of two inlined cores at run time: the
+  // builds with a single inlined core spill (PERF.md)
+  if (core.nd == 1) {
+    mlp_core_wgmma<W, NX, 1, FAST>(core.a, core.raw, net, core.ring, core.group);
+  } else {
+    mlp_core_wgmma<W, NX, 2, FAST>(core.a, core.raw, net, core.ring, core.group);
+  }
   if constexpr (Shape<W>::SPLIT) {
     // warpgroup 0's raw += warpgroup 1's partial sums, one value a thread
     __syncthreads();
