@@ -6,8 +6,7 @@ compared on the same card in the same call.
     python3 chip_variants.py [--rounds 3]
 
 Each variant is the repository's ``neuralsim_tpu_torch/kernels/csrc/`` with
-a few text edits of ``nerf_mlp.cuh`` or ``nerf_mlp_wgmma.cuh`` (VARIANTS
-below), built with nvcc under ``kernels/_build/variants/`` (gitignored,
+a few text edits of ``nerf_mlp.cuh`` (VARIANTS below), built with nvcc under ``kernels/_build/variants/`` (gitignored,
 removed at the end). The script prints each variant's ptxas registers and
 spills for the ray-march kernels, then, in turns over the rounds,
 its times in float32 and bf16 (the bf16 kernel runs the tensor-core core,
@@ -78,25 +77,13 @@ LAST_WARP_RELEASE = """    if ((threadIdx.x & 31) == 0) {
       }
     }
 """
-# the wgmma core's [6][P] points and [4][P] raw outputs in a region of their
-# own behind the ring's barriers (W = 256), not in the dead A tiles
-WG_BYTES = "         2 * stages(width, nx) * 8;"
-WG_IO = ("  c.pts = reinterpret_cast<float*>(c.a + NX * A_CHUNK_BYTES);\n"
-         "  c.raw = reinterpret_cast<float*>(c.a) + (Shape<W>::SPLIT ? c.group * 4 * P : 0);\n")
-WG_IO_APART = (
-    "  float* io = reinterpret_cast<float*>(tiles + Shape<W>::GROUPS * ab +\n"
-    "                                       2 * Core<W, NX>::STAGES * 8) + c.group * 10 * P;\n"
-    "  c.pts = Shape<W>::SPLIT ? reinterpret_cast<float*>(c.a + NX * A_CHUNK_BYTES) : io;\n"
-    "  c.raw = Shape<W>::SPLIT ? reinterpret_cast<float*>(c.a) + c.group * 4 * P : io + 6 * P;\n")
-MAX_DEPTH = "constexpr int MAX_DEPTH = 32;"
 # the FP32 core at W = 512 on 32-point tiles with 16-row ring stages (32 KB;
 # W = 256 then falls to 64-point tiles) instead of 64-point tiles with
 # 8-row stages: the alternative to the committed design the shared memory
 # of a 64-point tile with 16-row stages leaves (233,504 B)
 STAGE_BYTES = "constexpr int WIDE_BYTES = 16 * 1024;"
 BIG_TILE = "constexpr int big_tile(int width) { return 128 * 256 / width; }"
-POW2 = "__int_as_float((127 + k) << 23)"
-F32, WG = "nerf_mlp.cuh", "nerf_mlp_wgmma.cuh"
+F32 = "nerf_mlp.cuh"
 # variant -> [(file, old text, new text)]
 VARIANTS = {
     "committed": [],
@@ -105,11 +92,6 @@ VARIANTS = {
         (F32, EMPTY_INIT, "        *reinterpret_cast<int*>(empty + s) = 0;\n"),
         (F32, FIRST_ISSUES, LANE0_FIRST_ISSUES),
         (F32, RELEASE, LAST_WARP_RELEASE)],
-    "points and raw apart (wgmma)": [
-        (WG, WG_BYTES, WG_BYTES.replace(";", " + (width == N ? 2 * 10 * P * 4 : 0);")),
-        (WG, WG_IO, WG_IO_APART)],
-    "Net of 16 layers": [(F32, MAX_DEPTH, MAX_DEPTH.replace("32", "16"))],
-    "2^k by conversion": [(F32, POW2, "static_cast<float>(1 << k)")],
     "W = 512: 32-point tiles, 16-row stages": [
         (F32, STAGE_BYTES, STAGE_BYTES.replace("16 * 1024", "32 * 1024")),
         (F32, BIG_TILE, BIG_TILE.replace("128 * 256 / width", "width == 512 ? 32 : 128"))],
