@@ -72,14 +72,31 @@ Phases, each of which exits nonzero when it fails:
      must be below 1, fused_nerf_march must launch once per chunk of routed
      rays (every other counter 0), rgb within 2e-3 (f32) / 2e-2 (bf16) of
      the twin's production render and > 40 dB from the exact render of the
-     same poses (and not equal to it); then through render_poses in
+     same poses (and not equal to it); the same in float32 through the
+     grid scorer (cull_mode="grid", its own calibrated budget), the
+     point-major kernel (fuse_pointgen=False) and the fused march +
+     compositing kernel (fuse_compositing=True), each kernel once per
+     chunk of routed rays; then through render_poses in
      float32 the hierarchical culled render (n_importance_culled=None),
      reuse_coarse and fine_fraction=0.25 (two launches per chunk, rgb
      within 2e-3 of the twin's); then bench.py's production shape, 16 poses
      x 400^2 in bfloat16 with ray_chunk 32768 (grid from build_scene_grid,
      budget from calibrate_hit_budget): exact and production rays/s and
      PSNR > 40 dB;
-  8. a JSON line of the kernels' numbers (float32 times under the
+  8. the psi render gradient (hypergrad/render_grad.py) of the K=8
+     box-scene render at the default config with a seeded grad_E (normal x
+     1e-2), plain torch as in the JAX package: no kernel may launch during
+     a gradient. render_images_grad's strips (grad_ray_chunk 5000), rev (a
+     checkpoint per ray tile) and fwd (8 JVPs) in float32 agree within
+     GRAD_REL of the norm; strips on the card equal strips on the CPU at
+     K=2, 25x25, and in bf16 lie nearer the CPU's bf16 strips than the
+     CPU's float32 strips do; culled strips (the production renderer's grid and
+     calibrated budget, strip CULL_STRIP; the selection must run for every
+     image) equal dense strips; bf16 strips (grad_compute_dtype) have a
+     cosine >= GRAD_BF16_COS to float32; a Gaussian-psi strips gradient
+     equals its fwd; one momentum psi step. Seconds per image (host clock)
+     and peak memory of each mode go to a JSON line {"render_grad": ...};
+  9. a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
      beside them, the 8x512 times, the production runs' launches, and the
      production and 8x512 render numbers in fused_nerf_march's record),
@@ -96,6 +113,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import re
 import statistics
@@ -107,6 +125,8 @@ import torch
 
 from neuralsim_tpu_torch import kernels
 from neuralsim_tpu_torch.bilevel.psi_init import psi_init
+from neuralsim_tpu_torch.bilevel.psi_opt import psi_optimizer_init, psi_optimizer_update
+from neuralsim_tpu_torch.hypergrad import render_grad
 from neuralsim_tpu_torch.config import NeRFNetConfig, NeuralSimConfig
 from neuralsim_tpu_torch.kernels import build
 from neuralsim_tpu_torch.kernels import raymarch as rm
@@ -122,7 +142,13 @@ from neuralsim_tpu_torch.ops.rays import get_rays
 from neuralsim_tpu_torch.ops.render import render_poses, render_ray_batch
 from neuralsim_tpu_torch.ops.volume import stratified_z_vals
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
-from neuralsim_tpu_torch.sampler.poses import pose_spherical, poses_from_noise, psi_to_probs
+from neuralsim_tpu_torch.sampler.poses import (
+    draw_pose_noise,
+    draw_pose_noise_gaussian,
+    pose_spherical,
+    poses_from_noise,
+    psi_to_probs,
+)
 
 DEVICE = torch.device("cuda")
 N_RAYS = 8192          # one ray_chunk
@@ -177,6 +203,15 @@ BENCH_K = [[1333.3334, 0.0, 195.42932], [0.0, 1334.2196, 200.6318], [0.0, 0.0, 1
 # compositing per sample: distance, exp, alpha, weight, transmittance,
 # three sigmoids and five running sums, in FLOP
 COMPOSITE_FLOP = 28
+# the render gradient on the card vs the same function on the CPU, and its
+# modes against each other: the CPU tests' tolerance, max abs difference
+# over the reference's norm (tests/test_torch_render_grad.py)
+GRAD_REL = 1e-4
+# bf16 strips gradient vs float32: the least cosine
+GRAD_BF16_COS = 0.999
+# the culled gradient's strip: the budget rounds up to a multiple of it, and
+# at the default 5000 a 100x100 image's budget (0.65) rounds up to every pixel
+CULL_STRIP = 1000
 COUNTED = (rm.fused_nerf_march, rm.fused_nerf_mlp_widepe, rm.fused_nerf_mlp_pe,
            rm.fused_nerf_mlp, rm.fused_render_tile)
 
@@ -918,15 +953,19 @@ def poses_of(cfg, noise, psi):
     return poses_from_noise(psi_to_probs(psi, cfg.sampler), noise.to(DEVICE), cfg.sampler)
 
 
-def production_pipeline(models, psi, exact, dtype):
-    """(a) NeuralSimRenderer(production_mode()) in one dtype: budget below 1,
-    one march launch per chunk of routed rays, rgb within the dtype's
-    tolerance of the twin's production render and > 40 dB from the exact
-    render of the same poses (exact: phase 5's route in the same dtype)."""
-    run = drive_route(models, psi, "fused_nerf_march", per_chunk=1, production=True,
-                      compute_dtype=dtype)
+def production_pipeline(models, psi, exact, dtype, kernel="fused_nerf_march", **render):
+    """(a) NeuralSimRenderer(production_mode()) in one dtype through one
+    route (render: the route's RenderConfig options): budget below 1, one
+    launch of the route's kernel per chunk of routed rays, rgb within the
+    dtype's tolerance of the twin's production render and > 40 dB from the
+    exact render of the same poses (exact: phase 5's route in the same
+    dtype)."""
+    run = drive_route(models, psi, kernel, per_chunk=1, production=True,
+                      compute_dtype=dtype, **render)
     r = run["renderer"]
     budget = r.rc.hit_budget
+    if render:
+        dtype = f"{dtype}, " + ", ".join(f"{k}={v}" for k, v in render.items())
     if not budget < 1.0:
         raise AssertionError(f"[production, {dtype}] calibrated budget {budget}: the "
                              "production render would be the exact one")
@@ -961,7 +1000,7 @@ def production_pipeline(models, psi, exact, dtype):
     twin = NeuralSimRenderer(twin_cfg, models=models, device=DEVICE)
     with torch.no_grad():
         rgb_twin = twin._render_impl(psi, run["noise"])[0]
-    tol = F32_TOL if dtype == "float32" else BF16_RENDER_TOL
+    tol = F32_TOL if r.rc.compute_dtype == "float32" else BF16_RENDER_TOL
     err_twin = (run["rgb"] - rgb_twin).abs().max().item()
     diff = (run["rgb"] - exact["rgb"]).abs().max().item()
     run.update(budget=budget, hits=hits, k_sel=k_sel, grid_s=t1 - t0, calibrate_s=t2 - t1,
@@ -1104,12 +1143,20 @@ def production_bench_shape(box):
 
 def phase_production(box, routes, routes16):
     """Phase 7: the production render of the K=8 pipeline shape in float32
-    and bfloat16, three more production routes, and bench.py's shape."""
+    and bfloat16, in float32 also through the grid scorer and the two other
+    march routes, three more production routes, and bench.py's shape."""
     models = {"coarse": box, "fine": box}
     psi = psi_init("5")
     pipeline = {dtype: production_pipeline(models, psi, exact, dtype)
                 for dtype, exact in (("float32", routes["fused_nerf_march"]),
                                      ("bfloat16", routes16["fused_nerf_march"]))}
+    exact32 = routes["fused_nerf_march"]
+    for name, kernel, render in (
+            ("float32_cull_grid", "fused_nerf_march", dict(cull_mode="grid")),
+            ("float32_fuse_pointgen_false", "fused_nerf_mlp_widepe",
+             dict(fuse_pointgen=False)),
+            ("float32_fuse_compositing", "fused_render_tile", dict(fuse_compositing=True))):
+        pipeline[name] = production_pipeline(models, psi, exact32, "float32", kernel, **render)
     run = pipeline["float32"]
     r = run["renderer"]
     poses = poses_of(r.cfg, run["noise"], psi)
@@ -1131,6 +1178,216 @@ def phase_production(box, routes, routes16):
     return pipeline, others, bench
 
 
+def grad_close(name, got, want, rel=GRAD_REL):
+    """got within rel * |want| of want (max abs difference); returns the
+    relative difference. Both nonzero and finite."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"render gradient [{name}]: not finite")
+    norm = float(torch.linalg.norm(want.double()))
+    if not norm > 0 or not float(torch.linalg.norm(got.double())) > 0:
+        raise AssertionError(f"render gradient [{name}]: zero gradient")
+    diff = float((got.double() - want.double().to(got.device)).abs().max()) / norm
+    log(f"render gradient [{name}]: max abs difference {diff:.3e} of the reference's norm "
+        f"{norm:.4e} (limit {rel:g})")
+    if not diff <= rel:
+        raise AssertionError(f"render gradient [{name}]: {diff:.3e} > {rel:g}")
+    return diff
+
+
+def timed_grad(name, fn, n_img):
+    """fn() on the card with every kernel counter at 0 before and after it
+    (the gradient runs plain torch, as the JAX package's runs off Pallas):
+    (gradient, record of seconds per image and peak memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    g = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(seconds=seconds, s_per_image=seconds / n_img, images=n_img,
+               peak_gb=peak / 1e9, peak_over_start_gb=(peak - start_bytes) / 1e9,
+               launches=launched, grad=g.tolist())
+    log(f"render gradient [{name}]: {seconds:.3f} s for {n_img} images = "
+        f"{rec['s_per_image']:.4f} s/image (host clock, first call); peak memory "
+        f"{rec['peak_gb']:.2f} GB ({rec['peak_over_start_gb']:.2f} GB above the start); "
+        f"launches {launched}; dL/dpsi {[float(f'{x:.4e}') for x in g.tolist()]}")
+    if any(launched.values()):
+        raise AssertionError(f"render gradient [{name}] launched a kernel: {launched}")
+    return g, rec
+
+
+def phase_render_grad(box, smi):
+    """Phase 8: the psi render gradient (hypergrad/render_grad.py) of the
+    K=8 box-scene render at the default config (100x100, 64 + 128 samples,
+    ray_chunk 8192) with a seeded grad_E (normal x 1e-2): strips at
+    grad_ray_chunk 5000, rev (a checkpoint per ray tile) and fwd (8 JVPs)
+    in float32 against each other; strips on the card against the CPU at
+    K=2 and render_factor 4 (25x25), in float32 and in bf16; culled strips against dense on the
+    production renderer's grid and budget; bf16 strips against float32 by
+    cosine; a Gaussian-psi strips gradient against its fwd; one momentum psi
+    step. No kernel may launch during a gradient."""
+    cfg = NeuralSimConfig()
+    bc = cfg.bilevel
+    models = {"coarse": box, "fine": box}
+    renderer = NeuralSimRenderer(cfg, models=models, device=DEVICE)
+    H, W, K, net, rc, sc = (renderer.H, renderer.W, renderer.K, cfg.net, renderer.rc,
+                            cfg.sampler)
+    psi = psi_init(bc.psi_pose_cats_mode).to(DEVICE)
+    noise = draw_pose_noise(torch.Generator().manual_seed(0), sc, K_POSES, DEVICE)
+    grad_E = (torch.randn((K_POSES, H, W, 3), generator=torch.Generator().manual_seed(1))
+              * 1e-2).to(DEVICE)
+    rec = {"config": f"K={K_POSES} {H}x{W}, {net.netdepth}x{net.netwidth} box-scene pair, "
+                     f"{rc.n_samples}+{rc.n_importance} samples, ray_chunk {rc.ray_chunk}, "
+                     f"grad_ray_chunk {bc.grad_ray_chunk}", "card": smi}
+
+    def strips(strip=bc.grad_ray_chunk, **kw):
+        return lambda: render_grad.render_grad_psi_strips(
+            renderer.models, psi, noise, grad_E, H, W, K, net, rc, sc, strip=strip, **kw)
+
+    # the first gradient of the process pays the backward's first-call set-up
+    timed_grad("strips, float32, warm-up on one image",
+               lambda: renderer.render_images_grad(psi, noise, grad_E[:1]), 1)
+    g32, rec["strips_float32"] = timed_grad(
+        "strips, float32", lambda: renderer.render_images_grad(psi, noise, grad_E), K_POSES)
+    g_rev, rec["rev_float32"] = timed_grad(
+        "rev, float32", lambda: renderer.render_images_grad(psi, noise, grad_E, mode="rev"),
+        K_POSES)
+    g_fwd, rec["fwd_float32"] = timed_grad(
+        "fwd, float32", lambda: renderer.render_images_grad(psi, noise, grad_E, mode="fwd"),
+        K_POSES)
+    rec["rev_vs_strips"] = grad_close("rev vs strips", g_rev, g32)
+    rec["fwd_vs_strips"] = grad_close("fwd vs strips", g_fwd, g32)
+
+    # the card against the CPU on the same function at K=2, 25x25 (the two
+    # least saturated poses of the draw: their soft bin samples are farthest
+    # from one-hot)
+    small = cfg.replace(data=dataclasses.replace(cfg.data, render_factor=4))
+    cpu_models = {k: {n: v.cpu() for n, v in p.items()} for k, p in models.items()}
+    on_card = NeuralSimRenderer(small, models=models, device=DEVICE)
+    on_cpu = NeuralSimRenderer(small, models=cpu_models, device="cpu")
+    rows = slice(3, 5)
+    noise_2 = type(noise)(*(x[rows] for x in noise))
+    ge_2 = (torch.randn((2, on_card.H, on_card.W, 3), generator=torch.Generator().manual_seed(2))
+            * 1e-2)
+    g_card, rec["strips_float32_k2_25x25"] = timed_grad(
+        "strips, float32, K=2 25x25", lambda: on_card.render_images_grad(
+            psi, noise_2, ge_2.to(DEVICE)), 2)
+    t0 = time.perf_counter()
+    g_cpu = on_cpu.render_images_grad(psi.cpu(), noise_2.to("cpu"), ge_2)
+    rec["cpu_k2_25x25_s"] = time.perf_counter() - t0
+    rec["card_vs_cpu"] = grad_close("card vs CPU, K=2 25x25", g_card.cpu(), g_cpu)
+
+    # the same in bf16 (grad_compute_dtype's default), whose CPU gradient
+    # the CPU tests hold to the JAX package's bf16 gradient: the card's
+    # must lie nearer the CPU's bf16 gradient than the CPU's float32 one does
+    def small_bf16(r, dev):
+        return lambda: render_grad.render_grad_psi_strips(
+            r.models, psi.to(dev), noise_2.to(dev), ge_2.to(dev), r.H, r.W, r.K, net, r.rc,
+            sc, strip=bc.grad_ray_chunk, compute_dtype=bc.grad_compute_dtype)
+
+    g16_card, rec["strips_bfloat16_k2_25x25"] = timed_grad(
+        "strips, bfloat16, K=2 25x25", small_bf16(on_card, DEVICE), 2)
+    g16_cpu = small_bf16(on_cpu, "cpu")()
+    norm16 = float(g16_cpu.double().norm())
+    rec["card_vs_cpu_bfloat16"] = float((g16_card.cpu() - g16_cpu).abs().max()) / norm16
+    rec["cpu_float32_vs_bfloat16"] = float((g_cpu - g16_cpu).abs().max()) / norm16
+    rec["card_vs_cpu_bfloat16_norm_ratio"] = float(g16_card.double().norm()) / norm16
+    log(f"render gradient [card vs CPU, bfloat16, K=2 25x25]: max abs difference "
+        f"{rec['card_vs_cpu_bfloat16']:.3e} of the CPU bf16 norm {norm16:.4e} (norm ratio "
+        f"{rec['card_vs_cpu_bfloat16_norm_ratio']:.6f}); the CPU's float32 gradient is "
+        f"{rec['cpu_float32_vs_bfloat16']:.3e} away")
+    if not (torch.isfinite(g16_card).all() and norm16 > 0
+            and rec["card_vs_cpu_bfloat16"] < rec["cpu_float32_vs_bfloat16"]):
+        raise AssertionError("bf16 gradient: the card's is no nearer the CPU's bf16 gradient "
+                             "than the CPU's float32 one")
+
+    # culled strips on the production renderer's grid and calibrated budget
+    # (grad_hit_budget < 0 tracks it), against dense strips of the same length
+    prod = NeuralSimRenderer(cfg.replace(render=cfg.render.production_mode()), models=models,
+                             device=DEVICE)
+    budget = prod.rc.hit_budget if bc.grad_hit_budget < 0 else bc.grad_hit_budget
+    n_pix = H * W
+    k_sel = -(-max(1, int(round(n_pix * budget))) // CULL_STRIP) * CULL_STRIP
+    if not (budget < 1.0 and k_sel < n_pix):
+        raise AssertionError(f"culled gradient: budget {budget}, k_sel {k_sel} of {n_pix}: "
+                             "the selection would not run")
+    calls = {"psi_gather_loss": 0}
+    gather = render_grad.psi_gather_loss
+
+    def counted(*a, **kw):
+        calls["psi_gather_loss"] += 1
+        return gather(*a, **kw)
+
+    warned = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warned.append(record.getMessage())
+    render_grad.logger.addHandler(handler)
+    render_grad.psi_gather_loss = counted
+    try:
+        g_cull, rec["strips_culled_float32"] = timed_grad(
+            f"culled strips, float32, strip {CULL_STRIP}", strips(
+                strip=CULL_STRIP, grid=prod.grid, hit_budget=budget), K_POSES)
+    finally:
+        render_grad.psi_gather_loss = gather
+        render_grad.logger.removeHandler(handler)
+    expect_calls = K_POSES * k_sel // CULL_STRIP
+    log(f"culled gradient: hit_budget {budget} (calibrated by the production renderer), "
+        f"k_sel {k_sel} of {n_pix} pixels per image, {calls['psi_gather_loss']} gathered "
+        f"chunks (expected {expect_calls}), overflow warnings {warned}")
+    if warned or calls["psi_gather_loss"] != expect_calls:
+        raise AssertionError("culled gradient: the selection did not run for every image")
+    g_dense1k, rec["strips_dense_float32_strip1000"] = timed_grad(
+        f"dense strips, float32, strip {CULL_STRIP}", strips(strip=CULL_STRIP), K_POSES)
+    rec["culled_vs_dense"] = grad_close("culled vs dense", g_cull, g_dense1k)
+    rec["culled_budget"], rec["culled_k_sel"] = budget, k_sel
+
+    # bf16 strips (grad_compute_dtype's default) against float32
+    g16, rec["strips_bfloat16"] = timed_grad(
+        "strips, bfloat16", strips(compute_dtype=bc.grad_compute_dtype), K_POSES)
+    cosine = float(torch.nn.functional.cosine_similarity(g16.double(), g32.double(), dim=0))
+    rec["bf16_vs_f32_cosine"] = cosine
+    rec["bf16_vs_f32_norm_ratio"] = float(g16.norm() / g32.norm())
+    log(f"render gradient [strips, bfloat16 vs float32]: cosine {cosine:.8f} "
+        f"(limit {GRAD_BF16_COS}, checked at the end of the phase), norm ratio "
+        f"{rec['bf16_vs_f32_norm_ratio']:.4f}")
+
+    # Gaussian psi: strips against fwd
+    psi_g = torch.tensor([bc.gauss_mean_init, bc.gauss_std_init], device=DEVICE)
+    noise_g = draw_pose_noise_gaussian(torch.Generator().manual_seed(3), sc, K_POSES, DEVICE)
+    gg, rec["strips_gaussian_float32"] = timed_grad(
+        "strips, gaussian psi, float32", lambda: render_grad.render_grad_psi_strips(
+            renderer.models, psi_g, noise_g, grad_E, H, W, K, net, rc, sc, psi_mode="gaussian",
+            strip=bc.grad_ray_chunk), K_POSES)
+    gg_fwd, rec["fwd_gaussian_float32"] = timed_grad(
+        "fwd, gaussian psi, float32", lambda: render_grad.render_grad_psi_fwd(
+            renderer.models, psi_g, noise_g, grad_E, H, W, K, net, rc, sc,
+            psi_mode="gaussian"), K_POSES)
+    rec["gaussian_strips_vs_fwd"] = grad_close("gaussian strips vs fwd", gg, gg_fwd)
+
+    # one psi step of the bilevel loop's optimizer (bilevel/driver.py) from
+    # the float32 gradient
+    opt = psi_optimizer_init(bc.opt_method, bc.opt_lr)
+    opt, psi_next = psi_optimizer_update(opt, psi, g32)
+    step = psi_next - psi
+    log(f"psi step ({bc.opt_method}, lr {bc.opt_lr}): psi {psi.tolist()} -> "
+        f"{psi_next.tolist()}")
+    if bc.opt_method in ("sgd", "momentum"):       # the first step is psi - lr * grad
+        torch.testing.assert_close(psi_next, psi - bc.opt_lr * g32, rtol=0, atol=0)
+    if not (torch.isfinite(psi_next).all() and step.abs().max() > 0):
+        raise AssertionError("psi step: not finite or no move")
+    rec["psi_step"] = dict(method=bc.opt_method, lr=bc.opt_lr, psi=psi.tolist(),
+                           psi_next=psi_next.tolist())
+    log("render gradient: " + json.dumps(rec))
+    if not cosine >= GRAD_BF16_COS:
+        raise AssertionError(f"bf16 strips gradient cosine {cosine} < {GRAD_BF16_COS}")
+    return rec
+
+
 def main():
     name, smi = phase_device()
     peak_key, peaks = peaks_for(name)
@@ -1145,14 +1402,15 @@ def main():
     wide_main = phase_wide_main_path(psi_init("5"), smi)
     entries, entries16 = phase_entry_points(box, cfg, routes)
     pipeline, others, bench = phase_production(box, routes, routes16)
-    production_launched = {f"pipeline_{dtype}": run["launched"] for dtype, run in pipeline.items()}
+    grad = phase_render_grad(box, smi)
+    production_launched = {f"pipeline_{name}": run["launched"] for name, run in pipeline.items()}
     production_launched.update({name: run["launched"] for name, run in others.items()})
     production_launched.update({f"bench_{k}": v for k, v in bench["launched"].items()})
     production = {
-        "pipeline": {dtype: {k: run[k] for k in (
+        "pipeline": {name: {k: run[k] for k in (
             "budget", "hits", "k_sel", "grid_s", "calibrate_s", "setup_s", "rays_per_s",
             "exact_rays_per_s", "psnr_vs_exact", "err_vs_twin", "max_diff_vs_exact")}
-            for dtype, run in pipeline.items()},
+            for name, run in pipeline.items()},
         "routes": {name: {k: v for k, v in run.items() if k != "launched"}
                    for name, run in others.items()},
         "bench_shape": {k: v for k, v in bench.items() if k != "launched"},
@@ -1220,6 +1478,7 @@ def main():
                      f"main_path_wide: the K=8 render on {WIDE} box-scene weights",
             "card": smi,
         })
+    print(json.dumps({"render_grad": grad}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

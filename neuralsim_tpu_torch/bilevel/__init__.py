@@ -1,8 +1,18 @@
 """The bilevel loop (the names of ``neuralsim_tpu.bilevel`` that the port
-has; the psi optimizer is not ported yet)."""
+has; `bilevel/driver.py` is not ported yet)."""
 
 from neuralsim_tpu_torch.bilevel.psi_init import psi_init
+from neuralsim_tpu_torch.bilevel.psi_opt import (
+    PsiOptState,
+    adjust_learning_rate,
+    psi_optimizer_init,
+    psi_optimizer_update,
+)
 
 __all__ = [
     "psi_init",
+    "PsiOptState",
+    "adjust_learning_rate",
+    "psi_optimizer_init",
+    "psi_optimizer_update",
 ]

@@ -1,6 +1,6 @@
-"""Configuration of the render slice: a copy of the fields of
+"""Configuration of the port: a copy of the fields of
 ``neuralsim_tpu.config`` that the port reads, with the same names and
-defaults (NeRF net, render, camera, sampler, data)."""
+defaults (NeRF net, render, camera, sampler, data, bilevel outer loop)."""
 
 from __future__ import annotations
 
@@ -142,6 +142,64 @@ class SamplerConfig:
 
 
 @dataclass(frozen=True)
+class BilevelConfig:
+    """Outer-loop optimizer for psi (reference neural_sim_main.py:1144-1212)."""
+
+    n_epochs: int = 50
+    opt_lr: float = 5e-5
+    opt_method: str = "momentum"        # sgd | momentum | Adam
+    psi_pose_cats_mode: str = "5"       # 1~8 | uniform | two_13 | two_27 | three_123 | three_147
+    optimization: bool = True
+    # psi parameterization: "categorical" (8-bin logits, the reference's
+    # live mode) | "gaussian" ((mean, std) azimuth, completing the
+    # reference's sample-only variant, load_LINEMOD_noscale.py:304-328)
+    psi_mode: str = "categorical"
+    gauss_mean_init: float = 157.5      # degrees; bin-5 center
+    gauss_std_init: float = 30.0
+    # hypergradient engine: "influence" (the reference's inverse-HVP .
+    # mixed-partial approximation, neural_sim_main.py:912-1069) | "unrolled"
+    # (differentiate through the inner training)
+    hypergrad_mode: str = "influence"
+    # inverse-HVP solver: onestep | cg | lissa | cg_normal | neumann | identity
+    ihvp_solver: str = "onestep"
+    ihvp_damping: float = 1e-2
+    cg_iters: int = 10
+    lissa_iters: int = 30
+    # must exceed ||H + damping I||_2 (PSD H only); <= 0 = auto via power
+    # iteration
+    lissa_scale: float = 25.0
+    # sign applied to the influence-mode grad_E before the psi chain rule:
+    # -1.0 is the implicit-function-theorem descent direction, +1.0 the
+    # reference's raw convention (PARITY.md)
+    influence_sign: float = -1.0
+    grad_e_max_images: int = 100        # reference cap (neural_sim_main.py:876)
+    # exploration floor on the categorical sampling distribution:
+    # (1-eps)*softmax(psi/T) + eps/n_bins; 0.0 = reference parity
+    explore_eps: float = 0.0
+    # psi render-gradient mode: "strips" (loop over image batches and pixel
+    # strips, one reverse-mode render each) | "fwd" (one JVP per psi
+    # component) | "rev" (reverse mode with per-tile rematerialization)
+    grad_mode: str = "strips"
+    # pixels per strip of the strips gradient (one ray tile; its backward
+    # keeps the whole strip's activations)
+    grad_ray_chunk: int = 5000
+    # images per render-gradient call of the fwd / rev modes
+    grad_image_batch: int = 4
+    # strips mode: images folded into one ray tile of
+    # strip_image_batch * grad_ray_chunk rays
+    strip_image_batch: int = 1
+    # MLP matmul dtype inside the differentiated strip render ("float32" is
+    # the oracle for parity tests)
+    grad_compute_dtype: str = "bfloat16"
+    # occupancy-culled strips gradient: fraction of each image's rays the
+    # strips gather-render, selected by the slab test against the occupied
+    # box (rays that miss it have zero psi-gradient). 0.0 = dense; < 0 =
+    # track the calibrated forward hit_budget; > 0 = that fraction. An
+    # image whose hit count overflows the budget renders all its pixels.
+    grad_hit_budget: float = -1.0
+
+
+@dataclass(frozen=True)
 class DataConfig:
     basedir: str = "./logs"
     datadir: str = "./logs/nerfdata"
@@ -165,6 +223,7 @@ class NeuralSimConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    bilevel: BilevelConfig = field(default_factory=BilevelConfig)
     seed: int = 0
 
     def replace(self, **kw) -> "NeuralSimConfig":

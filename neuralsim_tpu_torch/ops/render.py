@@ -35,6 +35,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from neuralsim_tpu_torch import resolve_device
 from neuralsim_tpu_torch.config import NeRFNetConfig, RenderConfig
@@ -57,11 +58,12 @@ from neuralsim_tpu_torch.ops.volume import (
 
 
 def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest scores, ties in ascending index order: the
-    order of ``jax.lax.top_k``. A stable descending sort gives it on any
-    device; ``torch.topk`` promises no order among equal values, and the
-    cull scores are mostly ties (0/1 floats, zero opacities)."""
-    return torch.sort(scores, descending=True, stable=True).indices[:k]
+    """Indices of the k largest scores over the last axis, ties in
+    ascending index order: the order of ``jax.lax.top_k``. A stable
+    descending sort gives it on any device; ``torch.topk`` promises no
+    order among equal values, and the cull scores are mostly ties (0/1
+    floats, zero opacities)."""
+    return torch.sort(scores, descending=True, stable=True).indices[..., :k]
 
 
 def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
@@ -294,6 +296,31 @@ def _pad_rows(x: torch.Tensor, n_target: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], dim=0)
 
 
+def _checkpointed(fn, generator, *args):
+    """``fn(*args)`` under torch.utils.checkpoint: its activations are
+    recomputed in the backward instead of kept. The recompute draws what
+    the first run drew: checkpoint restores only torch's default
+    generators, so the state of ``generator`` is captured here and set for
+    the recompute (and restored after it)."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    state = generator.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a)
+        after = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 def _render_ray_batch_dense(models, rays_o, rays_d, net: NeRFNetConfig,
                             rc: RenderConfig, generator=None, near=None, far=None):
     """The chunk loop: a Python loop over tiles of rc.ray_chunk rays
@@ -303,10 +330,15 @@ def _render_ray_batch_dense(models, rays_o, rays_d, net: NeRFNetConfig,
     The last tile is simply shorter where rays are independent, and the N
     outputs are those of the padded JAX version. The sparse fine pass ranks
     rays within a tile, so with fine_fraction < 1 the last tile is padded
-    as the JAX package pads it, by repeating its last ray."""
+    as the JAX package pads it, by repeating its last ray.
+
+    ``rc.remat`` with autograd recording wraps each tile in a checkpoint
+    (the JAX package's jax.checkpoint per tile): a backward keeps one
+    tile's activations at a time. Under no_grad it changes nothing."""
     n = rays_o.shape[0]
     chunk = min(rc.ray_chunk, n) if n > 0 else rc.ray_chunk
     pad_tail = rc.fine_fraction < 1.0 and rc.n_importance > 0
+    remat = rc.remat and torch.is_grad_enabled()
     viewdirs = None
     if net.use_viewdirs:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
@@ -317,8 +349,14 @@ def _render_ray_batch_dense(models, rays_o, rays_d, net: NeRFNetConfig,
         m = tile[0].shape[0]
         if pad_tail:
             tile = [None if t is None else _pad_rows(t, chunk) for t in tile]
-        out = render_rays(models, tile[0], tile[1], tile[2], net, rc, generator,
-                          near=tile[3], far=tile[4])
+        if remat:
+            out = _checkpointed(
+                lambda o, d, vd, nr, fr: render_rays(models, o, d, vd, net, rc, generator,
+                                                     near=nr, far=fr),
+                generator, *tile)
+        else:
+            out = render_rays(models, tile[0], tile[1], tile[2], net, rc, generator,
+                              near=tile[3], far=tile[4])
         chunks.append({k: v[:m] for k, v in out.items()})
     return {k: torch.cat([c[k] for c in chunks], dim=0) for k in chunks[0]}
 

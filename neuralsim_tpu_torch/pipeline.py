@@ -8,7 +8,8 @@
 from psi (``render_images``), in ``test_mode()``: exact, or, with
 ``cfg.render.production_mode()`` (``hit_budget < 1``), the occupancy-culled
 production render, whose grid is built and budget calibrated once in
-``__init__``. The render gradient comes in a later slice and raises here.
+``__init__``; and the psi render gradient of those images
+(``render_images_grad``, ``hypergrad/render_grad.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ import torch
 from neuralsim_tpu_torch import resolve_device
 from neuralsim_tpu_torch.config import NeuralSimConfig
 from neuralsim_tpu_torch.data.blender import load_data_param
+from neuralsim_tpu_torch.hypergrad.render_grad import (
+    render_grad_psi_fwd,
+    render_grad_psi_rev,
+    render_grad_psi_strips,
+)
 from neuralsim_tpu_torch.models.convert import (
     load_nerf_checkpoint,
     load_params_npz,
@@ -163,5 +169,23 @@ class NeuralSimRenderer:
                 imageio.imwrite(os.path.join(out, f"{i:03d}.png"), to8b(arr[i]))
         return rgb, noise
 
-    def render_images_grad(self, psi, noise: PoseNoise, grad_E, mode: str = "strips"):
-        raise NotImplementedError("render gradient: later slice")
+    def render_images_grad(self, psi, noise: PoseNoise, grad_E,
+                           mode: str = "strips") -> torch.Tensor:
+        """Mean dL/dpsi with grad_E [P, H, W, 3] as the rgb cotangent (the
+        reference returns the mean of per-chunk dL/dpsi,
+        neural_sim_main.py:191), on the renderer's device. The noise is cut
+        to grad_E's P poses.
+
+        mode: "strips" (the default: strips of cfg.bilevel.grad_ray_chunk
+        pixels) | "rev" | "fwd" (see hypergrad.render_grad)."""
+        n = grad_E.shape[0]
+        noise_n = type(noise)(*(x[:n] for x in noise))
+        args = (self.models, psi, noise_n, grad_E, self.H, self.W, self.K,
+                self.cfg.net, self.rc, self.cfg.sampler)
+        if mode == "strips":
+            return render_grad_psi_strips(*args, strip=self.cfg.bilevel.grad_ray_chunk)
+        if mode == "rev":
+            return render_grad_psi_rev(*args)
+        if mode == "fwd":
+            return render_grad_psi_fwd(*args)
+        raise ValueError(f"render_images_grad: unknown mode {mode!r}")

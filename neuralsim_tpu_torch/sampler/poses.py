@@ -9,7 +9,9 @@
 
 ``draw_pose_noise`` draws every stochastic input from a torch.Generator;
 ``poses_from_noise`` is a pure differentiable function of (probs, noise),
-so feeding it the same ``PoseNoise`` replays the same poses.
+so feeding it the same ``PoseNoise`` replays the same poses. The Gaussian
+variant (psi = (mean, std) of the azimuth) has the same split:
+``draw_pose_noise_gaussian`` and ``poses_from_noise_gaussian``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from neuralsim_tpu_torch import draw
+from neuralsim_tpu_torch import draw, resolve_device
 from neuralsim_tpu_torch.config import SamplerConfig
 from neuralsim_tpu_torch.sampler.gumbel import gumbel_noise, gumbel_softmax_expectation
 
@@ -99,14 +101,17 @@ def bin_centers(sc: SamplerConfig, device="cpu"):
             * sc.bin_width_deg + sc.bin_offset_deg)
 
 
+def _draw_theta(k: int, generator, sc: SamplerConfig) -> torch.Tensor:
+    return sc.theta_low_deg + (sc.theta_high_deg - sc.theta_low_deg) * draw((k,), generator)
+
+
 def draw_pose_noise(generator: Optional[torch.Generator], sc: SamplerConfig,
                     num_k: Optional[int] = None, device="cpu") -> PoseNoise:
     """Draw all stochastic inputs for K pose samples."""
     k = num_k if num_k is not None else sc.n_samples_k
     gumbel = gumbel_noise((k, sc.n_bins), generator)
     uniform = draw((k,), generator)
-    theta = sc.theta_low_deg + (sc.theta_high_deg - sc.theta_low_deg) * draw((k,), generator)
-    return PoseNoise(gumbel, uniform, theta).to(device)
+    return PoseNoise(gumbel, uniform, _draw_theta(k, generator, sc)).to(device)
 
 
 def poses_from_noise(probs, noise: PoseNoise, sc: SamplerConfig):
@@ -124,3 +129,59 @@ def poses_from_noise(probs, noise: PoseNoise, sc: SamplerConfig):
         logits[None, :], centers, noise.gumbel, sc.gumbel_temperature)
     phi = phi_soft - sc.bin_width_deg / 2.0 + sc.bin_width_deg * noise.uniform
     return pose_spherical(noise.theta, phi - 180.0, sc.radius)
+
+
+def sample_poses(generator: Optional[torch.Generator], probs, sc: SamplerConfig,
+                 num_k: Optional[int] = None):
+    """Draw noise and build poses in one call: (poses [K,4,4], noise), on
+    probs' device. The noise doubles as the reference's ``sample_log`` for
+    replay."""
+    noise = draw_pose_noise(generator, sc, num_k, probs.device)
+    return poses_from_noise(probs, noise, sc), noise
+
+
+class GaussianPoseNoise(NamedTuple):
+    """Stochastic inputs of the Gaussian-psi variant: standard-normal
+    azimuth draws (the reparameterization noise) and uniform theta."""
+
+    eps: torch.Tensor     # [K] ~ N(0, 1)
+    theta: torch.Tensor   # [K] degrees
+
+    def to(self, device) -> "GaussianPoseNoise":
+        return GaussianPoseNoise(*(torch.as_tensor(x, dtype=torch.float32, device=device)
+                                   for x in self))
+
+
+def draw_pose_noise_gaussian(generator: Optional[torch.Generator], sc: SamplerConfig,
+                             num_k: Optional[int] = None,
+                             device="cpu") -> GaussianPoseNoise:
+    k = num_k if num_k is not None else sc.n_samples_k
+    eps = draw((k,), generator, normal=True)
+    return GaussianPoseNoise(eps, _draw_theta(k, generator, sc)).to(device)
+
+
+def poses_from_noise_gaussian(psi, noise: GaussianPoseNoise, sc: SamplerConfig):
+    """(psi = (mean, std), noise) -> c2w poses [K, 4, 4].
+
+    phi = mean + |std| * eps reparameterizes the reference's normal draw
+    (sample_pose_nograd_gaussian, load_LINEMOD_noscale.py:304-328), wrapped
+    to [0, 360) by a floor-mod (``torch.remainder``, as ``jnp.mod``: a
+    negative phi wraps up, not toward zero); |std| keeps the scale positive
+    under updates. Gradients flow to both mean and std."""
+    phi = torch.remainder(psi[0] + torch.abs(psi[1]) * noise.eps, 360.0)
+    return pose_spherical(noise.theta, phi - 180.0, sc.radius)
+
+
+def sample_poses_gaussian(generator: Optional[torch.Generator], phi_mean, phi_std,
+                          sc: SamplerConfig, num_k: Optional[int] = None, device=None):
+    """phi ~ N(mean, std) wrapped to [0, 360), theta ~ U(low, high):
+    (poses [K,4,4], phis [K]) (reference sample_pose_nograd_gaussian), on
+    ``device``; by default on a tensor mean's device, else on cuda."""
+    if device is None and isinstance(phi_mean, torch.Tensor):
+        device = phi_mean.device
+    device = resolve_device(device)
+    k = num_k if num_k is not None else sc.n_samples_k
+    eps = draw((k,), generator, normal=True).to(device)
+    phis = torch.remainder(phi_mean + phi_std * eps, 360.0)
+    thetas = _draw_theta(k, generator, sc).to(device)
+    return pose_spherical(thetas, phis - 180.0, sc.radius), phis

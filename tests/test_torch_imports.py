@@ -53,7 +53,7 @@ def test_kernels_use_accurate_sines():
         assert "__sinf" not in text and "__cosf" not in text, path
 
 
-SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel")
+SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel", "hypergrad")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

@@ -20,7 +20,7 @@ from neuralsim_tpu_torch import config as tcfg
 from neuralsim_tpu_torch.models.convert import params_from_numpy
 from neuralsim_tpu_torch.ops import render as trender
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
-from neuralsim_tpu_torch.sampler.poses import PoseNoise
+from neuralsim_tpu_torch.sampler.poses import PoseNoise, draw_pose_noise
 from tests.test_torch_render_tile import kernel_route  # noqa: F401  (a fixture)
 
 torch.set_num_threads(2)
@@ -240,12 +240,24 @@ def test_render_routes_match_jax_on_cpu(rng, scene, override):
 
 
 def test_production_render_and_gradient_raise():
-    """The render gradient is a later slice; the production render itself
-    is ported (tests/test_torch_production*.py)."""
+    """The production render and the render gradient are ported
+    (tests/test_torch_production*.py, tests/test_torch_render_grad*.py) and
+    raise only on what they cannot run: the production render on NDC rays
+    (its grid is in world space), the gradient on an unknown mode. Each
+    gradient mode gives a finite [8] gradient on the renderer's device."""
     _, tc = _configs()
     r = NeuralSimRenderer(tc, generator=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="render gradient"):
-        r.render_images_grad(torch.zeros(8), None, None)
+    rc_ndc = dataclasses.replace(r.rc.production_mode(), ndc=True)
+    with pytest.raises(ValueError, match="ndc"):
+        trender.render_poses(r.models, r.calibration_poses()[:1], r.H, r.W, r.K, tc.net,
+                             rc_ndc, grid=r.occupancy_grid(resolution=8), device="cpu")
+    noise = draw_pose_noise(torch.Generator().manual_seed(1), tc.sampler, num_k=3)
+    grad_E = torch.randn((2, 16, 16, 3), generator=torch.Generator().manual_seed(2)) * 1e-2
+    for mode in ("strips", "rev", "fwd"):
+        g = r.render_images_grad(torch.zeros(8), noise, grad_E, mode=mode)
+        assert g.shape == (8,) and g.device.type == "cpu" and torch.isfinite(g).all()
+    with pytest.raises(ValueError, match="unknown mode"):
+        r.render_images_grad(torch.zeros(8), noise, grad_E, mode="jvp")
 
 
 def test_to8b():
