@@ -96,7 +96,24 @@ Phases, each of which exits nonzero when it fails:
      cosine >= GRAD_BF16_COS to float32; a Gaussian-psi strips gradient
      equals its fwd; one momentum psi step. Seconds per image (host clock)
      and peak memory of each mode go to a JSON line {"render_grad": ...};
-  9. a JSON line of the kernels' numbers (float32 times under the
+  9. the detector slice (phase_detector): K = 50 renders from psi_init("5")
+     through NeuralSimRenderer.render_images on phase 7's float32 production
+     renderer (fused_nerf_march must launch), annotated on the card by
+     build_detector_batches_device (slot 0 of every image bit-equal to the
+     host auto_annotate of to8b of the same render), RetinaNet-R50-FPN at
+     DetectorConfig's defaults (6 classes, 128^2, batch 8, frozen backbone)
+     from a seeded init_detector, fine-tuned by inner_train for 50 steps with
+     cycle_indices (cudnn.deterministic: the first 3 losses within DET_REL of
+     the same steps on the CPU, all 50 finite, no kernel launched), the
+     trained logits and deltas on 8 val images within DET_REL of the CPU's,
+     and COCO mAP (retinanet_inference in batches of 8, detections_to_eval,
+     coco_map) over VAL_IMAGES renders at poses from a second psi, each AP
+     finite where its area range has ground truth; render, annotation,
+     train-step (CUDA events, median over steps 2-50) and eval times, peak
+     memory, and a torch.profiler trace of PROFILE_STEPS more steps (device
+     busy share, launches per step, the top kernels) go to a JSON line
+     {"detector": ...};
+ 10. a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
      beside them, the 8x512 times, the production runs' launches, and the
      production and 8x512 render numbers in fused_nerf_march's record),
@@ -121,6 +138,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from neuralsim_tpu_torch import kernels
@@ -128,10 +146,14 @@ from neuralsim_tpu_torch.bilevel.psi_init import psi_init
 from neuralsim_tpu_torch.bilevel.psi_opt import psi_optimizer_init, psi_optimizer_update
 from neuralsim_tpu_torch.hypergrad import render_grad
 from neuralsim_tpu_torch.config import NeRFNetConfig, NeuralSimConfig
+from neuralsim_tpu_torch.detector import dataset as detector_dataset
+from neuralsim_tpu_torch.detector import evaluator, trainer
 from neuralsim_tpu_torch.kernels import build
 from neuralsim_tpu_torch.kernels import raymarch as rm
+from neuralsim_tpu_torch.models import retinanet
 from neuralsim_tpu_torch.models.box_scene import box_scene_params
 from neuralsim_tpu_torch.models.nerf import init_nerf_params, make_sigma_fn, nerf_apply
+from neuralsim_tpu_torch.models.retinanet import DetBatch
 from neuralsim_tpu_torch.ops.encoding import positional_encoding
 from neuralsim_tpu_torch.ops.occupancy import (
     build_scene_grid,
@@ -212,6 +234,13 @@ GRAD_BF16_COS = 0.999
 # the culled gradient's strip: the budget rounds up to a multiple of it, and
 # at the default 5000 a 100x100 image's budget (0.65) rounds up to every pixel
 CULL_STRIP = 1000
+# the detector on the card vs the same computation on the CPU (float32, TF32
+# off): max abs difference over the CPU's max |x| (tests/test_torch_retinanet.py)
+DET_REL = 1e-4
+# the detector's val set: renders at poses from a second psi
+VAL_IMAGES, VAL_PSI = 16, "1"
+# detector steps traced by torch.profiler after the main path's run
+PROFILE_STEPS = 5
 COUNTED = (rm.fused_nerf_march, rm.fused_nerf_mlp_widepe, rm.fused_nerf_mlp_pe,
            rm.fused_nerf_mlp, rm.fused_render_tile)
 
@@ -1388,6 +1417,234 @@ def phase_render_grad(box, smi):
     return rec
 
 
+def detector_rel(name, got, want, rel=DET_REL):
+    """max |got - want| over max |want| (want on the CPU); raises above rel."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"detector [{name}]: not finite")
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"detector [{name}]: card vs CPU {err:.3e} of max |x| (limit {rel:g})")
+    if not err <= rel:
+        raise AssertionError(f"detector [{name}]: {err:.3e} > {rel:g}")
+    return err
+
+
+def timed_steps(fn):
+    """fn() with a CUDA event pair around every detector train_step it
+    makes (inner_train calls trainer.train_step once per step): (fn's
+    result, ms of each step)."""
+    step = trainer.train_step
+    events = []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer.train_step = timed
+    try:
+        out = fn()
+    finally:
+        trainer.train_step = step
+    torch.cuda.synchronize()
+    return out, [s.elapsed_time(e) for s, e in events]
+
+
+def profile_steps(fn, n_steps):
+    """fn() (n_steps detector steps) under torch.profiler: wall ms per step
+    (host clock, profiler on), device ms per step (the CUDA kernels' self
+    time), their ratio (the device's busy share), kernel launches per step
+    and the five kernels of most device time. None when the trace holds no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    if not device_us > 0:
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"steps": n_steps, "wall_ms_per_step": 1e3 * wall / n_steps,
+            "device_ms_per_step": device_us / 1e3 / n_steps,
+            "device_busy_share": device_us / 1e6 / wall,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / n_steps,
+            "top_kernels_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / n_steps
+                                        for e in top}}
+
+
+def phase_detector(renderer, smi):
+    """Phase 9: the detector slice on the card. Render K = n_samples_k poses
+    from psi_init("5") with NeuralSimRenderer.render_images on the phase-7
+    production renderer (float32; fused_nerf_march must launch), annotate
+    them on the card (slot 0 bit-equal to the host annotator on to8b of the
+    same render), fine-tune RetinaNet-R50-FPN from a seeded init for
+    max_iter steps at images_per_batch with cycle_indices (the first 3 step
+    losses within DET_REL of the same steps on the CPU, every loss finite),
+    hold the trained logits and deltas on 8 val images to the CPU's, and
+    compute COCO mAP over a val set of VAL_IMAGES renders at poses from a
+    second psi. Times: render, annotation, train steps, eval; peak memory."""
+    torch.backends.cudnn.deterministic = True
+    dc = renderer.cfg.detector
+    k = renderer.cfg.sampler.n_samples_k
+    label = 1
+    rec = {"config": f"RetinaNet-R50-FPN ResNet-50 (3, 4, 6, 3), FPN 256, 4-conv heads, "
+                     f"{dc.num_classes} classes, {dc.image_size}^2 input, batch "
+                     f"{dc.images_per_batch}, {dc.max_iter} steps, lr {dc.base_lr}, warmup "
+                     f"{dc.warmup_iters}, freeze_backbone {dc.freeze_backbone}, float32 (TF32 "
+                     f"off, cudnn.deterministic); renders {renderer.H}x{renderer.W} production "
+                     f"float32 (hit_budget {renderer.rc.hit_budget})", "card": smi}
+
+    # the val set: renders from a second psi with a generator of their own
+    with torch.no_grad():
+        val_rgb, _ = renderer.render_images(psi_init(VAL_PSI), torch.Generator().manual_seed(9),
+                                            num_k=VAL_IMAGES)
+    val = detector_dataset.build_detector_batches_device(val_rgb, [label] * VAL_IMAGES, dc)
+
+    # the main path of the slice: render -> annotate -> inner train -> mAP
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rgb, _ = renderer.render_images(psi_init("5"), torch.Generator().manual_seed(0), num_k=k)
+    torch.cuda.synchronize()
+    rec["render_s"] = time.perf_counter() - t0
+    rec["render_launches"] = counts()
+    log(f"detector: K={k} renders {tuple(rgb.shape)} in {rec['render_s']:.4f} s (host clock), "
+        f"launches {rec['render_launches']}")
+    if not rec["render_launches"]["fused_nerf_march"] > 0:
+        raise AssertionError("detector: the K-pose render did not launch fused_nerf_march")
+    if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1):
+        raise AssertionError("detector: renders not finite or outside [0, 1]")
+
+    zero_counts()
+    labels = [label] * k
+    t0 = time.perf_counter()
+    train = detector_dataset.build_detector_batches_device(rgb, labels, dc)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = detector_dataset.build_detector_batches_device(rgb, labels, dc)
+    torch.cuda.synchronize()
+    rec["annotate_ms_per_image"] = 1e3 * (time.perf_counter() - t0) / k
+    rec["annotate_first_call_ms_per_image"] = 1e3 * first / k
+    for a, b in zip(train, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    boxes, valid = train[1].cpu().numpy(), train[3].cpu().numpy()
+    host = [detector_dataset.auto_annotate((np.clip(img, 0, 1) * 255).astype(np.uint8))
+            for img in rgb.cpu().numpy()]
+    for i, bbox in enumerate(host):
+        want = None if bbox is None else [bbox[0], bbox[1], bbox[0] + bbox[2],
+                                          bbox[1] + bbox[3]]
+        got = boxes[i, 0].tolist() if valid[i, 0] else None
+        if got != want:
+            raise AssertionError(f"detector: image {i} slot 0 {got} != host {want}")
+    rec["annotated"] = int(valid[:, 0].sum())
+    log(f"detector: annotation {rec['annotate_ms_per_image']:.3f} ms/image (first call "
+        f"{rec['annotate_first_call_ms_per_image']:.3f}); slot 0 of all {k} images equals the "
+        f"host auto_annotate of to8b (boxes in {rec['annotated']}); "
+        f"{int(valid.sum())} components in all")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state0 = trainer.init_detector(torch.Generator().manual_seed(0), dc, device=DEVICE)
+    idx = trainer.cycle_indices(k, dc.max_iter, dc.images_per_batch,
+                                torch.Generator().manual_seed(1), device=DEVICE)
+    data = DetBatch(*train)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, metrics), step_ms = timed_steps(lambda: trainer.inner_train(state0, (data, idx), dc))
+    rec["train_s"] = time.perf_counter() - t0
+    rec["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["train_step_ms"] = step_ms
+    rec["train_s_per_step_median_2_on"] = statistics.median(step_ms[1:]) / 1e3
+    losses = metrics["loss"].cpu()
+    rec["losses"] = losses.tolist()
+    log(f"detector: inner train {dc.max_iter} steps in {rec['train_s']:.3f} s; step median "
+        f"(steps 2-{dc.max_iter}) {rec['train_s_per_step_median_2_on']:.5f} s, first "
+        f"{step_ms[0] / 1e3:.4f} s; peak memory {rec['train_peak_gb']:.2f} GB; losses "
+        f"{[round(x, 4) for x in rec['losses'][:3]]} ... {rec['losses'][-1]:.4f}")
+    if not torch.isfinite(losses).all():
+        raise AssertionError("detector: a training loss is not finite")
+    if any(counts().values()):
+        raise AssertionError(f"detector: a render kernel launched in training: {counts()}")
+    # where a step's time goes: PROFILE_STEPS more steps from the trained
+    # state under the profiler (not part of the main path's run)
+    rec["train_profile"] = profile_steps(
+        lambda: trainer.inner_train(state, (data, idx[:PROFILE_STEPS]), dc), PROFILE_STEPS)
+    log(f"detector: train steps under the profiler: {json.dumps(rec['train_profile'])}")
+
+    # the same first steps on the CPU, from the same weights and indices
+    cpu = lambda t: t.detach().cpu()                                 # noqa: E731
+    state_cpu = trainer.DetectorState(
+        {n: cpu(v) for n, v in state0.params.items()},
+        {"trace": {n: cpu(v) for n, v in state0.opt_state["trace"].items()},
+         "count": cpu(state0.opt_state["count"])}, cpu(state0.step))
+    t0 = time.perf_counter()
+    _, metrics_cpu = trainer.inner_train(state_cpu, (DetBatch(*map(cpu, train)), cpu(idx[:3])),
+                                         dc)
+    rec["cpu_3_steps_s"] = time.perf_counter() - t0
+    rec["loss_vs_cpu"] = detector_rel("first 3 losses", losses[:3], metrics_cpu["loss"])
+
+    # the trained weights on 8 val images, card and CPU
+    _, apply_fn = trainer.make_detector_apply(dc)
+    with torch.no_grad():
+        logits, deltas = apply_fn(state.params, val[0][:8])
+        params_cpu = {n: cpu(v) for n, v in state.params.items()}
+        logits_cpu, deltas_cpu = apply_fn(params_cpu, cpu(val[0][:8]))
+    rec["logits_vs_cpu"] = detector_rel("trained logits, 8 val images", logits, logits_cpu)
+    rec["deltas_vs_cpu"] = detector_rel("trained deltas, 8 val images", deltas, deltas_cpu)
+
+    # COCO mAP over the val set, in batches of images_per_batch
+    anchors = retinanet.generate_anchors(dc.image_size, DEVICE)
+    vb = dc.images_per_batch
+    seconds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            dets = [evaluator.detections_to_eval(retinanet.retinanet_inference(
+                apply_fn, state.params, val[0][i:i + vb], anchors, dc))
+                for i in range(0, VAL_IMAGES, vb)]
+        seconds.append(time.perf_counter() - t0)
+    dets = [d for batch in dets for d in batch]
+    rec["eval_images_per_s"] = VAL_IMAGES / seconds[1]
+    rec["eval_first_call_images_per_s"] = VAL_IMAGES / seconds[0]
+    gt_boxes, gt_valid = val[1].cpu().numpy(), val[3].cpu().numpy()
+    truth = [{"boxes": b[v], "labels": np.full(int(v.sum()), label)}
+             for b, v in zip(gt_boxes, gt_valid)]
+    result = evaluator.coco_map(dets, truth)
+    # NaN (an area range without ground truth) prints as null
+    rec["map"] = json.loads(json.dumps(result).replace("NaN", "null"))
+    rec["detections"] = sum(len(d["scores"]) for d in dets)
+    log(f"detector: eval {rec['eval_images_per_s']:.1f} images/s (first call "
+        f"{rec['eval_first_call_images_per_s']:.1f}); {rec['detections']} detections on "
+        f"{VAL_IMAGES} val images; mAP {json.dumps(result)}")
+    areas = np.concatenate([(b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) for b in
+                            (t["boxes"] for t in truth)])
+    ranges = {"AP": (0, 1e10), "AP50": (0, 1e10), "AP75": (0, 1e10), "APs": (0, 32 ** 2),
+              "APm": (32 ** 2, 96 ** 2), "APl": (96 ** 2, 1e10)}
+    for key, (lo, hi) in ranges.items():
+        present = bool(((areas >= lo) & (areas <= hi)).any())
+        # COCO gives an area range without ground truth no AP (-1 in
+        # pycocotools; NaN in this evaluator)
+        if not (math.isfinite(result[key]) if present else math.isnan(result[key])):
+            raise AssertionError(f"detector: {key} = {result[key]} with ground truth "
+                                 f"{'in' if present else 'outside'} its range")
+    if not all(math.isfinite(v) for v in result["AP-per-class"].values()):
+        raise AssertionError("detector: a per-class AP is not finite")
+    log("detector: " + json.dumps({k: v for k, v in rec.items()
+                                   if k not in ("train_step_ms", "losses")}))
+    return rec
+
+
 def main():
     name, smi = phase_device()
     peak_key, peaks = peaks_for(name)
@@ -1403,6 +1660,7 @@ def main():
     entries, entries16 = phase_entry_points(box, cfg, routes)
     pipeline, others, bench = phase_production(box, routes, routes16)
     grad = phase_render_grad(box, smi)
+    detector = phase_detector(pipeline["float32"]["renderer"], smi)
     production_launched = {f"pipeline_{name}": run["launched"] for name, run in pipeline.items()}
     production_launched.update({name: run["launched"] for name, run in others.items()})
     production_launched.update({f"bench_{k}": v for k, v in bench["launched"].items()})
@@ -1463,6 +1721,7 @@ def main():
             "production_launches": {run: launched[kernel]
                                     for run, launched in production_launched.items()},
             "production": production if kernel == "fused_nerf_march" else None,
+            "detector_render_launches": detector["render_launches"][kernel],
             "plain_net": plain_net if kernel == "fused_nerf_march" else None,
             "max_err_nets": r["err_nets"],
             "wide": r["wide"],
@@ -1479,6 +1738,7 @@ def main():
             "card": smi,
         })
     print(json.dumps({"render_grad": grad}), flush=True)
+    print(json.dumps({"detector": detector}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -12,9 +12,13 @@ Slices ported so far: the exact K-pose render of the outer iteration
 march + compositing with ``fuse_compositing=True``); the production render
 (``RenderConfig.production_mode()``: occupancy grid, ray culling, the
 z-tightened single-pass march, ``ops/occupancy.py``) with coarse-raw reuse
-and the sparse fine pass; and every kernel the JAX package wrote in Pallas,
+and the sparse fine pass; every kernel the JAX package wrote in Pallas,
 each as a CUDA kernel written for Hopper (``kernels/raymarch.py``, sources
-in ``kernels/csrc/``).
+in ``kernels/csrc/``); the psi render gradient (``hypergrad/render_grad.py``);
+and the detector stack: on-device auto-annotation
+(``detector.dataset.build_detector_batches_device``), RetinaNet-R50-FPN
+(``models/retinanet.py``), its inner fine-tune (``detector.trainer``) and
+COCO mAP (``detector.evaluator``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present they raise.

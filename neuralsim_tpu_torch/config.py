@@ -1,6 +1,7 @@
 """Configuration of the port: a copy of the fields of
 ``neuralsim_tpu.config`` that the port reads, with the same names and
-defaults (NeRF net, render, camera, sampler, data, bilevel outer loop)."""
+defaults (NeRF net, render, camera, sampler, detector, data, bilevel outer
+loop)."""
 
 from __future__ import annotations
 
@@ -142,6 +143,43 @@ class SamplerConfig:
 
 
 @dataclass(frozen=True)
+class DetectorConfig:
+    """RetinaNet-R50-FPN inner-loop settings (reference neural_sim_main.py:594-622)."""
+
+    num_classes: int = 6
+    images_per_batch: int = 8
+    base_lr: float = 2.5e-4
+    max_iter: int = 50
+    warmup_iters: int = 10
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    freeze_backbone: bool = True        # FREEZE_AT=6: the whole ResNet frozen
+    # RetinaNet head/anchor parameters (detectron2 retinanet_R_50_FPN_3x defaults)
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    smooth_l1_beta: float = 0.1
+    iou_fg_threshold: float = 0.5
+    iou_bg_threshold: float = 0.4
+    score_threshold: float = 0.05
+    nms_threshold: float = 0.5
+    topk_per_level: int = 1000
+    max_detections: int = 100
+    image_size: int = 128               # model input side (square pad)
+    # pretrained init from a local checkpoint (reference --pretrain /
+    # --pretrain_weight, neural_sim_main.py:602-606): every shape-matching
+    # tensor is kept, the class-dependent head outputs stay fresh
+    pretrain: bool = False
+    pretrain_weight: Optional[str] = None
+    # the feature that feeds the FPN P6 conv: "c5" (detectron2, the
+    # reference) or "p5" (torchvision retinanet_resnet50_fpn); it must match
+    # the checkpoint (models.convert_retinanet.detect_p6_source)
+    fpn_p6_source: str = "c5"
+    # val-set streaming: 0 keeps the whole val set on the device, > 0 streams
+    # host-resident val images in chunks of about this many images
+    eval_stream_images: int = 0
+
+
+@dataclass(frozen=True)
 class BilevelConfig:
     """Outer-loop optimizer for psi (reference neural_sim_main.py:1144-1212)."""
 
@@ -222,6 +260,7 @@ class NeuralSimConfig:
     render: RenderConfig = field(default_factory=RenderConfig)
     camera: CameraConfig = field(default_factory=CameraConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
+    detector: DetectorConfig = field(default_factory=DetectorConfig)
     data: DataConfig = field(default_factory=DataConfig)
     bilevel: BilevelConfig = field(default_factory=BilevelConfig)
     seed: int = 0

@@ -53,7 +53,7 @@ def test_kernels_use_accurate_sines():
         assert "__sinf" not in text and "__cosf" not in text, path
 
 
-SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel", "hypergrad")
+SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel", "hypergrad", "detector")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
@@ -77,6 +77,7 @@ def test_subpackages_export_the_ported_names(sub):
 def test_from_imports_of_the_subpackages():
     from neuralsim_tpu_torch.bilevel import psi_init
     from neuralsim_tpu_torch.data import load_nerf_checkpoint
+    from neuralsim_tpu_torch.detector import coco_map, inner_train
     from neuralsim_tpu_torch.models import nerf_apply
     from neuralsim_tpu_torch.ops import get_rays, render_poses
     from neuralsim_tpu_torch.ops import render as render_module
@@ -84,7 +85,7 @@ def test_from_imports_of_the_subpackages():
 
     assert render_poses is render_module.render_poses
     assert all(callable(f) for f in (psi_init, load_nerf_checkpoint, nerf_apply, get_rays,
-                                     poses_from_noise))
+                                     poses_from_noise, coco_map, inner_train))
     with pytest.raises(AttributeError):
         import neuralsim_tpu_torch.ops as ops
 
