@@ -103,8 +103,11 @@ Phases, each of which exits nonzero when it fails:
      host auto_annotate of to8b of the same render), RetinaNet-R50-FPN at
      DetectorConfig's defaults (6 classes, 128^2, batch 8, frozen backbone)
      from a seeded init_detector, fine-tuned by inner_train for 50 steps with
-     cycle_indices (cudnn.deterministic: the first 3 losses within DET_REL of
-     the same steps on the CPU, all 50 finite, no kernel launched), the
+     cycle_indices under cuDNN's default algorithms (the first 3 losses
+     within DET_REL of the same steps on the CPU, all 50 finite, no kernel
+     launched; the first 3 steps again under cudnn.deterministic, within
+     DET_REL of the CPU too and timed), the host annotator's C++ library
+     against its numpy twin on the same masks (equal stats, both timed), the
      trained logits and deltas on 8 val images within DET_REL of the CPU's,
      and COCO mAP (retinanet_inference in batches of 8, detections_to_eval,
      coco_map) over VAL_IMAGES renders at poses from a second psi, each AP
@@ -141,7 +144,7 @@ import time
 import numpy as np
 import torch
 
-from neuralsim_tpu_torch import kernels
+from neuralsim_tpu_torch import kernels, native
 from neuralsim_tpu_torch.bilevel.psi_init import psi_init
 from neuralsim_tpu_torch.bilevel.psi_opt import psi_optimizer_init, psi_optimizer_update
 from neuralsim_tpu_torch.hypergrad import render_grad
@@ -1491,8 +1494,10 @@ def phase_detector(renderer, smi):
     losses within DET_REL of the same steps on the CPU, every loss finite),
     hold the trained logits and deltas on 8 val images to the CPU's, and
     compute COCO mAP over a val set of VAL_IMAGES renders at poses from a
-    second psi. Times: render, annotation, train steps, eval; peak memory."""
-    torch.backends.cudnn.deterministic = True
+    second psi. Times: render, annotation (card, and the host annotator's
+    library and numpy twin), train steps (cuDNN's default algorithms, as a
+    run of the outer loop takes them, and the first steps again under
+    cudnn.deterministic), eval; peak memory."""
     dc = renderer.cfg.detector
     k = renderer.cfg.sampler.n_samples_k
     label = 1
@@ -1500,7 +1505,7 @@ def phase_detector(renderer, smi):
                      f"{dc.num_classes} classes, {dc.image_size}^2 input, batch "
                      f"{dc.images_per_batch}, {dc.max_iter} steps, lr {dc.base_lr}, warmup "
                      f"{dc.warmup_iters}, freeze_backbone {dc.freeze_backbone}, float32 (TF32 "
-                     f"off, cudnn.deterministic); renders {renderer.H}x{renderer.W} production "
+                     f"off, cuDNN's default algorithms); renders {renderer.H}x{renderer.W} production "
                      f"float32 (hit_budget {renderer.rc.hit_budget})", "card": smi}
 
     # the val set: renders from a second psi with a generator of their own
@@ -1538,8 +1543,28 @@ def phase_detector(renderer, smi):
     for a, b in zip(train, again):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     boxes, valid = train[1].cpu().numpy(), train[3].cpu().numpy()
-    host = [detector_dataset.auto_annotate((np.clip(img, 0, 1) * 255).astype(np.uint8))
-            for img in rgb.cpu().numpy()]
+    to8b = [(np.clip(img, 0, 1) * 255).astype(np.uint8) for img in rgb.cpu().numpy()]
+    t0 = time.perf_counter()
+    native._load_lib()
+    rec["host_annotator_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [detector_dataset.auto_annotate(img) for img in to8b]
+    rec["host_annotate_ms_per_image"] = 1e3 * (time.perf_counter() - t0) / k
+    # the host annotator's C++ library against its numpy twin on the same
+    # masks: what the library saves on the host path
+    masks = [detector_dataset.annotation_mask(img) for img in to8b]
+    t0 = time.perf_counter()
+    library = [native.connected_components(m) for m in masks]
+    rec["host_components_library_ms_per_image"] = 1e3 * (time.perf_counter() - t0) / k
+    t0 = time.perf_counter()
+    twin = [native._connected_components_np(m) for m in masks]
+    rec["host_components_numpy_ms_per_image"] = 1e3 * (time.perf_counter() - t0) / k
+    if library != twin:
+        raise AssertionError("detector: the host annotator's library and numpy twin differ")
+    log(f"detector: host auto_annotate {rec['host_annotate_ms_per_image']:.3f} ms/image "
+        f"(library built in {rec['host_annotator_build_s']:.2f} s); connected components "
+        f"{rec['host_components_library_ms_per_image']:.4f} ms/image in the C++ library, "
+        f"{rec['host_components_numpy_ms_per_image']:.3f} in its numpy twin (equal stats)")
     for i, bbox in enumerate(host):
         want = None if bbox is None else [bbox[0], bbox[1], bbox[0] + bbox[2],
                                           bbox[1] + bbox[3]]
@@ -1591,7 +1616,22 @@ def phase_detector(renderer, smi):
     _, metrics_cpu = trainer.inner_train(state_cpu, (DetBatch(*map(cpu, train)), cpu(idx[:3])),
                                          dc)
     rec["cpu_3_steps_s"] = time.perf_counter() - t0
-    rec["loss_vs_cpu"] = detector_rel("first 3 losses", losses[:3], metrics_cpu["loss"])
+    rec["loss_vs_cpu"] = detector_rel("first 3 losses (main path, cuDNN's default "
+                                      "algorithms)", losses[:3], metrics_cpu["loss"])
+    # the same 3 steps on the card under deterministic algorithms (conv
+    # backward without atomics), timed: what determinism costs
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        (_, metrics_det), det_ms = timed_steps(
+            lambda: trainer.inner_train(state0, (data, idx[:3]), dc))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rec["deterministic_step_ms"] = det_ms
+    rec["loss_vs_cpu_deterministic"] = detector_rel(
+        "first 3 losses (cudnn.deterministic)", metrics_det["loss"], metrics_cpu["loss"])
+    log(f"detector: steps 2-3 under cudnn.deterministic {det_ms[1]:.3f}, {det_ms[2]:.3f} ms; "
+        f"under the default algorithms {step_ms[1]:.3f}, {step_ms[2]:.3f} ms")
 
     # the trained weights on 8 val images, card and CPU
     _, apply_fn = trainer.make_detector_apply(dc)
@@ -1641,7 +1681,8 @@ def phase_detector(renderer, smi):
     if not all(math.isfinite(v) for v in result["AP-per-class"].values()):
         raise AssertionError("detector: a per-class AP is not finite")
     log("detector: " + json.dumps({k: v for k, v in rec.items()
-                                   if k not in ("train_step_ms", "losses")}))
+                                   if k not in ("train_step_ms", "losses",
+                                                "deterministic_step_ms")}))
     return rec
 
 

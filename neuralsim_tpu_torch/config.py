@@ -174,9 +174,6 @@ class DetectorConfig:
     # reference) or "p5" (torchvision retinanet_resnet50_fpn); it must match
     # the checkpoint (models.convert_retinanet.detect_p6_source)
     fpn_p6_source: str = "c5"
-    # val-set streaming: 0 keeps the whole val set on the device, > 0 streams
-    # host-resident val images in chunks of about this many images
-    eval_stream_images: int = 0
 
 
 @dataclass(frozen=True)

@@ -156,12 +156,14 @@ def detector_loss_fn(params: Params, batch: DetBatch, dc: DetectorConfig, anchor
 
 
 def train_step(state: DetectorState, batch: DetBatch, dc: DetectorConfig, anchors_cat):
-    """One SGD step. When the trainable parameters carry a graph (a caller
-    differentiates the trajectory), the step keeps it; otherwise it takes
-    the gradient and updates without one."""
+    """One SGD step. When the parameters or the batch carry a graph (a
+    caller differentiates the trajectory, by the initial parameters or by
+    the images), the step keeps it; otherwise it takes the gradient and
+    updates without one."""
     _, apply_fn = make_detector_apply(dc)
     trainable, frozen = split_trainable(state.params, dc)
-    keep_graph = torch.is_grad_enabled() and any(v.requires_grad for v in trainable.values())
+    keep_graph = torch.is_grad_enabled() and any(
+        v.requires_grad for v in (*state.params.values(), *batch))
     trainable = {k: v if keep_graph and v.requires_grad else v.detach().requires_grad_()
                  for k, v in trainable.items()}
     with torch.enable_grad():

@@ -3,31 +3,27 @@ C++ connected components and COCO RLE, with their numpy twins.
 
 ``connected_components`` and ``rle_encode`` replace the OpenCV /
 pycocotools C extensions used by the reference's auto-annotation
-(``optimization/neural_sim_main.py:786-797, 825``). The C++ library is
-built with g++ at first use (``native/build.py``); where it cannot be
-built, the numpy twins give the same results (tested against each other).
-They serve the host annotation path and COCO export, never the device
-path.
+(``optimization/neural_sim_main.py:786-797, 825``). They run the C++
+library, built with g++ at first use (``native/build.py``); a build that
+fails raises. The numpy twins (``_connected_components_np``,
+``_rle_encode_np``) are the oracle the tests hold the library to. They
+serve the host annotation path and COCO export, never the device path.
 """
 
 from __future__ import annotations
 
 import ctypes
-import subprocess
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 _LIB = None
-_LIB_TRIED = False
 
 
 def _load_lib():
-    global _LIB, _LIB_TRIED
-    if _LIB_TRIED:
-        return _LIB
-    _LIB_TRIED = True
-    try:
+    """The built library (g++ at the first call; raises if it fails)."""
+    global _LIB
+    if _LIB is None:
         from neuralsim_tpu_torch.native.build import build
 
         lib = ctypes.CDLL(str(build()))
@@ -43,8 +39,6 @@ def _load_lib():
             ctypes.POINTER(ctypes.c_uint32),
         ]
         _LIB = lib
-    except (OSError, subprocess.CalledProcessError):
-        _LIB = None
     return _LIB
 
 
@@ -52,25 +46,27 @@ Stats = Tuple[int, int, int, int, int]  # (x, y, w, h, area)
 
 
 def connected_components(mask: np.ndarray, max_components: int = 256) -> List[Stats]:
-    """8-connected component stats of a binary mask, background excluded."""
+    """8-connected component stats of a binary mask, background excluded.
+    ``max_components`` sizes the first buffer; a mask with more components
+    is labelled again with room for the most an h x w mask can hold."""
     mask = np.ascontiguousarray(mask.astype(np.uint8))
     h, w = mask.shape
     lib = _load_lib()
-    if lib is not None:
-        stats = np.zeros((max_components, 5), np.int32)
+    for room in (max_components, ((h + 1) // 2) * ((w + 1) // 2)):
+        stats = np.zeros((max(room, 1), 5), np.int32)
         n = lib.connected_components_stats(
             mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             h, w,
             stats.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            max_components, None,
+            stats.shape[0], None,
         )
         if n >= 0:
             return [tuple(int(v) for v in row) for row in stats[:n]]
-    return _connected_components_np(mask)
+    raise RuntimeError(f"connected components: more than {room} in a {h}x{w} mask")
 
 
 def _connected_components_np(mask: np.ndarray) -> List[Stats]:
-    """Two-pass union-find in numpy/python (fallback oracle)."""
+    """Two-pass union-find in numpy/python (the library's oracle)."""
     h, w = mask.shape
     labels = np.zeros((h, w), np.int32)
     parent = [0]
@@ -133,15 +129,18 @@ def rle_encode(mask: np.ndarray) -> Dict:
     column-major starting with a zero-run — pycocotools-compatible."""
     mask = np.ascontiguousarray(mask.astype(np.uint8))
     h, w = mask.shape
-    lib = _load_lib()
-    if lib is not None:
-        counts = np.zeros(h * w + 1, np.uint32)
-        n = lib.rle_encode_mask(
-            mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            h, w,
-            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        )
-        return {"size": [h, w], "counts": [int(c) for c in counts[:n]]}
+    counts = np.zeros(h * w + 1, np.uint32)
+    n = _load_lib().rle_encode_mask(
+        mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        h, w,
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    return {"size": [h, w], "counts": [int(c) for c in counts[:n]]}
+
+
+def _rle_encode_np(mask: np.ndarray) -> Dict:
+    """rle_encode in numpy/python (the library's oracle)."""
+    h, w = mask.shape
     flat = mask.T.reshape(-1)
     counts = []
     current, run = 0, 0

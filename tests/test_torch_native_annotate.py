@@ -3,6 +3,8 @@ copy of annotate.cc, built with g++, and the numpy twin) against the JAX
 package's (neuralsim_tpu.native) on the cases of
 tests/test_native_annotate.py. Stats and RLE must be equal."""
 
+import subprocess
+
 import numpy as np
 import pytest
 
@@ -67,15 +69,13 @@ def test_stats_and_rle_equal_jax(case):
         np.testing.assert_array_equal(tnat.rle_decode(rle), jnat.rle_decode(rle))
 
 
-def test_numpy_twins_equal_library(monkeypatch):
-    """Without the library, the numpy twins give the library's runs and
-    components."""
+def test_numpy_twins_equal_library():
+    """The numpy twins give the library's runs and components, in its
+    order."""
     masks = [m for ms in CASES.values() for m in ms]
-    want_rle = [tnat.rle_encode(m) for m in masks]
-    want_cc = [sorted(tnat.connected_components(m)) for m in masks]
-    monkeypatch.setattr(tnat, "_load_lib", lambda: None)
-    assert [tnat.rle_encode(m) for m in masks] == want_rle
-    assert [sorted(tnat.connected_components(m)) for m in masks] == want_cc
+    assert [tnat._rle_encode_np(m) for m in masks] == [tnat.rle_encode(m) for m in masks]
+    assert [tnat._connected_components_np(m) for m in masks] == [
+        tnat.connected_components(m) for m in masks]
 
 
 def test_known_answers():
@@ -86,3 +86,35 @@ def test_known_answers():
     assert (x, y, w, h, area) == (0, 0, 5, 4, int(u_shape().sum()))
     assert tnat.connected_components(np.zeros((8, 8), np.uint8)) == []
     assert tnat.rle_encode(np.ones((3, 3), np.uint8))["counts"][0] == 0
+
+
+def many_components():
+    m = np.zeros((41, 40), np.uint8)
+    m[::2, ::2] = 1                      # 21 x 20 isolated pixels: the most a mask holds
+    m[20, 10:30] = 1                     # a bar joins 11 of them (columns 10-30)
+    return m
+
+
+@pytest.mark.parametrize("max_components", [256, 1])
+def test_more_components_than_the_buffer_equal_jax(max_components):
+    """Past max_components the library labels again with room for every
+    component an h x w mask can hold: the stats, in order, equal the JAX
+    package's (its numpy fallback there) and the twin's."""
+    m = many_components()
+    got = tnat.connected_components(m, max_components=max_components)
+    assert len(got) == 21 * 20 - 11 + 1
+    assert got == jnat.connected_components(m, max_components=max_components)
+    assert got == tnat._connected_components_np(m)
+
+
+def test_failed_build_raises(monkeypatch):
+    """No silent fallback: where g++ fails, annotation raises."""
+    def fail():
+        raise subprocess.CalledProcessError(1, ["g++"])
+
+    monkeypatch.setattr(tnat, "_LIB", None)
+    monkeypatch.setattr(build, "build", fail)
+    with pytest.raises(subprocess.CalledProcessError):
+        tnat.connected_components(two_blobs())
+    with pytest.raises(subprocess.CalledProcessError):
+        tnat.rle_encode(two_blobs())
