@@ -116,7 +116,32 @@ Phases, each of which exits nonzero when it fails:
      memory, and a torch.profiler trace of PROFILE_STEPS more steps (device
      busy share, launches per step, the top kernels) go to a JSON line
      {"detector": ...};
- 10. a JSON line of the kernels' numbers (float32 times under the
+ 10. the bilevel outer loop (phase_bilevel): BilevelDriver.run for 2
+     epochs (checkpointed) at the defaults on the box-scene pair with the
+     production float32 render (budget must be < 1): K = 50 renders from
+     psi_init("5"), annotation, 50 inner steps, mAP on 16 val renders from
+     psi_init("1"), v, the onestep inverse HVP, grad_E of the 50 renders,
+     the bf16 strips gradient, the psi step; grad_psi finite and nonzero,
+     psi moved, the probabilities sum to 1, every AP finite where its area
+     range has ground truth, 4 save_result lines; fused_nerf_march launched
+     in each epoch's render and in the first epoch's cull guard, no kernel
+     in any other stage; seconds per epoch and per stage (phase_timer,
+     synchronized) and peak GB per stage. Then: one epoch at K = 2, 25x25,
+     2 inner steps, float32, on the card and on the CPU from the same
+     weights, state and draws under cudnn.deterministic (v, inverse HVP,
+     grad_E, grad_psi within BILEVEL_REL of the norm); epoch 1 again from
+     the epoch-0 checkpoint in a new driver under cudnn.deterministic
+     (restored state and draws bit-equal, renders equal, loss, grad_psi
+     and psi step within RESUME_REL of the uninterrupted epoch 1); one
+     unrolled epoch from epoch 0's state and draws (seconds, peak GB, the
+     cosine of its grad_E with the influence grad_E, reported); cg_normal
+     and auto-scaled LiSSA on the trained state (ms per HVP, finite; one
+     HVP on the card and on the CPU within HVP_REL of each other and of
+     the card's float64 HVP); the CLI (cli.main with
+     --ft_path to a .tar written by save_nerf_tar_compatible, production
+     render, K = CLI_K, one epoch, PNGs written). A JSON line
+     {"bilevel": ...};
+ 11. a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
      beside them, the 8x512 times, the production runs' launches, and the
      production and 8x512 render numbers in fused_nerf_march's record),
@@ -131,23 +156,28 @@ it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from neuralsim_tpu_torch import kernels, native
+from neuralsim_tpu_torch import cli, kernels, native
+from neuralsim_tpu_torch.bilevel import driver
 from neuralsim_tpu_torch.bilevel.psi_init import psi_init
 from neuralsim_tpu_torch.bilevel.psi_opt import psi_optimizer_init, psi_optimizer_update
-from neuralsim_tpu_torch.hypergrad import render_grad
+from neuralsim_tpu_torch.hypergrad import influence, render_grad
 from neuralsim_tpu_torch.config import NeRFNetConfig, NeuralSimConfig
 from neuralsim_tpu_torch.detector import dataset as detector_dataset
 from neuralsim_tpu_torch.detector import evaluator, trainer
@@ -167,6 +197,7 @@ from neuralsim_tpu_torch.ops.rays import get_rays
 from neuralsim_tpu_torch.ops.render import render_poses, render_ray_batch
 from neuralsim_tpu_torch.ops.volume import stratified_z_vals
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
+from neuralsim_tpu_torch.utils.checkpoint import save_nerf_tar_compatible
 from neuralsim_tpu_torch.sampler.poses import (
     draw_pose_noise,
     draw_pose_noise_gaussian,
@@ -244,6 +275,20 @@ DET_REL = 1e-4
 VAL_IMAGES, VAL_PSI = 16, "1"
 # detector steps traced by torch.profiler after the main path's run
 PROFILE_STEPS = 5
+# phase 10: the card-against-CPU epoch (K poses at SIDE x SIDE) and its
+# tolerance (of the norm, tests/test_torch_driver.py's); a resumed epoch
+# against the same epoch in memory, both under cudnn.deterministic (the
+# render gradient's scatter-adds may still sum in another order); the
+# CLI's K
+BILEVEL_SMALL_K, BILEVEL_SMALL_SIDE = 2, 25
+BILEVEL_REL = 1e-4
+# one HVP at full width on the trained detector (batch 8 at 128^2, 12.8 M
+# trainable parameters), card and CPU in float32 each against the card's
+# float64: a second derivative through R50-FPN whose float32 sums the two
+# devices order differently
+HVP_REL = 1e-3
+RESUME_REL = 1e-5
+CLI_K = 8
 COUNTED = (rm.fused_nerf_march, rm.fused_nerf_mlp_widepe, rm.fused_nerf_mlp_pe,
            rm.fused_nerf_mlp, rm.fused_render_tile)
 
@@ -1484,6 +1529,23 @@ def profile_steps(fn, n_steps):
                                         for e in top}}
 
 
+def check_map(tag, result, gt_boxes):
+    """Every AP of a coco_map result finite where its area range holds
+    ground truth (NaN where it holds none), every per-class AP finite."""
+    areas = np.concatenate([(b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) for b in gt_boxes])
+    ranges = {"AP": (0, 1e10), "AP50": (0, 1e10), "AP75": (0, 1e10), "APs": (0, 32 ** 2),
+              "APm": (32 ** 2, 96 ** 2), "APl": (96 ** 2, 1e10)}
+    for key, (lo, hi) in ranges.items():
+        present = bool(((areas >= lo) & (areas <= hi)).any())
+        # COCO gives an area range without ground truth no AP (-1 in
+        # pycocotools; NaN in this evaluator)
+        if not (math.isfinite(result[key]) if present else math.isnan(result[key])):
+            raise AssertionError(f"{tag}: {key} = {result[key]} with ground truth "
+                                 f"{'in' if present else 'outside'} its range")
+    if not all(math.isfinite(v) for v in result["AP-per-class"].values()):
+        raise AssertionError(f"{tag}: a per-class AP is not finite")
+
+
 def phase_detector(renderer, smi):
     """Phase 9: the detector slice on the card. Render K = n_samples_k poses
     from psi_init("5") with NeuralSimRenderer.render_images on the phase-7
@@ -1667,23 +1729,528 @@ def phase_detector(renderer, smi):
     log(f"detector: eval {rec['eval_images_per_s']:.1f} images/s (first call "
         f"{rec['eval_first_call_images_per_s']:.1f}); {rec['detections']} detections on "
         f"{VAL_IMAGES} val images; mAP {json.dumps(result)}")
-    areas = np.concatenate([(b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) for b in
-                            (t["boxes"] for t in truth)])
-    ranges = {"AP": (0, 1e10), "AP50": (0, 1e10), "AP75": (0, 1e10), "APs": (0, 32 ** 2),
-              "APm": (32 ** 2, 96 ** 2), "APl": (96 ** 2, 1e10)}
-    for key, (lo, hi) in ranges.items():
-        present = bool(((areas >= lo) & (areas <= hi)).any())
-        # COCO gives an area range without ground truth no AP (-1 in
-        # pycocotools; NaN in this evaluator)
-        if not (math.isfinite(result[key]) if present else math.isnan(result[key])):
-            raise AssertionError(f"detector: {key} = {result[key]} with ground truth "
-                                 f"{'in' if present else 'outside'} its range")
-    if not all(math.isfinite(v) for v in result["AP-per-class"].values()):
-        raise AssertionError("detector: a per-class AP is not finite")
+    check_map("detector", result, [t["boxes"] for t in truth])
     log("detector: " + json.dumps({k: v for k, v in rec.items()
                                    if k not in ("train_step_ms", "losses",
                                                 "deterministic_step_ms")}))
     return rec
+
+
+# --------------------------------------------------------------------------- #
+# phase 10: the bilevel outer loop
+# --------------------------------------------------------------------------- #
+
+
+def flat_tree(tree) -> torch.Tensor:
+    """A dict of tensors (or a tensor) as one float64 CPU vector, names in
+    sorted order."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().double().reshape(-1)
+    return torch.cat([tree[k].detach().cpu().double().reshape(-1) for k in sorted(tree)])
+
+
+def rel_norm(tag, got, want, rel):
+    """||got - want|| / ||want|| (flattened, want on the CPU or the
+    reference run); raises above rel or when either is not finite."""
+    g, w = flat_tree(got), flat_tree(want)
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError(f"bilevel [{tag}]: not finite")
+    err = float((g - w).norm() / w.norm())
+    log(f"bilevel [{tag}]: {err:.3e} of the norm (limit {rel:g})")
+    if not err <= rel:
+        raise AssertionError(f"bilevel [{tag}]: {err:.3e} > {rel:g}")
+    return err
+
+
+def bilevel_config(basedir: str) -> NeuralSimConfig:
+    """Phase 10's configuration: the defaults (100x100 camera, K = 50,
+    RetinaNet-R50-FPN at 128^2, 50 inner steps at batch 8, influence +
+    onestep, strips at 5000 px in bf16) with the production f32 forward
+    render, the experiment under basedir."""
+    cfg = NeuralSimConfig()
+    return cfg.replace(render=cfg.render.production_mode(),
+                       data=dataclasses.replace(cfg.data, basedir=basedir, expname="bilevel"))
+
+
+def bilevel_small_config() -> NeuralSimConfig:
+    """The card-against-CPU check's configuration: K = 2 at 25x25 (the
+    100x100 camera scaled), the exact render, RetinaNet-R50-FPN at 32^2,
+    2 inner steps at batch 2, float32 gradient."""
+    cfg = NeuralSimConfig()
+    s = BILEVEL_SMALL_SIDE / cfg.camera.height
+    cam = dataclasses.replace(cfg.camera, height=BILEVEL_SMALL_SIDE, width=BILEVEL_SMALL_SIDE,
+                              fx=cfg.camera.fx * s, fy=cfg.camera.fy * s,
+                              cx=cfg.camera.cx * s, cy=cfg.camera.cy * s)
+    return cfg.replace(
+        camera=cam,
+        sampler=dataclasses.replace(cfg.sampler, n_samples_k=BILEVEL_SMALL_K),
+        detector=dataclasses.replace(cfg.detector, image_size=32, max_iter=2,
+                                     images_per_batch=2, warmup_iters=1),
+        bilevel=dataclasses.replace(cfg.bilevel, grad_compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, save_pngs=False))
+
+
+def cli_argv(tar: str, basedir: str):
+    """Phase 10's command line: the box scene from tar, production
+    render, K = CLI_K, one epoch, on the card."""
+    return ["--ft_path", tar, "--basedir", basedir, "--expname", "cli", "--production_render",
+            "--n_samples_K", str(CLI_K), "--n_epochs", "1", "--device", str(DEVICE)]
+
+
+def instrument(drv):
+    """Record, on drv: each epoch's draws, arguments, record, host-clock
+    seconds and stage seconds; each stage's kernel launches and peak
+    memory (the counters and the allocator's peak read around every
+    phase_timer); the cull guard's launches; the outputs of the render,
+    _val_grad, _ihvp, _grad_e and _unrolled."""
+    log_ = {"draws": [], "epochs": [], "stage_launches": [], "stage_peak_gb": {},
+            "guard_launches": {}, "out": {}}
+    timer, draw_epoch, run_epoch, guard = (drv._timer, drv.draw_epoch, drv.run_epoch,
+                                           drv._first_epoch_cull_guard)
+
+    @contextlib.contextmanager
+    def counted_timer(name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        with timer(name):
+            yield
+        after = counts()
+        launched = log_["stage_launches"][-1].setdefault(name, {k: 0 for k in after})
+        for k in after:
+            launched[k] += after[k] - before[k]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log_["stage_peak_gb"][name] = max(log_["stage_peak_gb"].get(name, 0.0), peak)
+
+    def counted_draws():
+        draws = draw_epoch()
+        log_["draws"].append(draws)
+        return draws
+
+    def timed_epoch(epoch, psi, psi_opt, det_state, **kw):
+        log_["stage_launches"].append({})
+        totals = dict(drv.phases.totals)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record = run_epoch(epoch, psi, psi_opt, det_state, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stages = {k: v - totals.get(k, 0.0) for k, v in drv.phases.totals.items()
+                  if v != totals.get(k, 0.0)}
+        log_["epochs"].append({"epoch": epoch, "args": (psi, psi_opt, det_state),
+                               "record": record, "seconds": seconds, "stage_s": stages,
+                               "out": dict(log_["out"])})
+        return record
+
+    def counted_guard(*args):
+        before = counts()
+        guard(*args)
+        log_["guard_launches"] = {k: v - before[k] for k, v in counts().items()}
+
+    drv._timer, drv.draw_epoch, drv.run_epoch = counted_timer, counted_draws, timed_epoch
+    drv._first_epoch_cull_guard = counted_guard
+    keep_outputs(drv, log_["out"])
+    return log_
+
+
+def keep_outputs(drv, store):
+    """Keep the last output of drv's stages _render, _val_grad, _ihvp,
+    _grad_e and _unrolled in store."""
+    def keep(name, fn):
+        def wrapped(*args):
+            store[name] = fn(*args)
+            return store[name]
+        return wrapped
+
+    for name in ("_render", "_val_grad", "_ihvp", "_grad_e", "_unrolled"):
+        setattr(drv, name, keep(name, getattr(drv, name)))
+
+
+def to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_cpu(v) for v in tree))
+    return tree
+
+
+def val_set(cfg, models, n):
+    """n renders at poses from psi_init(VAL_PSI) (a generator of their own)
+    through the configuration's renderer, annotated on the device."""
+    renderer = NeuralSimRenderer(cfg, models=models, device=DEVICE)
+    with torch.no_grad():
+        rgb, _ = renderer.render_images(psi_init(VAL_PSI), torch.Generator().manual_seed(9),
+                                        num_k=n)
+    return driver.ValData(*detector_dataset.build_detector_batches_device(
+        rgb, [1] * n, cfg.detector))
+
+
+def phase_bilevel(box, smi):
+    """Phase 10: one outer iteration through BilevelDriver.run, twice (the
+    second epoch from the driver's state after the first, checkpointed),
+    then its checks: card against CPU at a reduced size, resume from the
+    epoch-0 checkpoint, one unrolled epoch, the cg_normal and auto-scaled
+    LiSSA solvers, and the CLI."""
+    models = {"coarse": box, "fine": box}
+    rec = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = bilevel_config(tmp)
+        dc, bc = cfg.detector, cfg.bilevel
+        val = val_set(cfg, models, VAL_IMAGES)
+        drv = driver.BilevelDriver(cfg, models, val, generator=torch.Generator().manual_seed(0),
+                                   object_class=1, output_dir=os.path.join(tmp, "out"),
+                                   device=DEVICE)
+        budget = drv.rc_test.hit_budget
+        rec["config"] = (
+            f"K={cfg.sampler.n_samples_k} {cfg.camera.height}x{cfg.camera.width}, "
+            f"{cfg.net.netdepth}x{cfg.net.netwidth} box-scene pair, production f32 render "
+            f"(hit_budget {budget}), RetinaNet-R50-FPN {dc.num_classes} classes "
+            f"{dc.image_size}^2, {dc.max_iter} inner steps at batch {dc.images_per_batch}, "
+            f"{VAL_IMAGES} val renders, {bc.hypergrad_mode} + {bc.ihvp_solver}, "
+            f"{bc.grad_mode} {bc.grad_ray_chunk} px in {bc.grad_compute_dtype}, "
+            f"grad_e_max_images {bc.grad_e_max_images}, float32 (TF32 off, cuDNN's "
+            "default algorithms)")
+        log(f"bilevel: {rec['config']}")
+        if not budget < 1.0:
+            raise AssertionError(f"bilevel: calibrated budget {budget}: the production "
+                                 "render would be the exact one")
+        seen = instrument(drv)
+        ckdir = os.path.join(tmp, "ck")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        result = drv.run(n_epochs=2, checkpoint_dir=ckdir)
+        torch.cuda.synchronize()
+        rec["run_s"] = time.perf_counter() - t0
+        rec["launches"] = counts()
+        epochs = seen["epochs"]
+        rec["epoch_s"] = [e["seconds"] for e in epochs]
+        rec["stage_s"] = [e["stage_s"] for e in epochs]
+        rec["stage_peak_gb"] = seen["stage_peak_gb"]
+        rec["stage_launches"] = seen["stage_launches"]
+        rec["guard_launches"] = seen["guard_launches"]
+        rec["cull_guard_psnr"] = drv.last_cull_psnr
+        log(f"bilevel: 2 epochs in {rec['run_s']:.3f} s (host clock), per epoch "
+            f"{[round(x, 3) for x in rec['epoch_s']]} s; launches {rec['launches']}")
+        for i, e in enumerate(epochs):
+            log(f"bilevel: epoch {i} stages (s): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in e["stage_s"].items()))
+        log(f"bilevel: peak GB per stage: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in seen["stage_peak_gb"].items()))
+        log(f"bilevel: launches per stage {json.dumps(seen['stage_launches'])}; cull guard "
+            f"{seen['guard_launches']} ({drv.last_cull_psnr:.2f} dB)")
+        if [h["epoch"] for h in result["history"]] != [0, 1]:
+            raise AssertionError(f"bilevel: history {result['history']}")
+        for i, st in enumerate(seen["stage_launches"]):
+            if not st["render"]["fused_nerf_march"] > 0:
+                raise AssertionError(f"bilevel: epoch {i}'s render launched no kernel")
+            for stage in ("build_dataset", "inner_train", "inference", "inverse_hvp", "grad_E",
+                          "render_grad"):
+                if any(st[stage].values()):
+                    raise AssertionError(f"bilevel: epoch {i} stage {stage} launched "
+                                         f"{st[stage]}")
+        if not seen["guard_launches"]["fused_nerf_march"] > 0:
+            raise AssertionError("bilevel: the first epoch's cull guard launched no kernel")
+        psi0 = epochs[0]["args"][0].detach().cpu()
+        for i, e in enumerate(epochs):
+            r = e["record"]
+            g = r["grad_psi"]
+            if not (np.isfinite(g).all() and np.abs(g).max() > 0):
+                raise AssertionError(f"bilevel: epoch {i} grad_psi {g}")
+            if not abs(float(r["psi_probs"].sum()) - 1.0) < 1e-5:
+                raise AssertionError(f"bilevel: epoch {i} probabilities sum to "
+                                     f"{r['psi_probs'].sum()}")
+            check_map(f"bilevel epoch {i}", r["map"],
+                      [b[v] for b, v in zip(val.gt_boxes.cpu().numpy(),
+                                            val.gt_valid.cpu().numpy())])
+        psi = result["psi"].detach().cpu()
+        if torch.equal(psi, psi0):
+            raise AssertionError("bilevel: psi did not move")
+        with open(drv.log.txt_path) as f:
+            lines = f.read().splitlines()
+        # (a psi tensor's repr may wrap onto a second line, as the reference's)
+        heads = [ln[:9] for ln in lines if ln.startswith("epoch: ")]
+        if heads != ["epoch: 0{", "epoch: 0t", "epoch: 1{", "epoch: 1t"]:
+            raise AssertionError(f"bilevel: save_result.txt holds {lines}")
+        rec.update(grad_psi=[e["record"]["grad_psi"].tolist() for e in epochs],
+                   inner_loss=[e["record"]["inner_loss"] for e in epochs],
+                   psi_probs=[e["record"]["psi_probs"].tolist() for e in epochs],
+                   map=[json.loads(json.dumps(e["record"]["map"]).replace("NaN", "null"))
+                        for e in epochs],
+                   log_lines=lines)
+        log(f"bilevel: grad_psi {rec['grad_psi']}; psi {psi.tolist()}; mAP "
+            f"{[m['AP'] for m in rec['map']]}; {len(lines)} save_result lines")
+
+        rec["resume"] = bilevel_resume(cfg, models, val, ckdir, tmp, epochs[1], seen)
+        rec["card_vs_cpu"] = bilevel_card_vs_cpu(models)
+        rec["unrolled"] = bilevel_unrolled(cfg, models, val, tmp, epochs[0], seen)
+        rec["solvers"] = bilevel_solvers(drv, val, result["detector_state"])
+        rec["cli"] = bilevel_cli(models, tmp)
+    log("bilevel: " + json.dumps({k: v for k, v in rec.items()
+                                  if k not in ("log_lines", "psi_probs", "map",
+                                               "stage_launches")}))
+    return rec
+
+
+def bilevel_resume(cfg, models, val, ckdir, tmp, epoch1, seen):
+    """Epoch 1 again, under cudnn.deterministic, twice: in a new driver
+    (another generator) resumed from the epoch-0 checkpoint, and in
+    memory from the uninterrupted run's state after epoch 0 with its
+    epoch-1 draws. The restored state and the draws equal the
+    uninterrupted run's to the bit, so do the renders; the resumed epoch's
+    loss, grad_psi and psi step lie within RESUME_REL of the in-memory
+    one's. The uninterrupted epoch 1 itself (cuDNN's default algorithms)
+    is reported beside them."""
+    resume_dir = os.path.join(tmp, "ck0")
+    os.makedirs(resume_dir)
+    shutil.copy(os.path.join(ckdir, "ckpt_00000000.pt"), resume_dir)
+    drv = driver.BilevelDriver(cfg, models, val, generator=torch.Generator().manual_seed(123),
+                               object_class=1, output_dir=os.path.join(tmp, "out_resume"),
+                               device=DEVICE)
+    mine = instrument(drv)
+    ref_drv = driver.BilevelDriver(cfg, models, val, object_class=1,
+                                   output_dir=os.path.join(tmp, "out_ref"), device=DEVICE)
+    ref_out = {}
+    keep_outputs(ref_drv, ref_out)
+    ref_psi, ref_opt, ref_det = epoch1["args"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        out = drv.run(n_epochs=2, checkpoint_dir=resume_dir)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ref = ref_drv.run_epoch(1, ref_psi, ref_opt, ref_det, save_pngs=False,
+                                draws=seen["draws"][1])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if [h["epoch"] for h in out["history"]] != [1]:
+        raise AssertionError(f"bilevel resume: ran epochs {out['history']}")
+    # the restored state and the epoch's draws are the uninterrupted run's,
+    # to the bit; so are the renders, made before any cuDNN call
+    psi, _, det = mine["epochs"][0]["args"]
+    a, b = mine["draws"][0], seen["draws"][1]
+    exact = [torch.equal(psi, ref_psi), torch.equal(det.step, ref_det.step)]
+    exact += [torch.equal(det.params[k], ref_det.params[k]) for k in ref_det.params]
+    exact += [torch.equal(det.opt_state["trace"][k], ref_det.opt_state["trace"][k])
+              for k in ref_det.opt_state["trace"]]
+    exact += [torch.equal(x.cpu(), y.cpu()) for x, y in
+              zip((*a.noise, a.batch_idx, a.hvp_idx), (*b.noise, b.batch_idx, b.hvp_idx))]
+    if not all(exact):
+        raise AssertionError("bilevel resume: the restored state or the epoch's draws differ")
+    got = mine["epochs"][0]["record"]
+    res = {"seconds": seconds}
+    res["renders_max_abs"] = max(
+        float((mine["out"]["_render"][0] - epoch1["out"]["_render"][0]).abs().max()),
+        float((ref_out["_render"][0] - epoch1["out"]["_render"][0]).abs().max()))
+    log(f"bilevel resume: state and draws bit-equal; renders max |diff| "
+        f"{res['renders_max_abs']:.3e}")
+    if not res["renders_max_abs"] == 0.0:
+        raise AssertionError("bilevel resume: the epoch's renders differ")
+    res["inner_loss_rel"] = abs(got["inner_loss"] - ref["inner_loss"]) / abs(ref["inner_loss"])
+    log(f"bilevel resume: last inner loss {got['inner_loss']:.7f} vs {ref['inner_loss']:.7f} "
+        f"in memory (cuDNN's default algorithms: {epoch1['record']['inner_loss']:.7f})")
+    if not res["inner_loss_rel"] <= RESUME_REL:
+        raise AssertionError(f"bilevel resume: inner loss {res['inner_loss_rel']:.3e}")
+    res["grad_psi_rel"] = rel_norm("resume grad_psi", torch.from_numpy(got["grad_psi"]),
+                                   torch.from_numpy(ref["grad_psi"]), RESUME_REL)
+    res["psi_rel"] = rel_norm("resume psi step", got["psi"] - ref_psi, ref["psi"] - ref_psi,
+                              RESUME_REL)
+    # reported: how far cuDNN's default algorithms move the epoch
+    default = epoch1["record"]
+    g, w = torch.from_numpy(default["grad_psi"]).double(), torch.from_numpy(ref["grad_psi"])
+    res["default_vs_deterministic"] = {
+        "inner_loss_rel": abs(default["inner_loss"] - ref["inner_loss"]) / abs(ref["inner_loss"]),
+        "grad_E_rel": float((flat_tree(epoch1["out"]["_grad_e"]) - flat_tree(ref_out["_grad_e"]))
+                            .norm() / flat_tree(ref_out["_grad_e"]).norm()),
+        "grad_psi_rel": float((g - w.double()).norm() / w.double().norm()),
+        "grad_psi_cosine": float(g @ w.double() / (g.norm() * w.double().norm()))}
+    log(f"bilevel resume: the uninterrupted epoch 1 (default algorithms) against the "
+        f"deterministic one: {json.dumps(res['default_vs_deterministic'])}")
+    return res
+
+
+def bilevel_card_vs_cpu(models):
+    """One epoch at bilevel_small_config() on the card and on the CPU from
+    the same weights, state and draws, under cudnn.deterministic: v, the
+    inverse HVP, grad_E and grad_psi within BILEVEL_REL of the norm."""
+    cfg = bilevel_small_config()
+    cpu = torch.device("cpu")
+    val = val_set(cfg, models, 4)
+    out = {}
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        det0 = trainer.init_detector(torch.Generator().manual_seed(0), cfg.detector,
+                                     device=cpu)
+        for where, dev in (("card", DEVICE), ("cpu", cpu)):
+            drv = driver.BilevelDriver(cfg, models, driver.ValData(*(x.to(dev) for x in val)),
+                                       generator=torch.Generator().manual_seed(0),
+                                       object_class=1, output_dir=tempfile.mkdtemp(),
+                                       device=dev)
+            outputs = {}
+            keep_outputs(drv, outputs)
+            draws = runs["card"]["draws"] if where == "cpu" else drv.draw_epoch()
+            state = trainer.DetectorState(
+                {k: v.to(dev) for k, v in det0.params.items()},
+                {"trace": {k: v.to(dev) for k, v in det0.opt_state["trace"].items()},
+                 "count": det0.opt_state["count"].to(dev)}, det0.step.to(dev))
+            t0 = time.perf_counter()
+            record = drv.run_epoch(0, psi_init("5"), psi_optimizer_init("momentum", 5e-5),
+                                   state, draws=draws)
+            runs[where] = {"draws": to_cpu(draws), "record": record, "out": outputs,
+                         "seconds": time.perf_counter() - t0}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    card, host = runs["card"], runs["cpu"]
+    out["epoch_s"] = {"card": card["seconds"], "cpu": host["seconds"]}
+    out["v"] = rel_norm("card vs CPU: v = dL_val/dtheta", card["out"]["_val_grad"],
+                        host["out"]["_val_grad"], BILEVEL_REL)
+    out["ihvp"] = rel_norm("card vs CPU: inverse HVP", card["out"]["_ihvp"],
+                           host["out"]["_ihvp"], BILEVEL_REL)
+    out["grad_E"] = rel_norm("card vs CPU: grad_E", card["out"]["_grad_e"],
+                             host["out"]["_grad_e"], BILEVEL_REL)
+    out["grad_psi"] = rel_norm("card vs CPU: grad_psi",
+                               torch.from_numpy(card["record"]["grad_psi"]),
+                               torch.from_numpy(host["record"]["grad_psi"]), BILEVEL_REL)
+    return out
+
+
+def bilevel_unrolled(cfg, models, val, tmp, epoch0, seen):
+    """One unrolled epoch at full width from phase 10's epoch-0 state and
+    draws: seconds, peak memory, and the cosine of its grad_E with the
+    influence grad_E (reported, not checked)."""
+    ucfg = cfg.replace(bilevel=dataclasses.replace(cfg.bilevel, hypergrad_mode="unrolled"))
+    drv = driver.BilevelDriver(ucfg, models, val, object_class=1,
+                               output_dir=os.path.join(tmp, "out_unrolled"), device=DEVICE)
+    mine = instrument(drv)
+    psi, psi_opt, det = epoch0["args"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    record = drv.run_epoch(0, psi, psi_opt, det, save_pngs=False, draws=seen["draws"][0])
+    torch.cuda.synchronize()
+    res = {"epoch_s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "stage_s": mine["epochs"][0]["stage_s"],
+           "stage_peak_gb": mine["stage_peak_gb"],
+           "stage_launches": mine["stage_launches"][0]}
+    g = record["grad_psi"]
+    if not np.isfinite(g).all():
+        raise AssertionError(f"bilevel unrolled: grad_psi {g}")
+    if any(res["stage_launches"]["unrolled_grad_E"].values()):
+        raise AssertionError(f"bilevel unrolled: launches {res['stage_launches']}")
+    unrolled = flat_tree(mine["out"]["_unrolled"][:cfg.bilevel.grad_e_max_images])
+    influence = flat_tree(cfg.bilevel.influence_sign * epoch0["out"]["_grad_e"])
+    res["grad_E_cosine_vs_influence"] = float(unrolled @ influence
+                                              / (unrolled.norm() * influence.norm()))
+    res["grad_psi"] = g.tolist()
+    log(f"bilevel unrolled: epoch {res['epoch_s']:.3f} s, peak {res['peak_gb']:.2f} GB "
+        f"(its grad_E stage {res['stage_peak_gb']['unrolled_grad_E']:.2f}), "
+        f"grad_E cosine vs influence {res['grad_E_cosine_vs_influence']:.4f}; stages "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["stage_s"].items()))
+    return res
+
+
+def bilevel_solvers(drv, val, det_state):
+    """cg_normal and the auto-scaled LiSSA on the trained state, v the
+    driver's val gradient, the HVP batch the first images_per_batch val
+    images: HVPs counted, ms per HVP (host clock), a finite result; one HVP
+    on the card, on the CPU and on the card in float64 (cudnn.deterministic),
+    the float32 ones within HVP_REL of each other and of the float64 one."""
+    bc, dc = drv.cfg.bilevel, drv.cfg.detector
+    trainable, frozen = trainer.split_trainable(det_state.params, dc)
+    batch = DetBatch(*(x[:dc.images_per_batch] for x in val))
+    v = drv._val_grad(det_state.params)
+
+    def loss_fn(tp, b):
+        return drv._det_loss_trainable(tp, frozen, b)
+
+    calls = [0]
+    hvp = influence.hvp
+
+    def counted(*args):
+        calls[0] += 1
+        return hvp(*args)
+
+    res = {}
+    influence.hvp = counted
+    try:
+        for method, kw in (("cg_normal", {}), ("lissa", {"lissa_scale": -1.0})):
+            calls[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = influence.inverse_hvp(loss_fn, trainable, batch, v, method=method,
+                                      damping=bc.ihvp_damping, cg_iters=bc.cg_iters,
+                                      lissa_iters=bc.lissa_iters, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            norm = float(flat_tree(x).norm())
+            if not math.isfinite(norm):
+                raise AssertionError(f"bilevel solvers: {method} is not finite")
+            res[method] = {"hvps": calls[0], "seconds": seconds,
+                           "ms_per_hvp": 1e3 * seconds / calls[0], "norm": norm}
+            log(f"bilevel solvers: {method} {calls[0]} HVPs in {seconds:.3f} s = "
+                f"{res[method]['ms_per_hvp']:.2f} ms/HVP, |x| {norm:.4e}")
+    finally:
+        influence.hvp = hvp
+    def hvp_on(device, dtype):
+        """The same HVP with every tensor on device in dtype."""
+        def cast(t):
+            return {k: x.detach().to(device=device, dtype=dtype) for k, x in t.items()}
+
+        frozen_c, anchors = cast(frozen), drv.anchors_cat.to(device=device, dtype=dtype)
+        batch_c = DetBatch(*(x.to(device=device, dtype=dtype) if x.is_floating_point()
+                             else x.to(device) for x in batch))
+        return influence.hvp(
+            lambda tp, b: retinanet.retinanet_loss(
+                drv.det_apply, trainer.merge_params(tp, frozen_c), b, anchors, dc)[0],
+            cast(trainable), batch_c, cast(v))
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        hv = influence.hvp(loss_fn, trainable, batch, v)
+        hv_cpu = hvp_on(torch.device("cpu"), torch.float32)
+        hv64 = hvp_on(DEVICE, torch.float64)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    res["hvp_vs_cpu"] = rel_norm("solvers: one HVP, card vs CPU", hv, hv_cpu, HVP_REL)
+    res["hvp_vs_float64"] = rel_norm("solvers: one HVP, card vs the card's float64", hv, hv64,
+                                     HVP_REL)
+    res["cpu_hvp_vs_float64"] = rel_norm("solvers: one HVP, CPU vs the card's float64", hv_cpu,
+                                         hv64, HVP_REL)
+    return res
+
+
+def bilevel_cli(models, tmp):
+    """python -m neuralsim_tpu_torch.cli's main on the card: the box scene
+    from a reference .tar (save_nerf_tar_compatible), production render,
+    K = CLI_K, one epoch; PNGs written; fused_nerf_march launched."""
+    tar = os.path.join(tmp, "box.tar")
+    save_nerf_tar_compatible(tar, models)
+    basedir = os.path.join(tmp, "cli")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    result = cli.main(cli_argv(tar, basedir))
+    torch.cuda.synchronize()
+    res = {"seconds": time.perf_counter() - t0, "launches": counts()}
+    if len(result["history"]) != 1 or not torch.isfinite(result["psi"]).all():
+        raise AssertionError(f"bilevel cli: {result['history']}")
+    if not res["launches"]["fused_nerf_march"] > 0:
+        raise AssertionError("bilevel cli: the render launched no kernel")
+    with open(os.path.join(basedir, "cli", "detectron_output", "save_result.txt")) as f:
+        lines = f.read().splitlines()
+    pngs = os.path.join(basedir, "cli", "renderonly_path", "2")
+    res["pngs"] = len(os.listdir(pngs)) - 1 + len(os.listdir(os.path.join(pngs, "withgrad")))
+    lines = [ln for ln in lines if ln.startswith("epoch: ")]
+    if len(lines) != 2 or res["pngs"] != 2 * CLI_K:
+        raise AssertionError(f"bilevel cli: {len(lines)} log lines, {res['pngs']} PNGs")
+    log(f"bilevel cli: one epoch at K={CLI_K} in {res['seconds']:.3f} s (construction "
+        f"included), launches {res['launches']}, {res['pngs']} PNGs")
+    return res
 
 
 def main():
@@ -1702,6 +2269,7 @@ def main():
     pipeline, others, bench = phase_production(box, routes, routes16)
     grad = phase_render_grad(box, smi)
     detector = phase_detector(pipeline["float32"]["renderer"], smi)
+    bilevel = phase_bilevel(box, smi)
     production_launched = {f"pipeline_{name}": run["launched"] for name, run in pipeline.items()}
     production_launched.update({name: run["launched"] for name, run in others.items()})
     production_launched.update({f"bench_{k}": v for k, v in bench["launched"].items()})
@@ -1763,6 +2331,10 @@ def main():
                                     for run, launched in production_launched.items()},
             "production": production if kernel == "fused_nerf_march" else None,
             "detector_render_launches": detector["render_launches"][kernel],
+            "bilevel_launches": {"per_epoch": [st["render"][kernel] for st in
+                                               bilevel["stage_launches"]],
+                                 "cull_guard": bilevel["guard_launches"][kernel],
+                                 "run": bilevel["launches"][kernel]},
             "plain_net": plain_net if kernel == "fused_nerf_march" else None,
             "max_err_nets": r["err_nets"],
             "wide": r["wide"],
@@ -1780,6 +2352,7 @@ def main():
         })
     print(json.dumps({"render_grad": grad}), flush=True)
     print(json.dumps({"detector": detector}), flush=True)
+    print(json.dumps({"bilevel": bilevel}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,10 @@ in ``kernels/csrc/``); the psi render gradient (``hypergrad/render_grad.py``);
 and the detector stack: on-device auto-annotation
 (``detector.dataset.build_detector_batches_device``), RetinaNet-R50-FPN
 (``models/retinanet.py``), its inner fine-tune (``detector.trainer``) and
-COCO mAP (``detector.evaluator``).
+COCO mAP (``detector.evaluator``); the hypergradient engines
+(``hypergrad/influence.py``, ``hypergrad/unrolled.py``), the outer loop
+(``bilevel/driver.py``), its checkpoints, logs and timers (``utils/``) and
+the reference's command line (``cli.py``, ``config.parse_cli``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present they raise.

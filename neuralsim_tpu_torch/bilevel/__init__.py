@@ -1,5 +1,6 @@
-"""The bilevel loop (the names of ``neuralsim_tpu.bilevel`` that the port
-has; `bilevel/driver.py` is not ported yet)."""
+"""The bilevel loop (the names of ``neuralsim_tpu.bilevel``). The outer
+loop itself, ``driver.BilevelDriver``, is reached through its module, as in
+the JAX package."""
 
 from neuralsim_tpu_torch.bilevel.psi_init import psi_init
 from neuralsim_tpu_torch.bilevel.psi_opt import (

@@ -1,7 +1,9 @@
 """Configuration of the port: a copy of the fields of
 ``neuralsim_tpu.config`` that the port reads, with the same names and
 defaults (NeRF net, render, camera, sampler, detector, data, bilevel outer
-loop)."""
+loop, standalone NeRF training), and the reference's txt-config and flag
+surface (``parse_reference_config``, ``config_from_flags``, ``load_config``,
+``parse_cli``)."""
 
 from __future__ import annotations
 
@@ -174,6 +176,11 @@ class DetectorConfig:
     # reference) or "p5" (torchvision retinanet_resnet50_fpn); it must match
     # the checkpoint (models.convert_retinanet.detect_p6_source)
     fpn_p6_source: str = "c5"
+    # val-set streaming: 0 = the whole val set lives on the device; > 0 =
+    # the driver keeps the val images on the host and moves them to the
+    # device in chunks of about this many images (evaluate() and the
+    # hypergradient's val gradient)
+    eval_stream_images: int = 0
 
 
 @dataclass(frozen=True)
@@ -252,6 +259,27 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Standalone NeRF training (reference run_nerf_noscale.py:503-791).
+    The port does not train a NeRF yet; the fields are here so that the
+    reference's txt configs, which set them, parse."""
+
+    n_iters: int = 200000
+    n_rand: int = 1024
+    lrate: float = 5e-4
+    lrate_decay: int = 500              # exponential decay, in 1000s of steps
+    precrop_iters: int = 0
+    precrop_frac: float = 0.5
+    no_batching: bool = True
+    i_print: int = 100
+    i_weights: int = 10000
+    i_testset: int = 50000
+    i_video: int = 50000
+    render_only: bool = False
+    render_test: bool = False
+
+
+@dataclass(frozen=True)
 class NeuralSimConfig:
     net: NeRFNetConfig = field(default_factory=NeRFNetConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
@@ -260,7 +288,217 @@ class NeuralSimConfig:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     data: DataConfig = field(default_factory=DataConfig)
     bilevel: BilevelConfig = field(default_factory=BilevelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     seed: int = 0
 
     def replace(self, **kw) -> "NeuralSimConfig":
         return dataclasses.replace(self, **kw)
+
+
+# --------------------------------------------------------------------------- #
+# Reference txt-config ingestion
+# --------------------------------------------------------------------------- #
+
+
+def parse_reference_config(path: str) -> dict:
+    """Parse the reference's configargparse txt format (``key = value`` lines,
+    ``#`` comments — e.g. configs/nerf_param_ycbv_general.txt)."""
+    out: dict = {}
+    with open(path, "r") as f:
+        for raw in f:
+            line = raw.split("#", 1)[0].strip()
+            if not line or "=" not in line:
+                continue
+            key, val = (s.strip() for s in line.split("=", 1))
+            out[key] = _coerce(val)
+    return out
+
+
+def _coerce(val: str):
+    low = val.lower()
+    if low in ("true", "yes"):
+        return True
+    if low in ("false", "no"):
+        return False
+    try:
+        return int(val)
+    except ValueError:
+        pass
+    try:
+        return float(val)
+    except ValueError:
+        pass
+    return val
+
+
+# flag-name -> (section, field) mapping for the reference CLI surface
+# (reference config_parser, neural_sim_main.py:1215-1360)
+_FLAG_MAP = {
+    "basedir": ("data", "basedir"),
+    "datadir": ("data", "datadir"),
+    "expname": ("data", "expname"),
+    "object_id": ("data", "object_id"),
+    "dataset_type": ("data", "dataset_type"),
+    "half_res": ("data", "half_res"),
+    "testskip": ("data", "testskip"),
+    "train_val_path_info": ("data", "train_val_path_info"),
+    "test_distribution": ("data", "test_distribution"),
+    "ft_path": ("data", "ft_path"),
+    "white_bkgd": ("data", "white_bkgd"),
+    "render_factor": ("data", "render_factor"),
+    "netdepth": ("net", "netdepth"),
+    "netwidth": ("net", "netwidth"),
+    "netdepth_fine": ("net", "netdepth_fine"),
+    "netwidth_fine": ("net", "netwidth_fine"),
+    "multires": ("net", "multires"),
+    "multires_views": ("net", "multires_views"),
+    "i_embed": ("net", "i_embed"),
+    "use_viewdirs": ("net", "use_viewdirs"),
+    "N_samples": ("render", "n_samples"),
+    "N_importance": ("render", "n_importance"),
+    "perturb": ("render", "perturb"),
+    "raw_noise_std": ("render", "raw_noise_std"),
+    "lindisp": ("render", "lindisp"),
+    "chunk": ("render", "ray_chunk"),
+    "N_rand": ("train", "n_rand"),
+    "lrate": ("train", "lrate"),
+    "lrate_decay": ("train", "lrate_decay"),
+    "precrop_iters": ("train", "precrop_iters"),
+    "precrop_frac": ("train", "precrop_frac"),
+    "no_batching": ("train", "no_batching"),
+    "i_print": ("train", "i_print"),
+    "i_weights": ("train", "i_weights"),
+    "i_testset": ("train", "i_testset"),
+    "i_video": ("train", "i_video"),
+    "render_only": ("train", "render_only"),
+    "render_test": ("train", "render_test"),
+    "n_iters": ("train", "n_iters"),      # extension: reference hardcodes 200k
+    "n_samples_K": ("sampler", "n_samples_k"),
+    "gumble_T": ("sampler", "gumbel_temperature"),
+    "n_epochs": ("bilevel", "n_epochs"),
+    "opt_lr": ("bilevel", "opt_lr"),
+    "opt_method": ("bilevel", "opt_method"),
+    "psi_pose_cats_mode": ("bilevel", "psi_pose_cats_mode"),
+    "optimization": ("bilevel", "optimization"),
+    "pretrain": ("detector", "pretrain"),
+    "pretrain_weight": ("detector", "pretrain_weight"),
+    # extensions with no reference analog (production occupancy culling,
+    # gaussian psi, psi-gradient mode selection)
+    "hit_budget": ("render", "hit_budget"),
+    "tighten_bounds": ("render", "tighten_bounds"),
+    "cull_mode": ("render", "cull_mode"),
+    "n_samples_culled": ("render", "n_samples_culled"),
+    "n_importance_culled": ("render", "n_importance_culled"),
+    "use_pallas": ("render", "use_pallas"),
+    "fine_fraction": ("render", "fine_fraction"),
+    "psi_mode": ("bilevel", "psi_mode"),
+    "grad_mode": ("bilevel", "grad_mode"),
+    "ihvp_solver": ("bilevel", "ihvp_solver"),
+    "cg_iters": ("bilevel", "cg_iters"),
+    "lissa_iters": ("bilevel", "lissa_iters"),
+    "lissa_scale": ("bilevel", "lissa_scale"),
+    "grad_image_batch": ("bilevel", "grad_image_batch"),
+    "strip_image_batch": ("bilevel", "strip_image_batch"),
+    "grad_compute_dtype": ("bilevel", "grad_compute_dtype"),
+    "grad_hit_budget": ("bilevel", "grad_hit_budget"),
+    "eval_stream_images": ("detector", "eval_stream_images"),
+    "reuse_coarse": ("render", "reuse_coarse"),
+    "ndc": ("render", "ndc"),
+}
+
+# flags the reference accepts but that have no effect on this implementation
+# (llff/deepvoxels paths, netchunk-style serial chunking, tensorboard cadence)
+_IGNORED_FLAGS = {
+    "config", "netchunk", "no_reload",
+    "shape", "factor", "no_ndc", "spherify", "llffhold", "i_img",
+}
+
+
+# flags of the JAX package whose fields the port leaves out: they raise,
+# naming the flag, instead of being dropped
+_UNPORTED_FLAGS = {
+    "grad_dynamic_start": "a traced strip offset of the XLA strips program; "
+                          "the port's strips take no such argument",
+}
+
+
+def config_from_flags(flags: dict, base: Optional[NeuralSimConfig] = None) -> NeuralSimConfig:
+    """Build a NeuralSimConfig from a dict of reference-style flag values."""
+    cfg = base or NeuralSimConfig()
+    flags = dict(flags)
+    # one-flag production preset (round-4 bench headline: single-pass
+    # grid-guided rendering); applied BEFORE field flags so explicit
+    # --n_samples_culled etc. still override the preset
+    if flags.pop("production_render", False):
+        cfg = dataclasses.replace(cfg, render=cfg.render.production_mode())
+    sections = {
+        "net": dict(), "render": dict(), "camera": dict(), "sampler": dict(),
+        "detector": dict(), "bilevel": dict(), "data": dict(), "train": dict(),
+    }
+    for key, val in flags.items():
+        if key in _IGNORED_FLAGS:
+            continue
+        if key in _UNPORTED_FLAGS:
+            raise KeyError(f"flag --{key} sets a field the port leaves out "
+                           f"({_UNPORTED_FLAGS[key]})")
+        if key not in _FLAG_MAP:
+            raise KeyError(f"unknown flag: --{key}")
+        sec, fieldname = _FLAG_MAP[key]
+        if isinstance(val, str) and val == "None":
+            # nullable knobs (n_samples_culled / n_importance_culled / ...)
+            # accept `--flag None` to restore the disabled state; without
+            # this the truthy string "None" would flow into sample-count
+            # arithmetic at trace time
+            val = None
+        if key == "perturb":            # reference uses float 0/1
+            val = bool(val)
+        if key in ("optimization", "pretrain"):
+            val = bool(val)
+        if key in ("object_id", "psi_pose_cats_mode"):
+            val = str(val)
+        sections[sec][fieldname] = val
+    return dataclasses.replace(
+        cfg,
+        **{
+            name: dataclasses.replace(getattr(cfg, name), **vals)
+            for name, vals in sections.items()
+            if vals
+        },
+    )
+
+
+def load_config(config_path: Optional[str] = None, overrides: Optional[dict] = None) -> NeuralSimConfig:
+    """txt config + CLI overrides, reference precedence (CLI > file > defaults)."""
+    flags: dict = {}
+    if config_path:
+        flags.update(parse_reference_config(config_path))
+    if overrides:
+        flags.update(overrides)
+    return config_from_flags(flags)
+
+
+def parse_cli(argv=None) -> NeuralSimConfig:
+    """Reference-compatible CLI: ``--config file.txt`` + ``--flag value`` pairs."""
+    import argparse
+
+    parser = argparse.ArgumentParser("neuralsim_tpu_torch")
+    parser.add_argument("--config", type=str, default=None)
+    known, rest = parser.parse_known_args(argv)
+    overrides: dict = {}
+    it = iter(rest)
+    for tok in it:
+        if not tok.startswith("--"):
+            raise SystemExit(f"unexpected argument {tok!r}")
+        key = tok[2:]
+        if "=" in key:
+            key, val = key.split("=", 1)
+            overrides[key] = _coerce(val)
+            continue
+        # reference store_true flags
+        if key in ("no_batching", "use_viewdirs", "white_bkgd", "half_res",
+                   "lindisp", "no_reload", "render_only", "render_test",
+                   "no_ndc", "spherify", "production_render"):
+            overrides[key] = True
+            continue
+        overrides[key] = _coerce(next(it))
+    return load_config(known.config, overrides)

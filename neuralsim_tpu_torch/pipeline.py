@@ -48,6 +48,7 @@ from neuralsim_tpu_torch.sampler.poses import (
     poses_from_noise,
     psi_to_probs,
 )
+from neuralsim_tpu_torch.utils.png import write_png
 
 
 class NeuralSimRenderer:
@@ -160,13 +161,11 @@ class NeuralSimRenderer:
         with torch.no_grad():
             rgb, _, _ = self._render_impl(psi, noise)
         if savedir:
-            import imageio.v2 as imageio
-
             out = os.path.join(savedir, str(self.cfg.data.object_id))
             os.makedirs(out, exist_ok=True)
-            arr = rgb.cpu().numpy()
+            arr = to8b(rgb)
             for i in range(arr.shape[0]):
-                imageio.imwrite(os.path.join(out, f"{i:03d}.png"), to8b(arr[i]))
+                write_png(os.path.join(out, f"{i:03d}.png"), arr[i])
         return rgb, noise
 
     def render_images_grad(self, psi, noise: PoseNoise, grad_E,

@@ -53,7 +53,7 @@ def test_kernels_use_accurate_sines():
         assert "__sinf" not in text and "__cosf" not in text, path
 
 
-SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel", "hypergrad", "detector")
+SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel", "hypergrad", "detector", "utils")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
@@ -76,6 +76,13 @@ def test_subpackages_export_the_ported_names(sub):
 
 def test_from_imports_of_the_subpackages():
     from neuralsim_tpu_torch.bilevel import psi_init
+    from neuralsim_tpu_torch.bilevel.driver import BilevelDriver, EpochDraws, ValData
+    from neuralsim_tpu_torch.cli import main
+    from neuralsim_tpu_torch.config import parse_cli
+    from neuralsim_tpu_torch.hypergrad import inverse_hvp, mixed_grad_wrt_images
+    from neuralsim_tpu_torch.hypergrad.unrolled import unrolled_grad_images
+    from neuralsim_tpu_torch.utils import ResultLog, phase_timer
+    from neuralsim_tpu_torch.utils.checkpoint import CheckpointManager
     from neuralsim_tpu_torch.data import load_nerf_checkpoint
     from neuralsim_tpu_torch.detector import coco_map, inner_train
     from neuralsim_tpu_torch.models import nerf_apply
@@ -85,7 +92,12 @@ def test_from_imports_of_the_subpackages():
 
     assert render_poses is render_module.render_poses
     assert all(callable(f) for f in (psi_init, load_nerf_checkpoint, nerf_apply, get_rays,
-                                     poses_from_noise, coco_map, inner_train))
+                                     poses_from_noise, coco_map, inner_train, BilevelDriver,
+                                     main, parse_cli, inverse_hvp, mixed_grad_wrt_images,
+                                     unrolled_grad_images, ResultLog, phase_timer,
+                                     CheckpointManager))
+    assert EpochDraws._fields == ("noise", "batch_idx", "hvp_idx")
+    assert ValData._fields == ("images", "gt_boxes", "gt_labels", "gt_valid")
     with pytest.raises(AttributeError):
         import neuralsim_tpu_torch.ops as ops
 

@@ -34,9 +34,9 @@ from neuralsim_tpu_torch.models import retinanet as tr
 from tests.test_convert_retinanet import _fake_torchvision_sd
 
 
-# eval_stream_images streams the val set in the JAX package's bilevel loop, which
-# the port has not taken yet: its DetectorConfig leaves the field out
-UNPORTED_FIELDS = ("eval_stream_images",)
+# fields of the JAX DetectorConfig that the port's leaves out (none: the
+# bilevel driver brought eval_stream_images)
+UNPORTED_FIELDS = ()
 
 
 def jdc_of(dc: DetectorConfig) -> JDC:
