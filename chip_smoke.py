@@ -137,11 +137,34 @@ Phases, each of which exits nonzero when it fails:
      cosine of its grad_E with the influence grad_E, reported); cg_normal
      and auto-scaled LiSSA on the trained state (ms per HVP, finite; one
      HVP on the card and on the CPU within HVP_REL of each other and of
-     the card's float64 HVP); the CLI (cli.main with
-     --ft_path to a .tar written by save_nerf_tar_compatible, production
-     render, K = CLI_K, one epoch, PNGs written). A JSON line
-     {"bilevel": ...};
- 11. a JSON line of the kernels' numbers (float32 times under the
+     the card's float64 HVP); epoch 1 of the resume timed under
+     deterministic cuDNN beside the uninterrupted (default algorithms)
+     epoch 1; the CLI (cli.main with --ft_path to a .tar written by
+     save_nerf_tar_compatible, production render, K = CLI_K, one epoch, val
+     and background classes read from PNG trees written by write_png,
+     both TF32 switches on before it and the card policy asserted after
+     it: TF32 off, deterministic cuDNN; PNGs written), twice from one seed,
+     psi and grad_psi equal to the bit. A JSON line {"bilevel": ...};
+ 11. the NeRF trainer (phase_train_nerf): the box scene rendered at 400^2
+     (22 views) and written as a LINEMOD-layout directory (RGBA PNGs by
+     write_png, transforms_{train,val,test}.json), then train_cli.main on
+     it from random init: the default 8x256 pair, 64 + 128 samples,
+     N_rand 1024, float32, half_res 200^2, TRAIN_ITERS steps (the first
+     TRAIN_PRECROP in the central crop, as the reference's Blender
+     recipe). Every step
+     launches fused_nerf_march twice in its forward and nothing in its
+     backward; the loss falls; the test PSNR at the end is PSNR_RISE_DB
+     above that of the init; .tar and checkpoint written; the spiral is
+     PNG frames where imageio is missing (a video where it is installed);
+     render_only --render_test from the .tar gives the loop's test PSNR
+     within 1e-3 dB. Then TRAIN_CPU_STEPS steps from one init on the card
+     and on the CPU (perturb off, the same ray picks; losses within
+     TRAIN_REL), the kernel on the updated weights against its twin
+     (F32_TOL), the time to prepare a weight set (2 per step) and a
+     torch.profiler trace of PROFILE_STEPS steps. s/iteration (median,
+     synchronised), peak GB, launches of the test-set and spiral renders.
+     A JSON line {"train_nerf": ...};
+ 12. the run's total seconds; a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
      beside them, the 8x512 times, the production runs' launches, and the
      production and 8x512 render numbers in fused_nerf_march's record),
@@ -173,12 +196,13 @@ import time
 import numpy as np
 import torch
 
-from neuralsim_tpu_torch import cli, kernels, native
+from neuralsim_tpu_torch import cli, config, kernels, native, train_cli, train_nerf
 from neuralsim_tpu_torch.bilevel import driver
 from neuralsim_tpu_torch.bilevel.psi_init import psi_init
 from neuralsim_tpu_torch.bilevel.psi_opt import psi_optimizer_init, psi_optimizer_update
 from neuralsim_tpu_torch.hypergrad import influence, render_grad
 from neuralsim_tpu_torch.config import NeRFNetConfig, NeuralSimConfig
+from neuralsim_tpu_torch.data import load_linemod_data
 from neuralsim_tpu_torch.detector import dataset as detector_dataset
 from neuralsim_tpu_torch.detector import evaluator, trainer
 from neuralsim_tpu_torch.kernels import build
@@ -198,6 +222,7 @@ from neuralsim_tpu_torch.ops.render import render_poses, render_ray_batch
 from neuralsim_tpu_torch.ops.volume import stratified_z_vals
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
 from neuralsim_tpu_torch.utils.checkpoint import save_nerf_tar_compatible
+from neuralsim_tpu_torch.utils.png import write_png
 from neuralsim_tpu_torch.sampler.poses import (
     draw_pose_noise,
     draw_pose_noise_gaussian,
@@ -289,6 +314,26 @@ BILEVEL_REL = 1e-4
 HVP_REL = 1e-3
 RESUME_REL = 1e-5
 CLI_K = 8
+# the CLI's val / background PNG trees: classes (the object "2" and two
+# background classes), images per directory and their side (the renders')
+CLI_CLASSES = ("1", "2", "10")
+CLI_TREE_IMAGES, CLI_TREE_HW = 4, 100
+# phase 11: the box scene's LINEMOD directory (train, val, test views at
+# TRAIN_HW^2, half_res to TRAIN_HW / 2), the run (steps, rays per step),
+# card against CPU over the first TRAIN_CPU_STEPS steps (losses, relative),
+# and the least rise of the test PSNR over that of the init, in dB (set
+# before the first run on the card)
+TRAIN_VIEWS = (16, 2, 4)
+TRAIN_HW = 400
+TRAIN_ITERS, TRAIN_RAYS = 1000, 1024
+# the first TRAIN_PRECROP steps pick their rays in the central half of the
+# image (the reference's precrop_iters / precrop_frac, as its Blender
+# recipe): trained on whole images from the start, the pair collapsed to
+# the empty scene on the black background (no density, so no gradient to
+# bring it back; the loss stuck at that of an all-black render)
+TRAIN_PRECROP = 300
+TRAIN_CPU_STEPS, TRAIN_REL = 3, 1e-4
+PSNR_RISE_DB = 5.0
 COUNTED = (rm.fused_nerf_march, rm.fused_nerf_mlp_widepe, rm.fused_nerf_mlp_pe,
            rm.fused_nerf_mlp, rm.fused_render_tile)
 
@@ -1790,11 +1835,39 @@ def bilevel_small_config() -> NeuralSimConfig:
         data=dataclasses.replace(cfg.data, save_pngs=False))
 
 
-def cli_argv(tar: str, basedir: str):
+def cli_argv(tar: str, basedir: str, path_info: str):
     """Phase 10's command line: the box scene from tar, production
-    render, K = CLI_K, one epoch, on the card."""
+    render, K = CLI_K, one epoch, the val and background trees of
+    path_info, on the card."""
     return ["--ft_path", tar, "--basedir", basedir, "--expname", "cli", "--production_render",
-            "--n_samples_K", str(CLI_K), "--n_epochs", "1", "--device", str(DEVICE)]
+            "--n_samples_K", str(CLI_K), "--n_epochs", "1", "--train_val_path_info", path_info,
+            "--device", str(DEVICE)]
+
+
+def write_cli_tree(tmp):
+    """The reference's directory layout for the CLI (configs/
+    ycb_synthetic_train_val_path_info.json): per class a train directory
+    (the background classes' images) and a directory of the val
+    distribution "one_1", CLI_TREE_IMAGES PNGs of CLI_TREE_HW^2 each (one
+    box of a random colour on black), written by write_png; returns the
+    path-info JSON's path."""
+    rng = np.random.RandomState(0)
+    info = {"dataset_name": "chip_smoke", "train_info": {}, "test_info": {"one_1": {}}}
+    for cate in CLI_CLASSES:
+        for kind, where in (("train", info["train_info"]), ("val", info["test_info"]["one_1"])):
+            d = os.path.join(tmp, "cli_tree", kind, cate)
+            os.makedirs(d)
+            for i in range(CLI_TREE_IMAGES):
+                img = np.zeros((CLI_TREE_HW, CLI_TREE_HW, 3), np.uint8)
+                y, x = rng.randint(CLI_TREE_HW // 20, CLI_TREE_HW // 2, 2)
+                h, w = rng.randint(CLI_TREE_HW // 5, CLI_TREE_HW // 2, 2)
+                img[y:y + h, x:x + w] = rng.randint(80, 256, 3)
+                write_png(os.path.join(d, f"{i:06d}.png"), img)
+            where[cate] = d
+    path = os.path.join(tmp, "cli_tree", "path_info.json")
+    with open(path, "w") as f:
+        json.dump(info, f)
+    return path
 
 
 def instrument(drv):
@@ -2040,7 +2113,15 @@ def bilevel_resume(cfg, models, val, ckdir, tmp, epoch1, seen):
     if not all(exact):
         raise AssertionError("bilevel resume: the restored state or the epoch's draws differ")
     got = mine["epochs"][0]["record"]
-    res = {"seconds": seconds}
+    # the cost of deterministic cuDNN algorithms on the outer iteration: this
+    # epoch 1 against the uninterrupted epoch 1 (default algorithms)
+    res = {"seconds": seconds, "deterministic_epoch_s": mine["epochs"][0]["seconds"],
+           "deterministic_stage_s": mine["epochs"][0]["stage_s"],
+           "default_epoch_s": epoch1["seconds"], "default_stage_s": epoch1["stage_s"]}
+    log(f"bilevel resume: epoch 1 under deterministic cuDNN {res['deterministic_epoch_s']:.3f} "
+        f"s, under the default algorithms {res['default_epoch_s']:.3f} s; stages (s) "
+        + ", ".join(f"{k} {v:.4f} / {epoch1['stage_s'].get(k, float('nan')):.4f}"
+                    for k, v in res["deterministic_stage_s"].items()))
     res["renders_max_abs"] = max(
         float((mine["out"]["_render"][0] - epoch1["out"]["_render"][0]).abs().max()),
         float((ref_out["_render"][0] - epoch1["out"]["_render"][0]).abs().max()))
@@ -2224,36 +2305,414 @@ def bilevel_solvers(drv, val, det_state):
     return res
 
 
+def cli_run(argv):
+    """cli.main(argv) on the card with both TF32 switches turned on before
+    it (the CLI must turn them off): (result, the epoch's record, seconds,
+    launches)."""
+    records = []
+    run_epoch = driver.BilevelDriver.run_epoch
+
+    def recorded(self, *args, **kwargs):
+        records.append(run_epoch(self, *args, **kwargs))
+        return records[-1]
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    driver.BilevelDriver.run_epoch = recorded
+    torch.cuda.synchronize()
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        driver.BilevelDriver.run_epoch = run_epoch
+    policy = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+              torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    if policy != (False, False, True, False):
+        raise AssertionError(f"bilevel cli: after cli.main TF32 matmul / cuDNN, cuDNN "
+                             f"deterministic / benchmark are {policy}, not the card policy")
+    if len(result["history"]) != 1 or len(records) != 1 or not torch.isfinite(
+            result["psi"]).all():
+        raise AssertionError(f"bilevel cli: {result['history']}")
+    return result, records[0], seconds, counts()
+
+
 def bilevel_cli(models, tmp):
     """python -m neuralsim_tpu_torch.cli's main on the card: the box scene
     from a reference .tar (save_nerf_tar_compatible), production render,
-    K = CLI_K, one epoch; PNGs written; fused_nerf_march launched."""
+    K = CLI_K, one epoch, the val and background classes read from PNG
+    trees (utils/png.py: no imageio); PNGs written; fused_nerf_march
+    launched; TF32 off after it. Twice from one seed: psi and grad_psi
+    must be equal to the bit."""
     tar = os.path.join(tmp, "box.tar")
     save_nerf_tar_compatible(tar, models)
-    basedir = os.path.join(tmp, "cli")
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    result = cli.main(cli_argv(tar, basedir))
-    torch.cuda.synchronize()
-    res = {"seconds": time.perf_counter() - t0, "launches": counts()}
-    if len(result["history"]) != 1 or not torch.isfinite(result["psi"]).all():
-        raise AssertionError(f"bilevel cli: {result['history']}")
-    if not res["launches"]["fused_nerf_march"] > 0:
-        raise AssertionError("bilevel cli: the render launched no kernel")
-    with open(os.path.join(basedir, "cli", "detectron_output", "save_result.txt")) as f:
-        lines = f.read().splitlines()
-    pngs = os.path.join(basedir, "cli", "renderonly_path", "2")
-    res["pngs"] = len(os.listdir(pngs)) - 1 + len(os.listdir(os.path.join(pngs, "withgrad")))
-    lines = [ln for ln in lines if ln.startswith("epoch: ")]
-    if len(lines) != 2 or res["pngs"] != 2 * CLI_K:
-        raise AssertionError(f"bilevel cli: {len(lines)} log lines, {res['pngs']} PNGs")
+    path_info = write_cli_tree(tmp)
+    runs = []
+    for run in range(2):
+        basedir = os.path.join(tmp, f"cli{run}")
+        result, record, seconds, launches = cli_run(cli_argv(tar, basedir, path_info))
+        runs.append((result, record))
+        if run == 0:
+            res = {"seconds": seconds, "launches": launches, "policy_after": "tf32 off, "
+                   "cudnn deterministic, benchmark off"}
+            if not launches["fused_nerf_march"] > 0:
+                raise AssertionError("bilevel cli: the render launched no kernel")
+            with open(os.path.join(basedir, "cli", "detectron_output",
+                                   "save_result.txt")) as f:
+                lines = [ln for ln in f.read().splitlines() if ln.startswith("epoch: ")]
+            pngs = os.path.join(basedir, "cli", "renderonly_path", "2")
+            res["pngs"] = (len(os.listdir(pngs)) - 1
+                           + len(os.listdir(os.path.join(pngs, "withgrad"))))
+            if len(lines) != 2 or res["pngs"] != 2 * CLI_K:
+                raise AssertionError(f"bilevel cli: {len(lines)} log lines, {res['pngs']} PNGs")
+        else:
+            res["second_run_seconds"] = seconds
+    n_val = len(CLI_CLASSES) * CLI_TREE_IMAGES
+    res["val_images"], res["background_images"] = n_val, n_val - CLI_TREE_IMAGES
+    (r0, e0), (r1, e1) = runs
+    res["repeat"] = {
+        "psi_max_abs": float((r0["psi"] - r1["psi"]).abs().max()),
+        "grad_psi_max_abs": float(np.abs(e0["grad_psi"] - e1["grad_psi"]).max()),
+        "grad_psi_rel": float(np.linalg.norm(e0["grad_psi"] - e1["grad_psi"])
+                              / np.linalg.norm(e0["grad_psi"])),
+        "inner_loss": [e0["inner_loss"], e1["inner_loss"]]}
+    res["repeat"]["equal"] = (torch.equal(r0["psi"], r1["psi"])
+                              and np.array_equal(e0["grad_psi"], e1["grad_psi"]))
     log(f"bilevel cli: one epoch at K={CLI_K} in {res['seconds']:.3f} s (construction "
-        f"included), launches {res['launches']}, {res['pngs']} PNGs")
+        f"included; again {res['second_run_seconds']:.3f} s), launches {res['launches']}, "
+        f"{res['pngs']} PNGs, {n_val} val and {res['background_images']} background PNGs "
+        f"read; two runs from one seed: {json.dumps(res['repeat'])}")
+    if not res["repeat"]["equal"]:
+        raise AssertionError("bilevel cli: two runs from one seed differ (psi or grad_psi); "
+                             "torch.use_deterministic_algorithms(True, warn_only=True) "
+                             "around cli.main names the ops without a deterministic form")
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the NeRF trainer
+# --------------------------------------------------------------------------- #
+
+
+def write_box_dataset(box, datadir):
+    """The box scene's renders as a LINEMOD-layout directory: TRAIN_VIEWS
+    (train, val, test) views at TRAIN_HW^2 with bench.py's camera, from
+    poses around the box at radius 1.01 (azimuths spread, elevations -20 and
+    -45 alternating, the test and val views interleaved with the train
+    ones), RGBA PNGs written by write_png (alpha = acc),
+    transforms_{split}.json with absolute file_path, transform_matrix,
+    intrinsic_matrix and the object's near / far (distance -/+ its
+    half-diagonal and 0.05). Rendered in bfloat16 (the exact render, test
+    mode). Returns (seconds, the camera distance)."""
+    t0 = time.perf_counter()
+    n = sum(TRAIN_VIEWS)
+    theta = torch.linspace(-180.0, 180.0, n + 1)[:-1] + 7.0
+    phi = torch.where(torch.arange(n) % 2 == 0, -20.0, -45.0)
+    poses = pose_spherical(theta, phi, 1.01)
+    net = NeRFNetConfig()
+    rc = dataclasses.replace(NeuralSimConfig().render, near=0.5, far=1.5,
+                             compute_dtype="bfloat16").test_mode()
+    frames = []
+    with torch.no_grad():
+        for i in range(0, n, 4):
+            out = render_poses({"coarse": box, "fine": box}, poses[i:i + 4], TRAIN_HW, TRAIN_HW,
+                               BENCH_K, net, rc, device=DEVICE)
+            frames.append(torch.cat([out["rgb_map"], out["acc_map"][..., None]], -1).cpu())
+    frames = torch.cat(frames).clamp(0, 1)
+    test = list(range(2, n, n // TRAIN_VIEWS[2]))[:TRAIN_VIEWS[2]]
+    val = [i + 3 for i in test][:TRAIN_VIEWS[1]]
+    train = [i for i in range(n) if i not in test + val]
+    radius = 0.06 * math.sqrt(3.0)
+    os.makedirs(datadir, exist_ok=True)
+    for split, ids in (("train", train), ("val", val), ("test", test)):
+        metas = []
+        for i in ids:
+            path = os.path.join(datadir, f"{split}_{i:03d}.png")
+            write_png(path, (255 * frames[i].numpy()).astype(np.uint8))
+            metas.append({"file_path": path, "transform_matrix": poses[i].tolist(),
+                          "intrinsic_matrix": BENCH_K})
+        with open(os.path.join(datadir, f"transforms_{split}.json"), "w") as f:
+            json.dump({"near": 1.01 - radius - 0.05, "far": 1.01 + radius + 0.05,
+                       "frames": metas}, f)
+    return time.perf_counter() - t0
+
+
+def train_argv(datadir, basedir):
+    """Phase 11's command line: the default net (8x256 coarse and fine, PE
+    10 / 4), 64 + 128 samples, perturbed, N_rand TRAIN_RAYS, float32,
+    half_res (200^2), TRAIN_ITERS steps (the first TRAIN_PRECROP in the
+    central crop) with the .tar and checkpoint at the end, on the card."""
+    return ["--datadir", datadir, "--basedir", basedir, "--expname", "nerf", "--n_iters",
+            str(TRAIN_ITERS), "--N_rand", str(TRAIN_RAYS), "--precrop_iters",
+            str(TRAIN_PRECROP), "--precrop_frac", "0.5", "--i_weights", str(TRAIN_ITERS),
+            "--i_video", "0", "--i_testset", "0", "--i_print", str(TRAIN_ITERS // 5),
+            "--device", str(DEVICE)]
+
+
+@contextlib.contextmanager
+def trainer_instruments():
+    """Record, while inside: each train step's loss, synchronized host-clock
+    iteration time and kernel launches (all, and those of its forward);
+    each test-set and spiral render's result, seconds and launches."""
+    rec = {"loss": [], "iter_s": [], "step_launches": [], "forward_launches": [],
+           "testset": [], "spiral": []}
+    step, loss_fn = train_nerf.train_step, train_nerf.nerf_loss
+    testset, spiral = train_cli.render_testset, train_cli.render_spiral_video
+    last = [None]
+
+    def since_step():
+        return {k: v - last[0][1][k] for k, v in counts().items()}
+
+    def counted_loss(*args, **kwargs):
+        out = loss_fn(*args, **kwargs)
+        rec["forward_launches"].append(since_step())
+        return out
+
+    def timed_step(*args, **kwargs):
+        if last[0] is None:
+            torch.cuda.synchronize()
+            last[0] = (time.perf_counter(), counts())
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["iter_s"].append(now - last[0][0])
+        rec["step_launches"].append(since_step())
+        rec["loss"].append(float(out[1]["loss"]))
+        last[0] = (now, counts())
+        return out
+
+    def render(name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec[name].append({"result": out, "seconds": time.perf_counter() - t0,
+                              "launches": {k: v - before[k] for k, v in counts().items()}})
+            last[0] = None
+            return out
+        return wrapped
+
+    train_nerf.train_step, train_nerf.nerf_loss = timed_step, counted_loss
+    train_cli.render_testset = render("testset", testset)
+    train_cli.render_spiral_video = render("spiral", spiral)
+    try:
+        yield rec
+    finally:
+        train_nerf.train_step, train_nerf.nerf_loss = step, loss_fn
+        train_cli.render_testset, train_cli.render_spiral_video = testset, spiral
+
+
+def train_card_vs_cpu(ds, net, rc, tc):
+    """TRAIN_CPU_STEPS train steps (perturb off, so the render draws
+    nothing) from one init on the same ray batches (picked on the card,
+    copied to the CPU), on the card and on the CPU: losses within
+    TRAIN_REL; after them the march kernel on the updated weights against
+    its twin (F32_TOL). Returns the record and the card state."""
+    rc0 = dataclasses.replace(rc, perturb=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    state = train_nerf.init_train_state(net, rc0, tc, gen, DEVICE)
+    images = torch.as_tensor(ds.images, device=DEVICE)
+    poses = torch.as_tensor(ds.poses, device=DEVICE)
+    cam = ds.camera
+    batches = [train_nerf.sample_image_rays(images[i], poses[i], cam.height, cam.width, cam.K,
+                                            tc.n_rand, generator=gen)
+               for i in ds.i_split[0][:TRAIN_CPU_STEPS]]
+    card, cpu = state, to_cpu(state)
+    card_loss, cpu_loss = [], []
+    t0 = time.perf_counter()
+    for batch in batches:
+        card, m = train_nerf.train_step(card, *batch, net, rc0, tc)
+        card_loss.append(float(m["loss"]))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for batch in batches:
+        cpu, m = train_nerf.train_step(cpu, *(b.cpu() for b in batch), net, rc0, tc)
+        cpu_loss.append(float(m["loss"]))
+    cpu_s = time.perf_counter() - t0
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss)]
+    got, want = (torch.cat([flat_tree(p[name]) for name in sorted(p)])
+                 for p in (card.params, cpu.params))
+    res = {"card_loss": card_loss, "cpu_loss": cpu_loss, "loss_rel": rel,
+           "card_s": card_s, "cpu_s": cpu_s,
+           "params_rel": float((got - want).norm() / want.norm())}
+    log(f"train: {TRAIN_CPU_STEPS} steps card vs CPU (perturb off, the same picks): losses "
+        f"{card_loss} / {cpu_loss}, rel {rel} (limit {TRAIN_REL:g}); params after them "
+        f"{res['params_rel']:.3e} of the norm (reported); CPU {cpu_s:.1f} s")
+    if not max(rel) <= TRAIN_REL:
+        raise AssertionError(f"train: card vs CPU losses {rel}")
+    # the kernel forward after the steps equals the twin's on the new weights
+    ro, rd, _ = batches[0]
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    z = stratified_z_vals(ro.shape[0], rc0.n_samples, rc0.near, rc0.far, perturb=False,
+                          device=DEVICE)
+    res["kernel_vs_twin_after_steps"] = {}
+    with torch.no_grad():
+        for name, params in card.params.items():
+            got = rm.fused_nerf_march(params, ro, rd, vd, z, net, torch.float32)
+            want = rm.march_channels_ref(params, ro, rd, vd, z, net, torch.float32)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            res["kernel_vs_twin_after_steps"][name] = err
+            if not err <= F32_TOL:
+                raise AssertionError(f"train: after {TRAIN_CPU_STEPS} steps the {name} "
+                                     f"kernel is {err:.3e} from its twin")
+    log(f"train: the kernel on the updated weights vs its twin: "
+        f"{res['kernel_vs_twin_after_steps']} (limit {F32_TOL:g})")
+    return res, card, batches
+
+
+def packing_ms(params, net, reps=5):
+    """ms (host clock, synchronized) to prepare one weight set's padded
+    float32 weights and chunks (kernels.raymarch._packed_weights) that no
+    cache entry holds: what every train step pays twice."""
+    lib = rm._library("nerf_march")
+    depth = rm._depth(params)
+    times = []
+    for _ in range(reps):
+        fresh = {k: v.clone() for k, v in params.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rm._packed_weights(fresh, net, depth, False, lib, "packing")
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_train_nerf(box, smi):
+    """Phase 11: the NeRF trainer. The box scene's renders as a LINEMOD
+    directory; train_cli.main trains the default pair from random init
+    on the card (the main path: 2 launches of fused_nerf_march per step,
+    none in the backward; the loss falls; the test PSNR at the end at least
+    PSNR_RISE_DB above that of the init; .tar and checkpoint written; the
+    spiral's PNG frames where imageio is missing); render_only
+    --render_test from the .tar reproduces the test PSNR; then card vs CPU
+    steps, the kernel on the updated weights, the packing share and a
+    torch.profiler trace of PROFILE_STEPS steps."""
+    import importlib.util
+
+    net = NeRFNetConfig()
+    rec = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        datadir, basedir = os.path.join(tmp, "box_linemod"), os.path.join(tmp, "logs")
+        rec["dataset_s"] = write_box_dataset(box, datadir)
+        argv = train_argv(datadir, basedir)
+        cfg = config.parse_cli(argv[:-2])
+        ds = load_linemod_data(datadir, cfg.data.half_res, cfg.data.testskip)
+        cam = ds.camera
+        rc = dataclasses.replace(cfg.render, near=cam.near, far=cam.far)
+        tc = cfg.train
+        rec["config"] = (
+            f"{cfg.net.netdepth}x{cfg.net.netwidth} coarse and fine, PE {cfg.net.multires} / "
+            f"{cfg.net.multires_views}, {rc.n_samples} + {rc.n_importance} samples, "
+            f"N_rand {tc.n_rand}, {rc.compute_dtype}, perturb {rc.perturb}, lr {tc.lrate} "
+            f"decay {tc.lrate_decay}k, {TRAIN_ITERS} steps (precrop {tc.precrop_frac} for "
+            f"{tc.precrop_iters}); box-scene LINEMOD directory "
+            f"{TRAIN_VIEWS} views at {TRAIN_HW}^2 -> {cam.height}x{cam.width} (half_res), "
+            f"near/far {cam.near:.3f}/{cam.far:.3f}")
+        log(f"train: {rec['config']}; dataset written in {rec['dataset_s']:.2f} s")
+        init = train_nerf.init_train_state(cfg.net, rc, tc, torch.Generator(
+            device=DEVICE).manual_seed(cfg.seed), DEVICE)
+        rec["init_test_psnr"] = train_cli.render_testset(init.params, ds, cfg.net, rc,
+                                                         os.path.join(tmp, "init"), DEVICE)
+        del init
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with trainer_instruments() as seen:
+            state = train_cli.main(argv)
+        torch.cuda.synchronize()
+        rec["main_s"] = time.perf_counter() - t0
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["launches"] = counts()
+        steps = len(seen["loss"])
+        rec["steps"] = steps
+        rec["s_per_iter_median"] = statistics.median(seen["iter_s"][1:])
+        rec["s_per_iter_first"] = seen["iter_s"][0]
+        rec["train_s"] = sum(seen["iter_s"])
+        per_step = {k: sorted({st[k] for st in seen["step_launches"]})
+                    for k in seen["step_launches"][0]}
+        forward = sorted({st["fused_nerf_march"] for st in seen["forward_launches"]})
+        rec["launches_per_step"] = per_step
+        rec["train_launches"] = {k: sum(st[k] for st in seen["step_launches"])
+                                 for k in seen["step_launches"][0]}
+        log(f"train: {steps} steps in {rec['train_s']:.2f} s; s/iteration median "
+            f"{rec['s_per_iter_median']:.5f} (first {rec['s_per_iter_first']:.3f}); launches "
+            f"per step {per_step}, in its forward {forward}; peak {rec['peak_gb']:.2f} GB")
+        if steps != TRAIN_ITERS or int(state.step) != TRAIN_ITERS:
+            raise AssertionError(f"train: {steps} steps, state at {int(state.step)}")
+        if per_step["fused_nerf_march"] != [2] or forward != [2] or any(
+                v != [0] for k, v in per_step.items() if k != "fused_nerf_march"):
+            raise AssertionError(f"train: launches per step {per_step}, forward {forward}: "
+                                 "not 2 of fused_nerf_march in the forward, 0 in the backward")
+        k = min(50, steps // 4)
+        rec["loss_first"], rec["loss_last"] = (statistics.mean(seen["loss"][:k]),
+                                               statistics.mean(seen["loss"][-k:]))
+        rec["loss_every_100"] = seen["loss"][::100]
+        if not (all(math.isfinite(x) for x in seen["loss"])
+                and rec["loss_last"] < rec["loss_first"]):
+            raise AssertionError(f"train: loss {rec['loss_first']} -> {rec['loss_last']}")
+        (final,) = seen["testset"]
+        rec["test_psnr"] = final["result"]
+        rec["testset_launches"] = final["launches"]
+        rec["testset_s"] = final["seconds"]
+        log(f"train: loss {rec['loss_first']:.5f} -> {rec['loss_last']:.5f} (means of {k} "
+            f"steps); test PSNR {rec['init_test_psnr']:.3f} dB at init -> "
+            f"{rec['test_psnr']:.3f} dB (need +{PSNR_RISE_DB:g}); test-set render "
+            f"{final['seconds']:.3f} s, launches {final['launches']}")
+        if not rec["test_psnr"] >= rec["init_test_psnr"] + PSNR_RISE_DB:
+            raise AssertionError("train: the test PSNR did not rise by the margin")
+        expdir = os.path.join(basedir, "nerf")
+        tar = os.path.join(expdir, f"{TRAIN_ITERS:06d}.tar")
+        ckpt = os.path.join(expdir, "checkpoints", f"ckpt_{TRAIN_ITERS:08d}.pt")
+        if not (os.path.exists(tar) and os.path.exists(ckpt)):
+            raise AssertionError(f"train: {tar} or {ckpt} missing")
+        (sp,) = seen["spiral"]
+        spiral = sp["result"]
+        rec["spiral"] = {"path": os.path.relpath(spiral.path, tmp), "video": spiral.video,
+                         "seconds": sp["seconds"], "launches": sp["launches"]}
+        has_imageio = importlib.util.find_spec("imageio") is not None
+        if has_imageio:
+            ok = spiral.video and os.path.isfile(spiral.path)
+        else:
+            ok = (not spiral.video and os.path.isdir(spiral.path)
+                  and len(os.listdir(spiral.path)) == len(ds.render_poses))
+        log(f"train: spiral {rec['spiral']} (imageio installed: {has_imageio})")
+        if not ok:
+            raise AssertionError(f"train: spiral {spiral}")
+
+        # render_only from the .tar reproduces the in-loop test PSNR
+        with trainer_instruments() as again:
+            out = train_cli.main(argv + ["--render_only", "--render_test", "--ft_path", tar])
+        (ro,) = again["testset"]
+        rec["render_only_psnr"] = ro["result"]
+        log(f"train: render_only --render_test from the .tar: {ro['result']:.5f} dB against "
+            f"{rec['test_psnr']:.5f} in the loop")
+        if out is not None or not abs(ro["result"] - rec["test_psnr"]) <= 1e-3:
+            raise AssertionError("train: render_only did not reproduce the test PSNR")
+
+        rec["card_vs_cpu"], card, batches = train_card_vs_cpu(ds, cfg.net, rc, tc)
+        rec["packing_ms"] = packing_ms(card.params["coarse"], cfg.net)
+        rec["packing_share"] = 2 * rec["packing_ms"] / (1e3 * rec["s_per_iter_median"])
+        log(f"train: preparing one weight set {rec['packing_ms']:.3f} ms, 2 per step: "
+            f"{rec['packing_share']:.4f} of a step")
+
+        def steps_fn():
+            s = card
+            for i in range(PROFILE_STEPS):
+                s, _ = train_nerf.train_step(s, *batches[i % len(batches)], cfg.net, rc, tc,
+                                             torch.Generator(device=DEVICE).manual_seed(i))
+
+        rec["profile"] = profile_steps(steps_fn, PROFILE_STEPS)
+        log(f"train: {PROFILE_STEPS} steps under torch.profiler: {json.dumps(rec['profile'])}")
+    return rec
+
+
 def main():
+    t_start = time.perf_counter()
     name, smi = phase_device()
     peak_key, peaks = peaks_for(name)
     log(f"peaks ({peak_key}): fp32 {peaks[0] / 1e12:.0f} TFLOP/s, bf16 "
@@ -2270,6 +2729,7 @@ def main():
     grad = phase_render_grad(box, smi)
     detector = phase_detector(pipeline["float32"]["renderer"], smi)
     bilevel = phase_bilevel(box, smi)
+    train = phase_train_nerf(box, smi)
     production_launched = {f"pipeline_{name}": run["launched"] for name, run in pipeline.items()}
     production_launched.update({name: run["launched"] for name, run in others.items()})
     production_launched.update({f"bench_{k}": v for k, v in bench["launched"].items()})
@@ -2335,6 +2795,11 @@ def main():
                                                bilevel["stage_launches"]],
                                  "cull_guard": bilevel["guard_launches"][kernel],
                                  "run": bilevel["launches"][kernel]},
+            "train_launches": {"run": train["launches"][kernel],
+                               "train_steps": train["train_launches"][kernel],
+                               "per_step": train["launches_per_step"][kernel],
+                               "testset": train["testset_launches"][kernel],
+                               "spiral": train["spiral"]["launches"][kernel]},
             "plain_net": plain_net if kernel == "fused_nerf_march" else None,
             "max_err_nets": r["err_nets"],
             "wide": r["wide"],
@@ -2353,6 +2818,8 @@ def main():
     print(json.dumps({"render_grad": grad}), flush=True)
     print(json.dumps({"detector": detector}), flush=True)
     print(json.dumps({"bilevel": bilevel}), flush=True)
+    print(json.dumps({"train_nerf": train}), flush=True)
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

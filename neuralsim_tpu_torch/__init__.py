@@ -21,7 +21,15 @@ and the detector stack: on-device auto-annotation
 COCO mAP (``detector.evaluator``); the hypergradient engines
 (``hypergrad/influence.py``, ``hypergrad/unrolled.py``), the outer loop
 (``bilevel/driver.py``), its checkpoints, logs and timers (``utils/``) and
-the reference's command line (``cli.py``, ``config.parse_cli``).
+the reference's command line (``cli.py``, ``config.parse_cli``); the
+standalone NeRF trainer (``train_nerf.py``, ``train_cli.py``) on the LINEMOD
+loader (``data.load_linemod_data``, frames read by ``utils/png.py``); the
+sampler diagnostics and the offline BOP tools (``sampler/diagnostics.py``,
+``data/bop_convert.py``, ``data/blenderproc_config.py``). Not ported yet:
+``parallel/`` and the ``mesh`` paths that take it.
+
+On the card the command lines set one numeric policy
+(``set_card_numerics``): TF32 off, deterministic cuDNN algorithms.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present they raise.
@@ -43,6 +51,26 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device: pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on_card(device) -> bool:
+    """Whether ``device`` is a CUDA device."""
+    return torch.device(device).type == "cuda"
+
+
+def set_card_numerics(device):
+    """The port's one numeric policy on the card, set by the command lines
+    once they know their device: float32 stays float32 (TF32 off for
+    cuBLAS and cuDNN, as the parity limits assume) and cuDNN picks
+    deterministic algorithms, not benchmarked ones, so that a run repeats
+    from its seed as the JAX package's runs repeat from their key. Process
+    wide, as torch's switches are; nothing on another device."""
+    if not on_card(device):
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def draw(shape, generator=None, device="cpu", normal: bool = False) -> torch.Tensor:

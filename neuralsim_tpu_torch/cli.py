@@ -5,8 +5,10 @@
 --expname ycbv2_01 --object_id 2 --psi_pose_cats_mode 5 --test_distribution
 one_1`` mirrors the reference invocation (``README.md:104-117`` /
 ``optimization/neural_sim_main.py:1363-1383``): build the renderer and the
-detector's data, then run the bilevel optimization. It runs on the card;
-``--device cpu`` runs it on the CPU.
+detector's data, then run the bilevel optimization. It runs on the card,
+in float32 with TF32 off and deterministic cuDNN algorithms
+(``set_card_numerics``); ``--device cpu`` runs it on the CPU. Val and
+background images are read with the port's own PNG reader.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 
 def main(argv=None, cfg=None, device=None):
-    from neuralsim_tpu_torch import resolve_device
+    from neuralsim_tpu_torch import resolve_device, set_card_numerics
     from neuralsim_tpu_torch.bilevel.driver import BilevelDriver
     from neuralsim_tpu_torch.config import parse_cli
     from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
@@ -32,6 +34,7 @@ def main(argv=None, cfg=None, device=None):
         device = device if device is not None else known.device
         cfg = parse_cli(argv)
     device = resolve_device(device)
+    set_card_numerics(device)
 
     expdir = os.path.join(cfg.data.basedir, cfg.data.expname)
     os.makedirs(expdir, exist_ok=True)
@@ -91,7 +94,7 @@ def _load_detector_data(cfg, device):
 
 
 def _read_class_dirs(dirs, class_to_idx, basedir):
-    import imageio.v2 as imageio
+    from neuralsim_tpu_torch.utils.png import read_png
 
     images, labels = [], []
     for cname, d in dirs.items():
@@ -100,7 +103,7 @@ def _read_class_dirs(dirs, class_to_idx, basedir):
             continue
         for f in sorted(os.listdir(full)):
             if f.endswith(".png"):
-                img = np.asarray(imageio.imread(os.path.join(full, f)), np.float32) / 255.0
+                img = read_png(os.path.join(full, f)).astype(np.float32) / 255.0
                 images.append(img[..., :3])
                 labels.append(class_to_idx[cname])
     if not images:

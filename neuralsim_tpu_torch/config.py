@@ -260,9 +260,8 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Standalone NeRF training (reference run_nerf_noscale.py:503-791).
-    The port does not train a NeRF yet; the fields are here so that the
-    reference's txt configs, which set them, parse."""
+    """Standalone NeRF training (reference run_nerf_noscale.py:503-791):
+    the fields ``train_nerf`` and ``train_cli`` read."""
 
     n_iters: int = 200000
     n_rand: int = 1024

@@ -26,6 +26,7 @@ from neuralsim_tpu_torch import resolve_device
 from neuralsim_tpu_torch.config import DetectorConfig
 from neuralsim_tpu_torch.native import connected_components, rle_encode
 from neuralsim_tpu_torch.ops.components import component_boxes
+from neuralsim_tpu_torch.utils.png import read_png
 
 # ITU-R BT.601 luma: what cv2.cvtColor(RGB2GRAY) computes (reference :793)
 _LUMA = np.array([0.299, 0.587, 0.114], np.float32)
@@ -147,7 +148,6 @@ def write_coco_json(class_dirs: Dict[str, str], json_path: str,
     COCO JSON (reference createCocoJSONFromSynthetics, :624-727 — same
     dataset dict: category ids are 1-based in directory order, one largest
     box per image)."""
-    import imageio.v2 as imageio
     from shutil import copyfile
 
     images, annotations, categories = [], [], []
@@ -162,7 +162,7 @@ def write_coco_json(class_dirs: Dict[str, str], json_path: str,
         )
         for fname in files:
             path = os.path.join(class_dir, fname)
-            img = imageio.imread(path)
+            img = read_png(path)
             h, w = img.shape[:2]
             rel = os.path.join(class_name, fname)
             if copy_to:
@@ -204,8 +204,6 @@ def dataset_dicts_from_dirs(basedir: str, cate_to_id: Dict[str, int],
     dicts with auto-annotated boxes + RLE masks (reference get_ycbv_dicts,
     ``neural_sim_main.py:799-832`` — the alternative, JSON-free registration
     path)."""
-    import imageio.v2 as imageio
-
     dicts: List[dict] = []
     image_index = 0
     for cate in sorted(os.listdir(basedir)):
@@ -216,7 +214,7 @@ def dataset_dicts_from_dirs(basedir: str, cate_to_id: Dict[str, int],
             if not fname.endswith(".png"):
                 continue
             path = os.path.join(cdir, fname)
-            img = np.asarray(imageio.imread(path))
+            img = read_png(path)
             h, w = img.shape[:2]
             record = {"file_name": path, "image_id": image_index,
                       "height": h, "width": w, "annotations": []}

@@ -31,7 +31,7 @@ highest coarse opacity only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,13 +68,18 @@ def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
                 rc: RenderConfig, generator: Optional[torch.Generator] = None,
-                near=None, far=None) -> Dict[str, torch.Tensor]:
+                near=None, far=None,
+                uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
     """Render rays [N,3] with the coarse(+fine) pair.
 
     viewdirs: [N,3] unit directions (None when use_viewdirs=False).
     generator: draws the stratified jitter, the importance-sampling
     uniforms and the density noise when rc asks for them.
     near, far: optional per-ray [N] overrides of rc.near / rc.far.
+    uniforms: optional (u_z [N, n_samples], u_pdf [N, n_importance]), the
+    stratified jitter and importance-sampling draws to use in place of the
+    generator's (the JAX package's k_strat and k_pdf uniforms, in tests).
 
     Returns rgb_map/disp_map/acc_map/depth_map, plus rgb0/disp0/acc0 and
     z_std when n_importance > 0.
@@ -86,10 +91,11 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
     """
     n_rays = rays_o.shape[0]
     compute_dtype = as_dtype(rc.compute_dtype)
+    u_z, u_pdf = uniforms if uniforms is not None else (None, None)
     z_vals = stratified_z_vals(
         n_rays, rc.n_samples,
         rc.near if near is None else near, rc.far if far is None else far,
-        perturb=rc.perturb, lindisp=rc.lindisp, generator=generator,
+        perturb=rc.perturb, lindisp=rc.lindisp, u=u_z, generator=generator,
         device=rays_o.device)
     use_reuse = rc.reuse_coarse and rc.n_importance > 0 and rc.fine_fraction >= 1.0
     if use_reuse:
@@ -109,7 +115,7 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
         if use_reuse:
             f_out = _fine_pass_reuse(models, rays_o, rays_d, viewdirs, z_vals,
                                      sigma_c, rgb3_c, weights, net, rc,
-                                     compute_dtype, generator)
+                                     compute_dtype, generator, u_pdf)
         elif rc.fine_fraction < 1.0:
             k_sel = max(8, int(round(n_rays * rc.fine_fraction)))
             k_sel = min(n_rays, -(-k_sel // 8) * 8)
@@ -117,13 +123,13 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
             f_sel = _fine_pass(models, rays_o[sel], rays_d[sel],
                                None if viewdirs is None else viewdirs[sel],
                                z_vals[sel], weights[sel], net, rc, compute_dtype,
-                               generator)
+                               generator, None if u_pdf is None else u_pdf[sel])
             f_out = {k: base.index_copy(0, sel, f_sel[k]) for k, base in (
                 ("rgb_map", rgb_map), ("disp_map", disp_map), ("acc_map", acc_map),
                 ("depth_map", depth_map), ("z_std", torch.zeros_like(acc_map)))}
         else:
             f_out = _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
-                               net, rc, compute_dtype, generator)
+                               net, rc, compute_dtype, generator, u_pdf)
         rgb_map, disp_map, acc_map, depth_map = (
             f_out["rgb_map"], f_out["disp_map"], f_out["acc_map"], f_out["depth_map"])
         out["z_std"] = f_out["z_std"]
@@ -183,11 +189,12 @@ def _march_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
 
 def _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
                net: NeRFNetConfig, rc: RenderConfig, compute_dtype,
-               generator=None):
-    """Importance sampling + fine-network march + compositing."""
+               generator=None, u_pdf=None):
+    """Importance sampling (draws ``u_pdf`` when given) + fine-network
+    march + compositing."""
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     z_samples = sample_pdf(z_mid, weights[..., 1:-1], rc.n_importance,
-                           det=not rc.perturb, generator=generator).detach()
+                           det=not rc.perturb, u=u_pdf, generator=generator).detach()
     z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
     fine_params = models.get("fine") or models["coarse"]
     rgb_map, disp_map, acc_map, _, depth_map = _march(
@@ -200,7 +207,7 @@ def _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
 
 def _fine_pass_reuse(models, rays_o, rays_d, viewdirs, z_vals, sigma_c, rgb3_c,
                      weights, net: NeRFNetConfig, rc: RenderConfig, compute_dtype,
-                     generator=None):
+                     generator=None, u_pdf=None):
     """Fine pass that reuses the coarse raws (rc.reuse_coarse): the fine
     net marches the importance depths only, and the composite runs over
     the depth-sorted union of (coarse z, coarse raw) and (fine z, fine
@@ -208,7 +215,7 @@ def _fine_pass_reuse(models, rays_o, rays_d, viewdirs, z_vals, sigma_c, rgb3_c,
     stable sort of the depths and a gather of each payload."""
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     z_samples = sample_pdf(z_mid, weights[..., 1:-1], rc.n_importance,
-                           det=not rc.perturb, generator=generator).detach()
+                           det=not rc.perturb, u=u_pdf, generator=generator).detach()
     fine_params = models.get("fine") or models["coarse"]
     sigma_f, rgb3_f = _march_raw(fine_params, rays_o, rays_d, viewdirs, z_samples,
                                  net, rc, compute_dtype)
@@ -403,6 +410,17 @@ def _render(models, c2ws, lead, H, W, K, net, rc, generator, grid, device):
     out = render_ray_batch(models, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
                            net, rc, generator, grid=grid)
     return _reshape_maps(out, lead)
+
+
+def img2mse(x, y) -> torch.Tensor:
+    """Mean squared error (reference run_nerf_helpers.py:10)."""
+    return torch.mean((x - y) ** 2)
+
+
+def mse2psnr(x) -> torch.Tensor:
+    """PSNR in dB of a mean squared error (reference run_nerf_helpers.py:11)."""
+    x = torch.as_tensor(x)
+    return -10.0 * torch.log(x) / torch.log(torch.tensor(10.0, dtype=x.dtype))
 
 
 def to8b(x) -> np.ndarray:

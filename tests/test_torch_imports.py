@@ -9,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "neuralsim_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
+SOURCES = (sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
+           + [ROOT / "png_timing.py"])
 KERNELS = sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cuh"))
 
 
@@ -102,3 +103,50 @@ def test_from_imports_of_the_subpackages():
         import neuralsim_tpu_torch.ops as ops
 
         ops.not_a_name
+
+
+def test_from_imports_of_the_trainer_and_tools():
+    from neuralsim_tpu_torch import on_card, set_card_numerics
+    from neuralsim_tpu_torch.data import load_linemod_data
+    from neuralsim_tpu_torch.data.blender import LinemodDataset
+    from neuralsim_tpu_torch.data.blenderproc_config import SceneRecipe, blenderproc_config
+    from neuralsim_tpu_torch.data.bop_convert import convert_bop_scene, write_traindata_info
+    from neuralsim_tpu_torch.ops.render import img2mse, mse2psnr
+    from neuralsim_tpu_torch.sampler.diagnostics import (
+        plot_temperature_sweep,
+        sample_histogram,
+        temperature_sweep,
+    )
+    from neuralsim_tpu_torch.train_cli import main, render_spiral_video, render_testset
+    from neuralsim_tpu_torch.train_nerf import (
+        RayPool,
+        StepDraws,
+        TrainState,
+        make_optimizer,
+        train_nerf,
+        train_state_from_jax,
+        train_step,
+    )
+    from neuralsim_tpu_torch.utils.png import read_png, write_png
+
+    assert all(callable(f) for f in (
+        on_card, set_card_numerics, load_linemod_data, blenderproc_config, convert_bop_scene,
+        write_traindata_info, img2mse, mse2psnr, plot_temperature_sweep, sample_histogram,
+        temperature_sweep, main, render_spiral_video, render_testset, make_optimizer,
+        train_nerf, train_state_from_jax, train_step, read_png, write_png))
+    assert TrainState._fields == ("params", "opt_state", "step")
+    assert RayPool._fields == ("rays_o", "rays_d", "rgb")
+    assert StepDraws._fields == ("image", "pixels", "perm", "uniforms")
+    assert LinemodDataset._fields == ("images", "poses", "render_poses", "camera", "i_split")
+    assert SceneRecipe(object_id=2).object_id == 2
+
+
+def test_imageio_only_for_the_optional_video():
+    """The card's machine has no imageio: the port reads and writes PNGs
+    with utils/png.py, and imports imageio in one place only, the spiral
+    video of train_cli, which writes PNG frames and says so without it."""
+    users = {str(p.relative_to(ROOT)) for p in SOURCES
+             if any(m.split(".")[0] == "imageio" for m in _imports(p))}
+    assert users == {"neuralsim_tpu_torch/train_cli.py"}
+    text = (PORT / "train_cli.py").read_text()
+    assert "except ImportError:" in text
