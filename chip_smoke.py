@@ -164,7 +164,24 @@ Phases, each of which exits nonzero when it fails:
      torch.profiler trace of PROFILE_STEPS steps. s/iteration (median,
      synchronised), peak GB, launches of the test-set and spiral renders.
      A JSON line {"train_nerf": ...};
- 12. the run's total seconds; a JSON line of the kernels' numbers (float32 times under the
+ 12. the mesh (phase_mesh, parallel/): (a) phase 10's epoch 1 through
+     BilevelDriver(mesh=make_mesh(data=1)) on a one-rank NCCL group, from
+     phase 10's state after epoch 0 and its epoch-1 draws under
+     cudnn.deterministic, against the same epoch without a mesh (phase 10's
+     resume check): psi, grad_psi, the inner loss and mAP within MESH_REL
+     of the norm, fused_nerf_march launched as often as in phase 10's epoch
+     1 render; (b) two gloo ranks on the one card (parallel.launch, each
+     loading the kernels this run built) against one process: a K = MESH_K
+     epoch with float32 strips (K split over the data axis, the inner
+     train data-parallel, the strips' images split) at MESH_INNER_STEPS
+     inner steps, checked, and at the default 50, reported; and
+     MESH_TRAIN_STEPS train_nerf steps at N_rand MESH_RAYS (each rank 512
+     rays), at the tolerances by the MESH_* constants; each rank's kernel 1
+     launches, seconds per part, and which collectives gloo runs on CUDA
+     tensors.
+     A JSON line {"mesh": ...}. ``python3 chip_smoke.py --mesh`` runs this
+     phase alone on its own inputs (mesh_inputs);
+ 13. the run's total seconds; a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
      beside them, the 8x512 times, the production runs' launches, and the
      production and 8x512 render numbers in fused_nerf_march's record),
@@ -203,6 +220,7 @@ from neuralsim_tpu_torch.bilevel.psi_opt import psi_optimizer_init, psi_optimize
 from neuralsim_tpu_torch.hypergrad import influence, render_grad
 from neuralsim_tpu_torch.config import NeRFNetConfig, NeuralSimConfig
 from neuralsim_tpu_torch.data import load_linemod_data
+from neuralsim_tpu_torch.data.blender import CameraParams, LinemodDataset
 from neuralsim_tpu_torch.detector import dataset as detector_dataset
 from neuralsim_tpu_torch.detector import evaluator, trainer
 from neuralsim_tpu_torch.kernels import build
@@ -220,6 +238,8 @@ from neuralsim_tpu_torch.ops.occupancy import (
 from neuralsim_tpu_torch.ops.rays import get_rays
 from neuralsim_tpu_torch.ops.render import render_poses, render_ray_batch
 from neuralsim_tpu_torch.ops.volume import stratified_z_vals
+from neuralsim_tpu_torch.parallel import launch as parallel_launch
+from neuralsim_tpu_torch.parallel import mesh as parallel_mesh
 from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
 from neuralsim_tpu_torch.utils.checkpoint import save_nerf_tar_compatible
 from neuralsim_tpu_torch.utils.png import write_png
@@ -334,6 +354,32 @@ TRAIN_ITERS, TRAIN_RAYS = 1000, 1024
 TRAIN_PRECROP = 300
 TRAIN_CPU_STEPS, TRAIN_REL = 3, 1e-4
 PSNR_RISE_DB = 5.0
+# phase 12, the mesh: (a) phase 10's epoch 1 on a one-rank NCCL mesh against
+# its deterministic run in memory, of the norm; (b) two gloo ranks on the
+# card against one process: a K = MESH_K epoch with the float32 strips at
+# the JAX mesh test's MESH_INNER_STEPS inner steps and its tolerances
+# (tests/test_driver_mesh.py:96-120: psi rtol 1e-5 / atol 1e-7, at the psi
+# learning rate MESH_LR, which keeps the step small enough for psi's
+# tolerance to mean what it means there, as in
+# tests/test_torch_driver_mesh.py; grad_psi within the JAX test's rtol 2e-3
+# taken of its norm: its absolute atol 2e-6 is the scale of that test's ~0
+# gradient, and no absolute floor fits both states phase 12 starts from
+# (NVIDIA H100 80GB HBM3, 700 W): from a fresh detector the norm was 2.2e5
+# and bins the saturated softmax leaves at ~1e-4 moved by 1.3e-4, from
+# phase 10's trained one the norm was 0.43 and bins at 2.4e-4 moved by
+# 1.5e-6; both 2e-4 of the norm or less; inner loss
+# 1e-3; mAP rtol 1e-2 / atol 1e-3; the gathered renders F32_TOL); the same
+# epoch at the default 50 inner steps, reported (over 50 steps the data
+# axis's other summation order moves grad_psi far more, as cuDNN's
+# algorithms do: PERF.md); and MESH_TRAIN_STEPS train_nerf steps at N_rand
+# MESH_RAYS on MESH_VIEWS box views at the 100x100 camera (losses
+# MESH_TRAIN_REL relative, each parameter tensor MESH_PARAM_REL of its norm,
+# the ranks' parameters equal)
+MESH_REL = 1e-6
+MESH_K, MESH_LR, MESH_INNER_STEPS = 8, 1e-8, 2
+MESH_TRAIN_STEPS, MESH_RAYS, MESH_VIEWS = 3, 1024, 4
+MESH_TRAIN_REL, MESH_PARAM_REL = 1e-5, 1e-4
+MESH_TIMEOUT = 600.0
 COUNTED = (rm.fused_nerf_march, rm.fused_nerf_mlp_widepe, rm.fused_nerf_mlp_pe,
            rm.fused_nerf_mlp, rm.fused_render_tile)
 
@@ -2056,7 +2102,8 @@ def phase_bilevel(box, smi):
         log(f"bilevel: grad_psi {rec['grad_psi']}; psi {psi.tolist()}; mAP "
             f"{[m['AP'] for m in rec['map']]}; {len(lines)} save_result lines")
 
-        rec["resume"] = bilevel_resume(cfg, models, val, ckdir, tmp, epochs[1], seen)
+        rec["resume"], resume_ref = bilevel_resume(cfg, models, val, ckdir, tmp, epochs[1],
+                                                   seen)
         rec["card_vs_cpu"] = bilevel_card_vs_cpu(models)
         rec["unrolled"] = bilevel_unrolled(cfg, models, val, tmp, epochs[0], seen)
         rec["solvers"] = bilevel_solvers(drv, val, result["detector_state"])
@@ -2064,7 +2111,12 @@ def phase_bilevel(box, smi):
     log("bilevel: " + json.dumps({k: v for k, v in rec.items()
                                   if k not in ("log_lines", "psi_probs", "map",
                                                "stage_launches")}))
-    return rec
+    # what phase 12 reruns: epoch 1's state and draws, and its deterministic
+    # run in memory
+    rerun = {"cfg": cfg, "models": models, "val": val, "args": epochs[1]["args"],
+             "draws": seen["draws"][1], "ref": resume_ref,
+             "render_launches": seen["stage_launches"][1]["render"]["fused_nerf_march"]}
+    return rec, rerun
 
 
 def bilevel_resume(cfg, models, val, ckdir, tmp, epoch1, seen):
@@ -2149,7 +2201,7 @@ def bilevel_resume(cfg, models, val, ckdir, tmp, epoch1, seen):
         "grad_psi_cosine": float(g @ w.double() / (g.norm() * w.double().norm()))}
     log(f"bilevel resume: the uninterrupted epoch 1 (default algorithms) against the "
         f"deterministic one: {json.dumps(res['default_vs_deterministic'])}")
-    return res
+    return res, ref
 
 
 def bilevel_card_vs_cpu(models):
@@ -2711,7 +2763,381 @@ def phase_train_nerf(box, smi):
     return rec
 
 
+def close(tag, got, want, rtol, atol):
+    """assert_allclose of two arrays (NaN where both are NaN), logging the
+    largest difference; raises AssertionError with the tag."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    worst = float(np.nanmax(diff / (atol + rtol * np.abs(want)))) if diff.size else 0.0
+    log(f"mesh [{tag}]: max |diff| {float(np.nanmax(diff)):.3e}, {worst:.3f} of the "
+        f"tolerance (rtol {rtol:g}, atol {atol:g})")
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=f"mesh [{tag}]")
+    return float(np.nanmax(diff))
+
+
+def map_values(result) -> np.ndarray:
+    """The mAP dict's numbers in key order (per-class APs flattened)."""
+    vals = []
+    for k in sorted(result):
+        v = result[k]
+        vals += [v[c] for c in sorted(v)] if isinstance(v, dict) else [v]
+    return np.asarray(vals, np.float64)
+
+
+def mesh_one_rank(rerun):
+    """Phase 12(a): phase 10's epoch 1 through BilevelDriver(mesh=) on a
+    one-rank NCCL group (initialize_distributed joins only groups of
+    several processes, so the group is made here), from the same state
+    and draws under cudnn.deterministic, against the same epoch run in
+    memory without a mesh (phase 10's resume check): psi, grad_psi, the
+    inner loss and mAP within MESH_REL of the norm; fused_nerf_march
+    launched in the render as often as in phase 10's epoch 1."""
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{parallel_launch.free_port()}", world_size=1,
+        rank=0)
+    try:
+        mesh = parallel_mesh.make_mesh(data=1, device=DEVICE)
+        backend = torch.distributed.get_backend(mesh.group)
+        with tempfile.TemporaryDirectory() as tmp:
+            drv = driver.BilevelDriver(rerun["cfg"], rerun["models"], rerun["val"],
+                                       object_class=1, output_dir=tmp, device=DEVICE,
+                                       mesh=mesh)
+            psi, psi_opt, det = rerun["args"]
+            torch.backends.cudnn.deterministic = True
+            try:
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                got = drv.run_epoch(1, psi, psi_opt, det, draws=rerun["draws"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launched = counts()
+            finally:
+                torch.backends.cudnn.deterministic = False
+    finally:
+        torch.distributed.destroy_process_group()
+    ref = rerun["ref"]
+    res = {"backend": backend, "epoch_s": seconds, "launches": launched,
+           "phase10_render_launches": rerun["render_launches"]}
+    res["psi_rel"] = rel_norm("mesh one rank psi", got["psi"], ref["psi"], MESH_REL)
+    res["grad_psi_rel"] = rel_norm("mesh one rank grad_psi", torch.from_numpy(got["grad_psi"]),
+                                   torch.from_numpy(ref["grad_psi"]), MESH_REL)
+    res["inner_loss_rel"] = abs(got["inner_loss"] - ref["inner_loss"]) / abs(ref["inner_loss"])
+    g, w = map_values(got["map"]), map_values(ref["map"])
+    finite = np.isfinite(w)
+    if not np.array_equal(finite, np.isfinite(g)):
+        raise AssertionError(f"mesh one rank: mAP {got['map']} vs {ref['map']}")
+    diff, norm = np.linalg.norm(g[finite] - w[finite]), np.linalg.norm(w[finite])
+    res["map_rel"] = float(diff / norm) if norm else float(diff)
+    log(f"mesh one rank: mAP {res['map_rel']:.3e} of the norm {norm:.4f} (limit {MESH_REL:g})")
+    if not diff <= MESH_REL * norm:
+        raise AssertionError(f"mesh one rank: mAP {got['map']} vs {ref['map']}")
+    log(f"mesh one rank ({backend}): epoch 1 in {seconds:.3f} s under deterministic cuDNN; "
+        f"inner loss {res['inner_loss_rel']:.3e} relative; launches {launched} (phase 10's "
+        f"epoch 1 render: {rerun['render_launches']})")
+    if not res["inner_loss_rel"] <= MESH_REL:
+        raise AssertionError(f"mesh one rank: inner loss {res['inner_loss_rel']:.3e}")
+    if launched["fused_nerf_march"] != rerun["render_launches"] or sum(launched.values()) != \
+            launched["fused_nerf_march"]:
+        raise AssertionError(f"mesh one rank: launches {launched}, phase 10's render "
+                             f"{rerun['render_launches']}")
+    return res
+
+
+def mesh_epochs(rerun):
+    """Phase 12(b)'s two epochs, as (name, config, start state): phase 10's
+    configuration at K = MESH_K with float32 strips from phase 10's epoch-1
+    state, "checked" at the JAX mesh test's MESH_INNER_STEPS inner steps
+    with the psi step at MESH_LR, and "reported" at the default 50 steps
+    and learning rate (grad_psi there follows the inner train's rounding,
+    see PERF.md)."""
+    cfg = rerun["cfg"]
+    psi, psi_opt, det = rerun["args"]
+    out = []
+    for name, steps, lr in (("checked", MESH_INNER_STEPS, MESH_LR),
+                            ("reported", cfg.detector.max_iter, None)):
+        c = cfg.replace(
+            sampler=dataclasses.replace(cfg.sampler, n_samples_k=MESH_K),
+            detector=dataclasses.replace(cfg.detector, max_iter=steps),
+            bilevel=dataclasses.replace(cfg.bilevel, grad_compute_dtype="float32"),
+            data=dataclasses.replace(cfg.data, save_pngs=False))
+        opt = psi_opt if lr is None else psi_opt._replace(lr=torch.tensor(lr))
+        out.append((name, c, (psi, opt, det)))
+    return out
+
+
+def mesh_dataset(box):
+    """MESH_VIEWS views of the box scene at the default 100x100 camera,
+    float32 exact render, as an in-memory LINEMOD dataset (RGBA)."""
+    cam = NeuralSimConfig().camera
+    n = MESH_VIEWS
+    poses = pose_spherical(torch.linspace(0.0, 270.0, n), torch.full((n,), -30.0), 1.01)
+    rc = NeuralSimConfig().render.test_mode()
+    with torch.no_grad():
+        out = render_poses({"coarse": box, "fine": box}, poses, cam.height, cam.width, cam.K,
+                           NeRFNetConfig(), rc, device=DEVICE)
+    images = torch.cat([out["rgb_map"], out["acc_map"][..., None]], -1).clamp(0, 1)
+    camera = CameraParams(cam.height, cam.width, cam.fx, np.asarray(cam.K, np.float32),
+                          0.5, 1.5)
+    return LinemodDataset(images.cpu().numpy(), poses.numpy(), poses.numpy(), camera,
+                          (np.arange(n), np.arange(0), np.arange(0)))
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mesh_train(ds, device, mesh=None):
+    """MESH_TRAIN_STEPS steps of train_nerf from a seeded init: the default
+    pair, 64 + 128 samples, perturbed, float32, N_rand MESH_RAYS (the whole
+    batch's, split over the mesh's data axis). Returns (params, the
+    steps' losses, seconds)."""
+    cfg = NeuralSimConfig()
+    tc = dataclasses.replace(cfg.train, n_rand=MESH_RAYS)
+    losses = []
+    step = train_nerf.train_step
+
+    def recorded(*args, **kwargs):
+        out = step(*args, **kwargs)
+        losses.append(float(out[1]["loss"]))
+        return out
+
+    train_nerf.train_step = recorded
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        state, _ = train_nerf.train_nerf(
+            ds, NeRFNetConfig(), cfg.render, tc, torch.Generator(device=device).manual_seed(0),
+            n_iters=MESH_TRAIN_STEPS, device=device, mesh=mesh)
+        sync(device)
+        seconds = time.perf_counter() - t0
+    finally:
+        train_nerf.train_step = step
+    return state.params, losses, seconds
+
+
+def mesh_epoch(cfg, models, val, args, draws, out_dir, device, mesh=None):
+    """One epoch of phase 12(b) on this process (a rank, or the one
+    process): its record's numbers, renders, seconds and kernel 1 launches
+    (all, and those of the render)."""
+    drv = driver.BilevelDriver(cfg, models, val, object_class=1, output_dir=out_dir,
+                               device=device, mesh=mesh)
+    kept = {"render_launches": 0}
+    render = drv._render
+
+    def counted(*a):
+        before = rm.fused_nerf_march.launches
+        out = render(*a)
+        kept["renders"] = out[0]
+        kept["render_launches"] += rm.fused_nerf_march.launches - before
+        return out
+
+    drv._render = counted
+    sync(device)
+    zero_counts()
+    t0 = time.perf_counter()
+    record = drv.run_epoch(1, *args, draws=draws)
+    sync(device)
+    return {"epoch_s": time.perf_counter() - t0, "launches": counts(), "psi": record["psi"],
+            "grad_psi": record["grad_psi"], "inner_loss": record["inner_loss"],
+            "map": map_values(record["map"]), "renders": kept["renders"],
+            "render_launches": kept["render_launches"]}
+
+
+def _mesh_rank(path, device):
+    """One of phase 12(b)'s ranks (spawned by parallel.launch): the epochs
+    and the train_nerf steps on a (2, 1) gloo mesh, and which collectives
+    gloo runs on CUDA tensors."""
+    from neuralsim_tpu_torch import set_card_numerics
+
+    t_start = time.perf_counter()
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    set_card_numerics(device)
+    inputs = torch.load(path, map_location=device, weights_only=False)
+    mesh = parallel_mesh.make_mesh(device=device)
+    res = {"rank": mesh.rank, "backend": torch.distributed.get_backend(mesh.group),
+           "gloo_cuda": {}}
+    for name, fn in (("all_gather", lambda t: torch.distributed.all_gather(
+            [torch.empty_like(t) for _ in range(2)], t, group=mesh.group)),
+                     ("all_reduce", lambda t: torch.distributed.all_reduce(t, group=mesh.group))):
+        try:
+            fn(torch.ones(4, device=device))
+            sync(device)
+            res["gloo_cuda"][name] = True
+        except RuntimeError as e:
+            res["gloo_cuda"][name] = str(e).splitlines()[0]
+    res["setup_s"] = time.perf_counter() - t_start
+    for name, cfg, args, draws in inputs["epochs"]:
+        res[name] = mesh_epoch(cfg, inputs["models"], inputs["val"], args, draws,
+                               os.path.join(inputs["out"], name), device, mesh)
+    zero_counts()
+    res["train_params"], res["train_loss"], res["train_s"] = mesh_train(inputs["ds"], device,
+                                                                        mesh)
+    res["train_launches"] = counts()
+    return res
+
+
+def mesh_two_ranks(rerun, box):
+    """Phase 12(b): two gloo ranks on the card (parallel.launch; NCCL
+    refuses two ranks on one device) against one process (see the MESH_*
+    constants), both under deterministic cuDNN."""
+    res = {"one_process": {}}
+    epochs, want = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name, cfg, args in mesh_epochs(rerun):
+                draws = driver.BilevelDriver(
+                    cfg, rerun["models"], rerun["val"], generator=torch.Generator().manual_seed(12),
+                    object_class=1, output_dir=os.path.join(tmp, "draws"),
+                    device=DEVICE).draw_epoch()
+                epochs.append((name, cfg, to_cpu(args), to_cpu(draws)))
+                want[name] = mesh_epoch(cfg, rerun["models"], rerun["val"], args, draws,
+                                        os.path.join(tmp, "one", name), DEVICE)
+            ds = mesh_dataset(box)
+            zero_counts()
+            want_params, want_loss, train_s = mesh_train(ds, DEVICE)
+            res["one_process"]["train"] = {"seconds": train_s, "launches": counts()}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save({"models": to_cpu(rerun["models"]), "val": to_cpu(rerun["val"]),
+                    "epochs": epochs, "ds": ds, "out": os.path.join(tmp, "mesh")}, path)
+        t0 = time.perf_counter()
+        ranks = parallel_launch.launch(_mesh_rank, 2, (path, DEVICE.type), device=DEVICE.type,
+                                       backend="gloo", timeout=MESH_TIMEOUT)
+        res["launch_s"] = time.perf_counter() - t0
+    res["backend"], res["gloo_cuda"] = ranks[0]["backend"], ranks[0]["gloo_cuda"]
+    res["setup_s"] = [r["setup_s"] for r in ranks]
+    for name, w in want.items():
+        res["one_process"][name] = {k: w[k] for k in ("epoch_s", "launches", "render_launches")}
+        res[name] = {k: [r[name][k] for r in ranks] for k in
+                     ("epoch_s", "launches", "render_launches")}
+    res["train"] = {k: [r[k] for r in ranks] for k in ("train_s", "train_launches",
+                                                       "train_loss")}
+    log(f"mesh two ranks ({res['backend']}, one card): gloo on CUDA tensors {res['gloo_cuda']}; "
+        f"per rank: setup {res['setup_s']} s, epochs (K={MESH_K}) "
+        + ", ".join(f"{n} {res[n]['epoch_s']} s" for n in want)
+        + f", {MESH_TRAIN_STEPS} train steps {res['train']['train_s']} s; one process: "
+        + ", ".join(f"{n} {want[n]['epoch_s']:.3f} s" for n in want)
+        + f", train {train_s:.3f} s; the launch {res['launch_s']:.3f} s")
+    log(f"mesh two ranks: fused_nerf_march launches per rank in the renders "
+        + ", ".join(f"{n} {res[n]['render_launches']} (one process "
+                    f"{want[n]['render_launches']})" for n in want)
+        + f", in the train steps {[r['fused_nerf_march'] for r in res['train']['train_launches']]}"
+        f" (one process {res['one_process']['train']['launches']['fused_nerf_march']})")
+    w = want["checked"]
+    finite = np.isfinite(w["map"])
+    for r in ranks:
+        tag, got = f"rank {r['rank']}", r["checked"]
+        close(f"{tag} renders", got["renders"], w["renders"].cpu().numpy(), 0.0, F32_TOL)
+        close(f"{tag} psi", got["psi"], w["psi"].cpu().numpy(), 1e-5, 1e-7)
+        g, gw = np.asarray(got["grad_psi"], np.float64), np.asarray(w["grad_psi"], np.float64)
+        log(f"mesh [{tag} grad_psi]: largest elementwise difference "
+            f"{float(np.max(np.abs(g - gw) / np.abs(gw))):.3e} relative")
+        rel_norm(f"mesh {tag} grad_psi", torch.from_numpy(g), torch.from_numpy(gw), 2e-3)
+        close(f"{tag} inner loss", got["inner_loss"], w["inner_loss"], 1e-3, 0.0)
+        close(f"{tag} mAP", got["map"][finite], w["map"][finite], 1e-2, 1e-3)
+        close(f"{tag} train losses", r["train_loss"], want_loss, MESH_TRAIN_REL, 0.0)
+        rels = {}
+        for name in want_params:
+            for k, v in want_params[name].items():
+                v = v.detach().cpu().double()
+                rels[f"{name}.{k}"] = float((torch.from_numpy(r["train_params"][name][k]).double()
+                                             - v).norm() / v.norm())
+        res.setdefault("train_params_rel_max", []).append(max(rels.values()))
+        log(f"mesh {tag}: train params at most {max(rels.values()):.3e} of a tensor's norm "
+            f"from one process (limit {MESH_PARAM_REL:g})")
+        if not max(rels.values()) <= MESH_PARAM_REL:
+            raise AssertionError(f"mesh {tag}: train params {rels}")
+    # reported: the default inner train's 50 steps, where grad_psi follows
+    # the rounding of the inner train's sums (PERF.md)
+    rw, rg = want["reported"], ranks[0]["reported"]
+    g = torch.from_numpy(np.asarray(rg["grad_psi"], np.float64))
+    gw = torch.from_numpy(np.asarray(rw["grad_psi"], np.float64))
+    res["reported"].update(
+        grad_psi_rel=float((g - gw).norm() / gw.norm()),
+        grad_psi_cosine=float(g @ gw / (g.norm() * gw.norm())),
+        inner_loss_rel=abs(rg["inner_loss"] - rw["inner_loss"]) / abs(rw["inner_loss"]),
+        renders_max_abs=float(np.abs(rg["renders"] - rw["renders"].cpu().numpy()).max()))
+    log(f"mesh two ranks, {cfg.detector.max_iter} inner steps (reported): grad_psi "
+        f"{res['reported']['grad_psi_rel']:.3e} of the norm from one process (cosine "
+        f"{res['reported']['grad_psi_cosine']:.6f}), inner loss "
+        f"{res['reported']['inner_loss_rel']:.3e} relative, renders "
+        f"{res['reported']['renders_max_abs']:.3e}")
+    a, b = (r["train_params"] for r in ranks)
+    if not all(np.array_equal(a[n][k], b[n][k]) for n in a for k in a[n]):
+        raise AssertionError("mesh two ranks: the ranks' train params differ")
+    res["epoch_ranks_equal"] = all(np.array_equal(ranks[0][n][k], ranks[1][n][k])
+                                   for n in want for k in ("psi", "grad_psi", "renders"))
+    log(f"mesh two ranks: trained params equal to the bit on both ranks; epoch outputs "
+        f"equal across ranks: {res['epoch_ranks_equal']}")
+    if not all(n > 0 for n in res["checked"]["render_launches"] + [
+            r["fused_nerf_march"] for r in res["train"]["train_launches"]]):
+        raise AssertionError("mesh two ranks: a rank launched no kernel")
+    return res
+
+
+def phase_mesh(rerun, box, smi):
+    """Phase 12: the mesh paths (parallel/), (a) on one NCCL rank and (b)
+    on two gloo ranks of the one card."""
+    t0 = time.perf_counter()
+    rec = {"card": smi, "one_rank": mesh_one_rank(rerun), "two_ranks": mesh_two_ranks(rerun, box)}
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"mesh: phase 12 in {rec['seconds']:.3f} s on {smi}")
+    return rec
+
+
+def mesh_inputs(box):
+    """Phase 12's inputs when it runs alone (``--mesh``): phase 10's
+    configuration, box pair and val renders, a seeded state, one epoch's
+    draws, and that epoch without a mesh under deterministic cuDNN (after
+    one epoch for cuDNN's first calls)."""
+    models = {"coarse": box, "fine": box}
+    tmp = tempfile.mkdtemp()
+    cfg = bilevel_config(tmp)
+    val = val_set(cfg, models, VAL_IMAGES)
+    drv = driver.BilevelDriver(cfg, models, val, generator=torch.Generator().manual_seed(0),
+                               object_class=1, output_dir=os.path.join(tmp, "out"),
+                               device=DEVICE)
+    psi = psi_init("5").to(DEVICE)
+    psi_opt = psi_optimizer_init(cfg.bilevel.opt_method, cfg.bilevel.opt_lr, dim=8)
+    det = trainer.init_detector(torch.Generator().manual_seed(1), cfg.detector, device=DEVICE)
+    draws = drv.draw_epoch()
+    drv.run_epoch(0, psi, psi_opt, det, draws=drv.draw_epoch())
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_counts()
+        ref = drv.run_epoch(1, psi, psi_opt, det, draws=draws)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {"cfg": cfg, "models": models, "val": val, "args": (psi, psi_opt, det),
+            "draws": draws, "ref": ref, "render_launches": counts()["fused_nerf_march"]}
+
+
+def main_mesh():
+    """``python3 chip_smoke.py --mesh``: phase 12 alone, on nerf_march's
+    build and mesh_inputs."""
+    t_start = time.perf_counter()
+    name, smi = phase_device()
+    build.build_all(["nerf_march"])
+    box = box_scene_params(NeRFNetConfig(), generator=torch.Generator().manual_seed(0),
+                           device=DEVICE)
+    rerun = mesh_inputs(box)
+    log(f"mesh: inputs ready in {time.perf_counter() - t_start:.1f} s")
+    mesh = phase_mesh(rerun, box, smi)
+    print(json.dumps({"mesh": mesh}), flush=True)
+    log(f"chip_smoke --mesh: passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main():
+    if "--mesh" in sys.argv[1:]:
+        return main_mesh()
     t_start = time.perf_counter()
     name, smi = phase_device()
     peak_key, peaks = peaks_for(name)
@@ -2728,8 +3154,9 @@ def main():
     pipeline, others, bench = phase_production(box, routes, routes16)
     grad = phase_render_grad(box, smi)
     detector = phase_detector(pipeline["float32"]["renderer"], smi)
-    bilevel = phase_bilevel(box, smi)
+    bilevel, rerun = phase_bilevel(box, smi)
     train = phase_train_nerf(box, smi)
+    mesh = phase_mesh(rerun, box, smi)
     production_launched = {f"pipeline_{name}": run["launched"] for name, run in pipeline.items()}
     production_launched.update({name: run["launched"] for name, run in others.items()})
     production_launched.update({f"bench_{k}": v for k, v in bench["launched"].items()})
@@ -2801,6 +3228,12 @@ def main():
                                "testset": train["testset_launches"][kernel],
                                "spiral": train["spiral"]["launches"][kernel]},
             "plain_net": plain_net if kernel == "fused_nerf_march" else None,
+            "mesh_launches": {
+                "one_rank": mesh["one_rank"]["launches"][kernel],
+                "two_ranks_render": mesh["two_ranks"]["checked"]["render_launches"],
+                "two_ranks_train": [r[kernel] for r in
+                                    mesh["two_ranks"]["train"]["train_launches"]],
+            } if kernel == "fused_nerf_march" else None,
             "max_err_nets": r["err_nets"],
             "wide": r["wide"],
             "main_path_wide": wide_main if kernel == "fused_nerf_march" else None,
@@ -2819,6 +3252,7 @@ def main():
     print(json.dumps({"detector": detector}), flush=True)
     print(json.dumps({"bilevel": bilevel}), flush=True)
     print(json.dumps({"train_nerf": train}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

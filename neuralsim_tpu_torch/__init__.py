@@ -25,8 +25,12 @@ the reference's command line (``cli.py``, ``config.parse_cli``); the
 standalone NeRF trainer (``train_nerf.py``, ``train_cli.py``) on the LINEMOD
 loader (``data.load_linemod_data``, frames read by ``utils/png.py``); the
 sampler diagnostics and the offline BOP tools (``sampler/diagnostics.py``,
-``data/bop_convert.py``, ``data/blenderproc_config.py``). Not ported yet:
-``parallel/`` and the ``mesh`` paths that take it.
+``data/bop_convert.py``, ``data/blenderproc_config.py``); and the mesh
+(``parallel/``: ``torch.distributed`` with one process per rank, NCCL on
+the card and gloo on the CPU) with the paths that take it: the outer
+loop's sharded render, data-parallel inner train and strips gradient
+(``BilevelDriver(mesh=)``), ``train_nerf(mesh=)`` and the tensor-parallel
+NeRF layout (``parallel.distributed.nerf_param_sharding``).
 
 On the card the command lines set one numeric policy
 (``set_card_numerics``): TF32 off, deterministic cuDNN algorithms.

@@ -25,10 +25,19 @@ the pose noise, the inner-train schedule and the HVP batch
 budget calibration draws from a generator of its own (or takes
 ``calibration_noise``), never from the training stream.
 
-Left out, as ROADMAP records: the JAX driver's ``mesh`` (the sharded
-render and inner train wait for the port's ``parallel/``) and the
-``jit_cache`` / ``dynamic_start`` arguments of its strips call, which shape
-only XLA programs.
+``BilevelDriver(mesh=)`` runs the loop on a ('data', 'model') mesh of
+processes (``parallel.mesh``), one driver per rank, as the JAX driver runs
+it on its device mesh: the NeRF pair and the val set are replicated, each
+rank renders its block of the K poses (K padded to a multiple of the data
+axis by repeating the last pose) and the renders are all-gathered; the
+inner train is data-parallel when images_per_batch divides over the data
+axis (each rank trains on its columns of every step's batch, gradients
+summed over the data group); the strips gradient splits its images over the
+data axis; the other stages run whole on every rank. Only the mesh's first
+rank writes save_result.txt, checkpoints and PNGs. The JAX driver's
+``_mesh_barrier`` works around the rendezvous of XLA:CPU's thread pool
+and has no counterpart. Left out: the ``jit_cache`` / ``dynamic_start``
+arguments of its strips call, which shape only XLA programs.
 """
 
 from __future__ import annotations
@@ -93,6 +102,14 @@ from neuralsim_tpu_torch.ops.occupancy import (
     scene_half_extent,
 )
 from neuralsim_tpu_torch.ops.render import render_poses, to8b
+from neuralsim_tpu_torch.parallel.mesh import (
+    all_gather,
+    barrier,
+    pad_rows,
+    pad_to_multiple,
+    replicate,
+    shard_batch,
+)
 from neuralsim_tpu_torch.sampler.poses import (
     PoseNoise,
     draw_pose_noise,
@@ -218,6 +235,9 @@ class BilevelDriver:
         is calibrated on (default: drawn from a generator of its own).
       device: ``cuda`` when None (raises without a GPU); ``"cpu"`` only
         when asked for.
+      mesh: a ``parallel.mesh.Mesh``: the loop on a mesh of processes (see
+        the module docstring), on the mesh's device. Every rank of the
+        mesh runs its own driver with the same arguments and draws.
     """
 
     def __init__(self, cfg: NeuralSimConfig, nerf_models, val_data: ValData,
@@ -225,15 +245,22 @@ class BilevelDriver:
                  background_images: Optional[np.ndarray] = None,
                  background_labels: Optional[np.ndarray] = None,
                  output_dir: Optional[str] = None,
-                 calibration_noise: Optional[PoseNoise] = None, device=None):
+                 calibration_noise: Optional[PoseNoise] = None, device=None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.nerf_models = params_from_numpy(nerf_models, self.device)
-        self.streaming = cfg.detector.eval_stream_images > 0
+        # the streamed val set is single-device only, as in the JAX driver
+        self.streaming = cfg.detector.eval_stream_images > 0 and mesh is None
         if self.streaming:
             self.val_data = ValData(*(torch.as_tensor(np.asarray(_host(x))) for x in val_data))
         else:
             self.val_data = ValData(*(torch.as_tensor(x).to(self.device) for x in val_data))
+        if mesh is not None:
+            self.nerf_models = replicate(self.nerf_models, mesh)
+            self.val_data = ValData(*replicate(tuple(self.val_data), mesh))
+        # the one rank that writes files
+        self.writes = mesh is None or mesh.is_first
         self.object_class = object_class
         self.background_images = background_images
         self.background_labels = background_labels
@@ -241,7 +268,7 @@ class BilevelDriver:
                           else torch.Generator().manual_seed(cfg.seed))
         self.output_dir = output_dir or os.path.join(
             cfg.data.basedir, cfg.data.expname, "detectron_output")
-        self.log = ResultLog(self.output_dir)
+        self.log = ResultLog(self.output_dir) if self.writes else _NoLog(self.output_dir)
         self.phases = PhaseTimes()
         self.anchors_per_level = generate_anchors(cfg.detector.image_size, self.device)
         self.anchors_cat = torch.cat(self.anchors_per_level, dim=0)
@@ -302,16 +329,29 @@ class BilevelDriver:
 
     def _render(self, psi, noise):
         """[1]: the K-pose render -> (rgb [K, H, W, 3], the occupancy pair
-        (hit rays, budget) as one int32 tensor, or None without a grid)."""
+        (hit rays, budget) as one int64 tensor, or None without a grid).
+
+        On a mesh, K pads up to a multiple of the data axis by repeating
+        the last pose; each rank renders its block, the blocks are
+        all-gathered and cut back to K, and the pairs stack to [n_data, 2]
+        (JAX stacks them on its data axis; the budget check sums them)."""
         cam = self.cfg.camera
+        k = int(noise[0].shape[0])
+        if self.mesh is not None:
+            n = pad_to_multiple(k, self.mesh.shape["data"])
+            noise = shard_batch(type(noise)(*(pad_rows(x, n) for x in noise)), self.mesh)
         with torch.no_grad():
             poses = psi_poses(psi, noise, self.cfg.sampler, self.cfg.bilevel.psi_mode)
             out = render_poses(self.nerf_models, poses, cam.height, cam.width, cam.K,
                                self.cfg.net, self.rc_test, grid=self.grid, device=self.device)
-        occ = None
+        rgb, occ = out["rgb_map"], None
         if self.grid is not None:
             occ = torch.stack([out["occ_hit_count"], out["occ_budget"]]).to(torch.int64)
-        return out["rgb_map"], occ
+        if self.mesh is not None:
+            group = self.mesh.data_group
+            rgb = all_gather(rgb, group)[:k]
+            occ = None if occ is None else all_gather(occ[None], group)
+        return rgb, occ
 
     def _first_epoch_cull_guard(self, psi, noise, renders):
         """PSNR probe on the first epoch: re-render 2 poses exactly (no
@@ -524,6 +564,8 @@ class BilevelDriver:
                 det_state = DetectorState(det["params"], det["opt_state"], det["step"])
                 self.generator.set_state(restored["generator"])
                 start_epoch = int(restored["epoch"]) + 1
+        if self.mesh is not None:
+            psi, det_state = replicate((psi, det_state), self.mesh)
 
         history = []
         for epoch in range(start_epoch, n_epochs):
@@ -532,7 +574,10 @@ class BilevelDriver:
                                        record["detector_state"])
             history.append({k: record[k] for k in ("epoch", "map", "psi_probs")})
             if ckpt_mgr and (epoch % checkpoint_every == 0):
-                ckpt_mgr.save(epoch, self._ckpt_state(psi, psi_opt, det_state, epoch))
+                if self.writes:
+                    ckpt_mgr.save(epoch, self._ckpt_state(psi, psi_opt, det_state, epoch))
+                if self.mesh is not None:
+                    barrier(self.mesh)
         return {"psi": psi, "psi_opt": psi_opt, "detector_state": det_state,
                 "history": history}
 
@@ -573,7 +618,7 @@ class BilevelDriver:
             # renders dropped visible rays: render again with the raised
             # budget (monotone, capped at 1) before the detector sees them
             for _ in range(4):
-                hit, budget = occ.tolist()
+                hit, budget = occ.reshape(-1, 2).sum(dim=0).tolist()
                 if not self._check_occ_budget(hit, budget):
                     break
                 with self._timer("render"):
@@ -598,13 +643,19 @@ class BilevelDriver:
                     images_np, labels + list(self.background_labels), dc, device=dev)
 
         # [2.2] inner fine-tune (warm start: the incoming state), each step
-        # gathering its batch from the dataset by index
+        # gathering its batch from the dataset by index. On a mesh whose
+        # data axis divides the batch, data-parallel: each rank takes its
+        # columns of every step's indices (the images JAX's sharded batches
+        # hold) and the gradients are summed over the data group
         batch_idx = draws.batch_idx.to(dev)
         det_state_in = det_state
+        step_idx, group = batch_idx, None
+        if self.mesh is not None and dc.images_per_batch % self.mesh.shape["data"] == 0:
+            step_idx, group = shard_batch(batch_idx.T, self.mesh).T, self.mesh.data_group
         with self._timer("inner_train"):
             det_state, metrics = inner_train(
-                det_state, (DetBatch(inputs, gt_boxes, gt_labels, gt_valid), batch_idx),
-                dc, self.anchors_cat)
+                det_state, (DetBatch(inputs, gt_boxes, gt_labels, gt_valid), step_idx),
+                dc, self.anchors_cat, group=group)
 
         # [2.3] mAP on the fixed val set; the txt line's bytes are the
         # reference's `'epoch: {}' + str(result['bbox'])` (:851-853)
@@ -663,7 +714,8 @@ class BilevelDriver:
                     cam.width, cam.K, cfg.net, rc_grad, sc, psi_mode=bc.psi_mode,
                     strip=bc.grad_ray_chunk, image_batch=bc.strip_image_batch,
                     compute_dtype=bc.grad_compute_dtype,
-                    grid=self.grid if ghb else None, hit_budget=ghb if ghb else 1.0)
+                    grid=self.grid if ghb else None, hit_budget=ghb if ghb else 1.0,
+                    mesh=self.mesh)
             else:
                 # groups of grad_image_batch images: the gradient over all
                 # images is the weighted mean of the groups' (the loss is a
@@ -774,13 +826,29 @@ class BilevelDriver:
 
     def _save_renders(self, renders, epoch: int, subdir: str = ""):
         """PNGs under basedir/expname/renderonly_path/{object_id}/[subdir]
-        (the reference's layout, run_nerf_noscale.py:245-250)."""
-        out = os.path.join(self.cfg.data.basedir, self.cfg.data.expname, "renderonly_path",
-                           str(self.cfg.data.object_id), subdir)
-        os.makedirs(out, exist_ok=True)
-        arr = to8b(renders)
-        for i in range(arr.shape[0]):
-            write_png(os.path.join(out, f"{i:03d}.png"), arr[i])
+        (the reference's layout, run_nerf_noscale.py:245-250), written by
+        the mesh's first rank while the others wait."""
+        if self.writes:
+            out = os.path.join(self.cfg.data.basedir, self.cfg.data.expname,
+                               "renderonly_path", str(self.cfg.data.object_id), subdir)
+            os.makedirs(out, exist_ok=True)
+            arr = to8b(renders)
+            for i in range(arr.shape[0]):
+                write_png(os.path.join(out, f"{i:03d}.png"), arr[i])
+        if self.mesh is not None:
+            barrier(self.mesh)
+
+
+class _NoLog(ResultLog):
+    """The result log of a rank that does not write: the first rank's
+    paths, nothing appended."""
+
+    def __init__(self, output_dir: str):
+        self.txt_path = os.path.join(output_dir, "save_result.txt")
+        self.jsonl_path = os.path.join(output_dir, "save_result.jsonl")
+
+    def append(self, epoch: int, payload, text=None):
+        pass
 
 
 def _host(x) -> np.ndarray:

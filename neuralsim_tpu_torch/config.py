@@ -279,6 +279,16 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Layout of the ('data', 'model') mesh (``parallel.make_mesh``): the
+    data axis shards rays and images, the model axis optionally splits the
+    wide NeRF layers (``parallel.distributed.nerf_param_sharding``)."""
+
+    data_axis: int = -1                 # -1: every rank on the data axis
+    model_axis: int = 1
+
+
+@dataclass(frozen=True)
 class NeuralSimConfig:
     net: NeRFNetConfig = field(default_factory=NeRFNetConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
@@ -288,6 +298,7 @@ class NeuralSimConfig:
     data: DataConfig = field(default_factory=DataConfig)
     bilevel: BilevelConfig = field(default_factory=BilevelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     seed: int = 0
 
     def replace(self, **kw) -> "NeuralSimConfig":

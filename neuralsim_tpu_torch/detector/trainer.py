@@ -36,6 +36,7 @@ from neuralsim_tpu_torch.models.retinanet import (
     init_params,
     retinanet_loss,
 )
+from neuralsim_tpu_torch.parallel.mesh import all_sum, all_sum_tree
 
 Params = Dict[str, torch.Tensor]
 
@@ -155,22 +156,40 @@ def detector_loss_fn(params: Params, batch: DetBatch, dc: DetectorConfig, anchor
     return total
 
 
-def train_step(state: DetectorState, batch: DetBatch, dc: DetectorConfig, anchors_cat):
+def train_step(state: DetectorState, batch: DetBatch, dc: DetectorConfig, anchors_cat,
+               group=None):
     """One SGD step. When the parameters or the batch carry a graph (a
     caller differentiates the trajectory, by the initial parameters or by
     the images), the step keeps it; otherwise it takes the gradient and
-    updates without one."""
+    updates without one.
+
+    ``group``: a data-parallel step over a process group (the mesh's data
+    group), ``batch`` this rank's block of the step's batch. The fg count
+    is summed over the group first, each rank divides its local loss sums
+    by that whole-batch count, and the gradients are summed over the group
+    before the update, so every rank takes the whole batch's step (JAX's
+    psum of the sharded batch's grads); the losses are the group's sums.
+    Averaging gradients normalized per rank would differ whenever the
+    ranks hold different numbers of fg anchors."""
     _, apply_fn = make_detector_apply(dc)
     trainable, frozen = split_trainable(state.params, dc)
     keep_graph = torch.is_grad_enabled() and any(
         v.requires_grad for v in (*state.params.values(), *batch))
+    if keep_graph and group is not None:
+        raise ValueError("a data-parallel step cannot keep a graph through its collectives")
     trainable = {k: v if keep_graph and v.requires_grad else v.detach().requires_grad_()
                  for k, v in trainable.items()}
+    fg_total = None if group is None else (lambda n: all_sum(n, group))
     with torch.enable_grad():
         total, losses = retinanet_loss(apply_fn, merge_params(trainable, frozen), batch,
-                                       anchors_cat, dc)
+                                       anchors_cat, dc, fg_total=fg_total)
         grads = torch.autograd.grad(total, list(trainable.values()), create_graph=keep_graph)
     grads = dict(zip(trainable, grads))
+    if group is not None:
+        grads = all_sum_tree(grads, group)
+        total, cls, box = all_sum(torch.stack([total.detach(), losses["loss_cls"].detach(),
+                                               losses["loss_box_reg"].detach()]), group)
+        losses = {"loss_cls": cls, "loss_box_reg": box}
     with torch.set_grad_enabled(keep_graph):
         trainable, opt_state = make_detector_optimizer(dc).update(
             grads, state.opt_state, trainable)
@@ -181,7 +200,7 @@ def train_step(state: DetectorState, batch: DetBatch, dc: DetectorConfig, anchor
 
 
 def inner_train(state: DetectorState, batches, dc: DetectorConfig, anchors_cat=None,
-                remat: bool = False):
+                remat: bool = False, group=None):
     """Run the inner fine-tune, one step per batch, on the device of the
     state's parameters.
 
@@ -193,6 +212,8 @@ def inner_train(state: DetectorState, batches, dc: DetectorConfig, anchors_cat=N
       remat: recompute each step in the backward pass of a caller that
         differentiates the trajectory (``torch.utils.checkpoint``): memory
         stays at one step's activations instead of n_steps'.
+      group: data-parallel steps over this process group (``train_step``);
+        ``batches`` then hold this rank's block of each step's batch.
 
     Returns (final state, {"loss", "loss_cls", "loss_box_reg": [n_steps]}).
     """
@@ -213,7 +234,7 @@ def inner_train(state: DetectorState, batches, dc: DetectorConfig, anchors_cat=N
             return DetBatch(*(x[idx[i]] for x in data))
 
     def body(s, i):
-        return train_step(s, batch_of(i), dc, anchors_cat)
+        return train_step(s, batch_of(i), dc, anchors_cat, group)
 
     metrics = []
     for i in range(n_steps):

@@ -28,13 +28,15 @@ grad_E is the detector-side cotangent on the rendered rgb
 reference, as in the JAX package (PARITY.md): the gradient is chained
 through softmax(psi / T) to psi, and the loss is a mean over images.
 
-Three arguments of the JAX functions shape only XLA compilation or the
-mesh and have no counterpart here: ``jit_cache`` (compiled programs kept
-across calls), ``dynamic_start`` (a traced strip offset, the same math;
-``BilevelConfig`` has no ``grad_dynamic_start`` either) and ``mesh`` (the
-``shard_map`` over the data axis, which waits for the port's
-``parallel/``). For the same reason nothing is padded to a fixed tile: the
-last image batch and the last strip or index chunk are shorter.
+``render_grad_psi_strips(mesh=)`` splits the images over the mesh's data
+axis, as the JAX package's ``shard_map`` does: each rank differentiates its
+block of every image batch and psi's gradient is summed over the data group
+(``parallel.mesh``). Two arguments of the JAX functions shape only XLA
+compilation and have no counterpart here: ``jit_cache`` (compiled programs
+kept across calls) and ``dynamic_start`` (a traced strip offset, the same
+math; ``BilevelConfig`` has no ``grad_dynamic_start`` either). For the same
+reason nothing is padded to a fixed tile: the last strip or index chunk is
+shorter, and so is the last image batch without a mesh.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from neuralsim_tpu_torch.config import NeRFNetConfig, RenderConfig, SamplerConfi
 from neuralsim_tpu_torch.ops.occupancy import ray_aabb_bounds
 from neuralsim_tpu_torch.ops.rays import get_rays
 from neuralsim_tpu_torch.ops.render import render_poses, render_ray_batch, top_k_indices
+from neuralsim_tpu_torch.parallel.mesh import all_sum, pad_rows, pad_to_multiple, shard_batch
 from neuralsim_tpu_torch.sampler.poses import (
     PoseNoise,
     poses_from_noise,
@@ -85,6 +88,15 @@ def _grad(loss_fn, psi):
 def _rows(noise, index):
     """The noise rows ``index`` (a slice or an index tensor)."""
     return type(noise)(*(x[index] for x in noise))
+
+
+def _local_images(mesh, n: int, noise, grad_e, *rows):
+    """This rank's block of an image batch padded to ``n`` images: the
+    noise (and any index rows) repeat their last row, grad_E pads with
+    zeros, a zero cotangent that adds exactly nothing."""
+    padded = (type(noise)(*(pad_rows(x, n) for x in noise)), pad_rows(grad_e, n, zero=True),
+              *(pad_rows(x, n) for x in rows))
+    return shard_batch(padded, mesh)
 
 
 def _image_rays(psi, noise, H: int, W: int, K, sc: SamplerConfig, psi_mode: str):
@@ -199,7 +211,8 @@ def render_grad_psi_strips(models, psi, noise: PoseNoise, grad_E,
                            image_batch: int = 1,
                            compute_dtype: str = "float32",
                            grid=None,
-                           hit_budget: float = 1.0):
+                           hit_budget: float = 1.0,
+                           mesh=None):
     """dL/dpsi = mean over images of the sum over pixel strips of the strip
     gradients (exact: the loss is linear in pixels; the mean over images is
     the reference's normalization, neural_sim_main.py:191).
@@ -218,17 +231,24 @@ def render_grad_psi_strips(models, psi, noise: PoseNoise, grad_E,
     up to the grid's conservativeness. An image whose hit count overflows
     the budget renders all of its pixels (with a warning); the others keep
     their selection.
+
+    ``mesh``: image_batch rounds up to a multiple of the data axis; each
+    rank differentiates its block of every batch (a short batch padded
+    with repeated noise rows and zero grad_E) and psi's gradient is summed
+    over the data group. Every rank returns the whole gradient.
     """
     psi, noise, grad_E = _on_models_device(models, psi, noise, grad_E)
     n_img, n_pix = grad_E.shape[0], H * W
     strip = min(strip or rc.ray_chunk, n_pix)
     ge_flat = grad_E.reshape(n_img, n_pix, 3)
     ib = max(1, int(image_batch))
+    if mesh is not None:
+        ib = pad_to_multiple(ib, mesh.shape["data"])
     rc = _plain_rc(rc, compute_dtype=compute_dtype)
 
     if grid is not None and hit_budget < 1.0:
         return _render_grad_strips_culled(models, psi, noise, ge_flat, H, W, K, net, rc, sc,
-                                          psi_mode, strip, ib, grid, hit_budget)
+                                          psi_mode, strip, ib, grid, hit_budget, mesh)
 
     total = torch.zeros_like(psi)
     if ib == 1:
@@ -242,19 +262,23 @@ def render_grad_psi_strips(models, psi, noise: PoseNoise, grad_E,
         return total / n_img
 
     for lo in range(0, n_img, ib):
-        nz = _rows(noise, slice(lo, lo + ib))
+        nz, ge_b = _rows(noise, slice(lo, lo + ib)), ge_flat[lo:lo + ib]
+        if mesh is not None:
+            nz, ge_b = _local_images(mesh, ib, nz, ge_b)
         for start in range(0, n_pix, strip):
-            ge = ge_flat[lo:lo + ib, start:start + strip]
+            ge = ge_b[:, start:start + strip]
             rc_b = dataclasses.replace(rc, ray_chunk=ge.shape[0] * ge.shape[1])
             total += _grad(lambda p: psi_strips_batch_loss(models, p, nz, ge, start, H, W, K,
                                                            net, rc_b, sc, psi_mode), psi)
+    if mesh is not None:
+        total = all_sum(total, mesh.data_group)
     return total / n_img
 
 
 def _render_grad_strips_culled(models, psi, noise, ge_flat, H: int, W: int, K,
                                net: NeRFNetConfig, rc: RenderConfig, sc: SamplerConfig,
                                psi_mode: str, strip: int, ib: int, grid,
-                               hit_budget: float):
+                               hit_budget: float, mesh=None):
     """The occupancy-culled strips gradient (see render_grad_psi_strips):
     one selection over all images, then gather-rendered index chunks of
     ``strip`` rays. The per-image hit counts are read on the host once, to
@@ -306,11 +330,16 @@ def _render_grad_strips_culled(models, psi, noise, ge_flat, H: int, W: int, K,
                     total += _grad(lambda p: psi_gather_loss(models, p, noise_1, ge, ix, H, W,
                                                              K, net, rc_s, sc, psi_mode), psi)
             continue
-        rc_b = dataclasses.replace(rc, ray_chunk=ib * strip)
+        n_local = ib if mesh is None else ib // mesh.shape["data"]
+        rc_b = dataclasses.replace(rc, ray_chunk=n_local * strip)
         for lo in range(0, rows.shape[0], ib):
-            nz = _rows(nz_g, slice(lo, lo + ib))
+            nz, ge_r, ix_r = _rows(nz_g, slice(lo, lo + ib)), ge_g[lo:lo + ib], idx[lo:lo + ib]
+            if mesh is not None:
+                nz, ge_r, ix_r = _local_images(mesh, ib, nz, ge_r, ix_r)
             for j0 in range(0, n_sel, strip):
-                ge, ix = ge_g[lo:lo + ib, j0:j0 + strip], idx[lo:lo + ib, j0:j0 + strip]
+                ge, ix = ge_r[:, j0:j0 + strip], ix_r[:, j0:j0 + strip]
                 total += _grad(lambda p: psi_gather_batch_loss(models, p, nz, ge, ix, H, W, K,
                                                                net, rc_b, sc, psi_mode), psi)
+    if mesh is not None:
+        total = all_sum(total, mesh.data_group)
     return total / n_img

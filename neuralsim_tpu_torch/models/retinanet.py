@@ -175,14 +175,19 @@ class DetBatch(NamedTuple):
 
 
 def retinanet_loss(apply_fn, params, batch: DetBatch, anchors: torch.Tensor,
-                   dc: DetectorConfig, image_weight=None):
+                   dc: DetectorConfig, image_weight=None, fg_total=None):
     """Total loss (focal cls + smooth-L1 box), normalized by the number of
     fg anchors: the sum of detectron2's loss dict that the reference
     backprops (``neural_sim_main.py:555-589``).
 
     ``image_weight``: optional [N] weights. Weight 0 removes an image from
     the loss sums and from the fg count, so a zero-padded batch has the
-    loss of the smaller batch."""
+    loss of the smaller batch.
+
+    ``fg_total``: maps this batch's fg count to the whole batch's when the
+    batch is one rank's block of a data-parallel step (a sum over the data
+    group): the loss sums stay local, the normalizer is the whole batch's,
+    so the group's losses and gradients sum to those of the whole batch."""
     logits, deltas = apply_fn(params, batch.images)               # [N,A,C], [N,A,4]
     midx, mlabel = match_anchors(anchors, batch.gt_boxes, batch.gt_valid,
                                  dc.iou_fg_threshold, dc.iou_bg_threshold)
@@ -203,7 +208,8 @@ def retinanet_loss(apply_fn, params, batch: DetBatch, anchors: torch.Tensor,
     if image_weight is not None:
         w = image_weight.to(cls_l.dtype)
         cls_l, box_l, n_fg = cls_l * w, box_l * w, n_fg * w
-    norm = torch.clamp(n_fg.sum(), min=1.0)
+    n_total = n_fg.sum() if fg_total is None else fg_total(n_fg.sum())
+    norm = torch.clamp(n_total, min=1.0)
     losses = {"loss_cls": cls_l.sum() / norm, "loss_box_reg": box_l.sum() / norm}
     return losses["loss_cls"] + losses["loss_box_reg"], losses
 

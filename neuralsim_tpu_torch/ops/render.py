@@ -55,6 +55,7 @@ from neuralsim_tpu_torch.ops.volume import (
     sample_pdf,
     stratified_z_vals,
 )
+from neuralsim_tpu_torch.parallel.distributed import ModelShards
 
 
 def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -241,7 +242,13 @@ def render_ray_batch(models, rays_o, rays_d, net: NeRFNetConfig,
     their grid score, is rendered, and the others get the analytic empty
     outputs; the output then also holds the scalars ``occ_hit_count`` (rays
     that hit the grid) and ``occ_budget`` (rays rendered).
+
+    Tensor-parallel params (``parallel.distributed.nerf_param_sharding``)
+    are all-gathered into whole layers first: the kernels take whole
+    layers.
     """
+    if isinstance(models, ModelShards):
+        models = models.whole_layers()
     if grid is not None and rc.hit_budget < 1.0:
         return _render_ray_batch_culled(models, grid, rays_o, rays_d, net, rc, generator)
     return _render_ray_batch_dense(models, rays_o, rays_d, net, rc, generator)

@@ -14,7 +14,13 @@ returns new tensors and never updates in place.
 Draws come from one ``torch.Generator``: the image and pixel picks of the
 per-image path, the pool permutation of ``use_batching`` and the render's
 jitter. ``StepDraws`` injects any of them (the tests feed the JAX draws).
-``train_nerf(mesh=)`` of the JAX package is not ported yet.
+
+``train_nerf(mesh=)`` trains data-parallel on a mesh of processes
+(``parallel.mesh``), as the JAX package shards its step's rays over the
+data axis: the state is replicated, every rank draws the step's rays and
+the render's uniforms for the whole batch from the same generator, takes
+its block of them, and the gradients are summed over the data group before
+an Adam step that is then the same on every rank (``train_step(mesh=)``).
 """
 
 from __future__ import annotations
@@ -25,12 +31,13 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from neuralsim_tpu_torch import resolve_device
+from neuralsim_tpu_torch import draw, resolve_device
 from neuralsim_tpu_torch.config import NeRFNetConfig, RenderConfig, TrainConfig
 from neuralsim_tpu_torch.detector.trainer import Optimizer
 from neuralsim_tpu_torch.models.nerf import init_nerf_pipeline_params
 from neuralsim_tpu_torch.ops.rays import get_rays, ndc_rays
 from neuralsim_tpu_torch.ops.render import img2mse, mse2psnr, render_rays
+from neuralsim_tpu_torch.parallel.mesh import all_sum, all_sum_tree, replicate, shard_rays
 
 Models = Dict[str, Dict[str, torch.Tensor]]
 
@@ -122,21 +129,54 @@ def nerf_loss(params: Models, rays_o, rays_d, target_rgb, net: NeRFNetConfig,
     return loss, out
 
 
+def _whole_batch_uniforms(n: int, rc: RenderConfig, generator: Optional[torch.Generator],
+                         device) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The (u_z, u_pdf) that ``render_rays`` would draw from ``generator``
+    for n rays, drawn in its order (None where it draws nothing)."""
+    u_z = draw((n, rc.n_samples), generator, device) if rc.perturb else None
+    u_pdf = (draw((n, rc.n_importance), generator, device)
+             if rc.perturb and rc.n_importance > 0 else None)
+    return u_z, u_pdf
+
+
 def train_step(state: TrainState, rays_o, rays_d, target_rgb, net: NeRFNetConfig,
                rc: RenderConfig, tc: TrainConfig,
                generator: Optional[torch.Generator] = None,
-               uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+               uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, mesh=None):
     """One optimizer step on a ray batch: (new state, {"loss", "psnr"}).
     The state passed in is left as it was. ``uniforms`` as in
-    ``render_rays``."""
+    ``render_rays``.
+
+    ``mesh``: a data-parallel step. The rays, targets and uniforms are the
+    whole batch on every rank (the uniforms drawn for the whole batch when
+    not given); each rank takes its block, differentiates its mean loss
+    times its share of the batch, and the gradients and metrics are summed
+    over the data group, so every rank takes the whole batch's step."""
+    share, group = 1.0, None
+    if mesh is not None:
+        if rc.raw_noise_std > 0.0 or rc.fine_fraction < 1.0:
+            raise NotImplementedError(
+                "a data-parallel step draws the density noise and picks the fine rays "
+                "per rank: raw_noise_std > 0 and fine_fraction < 1 are single-device only")
+        n = rays_o.shape[0]
+        if uniforms is None:
+            uniforms = _whole_batch_uniforms(n, rc, generator, rays_o.device)
+        rays_o, rays_d, target_rgb = (shard_rays(x, mesh) for x in (rays_o, rays_d, target_rgb))
+        uniforms = tuple(None if u is None else shard_rays(u, mesh) for u in uniforms)
+        share, group = rays_o.shape[0] / n, mesh.data_group
     leaves = _map(lambda p: p.detach().requires_grad_(), state.params)
     loss, out = nerf_loss(leaves, rays_o, rays_d, target_rgb, net, rc, generator, uniforms)
+    if group is not None:
+        loss = loss * share
     keys = [(name, k) for name in leaves for k in leaves[name]]
     grads = iter(torch.autograd.grad(loss, [leaves[name][k] for name, k in keys]))
-    grad_tree = _map(lambda _: next(grads), leaves)
+    grad_tree = all_sum_tree(_map(lambda _: next(grads), leaves), group)
     with torch.no_grad():
         params, opt_state = make_optimizer(tc).update(grad_tree, state.opt_state, state.params)
-        psnr = mse2psnr(torch.clamp(img2mse(out["rgb_map"], target_rgb), min=1e-10))
+        mse = img2mse(out["rgb_map"], target_rgb)
+        if group is not None:
+            loss, mse = all_sum(torch.stack([loss, mse * share]), group)
+        psnr = mse2psnr(torch.clamp(mse, min=1e-10))
     metrics = {"loss": loss.detach(), "psnr": psnr}
     return TrainState(params, opt_state, state.step + 1), metrics
 
@@ -225,7 +265,7 @@ def train_nerf(dataset, net: NeRFNetConfig, rc: RenderConfig, tc: TrainConfig,
                generator: Optional[torch.Generator] = None, n_iters: Optional[int] = None,
                log_every: Optional[int] = None, hook=None,
                state: Optional[TrainState] = None, device=None,
-               draws: Optional[Callable[[int], StepDraws]] = None):
+               draws: Optional[Callable[[int], StepDraws]] = None, mesh=None):
     """Training loop over a LinemodDataset on ``device`` (``cuda`` unless
     the caller asks for the CPU). Returns (final TrainState, last metrics).
 
@@ -236,8 +276,11 @@ def train_nerf(dataset, net: NeRFNetConfig, rc: RenderConfig, tc: TrainConfig,
     723-756). ``state`` warm-starts from a restored checkpoint instead of a
     fresh init drawn from ``generator`` (a generator seeded 0 on the device
     by default). ``draws(it)`` injects the draws of iteration ``it``.
+
+    ``mesh``: data-parallel training on the mesh's device (see the module
+    docstring); every rank of the mesh calls this with the same arguments.
     """
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     cam = dataset.camera
@@ -249,6 +292,8 @@ def train_nerf(dataset, net: NeRFNetConfig, rc: RenderConfig, tc: TrainConfig,
         rc_train = dataclasses.replace(rc_train, near=0.0, far=1.0)
     if state is None:
         state = init_train_state(net, rc_train, tc, generator, device)
+    if mesh is not None:
+        state = replicate(state, mesh)
 
     i_train = np.asarray(dataset.i_split[0])
     n_iters = n_iters if n_iters is not None else tc.n_iters
@@ -295,7 +340,7 @@ def train_nerf(dataset, net: NeRFNetConfig, rc: RenderConfig, tc: TrainConfig,
         if rc_train.ndc:
             ro, rd = ndc_rays(cam.height, cam.width, float(cam.K[0][0]), 1.0, ro, rd)
         state, metrics = train_step(state, ro, rd, tgt, net, rc_train, tc, generator,
-                                    d.uniforms)
+                                    d.uniforms, mesh)
         if log_every and (it % log_every == 0):
             print(f"[train] iter {it} loss {float(metrics['loss']):.5f} "
                   f"psnr {float(metrics['psnr']):.2f}")

@@ -55,3 +55,18 @@ def test_fused_nerf_mlp_defaults_match_jax_defaults(rng):
     torch.testing.assert_close(got, tmarch.fused_nerf_mlp(tp, tx, td, TNET, torch.bfloat16),
                                rtol=0, atol=0)
     assert not torch.equal(got, tmarch.fused_nerf_mlp(tp, tx, td, TNET, torch.float32))
+
+
+def test_parallel_config_is_the_jax_one():
+    """The mesh layout's defaults (every rank on the data axis, no model
+    axis) and NeuralSimConfig's parallel section equal the JAX package's."""
+    import dataclasses
+
+    from neuralsim_tpu import config as jcfg
+    from neuralsim_tpu_torch import config as tcfg
+
+    assert dataclasses.asdict(tcfg.ParallelConfig()) == dataclasses.asdict(jcfg.ParallelConfig())
+    assert dataclasses.asdict(tcfg.NeuralSimConfig().parallel) == dataclasses.asdict(
+        jcfg.NeuralSimConfig().parallel) == {"data_axis": -1, "model_axis": 1}
+    assert {f.name for f in dataclasses.fields(tcfg.NeuralSimConfig)} == {
+        f.name for f in dataclasses.fields(jcfg.NeuralSimConfig)}

@@ -54,7 +54,8 @@ def test_kernels_use_accurate_sines():
         assert "__sinf" not in text and "__cosf" not in text, path
 
 
-SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel", "hypergrad", "detector", "utils")
+SUBPACKAGES = ("ops", "sampler", "models", "data", "bilevel", "hypergrad", "detector", "utils",
+               "parallel")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
