@@ -27,16 +27,21 @@ Phases, each of which exits nonzero when it fails:
      beside them the time of the same MLP as a chain of per-layer
      torch.matmul + bias + ReLU on encodings computed beforehand, in bf16
      and in float32 with TF32 off (chain_ms, yardsticks of the unfused
-     library path that the port never calls); the most samples per ray the
-     render tile takes at each core width (256, 512) in each dtype (at
-     least 192); then every kernel vs its twin in both dtypes on the nets of
-     EXTRA_NETS, which the kernels take zero-padded to the next core width:
-     4x128, 8x100 with multires 12 / multires_views 6, 8x512, 4x384 (padded
-     to 512), 24x256 with skips (4, 12), and 8x256 with multires 24 /
-     multires_views 12 and 42 / 20 (the longest encodings, at the ragged
-     shapes only); then the five kernels on the 8x512 net at N=8192 x
-     S=64 and 192 in both dtypes: kernel, twin and bound ms (the bound from
-     the net's own work) and the share of the bound;
+     library path that the port never calls); the most samples of one
+     segment of the render tile at each core width (256, 512, 1024) in
+     each dtype (at least 192); then every kernel vs its twin in both dtypes
+     on the nets of EXTRA_NETS, which the kernels take zero-padded to the
+     next core width: 4x128, 8x100 with multires 12 / multires_views 6,
+     8x512, 4x384 (padded to 512), 24x256 with skips (4, 12), 8x256 with
+     multires 24 / multires_views 12 and 42 / 20, 8x1024, 4x768 (padded to
+     1024), 40x256 with skips (4, 20, 36), and on the transposed wgmma core
+     8x512 with multires 42 / 20 and 4x256 with multires 50 / 24 (the long
+     encodings at the ragged shapes only); the render tile on LONG_RAYS:
+     rays longer than one segment (the default net at S = 2048 in bf16 and
+     8192 in float32, 8x1024 at 2048 and 8192) and 8x1024 at S = 192; then
+     the five kernels on the 8x512 and 8x1024 nets at N=8192 x S=64 and 192
+     in both dtypes: kernel, twin and bound ms (the bound from the net's own
+     work), the share of the bound, and chain_ms beside them;
   4. backward: one backward through each differentiable wrapper's
      autograd.Function against plain autograd through the recompute it
      stands for; the render tile refuses a gradient on the card;
@@ -57,9 +62,10 @@ Phases, each of which exits nonzero when it fails:
      an output head): its K=8 render on the card must launch no kernel (it
      takes the plain query_points + raw2outputs, as the JAX package does)
      and equal the same rays' render on the CPU within 2e-3;
-  5c. the default-route render of phase 5 (K=8, 100x100, test mode) on
-     8x512 box-scene weights in float32 and bfloat16: 20 launches of
-     fused_nerf_march and 0 of the others, rgb within 2e-3 / BF16_RENDER_TOL
+  5c. the render of phase 5 (K=8, 100x100, test mode) on 8x512 box-scene
+     weights through the ray march and on 8x1024 box-scene weights through
+     each of the three routes, in float32 and bfloat16: 20 launches of the
+     route's kernel and 0 of the others, rgb within 2e-3 / BF16_RENDER_TOL
      of the twin's render, rays/s beside the card's name and power limit;
   6. entry points: the exported fused_nerf_mlp (pre-encoded inputs) and
      fused_nerf_mlp_pe on the coarse sample points of the same K=8 render,
@@ -183,8 +189,9 @@ Phases, each of which exits nonzero when it fails:
      phase alone on its own inputs (mesh_inputs);
  13. the run's total seconds; a JSON line of the kernels' numbers (float32 times under the
      contract's keys, bf16 times, chain_ms and each dtype's MLP core
-     beside them, the 8x512 times, the production runs' launches, and the
-     production and 8x512 render numbers in fused_nerf_march's record),
+     beside them, the 8x512 and 8x1024 times, the long-ray render tile
+     errors, the production runs' launches, the production render numbers
+     in fused_nerf_march's record, the wide renders in each route's),
      after checking that each kernel's bf16 time (tensor cores) is at most
      WGMMA_FRACTION of its own float32 time at S=192 on the default net,
      and fused_nerf_march's also on 8x512 at S=64; then the last line
@@ -276,8 +283,8 @@ RAGGED = (1001, 48)
 RAY_SHAPES = ((N_RAYS, 64, True), (N_RAYS, 192, True), (N_RAYS, 16, True),
               (32768, 16, True), (N_RAYS, 144, True), RAGGED + (False,), (3, 5, False))
 # nets beyond the default, checked at these (N, S): the kernels take a trunk
-# zero-padded to the next core width (256 or 512), up to 32 layers deep, and
-# encodings up to multires 42 / multires_views 20
+# zero-padded to the next core width (256, 512 or 1024), up to 64 layers
+# deep, and encodings up to multires 128 where they fit in shared memory
 EXTRA_NETS = {
     "4x128": dict(netdepth=4, netwidth=128, netdepth_fine=4, netwidth_fine=128, skips=(2,)),
     "8x100_pe12_6": dict(netwidth=100, netwidth_fine=100, multires=12, multires_views=6),
@@ -290,14 +297,35 @@ EXTRA_NETS = {
     # the wgmma core), and the longest the cores take, 255 / 123
     "8x256_pe24_12": dict(multires=24, multires_views=12),
     "8x256_pe42_20": dict(multires=42, multires_views=20),
+    # the widest core (mip-NeRF 360's 8x1024 MLP), a width padded to it, and
+    # a trunk past 32 layers (skips above bit 32 of the mask)
+    "8x1024": dict(netwidth=1024, netwidth_fine=1024),
+    "4x768": dict(netdepth=4, netwidth=768, netdepth_fine=4, netwidth_fine=768, skips=(2,)),
+    "40x256": dict(netdepth=40, netdepth_fine=40, skips=(4, 20, 36)),
+    # encodings the standard wgmma core has no room for: the transposed core
+    # at widths 512 and 256
+    "8x512_pe42_20": dict(netwidth=512, netwidth_fine=512, multires=42, multires_views=20),
+    "4x256_pe50_24": dict(netdepth=4, netdepth_fine=4, skips=(2,), multires=50,
+                          multires_views=24),
 }
 EXTRA_SHAPES = ((N_RAYS, 64), RAGGED, (3, 5))
 # nets checked at the ragged shapes only
-RAGGED_ONLY = ("8x256_pe42_20",)
-# the wide net whose kernels are timed (N_RAYS x WIDE_S) and rendered on the
-# main path
+RAGGED_ONLY = ("8x256_pe42_20", "8x512_pe42_20", "4x256_pe50_24")
+# the wide nets whose kernels are timed (N_RAYS x WIDE_S, their chain_ms
+# beside them) and rendered on the main path: WIDE through the ray march,
+# WIDEST through all three routes
 WIDE = "8x512"
+WIDEST = "8x1024"
 WIDE_S = (64, 192)
+# the render tile on rays longer than one segment of shared memory holds
+# (the default net in bf16 past 1,737 samples, in float32 past 5,066) and on
+# the widest net: (net, N, S, dtype)
+LONG_RAYS = (("default", 1024, 2048, "bfloat16"), ("default", 128, 8192, "float32"),
+             ("8x1024", 1024, 192, "float32"), ("8x1024", 1024, 192, "bfloat16"),
+             ("8x1024", 64, 2048, "bfloat16"), ("8x1024", 32, 8192, "float32"))
+# the main path's three march routes and the render options that pick them
+ROUTES = {"fused_nerf_march": {}, "fused_nerf_mlp_widepe": dict(fuse_pointgen=False),
+          "fused_render_tile": dict(fuse_compositing=True)}
 # bench.py's production cell (bench.py:139-194): 16 poses x 400^2, its camera
 BENCH_POSES, BENCH_HW = 16, 400
 BENCH_K = [[1333.3334, 0.0, 195.42932], [0.0, 1334.2196, 200.6318], [0.0, 0.0, 1.0]]
@@ -414,6 +442,14 @@ def log(*args):
     print(*args, flush=True)
 
 
+def timed_phase(name, fn, *args):
+    """fn(*args), logging its seconds on the host clock."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def peaks_for(name: str):
     key = "H100 PCIe" if "PCIe" in name else "H100 NVL" if "NVL" in name else "H100 SXM"
     return key, PEAKS[key]
@@ -514,7 +550,7 @@ def chain_mlp(params, x_pe, d_pe, net):
     return torch.cat([h @ params["rgb_kernel"] + params["rgb_bias"], alpha], dim=-1)
 
 
-def time_chain(params, net, rays, dtype):
+def time_chain(params, net, rays, dtype, reps=7, warmup=2):
     """chain_mlp's time in dtype on the sample points of rays (encodings
     computed beforehand, outside the timing)."""
     if torch.backends.cuda.matmul.allow_tf32:
@@ -525,7 +561,7 @@ def time_chain(params, net, rays, dtype):
         raw = chain_mlp(p, x_pe, d_pe, net)
         if not torch.isfinite(raw).all():
             raise AssertionError("chain yardstick output not finite")
-        ms = time_ms(lambda: chain_mlp(p, x_pe, d_pe, net))
+        ms = time_ms(lambda: chain_mlp(p, x_pe, d_pe, net), reps=reps, warmup=warmup)
     del x_pe, d_pe
     torch.cuda.empty_cache()
     return ms
@@ -707,61 +743,104 @@ def phase_kernels(net, peaks):
         torch.cuda.empty_cache()
     rec["fused_render_tile"]["max_samples"] = render_tile_maxima(net)
     for name, kw in EXTRA_NETS.items():
-        rec_net = check_net(NeRFNetConfig(**kw), name, gen)
+        rec_net = timed_phase(f"3 net {name}", check_net, NeRFNetConfig(**kw), name, gen)
         for kernel, errs in rec_net.items():
             rec[kernel].setdefault("err_nets", {})[name] = errs
-    wide = time_wide_net(gen, peaks)
-    for kernel, times in wide.items():
-        rec[kernel]["wide"] = times
+    rec["fused_render_tile"]["long_rays"] = timed_phase("3 long rays", check_long_rays, net, gen)
+    for key, name, reps in (("wide", WIDE, 3), ("widest", WIDEST, 2)):
+        wide, wide_chain = timed_phase(f"3 times {name}", time_wide_net, name, gen, peaks, reps)
+        for kernel, times in wide.items():
+            rec[kernel][key] = times
+        chain[key] = wide_chain
     return rec, chain
 
 
 def render_tile_maxima(net):
-    """The most samples per ray that fused_render_tile takes (one ray per
-    group) for the encodings of net, at each core width in each dtype, from
-    the device's shared memory; each must hold the exact fine pass's 192."""
+    """The most samples of one segment of fused_render_tile (one ray per
+    group; a longer ray runs in segments) for the encodings of net, at each
+    core width in each dtype, from the device's shared memory; each must
+    hold the exact fine pass's 192, so that the exact render's rays run
+    whole."""
     lib = rm._library("render_tile")
     with torch.cuda.device(DEVICE):
         out = {f"{dtype}_W{w}": lib.render_tile_max_samples(
             int(dtype == "bfloat16"), w, net.input_ch, net.input_ch_views)
             for dtype in ("float32", "bfloat16") for w in rm.CORE_WIDTHS}
-    log("render tile: most samples per ray (PE "
+    log("render tile: most samples of one segment (PE "
         f"{net.multires}/{net.multires_views}) " + ", ".join(f"{k} {v}" for k, v in out.items()))
     if min(out.values()) < 192:
-        raise AssertionError(f"fused_render_tile takes fewer than 192 samples per ray: {out}")
+        raise AssertionError(f"fused_render_tile holds fewer than 192 samples a segment: {out}")
     return out
 
 
-def time_wide_net(gen, peaks):
-    """The five kernels on the WIDE net at N_RAYS x WIDE_S samples in both
+def check_long_rays(default, gen):
+    """fused_render_tile against its twin on LONG_RAYS (box-scene and
+    He-scaled random weights): rays longer than one segment (their
+    transmittance and sums carried across segments) and the widest net:
+    {"net N=.. S=.. dtype": max abs err}."""
+    out = {}
+    for name, n, s, dtype in LONG_RAYS:
+        net = default if name == "default" else NeRFNetConfig(**EXTRA_NETS[name])
+        random = init_nerf_params(net, generator=gen, device=DEVICE)
+        weights = {"box": box_scene_params(net, generator=gen, device=DEVICE),
+                   "random_he": {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0)
+                                 for k, v in random.items()}}
+        lib = rm._library("render_tile")
+        with torch.cuda.device(DEVICE):
+            segment = lib.render_tile_max_samples(int(dtype == "bfloat16"),
+                                                  rm.core_width(net.netwidth), net.input_ch,
+                                                  net.input_ch_views)
+        rays = march_inputs(n, s, gen, DEVICE)
+        key = f"{name} N={n} S={s} {dtype}"
+        out[key] = max(check("fused_render_tile", params, rays, net, getattr(torch, dtype),
+                             f"fused_render_tile long rays {scene} {key}")
+                       for scene, params in weights.items())
+        log(f"kernel vs twin fused_render_tile {key} (one segment holds {segment} samples: "
+            f"{-(-s // segment)} segments at most): max abs err {out[key]:.2e}")
+        del rays, weights, random
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_wide_net(name, gen, peaks, reps):
+    """The five kernels on a wide net at N_RAYS x WIDE_S samples in both
     dtypes (random weights): kernel, twin and bound ms, the bound from the
     net's own work (not the zero-padded work), and the kernel's share of
-    its bound: {kernel: {shape key: {...}}}."""
-    net = NeRFNetConfig(**EXTRA_NETS[WIDE])
+    its bound ({kernel: {shape key: {...}}}); and the chain_ms yardstick at
+    each shape ({shape key: ms})."""
+    net = NeRFNetConfig(**EXTRA_NETS[name])
     params = init_nerf_params(net, generator=gen, device=DEVICE)
     weight_bytes = sum(t.numel() * 4 for t in params.values())
     out = {kernel: {} for kernel in KERNELS}
+    chain = {}
     for s in WIDE_S:
         rays = march_inputs(N_RAYS, s, gen, DEVICE)
+        for dtype in (torch.bfloat16, torch.float32):
+            key = shape_key(str(dtype)[6:], N_RAYS, s)
+            chain[key] = time_chain(params, net, rays, dtype, reps=reps, warmup=1)
+            log(f"time {name} chain yardstick ({str(dtype)[6:]} torch.matmul per layer) S{s} "
+                f"N={N_RAYS}: {chain[key]:.3f} ms")
         for kernel, (wrapper, twin, inputs) in KERNELS.items():
             args = inputs(net, rays)
             for dtype in (torch.float32, torch.bfloat16):
                 key = shape_key(str(dtype)[6:], N_RAYS, s)
                 with torch.no_grad():
                     ms = time_ms(lambda: wrapper(params, *args, net, compute_dtype=dtype),
-                                 reps=5, warmup=1)
+                                 reps=reps, warmup=1)
                     plain = time_ms(lambda: twin(params, *args, net, compute_dtype=dtype),
-                                    reps=5, warmup=1)
+                                    reps=reps, warmup=1)
                 peak = peaks[0] if dtype == torch.float32 else peaks[1]
                 b, by = bound(*work(kernel, net, N_RAYS, s, weight_bytes), peak, peaks[2])
                 out[kernel][key] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                                         share=b / ms)
-                log(f"time {WIDE} {kernel} {key} N={N_RAYS} ({CORES[kernel][str(dtype)[6:]]} "
+                log(f"time {name} {kernel} {key} N={N_RAYS} ({CORES[kernel][str(dtype)[6:]]} "
                     f"core): kernel {ms:.3f} ms, twin {plain:.3f} ms, bound {b:.3f} ms ({by}), "
                     f"{b / ms:.1%} of the bound")
-        del rays, args
+            del args
+            torch.cuda.empty_cache()
+        del rays
         torch.cuda.empty_cache()
-    return out
+    return out, chain
 
 
 def check_net(net, name, gen):
@@ -849,11 +928,13 @@ def psnr(a, b):
     return -10.0 * math.log10(max(((a - b) ** 2).mean().item(), 1e-12))
 
 
-def drive_route(models, psi, kernel, per_chunk=2, production=False, cfg=None, **render):
+def drive_route(models, psi, kernel, per_chunk=2, production=False, cfg=None, repeats=2,
+                **render):
     """render_images at the default config (or cfg) through one march route:
     the kernel's counter must read per_chunk per chunk of marched rays and
-    the others 0. production: the config's production_mode(), whose renderer
-    builds the grid and calibrates the budget (timed as setup_s)."""
+    the others 0; then `repeats` timed renders of the same poses, equal to
+    it. production: the config's production_mode(), whose renderer builds
+    the grid and calibrates the budget (timed as setup_s)."""
     cfg = cfg or NeuralSimConfig()
     rc = dataclasses.replace(cfg.render, **render)
     cfg = cfg.replace(render=rc.production_mode() if production else rc)
@@ -884,7 +965,7 @@ def drive_route(models, psi, kernel, per_chunk=2, production=False, cfg=None, **
         raise AssertionError(f"route {render} launched {launched}, expected {expect} "
                              f"of {kernel} and no other kernel")
     with torch.no_grad():
-        for _ in range(2):
+        for _ in range(repeats):
             t0 = time.perf_counter()
             rgb2, _, acc = renderer._render_impl(psi, noise)
             torch.cuda.synchronize()
@@ -977,28 +1058,37 @@ def phase_main_path():
     return routes, bf16, box, cfg
 
 
-def phase_wide_main_path(psi, smi):
-    """5c: render_images at the default config on the WIDE net's box-scene
-    weights, float32 and bfloat16, default route (the ray march): 2 launches
-    of fused_nerf_march per ray chunk and no other kernel, rgb within 2e-3
-    (float32) or BF16_RENDER_TOL (bfloat16) of the twin's render."""
-    net = NeRFNetConfig(**EXTRA_NETS[WIDE])
+def phase_wide_main_path(name, routes, psi, smi, repeats):
+    """5c: render_images at the default config on a wide net's box-scene
+    weights, float32 and bfloat16, through each of `routes` (of ROUTES): 2
+    launches of the route's kernel per ray chunk and no other kernel, rgb
+    within 2e-3 (float32) or BF16_RENDER_TOL (bfloat16) of the twin's render:
+    {route: {dtype: {...}}}."""
+    net = NeRFNetConfig(**EXTRA_NETS[name])
     cfg = NeuralSimConfig().replace(net=net)
     box = box_scene_params(net, generator=torch.Generator().manual_seed(3), device=DEVICE)
     models = {"coarse": box, "fine": box}
-    out = {}
+    out = {route: {} for route in routes}
     for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_RENDER_TOL)):
-        run = drive_route(models, psi, "fused_nerf_march", cfg=cfg, compute_dtype=dtype)
-        twin = NeuralSimRenderer(cfg.replace(render=dataclasses.replace(
-            run["renderer"].rc, use_pallas=False)), models=models, device=DEVICE)
-        with torch.no_grad():
-            rgb_twin = twin._render_impl(psi, run["noise"])[0]
-        err = (run["rgb"] - rgb_twin).abs().max().item()
-        log(f"main path [{WIDE}, fused_nerf_march, {dtype}]: rgb vs twin render max abs err "
-            f"{err:.3e} (limit {tol:g}); {run['rays_per_s']:.0f} rays/s on {smi}")
-        torch.testing.assert_close(run["rgb"], rgb_twin, rtol=0, atol=tol)
-        out[dtype] = dict(launches=run["launches"], err_vs_twin=err,
-                          rays_per_s=run["rays_per_s"], ms_per_image=run["ms_per_image"])
+        rgb_twin = None
+        for route in routes:
+            run = drive_route(models, psi, route, cfg=cfg, repeats=repeats, compute_dtype=dtype,
+                              **ROUTES[route])
+            if rgb_twin is None:
+                twin = NeuralSimRenderer(cfg.replace(render=dataclasses.replace(
+                    run["renderer"].rc, use_pallas=False)), models=models, device=DEVICE)
+                with torch.no_grad():
+                    rgb_twin = twin._render_impl(psi, run["noise"])[0]
+                del twin
+            err = (run["rgb"] - rgb_twin).abs().max().item()
+            log(f"main path [{name}, {route}, {dtype}]: rgb vs twin render max abs err "
+                f"{err:.3e} (limit {tol:g}); {run['rays_per_s']:.0f} rays/s on {smi}")
+            torch.testing.assert_close(run["rgb"], rgb_twin, rtol=0, atol=tol)
+            out[route][dtype] = dict(launches=run["launches"], err_vs_twin=err,
+                                     rays_per_s=run["rays_per_s"],
+                                     ms_per_image=run["ms_per_image"])
+            del run
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3143,20 +3233,23 @@ def main():
     peak_key, peaks = peaks_for(name)
     log(f"peaks ({peak_key}): fp32 {peaks[0] / 1e12:.0f} TFLOP/s, bf16 "
         f"{peaks[1] / 1e12:.0f} TFLOP/s, memory {peaks[2] / 1e12:.2f} TB/s")
-    spills = phase_build()
+    spills = timed_phase("2 build", phase_build)
     net = NeRFNetConfig()
-    rec, chain = phase_kernels(net, peaks)
-    phase_backward(net)
-    routes, routes16, box, cfg = phase_main_path()
-    plain_net = phase_plain_net(psi_init("5"))
-    wide_main = phase_wide_main_path(psi_init("5"), smi)
-    entries, entries16 = phase_entry_points(box, cfg, routes)
-    pipeline, others, bench = phase_production(box, routes, routes16)
-    grad = phase_render_grad(box, smi)
-    detector = phase_detector(pipeline["float32"]["renderer"], smi)
-    bilevel, rerun = phase_bilevel(box, smi)
-    train = phase_train_nerf(box, smi)
-    mesh = phase_mesh(rerun, box, smi)
+    rec, chain = timed_phase("3 kernels", phase_kernels, net, peaks)
+    timed_phase("4 backward", phase_backward, net)
+    routes, routes16, box, cfg = timed_phase("5 main path", phase_main_path)
+    plain_net = timed_phase("5b plain net", phase_plain_net, psi_init("5"))
+    wide_main = {WIDE: timed_phase(f"5c {WIDE}", phase_wide_main_path, WIDE, ("fused_nerf_march",),
+                             psi_init("5"), smi, 2),
+                 WIDEST: timed_phase(f"5c {WIDEST}", phase_wide_main_path, WIDEST, tuple(ROUTES),
+                               psi_init("5"), smi, 1)}
+    entries, entries16 = timed_phase("6 entry points", phase_entry_points, box, cfg, routes)
+    pipeline, others, bench = timed_phase("7 production", phase_production, box, routes, routes16)
+    grad = timed_phase("8 render gradient", phase_render_grad, box, smi)
+    detector = timed_phase("9 detector", phase_detector, pipeline["float32"]["renderer"], smi)
+    bilevel, rerun = timed_phase("10 bilevel", phase_bilevel, box, smi)
+    train = timed_phase("11 trainer", phase_train_nerf, box, smi)
+    mesh = timed_phase("12 mesh", phase_mesh, rerun, box, smi)
     production_launched = {f"pipeline_{name}": run["launched"] for name, run in pipeline.items()}
     production_launched.update({name: run["launched"] for name, run in others.items()})
     production_launched.update({f"bench_{k}": v for k, v in bench["launched"].items()})
@@ -3236,16 +3329,21 @@ def main():
             } if kernel == "fused_nerf_march" else None,
             "max_err_nets": r["err_nets"],
             "wide": r["wide"],
-            "main_path_wide": wide_main if kernel == "fused_nerf_march" else None,
+            "widest": r["widest"],
+            "main_path_wide": {name: runs.get(kernel) for name, runs in wide_main.items()},
             "max_samples": r.get("max_samples"),
+            "long_rays": r.get("long_rays"),
             "build_spills": spills,
             "shape": f"N={N_RAYS} rays x S samples (M = N*S points); "
                      "ms/plain_ms/bound_ms at float32 S=192, *_bf16 at bfloat16 S=192; "
                      "kernel_ms etc. by dtype and S (S=16: the production single pass); "
                      "chain_ms: the same MLP as torch.matmul per layer (bf16; float32 "
                      "with TF32 off); max_err_nets: twin checks on the nets of "
-                     f"EXTRA_NETS; wide: times on the {WIDE} net (bound from its own work); "
-                     f"main_path_wide: the K=8 render on {WIDE} box-scene weights",
+                     f"EXTRA_NETS; wide / widest: times on the {WIDE} / {WIDEST} nets (bound "
+                     "from the net's own work; chain_ms['wide' / 'widest'] beside them); "
+                     f"main_path_wide: the K=8 renders on {WIDE} (ray march) and {WIDEST} "
+                     "(every route) box-scene weights; long_rays: the render tile on rays "
+                     "longer than one segment",
             "card": smi,
         })
     print(json.dumps({"render_grad": grad}), flush=True)

@@ -40,15 +40,15 @@ UNROLL = "#pragma unroll 8\n  for (int k = 0; k < KC; ++k) {"
 # counter per stage in the empty barrier's place; every warp's lane 0
 # follows the issue order), so that no warp waits for the others
 EMPTY_INIT = """        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\\n"
-                     ::"r"(smem_addr(empty + s)), "r"(THREADS / 32));
+                     ::"r"(smem_addr(empty + s)), "r"(WARPS));
 """
-FIRST_ISSUES = """    if (threadIdx.x == 0) {
+FIRST_ISSUES = """    if (leader()) {
       for (int s = 0; s < STAGES && left > 0; ++s) issue(s);
     }
 """
 LANE0_FIRST_ISSUES = """    if ((threadIdx.x & 31) == 0) {
       for (int s = 0; s < STAGES && left > 0; ++s) {
-        if (threadIdx.x == 0) {
+        if (leader()) {
           issue(s);
         } else {
           next_q = next_q + 1 == plan.per_tile ? 0 : next_q + 1;
@@ -61,14 +61,14 @@ RELEASE = """    if ((threadIdx.x & 31) == 0) {
       asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n"
                    ::"r"(smem_addr(empty + free_stage)) : "memory");
     }
-    if (threadIdx.x == 0 && left > 0) {
+    if (leader() && left > 0) {
       wait(empty + free_stage, free_phase);
       issue(free_stage);
     }
 """
 LAST_WARP_RELEASE = """    if ((threadIdx.x & 31) == 0) {
       int* count = reinterpret_cast<int*>(empty + free_stage);
-      if (atomicAdd(count, 1) == THREADS / 32 - 1) {
+      if (atomicAdd(count, 1) == WARPS - 1) {
         atomicExch(count, 0);
         if (left > 0) issue(free_stage);
       } else if (left > 0) {
@@ -94,7 +94,8 @@ VARIANTS = {
         (F32, RELEASE, LAST_WARP_RELEASE)],
     "W = 512: 32-point tiles, 16-row stages": [
         (F32, STAGE_BYTES, STAGE_BYTES.replace("16 * 1024", "32 * 1024")),
-        (F32, BIG_TILE, BIG_TILE.replace("128 * 256 / width", "width == 512 ? 32 : 128"))],
+        (F32, BIG_TILE,
+         BIG_TILE.replace("128 * 256 / width", "width == 512 ? 32 : 128 * 256 / width"))],
 }
 # the nets timed: the default, and the reference's --netwidth 512 (at S = 64)
 NETS = {"8x256": (NeRFNetConfig(), (64, 192, 16)),

@@ -18,13 +18,15 @@
 // each point finds its ray (idx / S), so a tile need not align with rays
 // and the ragged tail is masked. Point generation (no fma) and the
 // channel-plane output are this file's; the MLP is a core's:
-//   - float32: tiles of 128 points at W = 256 and 64 at W = 512 (half that
-//     for nets with long encodings) on the FP32 core of nerf_mlp.cuh, its
-//     packed float32 weights streamed through the core's shared-memory ring;
-//   - bf16: blocks of two warpgroups on the wgmma core of
-//     nerf_mlp_wgmma.cuh (128-point tiles at W = 256, 64-point tiles whose
-//     columns the warpgroups split at W = 512), its packed bf16 weights
-//     streamed the same way.
+//   - float32: tiles of 128 points at W = 256, 64 at W = 512 and 32 at
+//     W = 1024 (half that for nets with long encodings) on the FP32 core of
+//     nerf_mlp.cuh, its packed float32 weights streamed through the core's
+//     shared-memory ring;
+//   - bf16: blocks of two warpgroups on a wgmma core of nerf_mlp_wgmma.cuh
+//     (128-point tiles at W = 256, 64-point tiles whose columns the
+//     warpgroups split at W = 512; 32-point tiles of the transposed core at
+//     W = 1024 and for narrower nets with long encodings), its packed bf16
+//     weights streamed the same way.
 // Each header reckons its core's weight traffic.
 
 #include "nerf_mlp_wgmma.cuh"
@@ -93,10 +95,11 @@ nerf_march_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_
   }
 }
 
-// bf16: blocks of two warpgroups over tiles of wg::Shape<W>::TILE points
+// bf16: blocks of two warpgroups over tiles of wg::Core<W, NX>::TILE points
 // (tiles blockIdx.x, +gridDim.x, ...): at W = 256 warpgroup g runs points
 // [64g, 64g+64) of each 128-point tile, at W = 512 both run the columns of
-// one 64-point tile.
+// one 64-point tile, on the transposed core (NX = 0) both run the columns of
+// one 32-point tile.
 template <int W, int NX>
 __global__ void __launch_bounds__(THREADS, 1)
 nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
@@ -104,7 +107,7 @@ nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ray
                  int total, int n_samples, Net net, Plan plan, int nd,
                  float* __restrict__ sigma, float* __restrict__ rgb) {
   extern __shared__ float4 smem4[];
-  constexpr int TILE = wg::Shape<W>::TILE;
+  constexpr int TILE = wg::Core<W, NX>::TILE, PTS = wg::Core<W, NX>::PTS;
   const int n_tiles = (total + TILE - 1) / TILE;
   const int mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
   wg::Core<W, NX> core = wg::make_core<W, NX>(smem4, plan, nd);
@@ -113,20 +116,20 @@ nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ray
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int base = tile * TILE + core.point0();
     core.sync();  // the previous tile's points and raw are read
-    if (core.io() && t < P) {
-      make_point(rays_o, rays_d, viewdirs, z_vals, base + t, total, n_samples, core.pts, P, t);
+    if (core.io() && t < PTS) {
+      make_point(rays_o, rays_d, viewdirs, z_vals, base + t, total, n_samples, core.pts, PTS, t);
     }
     core.sync();
     wg::run_tile<W, NX, false, false>(core, net);  // the march has no fast epilogue
     if (core.io()) {
-      for (int idx = t; idx < 4 * P; idx += 128) {
-        const int c = idx / P, p = idx % P;
+      for (int idx = t; idx < 4 * PTS; idx += 128) {
+        const int c = idx / PTS, p = idx % PTS;
         const int gp = base + p;
         if (gp < total) {
           if (c == 3) {
-            sigma[gp] = core.raw[3 * P + p];
+            sigma[gp] = core.raw[3 * PTS + p];
           } else {
-            rgb[static_cast<long long>(c) * total + gp] = core.raw[c * P + p];
+            rgb[static_cast<long long>(c) * total + gp] = core.raw[c * PTS + p];
           }
         }
       }
@@ -151,7 +154,7 @@ struct MarchWgmma {
   static int run(long long total, size_t smem, cudaStream_t s, const float* rays_o,
                  const float* rays_d, const float* viewdirs, const float* z_vals, int n_samples,
                  Net net, Plan plan, int nd, float* sigma, float* rgb) {
-    constexpr int TILE = wg::Shape<W>::TILE;
+    constexpr int TILE = wg::Core<W, NX>::TILE;
     return launch_persistent(nerf_march_wgmma<W, NX>, (total + TILE - 1) / TILE, smem, s, rays_o,
                              rays_d, viewdirs, z_vals, static_cast<int>(total), n_samples, net,
                              plan, nd, sigma, rgb);
@@ -164,13 +167,15 @@ extern "C" {
 
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
 // for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
-// to a trunk of `width` (256 or 512); packed: the weight chunks of the core
+// to a trunk of `width` (256, 512 or 1024); skip_mask: bit i set when layer
+// i's output is concatenated with x_pe; packed: the weight chunks of the core
 // this dtype runs (raymarch.py pack_f32_weights in float32,
 // pack_wgmma_weights in bf16; 16-byte aligned). Returns a cudaError_t
 // value: 0 when the launch was accepted.
 int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
                const float* z_vals, long long n_rays, int n_samples,
-               const void* const* weights, int width, int depth, unsigned skip_mask,
+               const void* const* weights, int width, int depth,
+               unsigned long long skip_mask,
                int in_ch, int in_ch_views, int bf16, const void* packed, float* sigma,
                float* rgb, void* stream) {
   Net net;
@@ -184,7 +189,7 @@ int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     const Plan plan = wg::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
-    return wg::dispatch<MarchWgmma>(width, wg::x_chunks(in_ch), total,
+    return wg::dispatch<MarchWgmma>(width, wg::core_nx(width, in_ch, in_ch_views), total,
                                     static_cast<size_t>(wg::launch_bytes(width, in_ch, in_ch_views)),
                                     s, rays_o, rays_d, viewdirs, z_vals, n_samples, net, plan,
                                     wg::d_chunks(in_ch_views), sigma, rgb);

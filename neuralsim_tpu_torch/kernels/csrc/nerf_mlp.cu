@@ -26,16 +26,17 @@
 // inputs are read with consecutive threads on consecutive addresses (the
 // [M,3] / [M,C] rows of a tile are one contiguous run), and raw [M,4] goes
 // back as one contiguous run.
-//   - float32: tiles of 128 points at W = 256 and 64 at W = 512 (half that
-//     for nets with long encodings) on the FP32 core of nerf_mlp.cuh; the
-//     inputs are scattered into the core's feature-major [channel][point]
-//     tiles;
-//   - bf16, every stage: blocks of two warpgroups on the wgmma core of
+//   - float32: tiles of 128 points at W = 256, 64 at W = 512 and 32 at
+//     W = 1024 (half that for nets with long encodings) on the FP32 core of
+//     nerf_mlp.cuh; the inputs are scattered into the core's feature-major
+//     [channel][point] tiles;
+//   - bf16, every stage: blocks of two warpgroups on a wgmma core of
 //     nerf_mlp_wgmma.cuh (128-point tiles at W = 256, 64-point tiles whose
-//     columns the warpgroups split at W = 512). A tile's 64 rows are read
-//     as points into the core's [6][P] tile (encoded by the core, with a
-//     true cosf in TRUE_COS), or as x_pe and d_pe straight into the
-//     swizzled A tiles (load_encodings).
+//     columns the warpgroups split at W = 512, 32-point tiles of the
+//     transposed core at W = 1024 and for narrower nets with long
+//     encodings). A tile's rows are read as points into the core's [6][PTS]
+//     tile (encoded by the core, with a true cosf in TRUE_COS), or as x_pe
+//     and d_pe straight into the swizzled tiles (load_tile_encodings).
 // Both cores stream their packed weights through the shared-memory ring of
 // nerf_mlp.cuh.
 
@@ -107,16 +108,17 @@ nerf_mlp_f32(const float* __restrict__ a, const float* __restrict__ b, int total
   }
 }
 
-// bf16: blocks of two warpgroups over tiles of wg::Shape<W>::TILE points
+// bf16: blocks of two warpgroups over tiles of wg::Core<W, NX>::TILE points
 // (tiles blockIdx.x, +gridDim.x, ...): at W = 256 warpgroup g runs points
 // [64g, 64g+64) of each 128-point tile, at W = 512 both run the columns of
-// one 64-point tile.
+// one 64-point tile, on the transposed core (NX = 0) both run the columns of
+// one 32-point tile.
 template <int W, int NX, int INPUT>
 __global__ void __launch_bounds__(THREADS, 1)
 nerf_mlp_wgmma(const float* __restrict__ a, const float* __restrict__ b, int total, Net net,
                Plan plan, int nd, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  constexpr int TILE = wg::Shape<W>::TILE;
+  constexpr int TILE = wg::Core<W, NX>::TILE, PTS = wg::Core<W, NX>::PTS;
   const int n_tiles = (total + TILE - 1) / TILE;
   const int mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
   wg::Core<W, NX> core = wg::make_core<W, NX>(smem4, plan, nd);
@@ -124,23 +126,23 @@ nerf_mlp_wgmma(const float* __restrict__ a, const float* __restrict__ b, int tot
   const int t = threadIdx.x & 127;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int base = tile * TILE + core.point0();
-    const int here = total - base < P ? total - base : P;  // <= 0 past the end
+    const int here = total - base < PTS ? total - base : PTS;  // <= 0 past the end
     core.sync();  // the previous tile's inputs and raw are read
     if constexpr (INPUT == ENCODED) {
-      wg::load_encodings<W, NX>(a + static_cast<long long>(base) * net.in_ch,
-                                b + static_cast<long long>(base) * net.in_ch_views, here, core.a,
-                                net, nd, core.group);
+      wg::load_tile_encodings<W, NX>(a + static_cast<long long>(base) * net.in_ch,
+                                     b + static_cast<long long>(base) * net.in_ch_views, here,
+                                     core, net);
       wg::mlp_tile<W, NX, false>(core, net);
     } else {
       // a = points, b = view directions: the tile's rows of each are one
-      // run of 3P floats
+      // run of 3 * PTS floats
       if (core.io()) {
         const long long run = static_cast<long long>(base) * 3;
-        for (int idx = t; idx < 6 * P; idx += 128) {
-          const int which = idx / (3 * P), j = idx - which * 3 * P;
+        for (int idx = t; idx < 6 * PTS; idx += 128) {
+          const int which = idx / (3 * PTS), j = idx - which * 3 * PTS;
           const int p = j / 3, c = j - 3 * p;
           const float* src = which ? b : a;
-          core.pts[(3 * which + c) * P + p] = p < here ? src[run + j] : 0.f;
+          core.pts[(3 * which + c) * PTS + p] = p < here ? src[run + j] : 0.f;
         }
       }
       core.sync();
@@ -149,9 +151,9 @@ nerf_mlp_wgmma(const float* __restrict__ a, const float* __restrict__ b, int tot
     }
     // ---- raw [M,4]: thread -> (point, channel), one contiguous run -------
     if (core.io()) {
-      for (int idx = t; idx < 4 * P; idx += 128) {
+      for (int idx = t; idx < 4 * PTS; idx += 128) {
         const int p = idx >> 2, c = idx & 3;
-        if (p < here) out[static_cast<long long>(base) * 4 + idx] = core.raw[c * P + p];
+        if (p < here) out[static_cast<long long>(base) * 4 + idx] = core.raw[c * PTS + p];
       }
     }
   }
@@ -173,7 +175,7 @@ struct MlpWgmma {
   template <int W, int NX>
   static int run(int total, size_t smem, cudaStream_t s, const float* a, const float* b, Net net,
                  Plan plan, int nd, float* out) {
-    constexpr int TILE = wg::Shape<W>::TILE;
+    constexpr int TILE = wg::Core<W, NX>::TILE;
     return launch_persistent(nerf_mlp_wgmma<W, NX, INPUT>, (total + TILE - 1) / TILE, smem, s,
                              a, b, total, net, plan, nd, out);
   }
@@ -182,13 +184,13 @@ struct MlpWgmma {
 // One stage's kernel in one dtype.
 template <int INPUT>
 int launch_stage(int bf16, int total, const float* a, const float* b, int width,
-                 const void* packed, unsigned skip_mask, const Net& net, cudaStream_t s,
-                 float* out) {
+                 const void* packed, unsigned long long skip_mask, const Net& net,
+                 cudaStream_t s, float* out) {
   if (bf16) {
     const Plan plan =
         wg::make_plan(packed, width, net.depth, skip_mask, net.in_ch, net.in_ch_views);
     return wg::dispatch<MlpWgmma<INPUT>>(
-        width, wg::x_chunks(net.in_ch), total,
+        width, wg::core_nx(width, net.in_ch, net.in_ch_views), total,
         static_cast<size_t>(wg::launch_bytes(width, net.in_ch, net.in_ch_views)), s, a, b, net,
         plan, wg::d_chunks(net.in_ch_views), out);
   }
@@ -210,12 +212,13 @@ extern "C" {
 // kind 1: true cos) or x_pe [M,in_ch] and d_pe [M,in_ch_views] (kind 2).
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
 // for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
-// to a trunk of `width` (256 or 512); packed: the weight chunks of the core
+// to a trunk of `width` (256, 512 or 1024); skip_mask: bit i set when layer
+// i's output is concatenated with x_pe; packed: the weight chunks of the core
 // the dtype runs (raymarch.py pack_wgmma_weights in bf16, pack_f32_weights
 // in float32; 16-byte aligned). out: raw [M,4]. Returns a cudaError_t
 // value: 0 when the launch was accepted.
 int nerf_mlp(const float* a, const float* b, long long total, int kind,
-             const void* const* weights, int width, int depth, unsigned skip_mask,
+             const void* const* weights, int width, int depth, unsigned long long skip_mask,
              int in_ch, int in_ch_views, int bf16, const void* packed, float* out,
              void* stream) {
   Net net;

@@ -8,13 +8,15 @@
 //
 //   - the shape limits of the two MLP cores (and, once per shared library,
 //     the C functions that report them to the Python wrapper): a trunk of
-//     W = 256 or 512 (the wrapper zero-pads a narrower net's weights to the
-//     next of the two, which is exact: pad columns hold ReLU(0 + 0) = 0 and
-//     meet zero rows), at most MAX_DEPTH trunk layers with any skips, at
-//     most MAX_X rows of position encoding (multires <= 42) and MAX_D of
-//     view encoding (multires_views <= 20), and what fits in a block's
-//     shared memory (the cores' *_smem_bytes: every such net at W = 256,
-//     and at W = 512 all but the longest encodings in bf16);
+//     W = 256, 512 or 1024 (the wrapper zero-pads a narrower net's weights
+//     to the next of the three, which is exact: pad columns hold
+//     ReLU(0 + 0) = 0 and meet zero rows), at most MAX_DEPTH (64) trunk
+//     layers with any skips (the bits of a 64-bit skip mask), encodings of
+//     multires and multires_views <= 128 (MAX_X, MAX_D: the frequencies
+//     2^k, k < 128, that a float32 holds), and what fits in a block's shared
+//     memory (the cores' *_smem_bytes, which the wrapper checks: every net
+//     up to multires 42 / multires_views 20 fits both cores at every
+//     width);
 //   - the positional encoding of a point, with cos as sin(y + pi/2) (the
 //     JAX projection form) or as a true cosf (TRUE_COS, the form of
 //     fused_nerf_mlp_pe);
@@ -37,26 +39,30 @@
 // tile), the issue slots of the shared-memory loads, and bank conflicts in
 // the epilogue's column stores. The design:
 //   - persistent blocks (one per SM) of 256 threads over tiles of TILE
-//     points: 128 at W = 256 and 64 at W = 512, so that a block's layer
-//     output stays W x TILE = 32,768 values, 128 accumulators a thread; half
-//     that where a net's encodings leave no room (0.85 of the speed per
-//     point at W = 256);
+//     points: 128 at W = 256, 64 at W = 512 and 32 at W = 1024, so that a
+//     block's layer output stays W x TILE = 32,768 values, 128 accumulators
+//     a thread; half that where a net's encodings leave no room (0.85 of the
+//     speed per point at W = 256);
 //   - the host packs the weights once per weight set (raymarch.py
 //     pack_f32_weights) into chunks of 16 input rows, in the order the core
 //     consumes them, each row's columns permuted so that a thread's columns
 //     {cg + 16j} are float4 lying beside its neighbours'. The chunks run
 //     through a 2-stage ring (Ring below) of 16 KB stages, KC = 16 rows of
-//     W = 256 (or 8 rows of W = 512: the ring delivers each packed chunk as
-//     two; with 16-row stages a 64-point tile of W = 512 needs 233,504 B,
-//     1 KB over what a block may have), so the weights are shared-memory
-//     reads common to all eight warps, and the next chunk lands while this
-//     one multiplies. Each 128-point tile of the default net reads the
+//     W = 256 (8 rows of W = 512 and 4 of W = 1024: the ring delivers each
+//     packed chunk as two or four; with 16-row stages a 64-point tile of
+//     W = 512 needs 233,504 B, 1 KB over what a block may have), so the
+//     weights are shared-memory reads common to all eight warps, and the
+//     next chunk lands while this one multiplies. Each 128-point tile of the default net reads the
 //     2.38 MB of chunks from L2: 29 GB per launch at 8192 x 192 points,
 //     0.8 TB/s at 38 ms, well inside the L2's rate;
 //   - each thread owns a PT x W/16 register tile (8 points x 16 columns at
-//     W = 256, 4 x 32 at 512): per input row one or two float4 activation
-//     loads (broadcast within a half-warp) and W/64 conflict-free float4
-//     weight loads feed 128 fmaf;
+//     W = 256, 4 x 32 at 512, 2 x 64 at 1024): per input row one or two
+//     activation loads (broadcast within a half-warp) and W/64
+//     conflict-free float4 weight loads feed 128 fmaf. At W = 1024 that is
+//     16 weight loads per 128 fmaf (4 at W = 256), and each 32-point tile
+//     reads the whole net's packed chunks from L2 (36.2 MB for the 8x1024
+//     default-shaped net: 1.78 TB per 8192 x 192 launch); a simple core
+//     that is right, whose second pass is queued (ROADMAP.md);
 //   - activations never leave shared memory: feature-major [row][point]
 //     tiles with a row stride of TILE + 4 floats, so the epilogue's stores
 //     by 16 lanes to 16 rows fall in distinct banks;
@@ -78,7 +84,8 @@
 // on nvcc's fast-math flag (tests/test_torch_imports.py checks both).
 // Above multires 20 the top rows are float32 noise in both packages (the
 // ulp of 2^20 * |x| is about 0.1 rad); the JAX kernels compute them
-// anyway, and so does the port.
+// anyway, and so does the port (2^k is built from its exponent bits, so k
+// stops at 127: multires <= 128).
 
 #pragma once
 
@@ -91,20 +98,25 @@ namespace nerf {
 
 constexpr int P = 64;          // points per warpgroup of the wgmma core
 constexpr int THREADS = 256;   // 8 warps per block, both cores
-constexpr int MAX_W = 512;     // widest trunk; both cores take W = 256 and 512
-constexpr int MAX_X = 256;     // rows of the position encoding (>= 3 + 6 * 42)
-constexpr int MAX_D = 128;     // rows of the view encoding (>= 3 + 6 * 20)
-constexpr int MAX_DEPTH = 32;  // trunk layers: the bits of a skip mask
+constexpr int MAX_W = 1024;    // widest trunk; both cores take W = 256, 512 and 1024
+constexpr int MAX_X = 3 + 6 * 128;  // channels of the position encoding (multires <= 128)
+constexpr int MAX_D = 3 + 6 * 128;  // channels of the view encoding
+constexpr int MAX_DEPTH = 64;  // trunk layers: the bits of a skip mask
 constexpr int MAX_LAYERS = MAX_DEPTH + 4;  // trunk + feature, alpha, views, rgb
 constexpr float HALF_PI = 1.57079632679489661923f;
 
 struct Net {
-  // pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb: kernel [in][out]
-  // row-major, bias [out], padded to the core's width
-  const float* k[MAX_LAYERS];
+  // biases [out] of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb,
+  // padded to the core's width; the alpha [W][1] and rgb [W/2][3] kernels
+  // (row-major). The trunk, feature and views kernels reach the cores only
+  // as packed chunks (Plan), so their pointers stay out of the parameters.
   const float* b[MAX_LAYERS];
+  const float* alpha_k;
+  const float* rgb_k;
+  // bit i of the 64-bit skip mask (word i / 32): layer i's output is
+  // concatenated with x_pe; read a word at a time, as the biases are
+  unsigned skip_mask[2];
   int depth;
-  unsigned skip_mask;  // bit i: layer i's output is concatenated with x_pe
   int in_ch;
   int in_ch_views;
   int fast_epilogue;
@@ -114,25 +126,33 @@ struct Net {
 static_assert(sizeof(Net) <= 1024, "Net outgrows the kernel parameter space");
 
 // The Net of a C call: weights is a host array of 2 * (depth + 4) device
-// pointers, kernel then bias per layer, padded to a trunk of `width` (256 or
-// 512). Returns a cudaError_t value.
-inline int make_net(const void* const* weights, int width, int depth, unsigned skip_mask,
-                    int in_ch, int in_ch_views, int fast_epilogue, Net* net) {
-  if ((width != 256 && width != MAX_W) || depth + 4 > MAX_LAYERS || depth < 1 || in_ch < 1 ||
-      in_ch > MAX_X || in_ch_views < 1 || in_ch_views > MAX_D) {
+// pointers, kernel then bias per layer, padded to a trunk of `width` (256,
+// 512 or 1024). Returns a cudaError_t value.
+inline int make_net(const void* const* weights, int width, int depth,
+                    unsigned long long skip_mask, int in_ch, int in_ch_views, int fast_epilogue,
+                    Net* net) {
+  if ((width != 256 && width != 512 && width != MAX_W) || depth + 4 > MAX_LAYERS || depth < 1 ||
+      in_ch < 1 || in_ch > MAX_X || in_ch_views < 1 || in_ch_views > MAX_D) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *net = Net{};
   for (int i = 0; i < depth + 4; ++i) {
-    net->k[i] = static_cast<const float*>(weights[2 * i]);
     net->b[i] = static_cast<const float*>(weights[2 * i + 1]);
   }
+  net->alpha_k = static_cast<const float*>(weights[2 * (depth + 1)]);
+  net->rgb_k = static_cast<const float*>(weights[2 * (depth + 3)]);
   net->depth = depth;
-  net->skip_mask = skip_mask;
+  net->skip_mask[0] = static_cast<unsigned>(skip_mask);
+  net->skip_mask[1] = static_cast<unsigned>(skip_mask >> 32);
   net->in_ch = in_ch;
   net->in_ch_views = in_ch_views;
   net->fast_epilogue = fast_epilogue;
   return 0;
+}
+
+// Whether trunk layer i's output is concatenated with x_pe.
+__device__ __forceinline__ bool skips_after(const Net& net, int i) {
+  return (net.skip_mask[i >> 5] >> (i & 31)) & 1u;
 }
 
 // The dynamic shared memory a block of the current device may opt into.
@@ -207,17 +227,23 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // A net's packed weights and their chunk order per tile: chunks [0,
 // n_wide) of a tile (trunk and feature layers, W columns) take wide_bytes
-// each, the rest (the views layer, W/2 columns) narrow_bytes.
+// each, the rest (the views layer, W/2 columns) narrow_bytes. With ways = 2
+// the counts are each warpgroup's share (Ring<STAGES, true>): it takes
+// `run` consecutive pieces of every 2 * run wide ones and every other
+// narrow one.
 struct Plan {
   const unsigned char* packed;
   int per_tile;
   int n_wide;
   int wide_bytes;
   int narrow_bytes;
+  int ways = 1;
+  int run = 1;
 
+  // bytes of one tile's chunks, all ways
   long long tile_bytes() const {
-    return static_cast<long long>(n_wide) * wide_bytes +
-           static_cast<long long>(per_tile - n_wide) * narrow_bytes;
+    return ways * (static_cast<long long>(n_wide) * wide_bytes +
+                   static_cast<long long>(per_tile - n_wide) * narrow_bytes);
   }
 };
 
@@ -227,8 +253,12 @@ struct Plan {
 // copy. Every thread tracks the stage and phase of the chunk it acquires
 // next and of the oldest chunk it still holds; thread 0 also the next
 // chunk to issue. No 64-bit division: its subroutine call would spill.
-template <int STAGES>
+// HALVES: each warpgroup has a ring of its own (its 4 warps release a
+// stage, its first thread issues) that streams its share of the chunks
+// (Plan::ways = 2), so the two consume the same layer side by side.
+template <int STAGES, bool HALVES = false>
 struct Ring {
+  static constexpr int WARPS = HALVES ? 4 : THREADS / 32;
   unsigned char* buf;
   uint64_t* full;
   uint64_t* empty;
@@ -240,35 +270,50 @@ struct Ring {
   int free_stage;     // the oldest chunk held
   uint32_t free_phase;
 
-  // Every thread calls it once, with the block's number of chunks.
+  // The thread that issues this ring's copies.
+  __device__ static bool leader() {
+    return HALVES ? (threadIdx.x & 127) == 0 : threadIdx.x == 0;
+  }
+
+  // Every thread calls it once, with its ring's number of chunks.
   __device__ void init(long long total) {
     read_stage = free_stage = 0;
     read_phase = free_phase = 0;
     left = total;
     next_q = 0;
-    if (threadIdx.x == 0) {
+    if (leader()) {
       for (int s = 0; s < STAGES; ++s) {
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(full + s)));
         asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                     ::"r"(smem_addr(empty + s)), "r"(THREADS / 32));
+                     ::"r"(smem_addr(empty + s)), "r"(WARPS));
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (leader()) {
       for (int s = 0; s < STAGES && left > 0; ++s) issue(s);
     }
   }
 
-  // Thread 0: the next chunk of the sequence into stage s.
+  // The leader: the next chunk of the sequence into stage s.
   __device__ void issue(int s) {
     const int q = next_q;
     const bool wide = q < plan.n_wide;
     const int bytes = wide ? plan.wide_bytes : plan.narrow_bytes;
-    const size_t off = wide
-        ? static_cast<size_t>(q) * plan.wide_bytes
-        : static_cast<size_t>(plan.n_wide) * plan.wide_bytes +
-              static_cast<size_t>(q - plan.n_wide) * plan.narrow_bytes;
+    size_t off;
+    if constexpr (HALVES) {
+      // this warpgroup's piece q: wide pieces come in runs of plan.run (1
+      // or 2) out of every 2 * run, narrow ones every other one
+      const int g = threadIdx.x >> 7, sh = plan.run - 1;
+      off = wide ? static_cast<size_t>(((q >> sh) << (sh + 1)) + (g << sh) + (q & sh)) *
+                       plan.wide_bytes
+                 : static_cast<size_t>(2 * plan.n_wide) * plan.wide_bytes +
+                       static_cast<size_t>(2 * (q - plan.n_wide) + g) * plan.narrow_bytes;
+    } else {
+      off = wide ? static_cast<size_t>(q) * plan.wide_bytes
+                 : static_cast<size_t>(plan.n_wide) * plan.wide_bytes +
+                       static_cast<size_t>(q - plan.n_wide) * plan.narrow_bytes;
+    }
     const uint32_t bar = smem_addr(full + s);
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                  ::"r"(bar), "r"(bytes) : "memory");
@@ -312,15 +357,15 @@ struct Ring {
   }
 
   // This warp is done with its oldest chunk (its reads of the stage have
-  // completed); thread 0 then refills the stage with the chunk STAGES
-  // further on, once every warp is done with it.
+  // completed); the leader then refills the stage with the chunk STAGES
+  // further on, once every warp of the ring is done with it.
   __device__ void release() {
     __syncwarp();
     if ((threadIdx.x & 31) == 0) {
       asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                    ::"r"(smem_addr(empty + free_stage)) : "memory");
     }
-    if (threadIdx.x == 0 && left > 0) {
+    if (leader() && left > 0) {
       wait(empty + free_stage, free_phase);
       issue(free_stage);
     }
@@ -339,11 +384,13 @@ constexpr int PACK_ROWS = 16;                 // input rows of a packed chunk
 constexpr int WIDE_BYTES = 16 * 1024;         // a ring stage: KC rows of W columns
 constexpr int NARROW_BYTES = WIDE_BYTES / 2;  // the same rows of the views layer's W/2
 
-// Input rows per ring stage at trunk width W: 16 at W = 256, 8 at 512.
+// Input rows per ring stage at trunk width W: 16 at W = 256, 8 at 512, 4 at
+// 1024.
 __host__ __device__ constexpr int kc(int width) { return WIDE_BYTES / (4 * width); }
 
 // Points per tile at trunk width W, and the smaller tile where a net's
-// encodings leave no room for it: 128 / 64 at W = 256, 64 / 32 at 512.
+// encodings leave no room for it: 128 / 64 at W = 256, 64 / 32 at 512,
+// 32 / 16 at 1024.
 __host__ __device__ constexpr int big_tile(int width) { return 128 * 256 / width; }
 
 // Rows of an encoding tile: the channels rounded up to whole packed chunks.
@@ -353,12 +400,12 @@ inline int rows(int channels) { return (channels + PACK_ROWS - 1) / PACK_ROWS * 
 // (x_pe), each trunk layer i >= 1 (x_pe first after a skip, then the h
 // chunks), the feature layer, then the views layer (the feature's h chunks,
 // then the d_pe chunks, W/2 columns). A packed chunk of 16 rows is two
-// stages at W = 512: its rows lie contiguous.
-inline Plan make_plan(const void* packed, int width, int depth, unsigned skip_mask, int in_ch,
-                      int in_ch_views) {
+// stages at W = 512 and four at 1024: its rows lie contiguous.
+inline Plan make_plan(const void* packed, int width, int depth, unsigned long long skip_mask,
+                      int in_ch, int in_ch_views) {
   const int k = kc(width);
   const int nx = rows(in_ch) / k, nd = rows(in_ch_views) / k, h = width / k;
-  const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcount(skip_mask) + h;
+  const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcountll(skip_mask) + h;
   return Plan{static_cast<const unsigned char*>(packed), n_wide + h + nd, n_wide, WIDE_BYTES,
               NARROW_BYTES};
 }
@@ -394,6 +441,8 @@ int dispatch(int width, int tile, Args... args) {
   if (width == 256 && tile == 64) return L::template run<64, 256>(args...);
   if (width == 512 && tile == 64) return L::template run<64, 512>(args...);
   if (width == 512 && tile == 32) return L::template run<32, 512>(args...);
+  if (width == 1024 && tile == 32) return L::template run<32, 1024>(args...);
+  if (width == 1024 && tile == 16) return L::template run<16, 1024>(args...);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -436,10 +485,12 @@ __device__ __forceinline__ Core<TILE, W> make_core(void* dyn, const Plan& plan, 
 __device__ __forceinline__ int col_group() { return threadIdx.x & 15; }
 __device__ __forceinline__ int point_group() { return threadIdx.x >> 4; }
 
-// The PT floats at p (16-byte aligned for PT >= 4, else 8-byte) into v.
+// The PT floats at p (16-byte aligned for PT >= 4, 8-byte for 2) into v.
 template <int PT>
 __device__ __forceinline__ void load_points(float (&v)[PT], const float* p) {
-  if constexpr (PT % 4 == 0) {
+  if constexpr (PT == 1) {
+    v[0] = *p;
+  } else if constexpr (PT % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < PT / 4; ++i) {
       const float4 t = reinterpret_cast<const float4*>(p)[i];
@@ -449,7 +500,7 @@ __device__ __forceinline__ void load_points(float (&v)[PT], const float* p) {
       v[4 * i + 3] = t.w;
     }
   } else {
-    static_assert(PT == 2, "a point group holds 2, 4 or 8 points");
+    static_assert(PT == 2, "a point group holds 1, 2, 4 or 8 points");
     const float2 t = *reinterpret_cast<const float2*>(p);
     v[0] = t.x;
     v[1] = t.y;
@@ -535,7 +586,7 @@ __device__ __forceinline__ void mlp_tile(Core<TILE, W>& core, const Net& net) {
 #pragma unroll 1
   for (int i = 0; i <= depth; ++i) {
     zero(acc);
-    const bool with_x = i == 0 || (i < depth && ((net.skip_mask >> (i - 1)) & 1u));
+    const bool with_x = i == 0 || (i < depth && skips_after(net, i - 1));
     layer<PT, C / 4, HS, KC>(acc, core.x, with_x ? nx : 0, core.h, i == 0 ? 0 : W / KC,
                              core.ring);
     __syncthreads();  // every warp has read h
@@ -558,13 +609,15 @@ __device__ __forceinline__ void mlp_tile(Core<TILE, W>& core, const Net& net) {
           reinterpret_cast<float4*>(dst)[v] = make_float4(acc[4 * v][j], acc[4 * v + 1][j],
                                                           acc[4 * v + 2][j], acc[4 * v + 3][j]);
         }
-      } else {
+      } else if constexpr (PT == 2) {
         *reinterpret_cast<float2*>(dst) = make_float2(acc[0][j], acc[1][j]);
+      } else {
+        *dst = acc[0][j];
       }
     }
     if (i == depth - 1) {
       // density head (alpha [W][1]) on the trunk output in the registers
-      const float* ak = net.k[depth + 1];
+      const float* ak = net.alpha_k;
       float s[PT];
 #pragma unroll
       for (int p = 0; p < PT; ++p) s[p] = 0.f;
@@ -589,7 +642,7 @@ __device__ __forceinline__ void mlp_tile(Core<TILE, W>& core, const Net& net) {
   zero(accv);
   layer<PT, C / 8, HS, KC>(accv, core.h, W / KC, core.d, nd, core.ring);
   const float* vb = net.b[depth + 2];
-  const float* rk = net.k[depth + 3];
+  const float* rk = net.rgb_k;
   float s[3][PT];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -660,7 +713,7 @@ int nerf_smem_optin() {
   return nerf::smem_optin(&bytes) == 0 ? bytes : 0;
 }
 // bytes of the FP32 core's packed weights (raymarch.py pack_f32_weights)
-long long nerf_f32_plan_bytes(int width, int depth, unsigned skip_mask, int in_ch,
+long long nerf_f32_plan_bytes(int width, int depth, unsigned long long skip_mask, int in_ch,
                               int in_ch_views) {
   return nerf::f32::make_plan(nullptr, width, depth, skip_mask, in_ch, in_ch_views).tile_bytes();
 }

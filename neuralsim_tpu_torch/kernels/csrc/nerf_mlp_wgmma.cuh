@@ -8,13 +8,15 @@
 // `_mlp_kernel`); every float32 instantiation runs the FP32 core of
 // nerf_mlp.cuh. Same function as that core in bf16 (nerf_mlp.cuh states the
 // rounding and the net shapes taken: a narrower net comes zero-padded to a
-// trunk of W = 256 or 512).
+// trunk of W = 256, 512 or 1024). Two cores: the standard one below (W = 256
+// and 512) and the transposed one (W = 1024, and W = 512 where the standard
+// core has no room for the encodings), described before its code.
 //
 // Bound on the card: operations on the tensor cores. One point of the
 // default 8x256 net costs 593,408 bf16 multiply-adds; at the published 989
 // TFLOP/s a launch on 8192 rays x 192 samples takes at least 1.887 ms.
 //
-// Design:
+// Design of the standard core:
 //   - a block is two consumer warpgroups (256 threads). Each warpgroup
 //     issues wgmma.mma_async m64n256k16 (trunk, feature) and m64n128k16
 //     (views) over 64 points, with f32 accumulators in registers (128 per
@@ -34,7 +36,8 @@
 //     in registers as the next layer's A fragments, the 64 packed registers
 //     beside the 128 accumulators spilled.);
 //   - the encodings x_pe (up to 256 channels, in NX = 1-4 chunks of 64; 63
-//     -> 64 by default) and d_pe (up to 128 channels, in nd = 1 or 2 chunks,
+//     -> 64 by default; longer ones run on the transposed core) and d_pe
+//     (up to 128 channels, in nd = 1 or 2 chunks,
 //     of which the views layer multiplies the last chunk's k16 steps that
 //     hold channels: 27 -> 32 by default) are written once per tile into A
 //     tiles of their own, zero past the channels, with cos as sin(y + pi/2)
@@ -55,10 +58,10 @@
 //     the render tile keeps its rays' raw field;
 //   W = 512, NX = nd = 1: 2 x 64 KB + 10 x 8 KB + 32 = 213,024 B (+ 1024).
 // Three stages where they fit (W = 256 and NX <= 2), else two; W = 512
-// takes NX + nd <= 4 chunks of encodings, W = 256 all of them (NX = 4 and
-// nd = 2 on two stages: 229,408 B + 1024).
+// takes NX + nd <= 4 chunks of encodings, W = 256 up to NX = 4 and nd = 2
+// (on two stages: 229,408 B + 1024); the transposed core takes the rest.
 //
-// Weight traffic. The host packs the weights once (raymarch.py
+// Weight traffic (standard core). The host packs the weights once (raymarch.py
 // pack_wgmma_weights) into bf16 chunks of 64 input rows, each in the exact
 // shared-memory image the B descriptor reads ([N][64], 128-byte swizzle):
 // 34 chunks of 32 KB (N = 256) and 5 of 16 KB (views, N = 128), 1.196 MB
@@ -106,8 +109,10 @@ __host__ __device__ constexpr int stages(int width, int nx) {
 }
 
 // A chunks of a net's encodings: x_pe 1-4, d_pe 1-2.
-inline int x_chunks(int in_ch) { return (in_ch + CHUNK_K - 1) / CHUNK_K; }
-inline int d_chunks(int in_ch_views) { return (in_ch_views + CHUNK_K - 1) / CHUNK_K; }
+__host__ __device__ inline int x_chunks(int in_ch) { return (in_ch + CHUNK_K - 1) / CHUNK_K; }
+__host__ __device__ inline int d_chunks(int in_ch_views) {
+  return (in_ch_views + CHUNK_K - 1) / CHUNK_K;
+}
 
 // Shared memory of the core, in bytes from a 1024-aligned base: the ring,
 // the A tiles (nx x_pe chunks, h, nd d_pe chunks: every layer's input
@@ -126,10 +131,10 @@ __host__ __device__ constexpr int core_bytes(int width, int nx, int nd) {
 // (x_pe), each trunk layer i >= 1 (x_pe first after a skip, then the h
 // chunks), feature (h), then views (the feature's h chunks and the d_pe
 // chunks, N = W/2).
-inline Plan make_plan(const void* packed, int width, int depth, unsigned skip_mask, int in_ch,
-                      int in_ch_views) {
+inline Plan make_plan_standard(const void* packed, int width, int depth,
+                               unsigned long long skip_mask, int in_ch, int in_ch_views) {
   const int nx = x_chunks(in_ch), h = width / CHUNK_K;
-  const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcount(skip_mask) + h;
+  const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcountll(skip_mask) + h;
   return Plan{static_cast<const unsigned char*>(packed), n_wide + h + d_chunks(in_ch_views),
               n_wide, chunk_bytes(width), chunk_bytes(width / 2)};
 }
@@ -141,17 +146,27 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// Byte offset of (row, col) in a K-major A tile of [64][64] chunks with
+// Byte offset of (row, col) in a K-major tile of [ROWS][64] chunks with
 // 128-byte swizzle: the 16-byte unit col/8 of a row sits at unit
-// (col/8) ^ (row % 8).
-__device__ __forceinline__ int a_offset(int row, int col) {
-  return (col >> 6) * A_CHUNK_BYTES + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
+// (col/8) ^ (row % 8). The standard core's A tiles have 64 rows.
+template <int ROWS>
+__device__ __forceinline__ int tile_offset(int row, int col) {
+  return (col >> 6) * (ROWS * 128) + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
          ((col & 7) << 1);
+}
+
+__device__ __forceinline__ int a_offset(int row, int col) { return tile_offset<P>(row, col); }
+
+template <int ROWS>
+__device__ __forceinline__ void store_bf16x2_rows(unsigned char* tile, int row, int col,
+                                                  float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + tile_offset<ROWS>(row, col)) =
+      __floats2bfloat162_rn(lo, hi);
 }
 
 __device__ __forceinline__ void store_bf16x2(unsigned char* tile, int row, int col, float lo,
                                              float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(tile + a_offset(row, col)) = __floats2bfloat162_rn(lo, hi);
+  store_bf16x2_rows<P>(tile, row, col, lo, hi);
 }
 
 // A barrier of the 128 threads of warpgroup `group` (named barrier 1 or 2).
@@ -449,7 +464,7 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
     zero<N>(acc);
     if (i == 0) {
       layer_mma<N, 4>(acc, x, b_rows, NX, ring);
-    } else if ((net.skip_mask >> (i - 1)) & 1u) {
+    } else if (skips_after(net, i - 1)) {
       layer_mma<N, 4>(acc, x, b_rows, NX + S::H, ring);  // [x_pe, h]
     } else {
       layer_mma<N, 4>(acc, h, b_rows, S::H, ring);
@@ -461,7 +476,7 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
 
   // ---- density head (alpha [W][1]) on the trunk output, CUDA cores -------
   {
-    const float* ak = net.k[net.depth + 1] + col0;
+    const float* ak = net.alpha_k + col0;
     float top = 0.f, bot = 0.f;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
@@ -499,7 +514,7 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
   epilogue<NV, true, FAST>(accv, net.b[net.depth + 2] + vcol0, nullptr, 0);
 
   // ---- rgb head (rgb [W/2][3]), CUDA cores -------------------------------
-  const float* rk = net.k[net.depth + 3] + 3 * vcol0;
+  const float* rk = net.rgb_k + 3 * vcol0;
   float top[3] = {0.f, 0.f, 0.f}, bot[3] = {0.f, 0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < NV / 8; ++j) {
@@ -522,25 +537,388 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
   }
 }
 
+// ---- the transposed core: W = 1024, and long encodings at W = 256 and 512 --
+//
+// At W = 1024 a 64-point layer output is 64 x 1024 f32 = 256 KB, the whole
+// register file of an SM, and its bf16 A tile is 128 KB of the 227 KB of
+// shared memory; computing the columns in passes would stage half a layer
+// (64 KB more) and leave no room for a weight ring, and splitting the
+// columns over a 2-block cluster needs distributed shared memory and
+// cluster barriers in every layer. This core turns the products around
+// instead: out^T = W^T h^T, the weights are the A operand (M = 64 output
+// columns per m64 block, read straight from the packed chunks: a chunk's
+// rows are the output columns, 128 bytes each, the layout of a K-major A
+// tile) and the activations the B operand, N = TP = 32 points. So a layer
+// output of 32 points x 1024 columns is 128 accumulators in each of the 256
+// threads, and the h tile is [32][1024] bf16 = 64 KB:
+//   - a block runs one 32-point tile; warpgroup g owns trunk columns
+//     [W/2 g, W/2 (g+1)) (MB m64 blocks, wgmma.m64n32k16) and views columns
+//     [W/4 g, W/4 (g+1)) (MV blocks);
+//   - each warpgroup streams its share of every chunk through a ring of its
+//     own (Ring<2, true>): pieces of min(W/2, 256) rows of a trunk chunk
+//     (32 KB at W = 1024, RUN = 2 of them per chunk) and W/4 rows of a views
+//     chunk; two stages a warpgroup, so one piece loads while the other
+//     multiplies;
+//   - a block barrier stands between a layer's products and its epilogue
+//     (both warpgroups read all of h); the epilogue writes each value as one
+//     bf16 into the h tiles ([32][64] chunks, 128-byte swizzle);
+//   - the alpha and rgb heads sum each thread's columns, then the 8 lanes
+//     of a point group, then the 8 warps in a fixed order through shared
+//     memory (no atomics: the same sums every run);
+//   - the encodings' chunk counts are run-time values (one instantiation
+//     takes every encoding that fits): x_pe and d_pe in [32][64] chunks of
+//     4 KB.
+// Shared memory (t_core_bytes): the two rings (two pieces each: 128 KB at W =
+// 512 and 1024, 64 KB at 256), h (W/64 chunks of 4 KB), a scratch of 6 KB
+// (points, raw outputs, head partial sums, the rings' barriers), then nx
+// x_pe and nd d_pe chunks: 202,752 + 4,096 (nx + nd) B at W = 1024 (211,968
+// with the launch's alignment for the default encodings), 169,984 + 4,096
+// (nx + nd) at W = 512, 88,064 + 4,096 (nx + nd) at W = 256. The standard
+// core runs every net it has room for (W = 256 with NX <= 4 and nd <= 2,
+// W = 512 with NX + nd <= 4); this one the rest, where they fit.
+// Bound: weight traffic from L2. Each 32-point tile reads every packed chunk
+// (18.2 MB for the 8x1024 default-shaped net): 892 GB per 8192 x 192
+// launch, against 28.8 ms of bf16 tensor-core work. Larger tiles (a 2-block
+// cluster sharing each piece by multicast) are its second pass (ROADMAP.md).
+
+constexpr int TP = 32;                            // points of a transposed tile
+constexpr int T_CHUNK_BYTES = TP * CHUNK_K * 2;   // 4 KB: an activation chunk [32][64]
+constexpr int T_STAGES = 2;                       // ring stages per warpgroup
+constexpr int T_SCRATCH = 6 * 1024;               // pts, raw, partial sums, barriers
+
+// Rows of a trunk piece (a warpgroup's share of a trunk chunk, or half of
+// it at W = 1024) and its bytes.
+__host__ __device__ constexpr int t_piece_rows(int width) { return width / 2 < 256 ? width / 2 : 256; }
+__host__ __device__ constexpr int t_piece_bytes(int width) {
+  return t_piece_rows(width) * CHUNK_K * 2;
+}
+
+template <int W>
+struct TShape {
+  static_assert(W == N || W == 2 * N || W == 4 * N,
+                "the transposed core takes trunks of 256, 512 or 1024");
+  static constexpr int MB = W / 2 / 64;                 // trunk m64 blocks of a warpgroup
+  static constexpr int MV = W / 4 / 64;                 // views m64 blocks of a warpgroup
+  static constexpr int RUN = W / 2 / t_piece_rows(W);   // trunk pieces of a warpgroup per chunk
+  static constexpr int PB = t_piece_rows(W) / 64;       // m64 blocks of a trunk piece
+  static constexpr int H = W / CHUNK_K;                 // h chunks
+};
+
+// Shared memory of the transposed core from a 1024-aligned base.
+__host__ __device__ constexpr int t_fixed_bytes(int width) {
+  return 2 * T_STAGES * t_piece_bytes(width) + width / CHUNK_K * T_CHUNK_BYTES + T_SCRATCH;
+}
+__host__ __device__ constexpr int t_core_bytes(int width, int nx, int nd) {
+  return t_fixed_bytes(width) + (nx + nd) * T_CHUNK_BYTES;
+}
+
+// Whether a net runs on the transposed core: every W = 1024 net, and a net
+// of W = 256 or 512 whose encodings the standard core has no room for.
+__host__ __device__ inline bool transposed(int width, int in_ch, int in_ch_views) {
+  const int nx = x_chunks(in_ch), nd = d_chunks(in_ch_views);
+  return width == 4 * N || (width == 2 * N && nx + nd > 4) || (width == N && (nx > 4 || nd > 2));
+}
+
+// The transposed core's plan: the same packed chunks (pack_wgmma_weights),
+// each warpgroup's pieces counted (Plan::ways = 2).
+inline Plan make_plan_transposed(const void* packed, int width, int depth,
+                                 unsigned long long skip_mask, int in_ch, int in_ch_views) {
+  const int nx = x_chunks(in_ch), h = width / CHUNK_K, run = width / 2 / t_piece_rows(width);
+  const int wide = nx + h * (depth - 1) + nx * __builtin_popcountll(skip_mask) + h;
+  const int narrow = h + d_chunks(in_ch_views);
+  return Plan{static_cast<const unsigned char*>(packed), wide * run + narrow, wide * run,
+              t_piece_bytes(width), width / 4 * CHUNK_K * 2, 2, run};
+}
+
+inline Plan make_plan(const void* packed, int width, int depth, unsigned long long skip_mask,
+                      int in_ch, int in_ch_views) {
+  return transposed(width, in_ch, in_ch_views)
+      ? make_plan_transposed(packed, width, depth, skip_mask, in_ch, in_ch_views)
+      : make_plan_standard(packed, width, depth, skip_mask, in_ch, in_ch_views);
+}
+
+// acc += A B on one k16 step, m64n32k16 (A the weights, B the activations).
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <int M>
+__device__ __forceinline__ void fence_regs(float (&d)[M][16]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) fence_regs(d[m]);
+}
+
+template <int M>
+__device__ __forceinline__ void zero_t(float (&acc)[M][16]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[m][i] = 0.f;
+  }
+}
+
+// The products of one layer in the transposed core: acc (this warpgroup's M
+// = RUN * PB column blocks) += its rows of the layer's packed chunks times
+// the activations, n0 chunks at a0 then n1 at a1 (B operands, [TP][64]
+// chunks), `last` k16 steps of the last chunk. Piece r of a chunk feeds
+// blocks [PB r, PB r + PB); each piece is freed once the next one's products
+// are issued, the last once all completed.
+template <int M, int PB, int RUN, typename R>
+__device__ __forceinline__ void layer_t(float (&acc)[M][16], uint32_t a0, int n0, uint32_t a1,
+                                        int n1, int last, R& ring) {
+  static_assert(M == RUN * PB, "a warpgroup's blocks are its pieces' blocks");
+  const int chunks = n0 + n1;
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c) {
+    const uint32_t b = c < n0 ? a0 + c * T_CHUNK_BYTES : a1 + (c - n0) * T_CHUNK_BYTES;
+    const int ksteps = c + 1 == chunks ? last : 4;
+#pragma unroll
+    for (int r = 0; r < RUN; ++r) {
+      const uint32_t w = ring.acquire();
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < ksteps) {
+#pragma unroll
+          for (int m = 0; m < PB; ++m) {
+            wgmma_n32(acc[PB * r + m], desc_sw128(w + m * A_CHUNK_BYTES + 32 * kk),
+                      desc_sw128(b + 32 * kk));
+          }
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (c > 0 || r > 0) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_regs(acc);
+        ring.release();
+      }
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_regs(acc);
+  ring.release();
+}
+
+// Bias, optional ReLU and the bf16 rounding of this warpgroup's M column
+// blocks, left in acc and, unless h is null, written into the h tiles
+// ([TP][64] chunks) at columns col0 + .... Slot 4j + e of block m holds
+// column 64m + 16*warp + lane/4 + 8*(e/2) (bias points at column 0 of the
+// warpgroup) and point 8j + 2*(lane%4) + e%2. FAST as in `epilogue`.
+template <int M, bool RELU, bool FAST>
+__device__ __forceinline__ void epilogue_t(float (&acc)[M][16], const float* bias,
+                                           unsigned char* h, int col0) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int col = 64 * m + r0 + 8 * hi;
+      const float bb = __ldg(bias + col);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int lo = 0; lo < 2; ++lo) {
+          float x = acc[m][4 * j + 2 * hi + lo];
+          x = FAST ? round_bf16(x) + round_bf16(bb) : x + bb;
+          if (RELU) x = fmaxf(x, 0.f);
+          x = round_bf16(x);
+          acc[m][4 * j + 2 * hi + lo] = x;
+          if (h != nullptr) {
+            const int p = 8 * j + 2 * (lane & 3) + lo;
+            *reinterpret_cast<__nv_bfloat16*>(h + tile_offset<TP>(p, col0 + col)) =
+                __float2bfloat16_rn(x);
+          }
+        }
+      }
+    }
+  }
+}
+
+// A head (NCH outputs, kernel w [cols][NCH] at this warpgroup's column 0) on
+// the values in acc: each thread's columns, then the 8 lanes that share its
+// points, into part [8 warps][4][TP] at channels ch0 .. ch0 + NCH - 1.
+template <int M, int NCH>
+__device__ __forceinline__ void head_t(const float (&acc)[M][16], const float* w, float* part,
+                                       int ch0) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  float s[NCH][8];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[c][i] = 0.f;
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int col = 64 * m + r0 + 8 * hi;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const float wc = __ldg(w + NCH * col + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int lo = 0; lo < 2; ++lo) {
+            s[c][2 * j + lo] = fmaf(acc[m][4 * j + 2 * hi + lo], wc, s[c][2 * j + lo]);
+          }
+        }
+      }
+    }
+  }
+  float* dst = part + (threadIdx.x >> 5) * 4 * TP;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v = s[c][i];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) dst[(ch0 + c) * TP + 8 * (i >> 1) + 2 * lane + (i & 1)] = v;
+    }
+  }
+}
+
+// The MLP of one 32-point tile on the transposed core, once its encodings
+// are in the x_pe and d_pe tiles (published): raw [4][TP] (r, g, b logits,
+// sigma) in raw, readable by every thread on return.
+template <int W, bool FAST, typename R>
+__device__ __forceinline__ void mlp_transposed(unsigned char* x_tiles, unsigned char* h_tiles,
+                                               float* part, float* raw, const Net& net, R& ring,
+                                               int group) {
+  using T = TShape<W>;
+  const int nx = x_chunks(net.in_ch), nd = d_chunks(net.in_ch_views);
+  const uint32_t x = smem_addr(x_tiles), h = smem_addr(h_tiles);
+  const uint32_t d = x + nx * T_CHUNK_BYTES;
+  const int col0 = W / 2 * group, vcol0 = W / 4 * group;
+  float acc[T::MB][16];
+
+  // ---- trunk -------------------------------------------------------------
+  for (int i = 0; i < net.depth; ++i) {
+    zero_t(acc);
+    const bool with_x = i == 0 || skips_after(net, i - 1);
+    layer_t<T::MB, T::PB, T::RUN>(acc, x, with_x ? nx : 0, h, i == 0 ? 0 : T::H, 4, ring);
+    __syncthreads();  // every warp's products that read h are complete
+    epilogue_t<T::MB, true, FAST>(acc, net.b[i] + col0, h_tiles, col0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  }
+  head_t<T::MB, 1>(acc, net.alpha_k + col0, part, 3);
+
+  // ---- feature layer (no ReLU, rounded after its bias) -------------------
+  zero_t(acc);
+  layer_t<T::MB, T::PB, T::RUN>(acc, h, T::H, h, 0, 4, ring);
+  __syncthreads();
+  epilogue_t<T::MB, false, false>(acc, net.b[net.depth] + col0, h_tiles, col0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // ---- views layer [feature, d_pe] -> W/2, ReLU, then the rgb head -------
+  float accv[T::MV][16];
+  zero_t(accv);
+  const int last = (net.in_ch_views - CHUNK_K * (nd - 1) + 15) / 16;
+  layer_t<T::MV, T::MV, 1>(accv, h, T::H, d, nd, last, ring);
+  epilogue_t<T::MV, true, FAST>(accv, net.b[net.depth + 2] + vcol0, nullptr, 0);
+  head_t<T::MV, 3>(accv, net.rgb_k + 3 * vcol0, part, 0);
+
+  // ---- the heads' sums over the 8 warps, in order ------------------------
+  __syncthreads();
+  if (threadIdx.x < 4 * TP) {
+    const int c = threadIdx.x / TP, p = threadIdx.x % TP;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) v += part[(4 * w + c) * TP + p];
+    raw[c * TP + p] = v + __ldg(c == 3 ? net.b[net.depth + 1] : net.b[net.depth + 3] + c);
+  }
+  __syncthreads();
+}
+
+// A transposed tile's encodings, bf16, into its nx x_pe and nd d_pe chunks
+// (every column, zero past each encoding's channels) from its [6][TP]
+// points; all 256 threads, a channel pair of a point each.
+template <bool TRUE_COS>
+__device__ __forceinline__ void encode_transposed(const float* pts, unsigned char* xt,
+                                                  unsigned char* dt, const Net& net, int nx,
+                                                  int nd) {
+  const int n_x = nx * (CHUNK_K / 2) * TP;
+  const int total = n_x + nd * (CHUNK_K / 2) * TP;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < total; i += THREADS) {
+    const bool view = i >= n_x;
+    const int k = view ? i - n_x : i;
+    const int row = k % TP, col = 2 * (k / TP);
+    const float* xyz = pts + (view ? 3 * TP : 0) + row;
+    const int n_ch = view ? net.in_ch_views : net.in_ch;
+    store_bf16x2_rows<TP>(view ? dt : xt, row, col, encode<TRUE_COS>(xyz, TP, col, n_ch),
+                          encode<TRUE_COS>(xyz, TP, col + 1, n_ch));
+  }
+}
+
+// Rows [0, here) of a pre-encoded input src [*, n_ch], rounded to bf16, into
+// n chunks of a transposed tile (zero past the channels and the rows); a
+// row's channel pairs are read by consecutive threads.
+__device__ __forceinline__ void load_transposed(const float* __restrict__ src, int n_ch, int n,
+                                                int here, unsigned char* tile) {
+  const int pairs = n * CHUNK_K / 2;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < TP * pairs; i += THREADS) {
+    const int row = i / pairs, col = 2 * (i - row * pairs);
+    float lo = 0.f, hi = 0.f;
+    if (row < here) {
+      const float* r = src + row * n_ch;
+      if (col < n_ch) lo = __ldg(r + col);
+      if (col + 1 < n_ch) hi = __ldg(r + col + 1);
+    }
+    store_bf16x2_rows<TP>(tile, row, col, lo, hi);
+  }
+}
+
+// ---- a kernel's core: the standard one (NX = the x_pe chunks) or the
+// transposed one (NX = 0) ------------------------------------------------------
+
 // The core of one kernel instantiation: pointers into its shared memory.
 template <int W, int NX>
 struct Core {
-  static constexpr int STAGES = stages(W, NX);
+  static constexpr bool TRANSPOSED = NX == 0;
+  static constexpr int STAGES = TRANSPOSED ? T_STAGES : stages(W, NX);
+  // points of a block tile, and of the tile a warpgroup reads and writes
+  static constexpr int TILE = TRANSPOSED ? TP : W == N ? 2 * P : P;
+  static constexpr int PTS = TRANSPOSED ? TP : P;
+  // both warpgroups work on one tile
+  static constexpr bool SHARED = TRANSPOSED || W != N;
   unsigned char* base;  // 1024-aligned
-  Ring<STAGES> ring;
-  unsigned char* a;     // this warpgroup's A tiles: x_pe (NX chunks), h, d_pe (nd)
-  float* pts;           // their [6][P] points (in the h tiles)
-  float* raw;           // this warpgroup's [4][P] raw outputs (in the first x_pe tile)
+  Ring<STAGES, TRANSPOSED> ring;
+  unsigned char* a;     // this warpgroup's A tiles: x_pe (NX chunks), h, d_pe (nd);
+                        // transposed: the x_pe then d_pe chunks
+  unsigned char* h;     // transposed: the h chunks
+  float* part;          // transposed: the heads' partial sums
+  float* pts;           // the tile's [6][PTS] points
+  float* raw;           // this warpgroup's [4][PTS] raw outputs
   int group;            // warpgroup 0 or 1
   int nd;               // d_pe chunks
 
   // The first point of this warpgroup's tile within a block tile.
-  __device__ int point0() const { return Shape<W>::SPLIT ? 0 : group * P; }
+  __device__ int point0() const { return SHARED ? 0 : group * P; }
   // Whether this warpgroup reads its tile's points and writes its outputs
-  // (both warpgroups at W = 256; warpgroup 0 for the shared tile at 512).
-  __device__ bool io() const { return !Shape<W>::SPLIT || group == 0; }
+  // (both warpgroups at W = 256; warpgroup 0 for a shared tile).
+  __device__ bool io() const { return !SHARED || group == 0; }
   // The barrier of the threads that share this warpgroup's tile.
-  __device__ void sync() const { tile_sync<W>(group); }
+  __device__ void sync() const {
+    if constexpr (TRANSPOSED) {
+      __syncthreads();
+    } else {
+      tile_sync<W>(group);
+    }
+  }
 };
 
 // Pointers into the core's shared memory, from the kernel's dynamic shared
@@ -554,62 +932,117 @@ __device__ __forceinline__ Core<W, NX> make_core(void* dyn, const Plan& plan, in
   // pointer below is shared (plain st.shared / ld.shared, 32-bit addresses)
   const uint32_t pad = (SMEM_ALIGN - (smem_addr(dyn) & (SMEM_ALIGN - 1))) & (SMEM_ALIGN - 1);
   c.base = static_cast<unsigned char*>(dyn) + pad;
-  unsigned char* tiles = c.base + Core<W, NX>::STAGES * chunk_bytes(W);  // after the ring
-  const int ab = a_bytes(W, NX, nd);
-  c.ring.buf = c.base;
   c.ring.plan = plan;
   c.group = threadIdx.x >> 7;
   c.nd = nd;
-  c.a = tiles + (Shape<W>::SPLIT ? 0 : c.group * ab);
-  c.pts = reinterpret_cast<float*>(c.a + NX * A_CHUNK_BYTES);
-  c.raw = reinterpret_cast<float*>(c.a) + (Shape<W>::SPLIT ? c.group * 4 * P : 0);
-  c.ring.full = reinterpret_cast<uint64_t*>(tiles + Shape<W>::GROUPS * ab);
-  c.ring.empty = c.ring.full + Core<W, NX>::STAGES;
+  if constexpr (NX == 0) {
+    // the two rings, h, the scratch, then the x_pe and d_pe chunks
+    c.ring.buf = c.base + c.group * T_STAGES * t_piece_bytes(W);
+    c.h = c.base + 2 * T_STAGES * t_piece_bytes(W);
+    c.pts = reinterpret_cast<float*>(c.h + TShape<W>::H * T_CHUNK_BYTES);
+    c.raw = c.pts + 6 * TP;
+    c.part = c.raw + 4 * TP;
+    c.ring.full = reinterpret_cast<uint64_t*>(c.part + (THREADS / 32) * 4 * TP) +
+                  2 * T_STAGES * c.group;
+    c.ring.empty = c.ring.full + T_STAGES;
+    c.a = c.h + TShape<W>::H * T_CHUNK_BYTES + T_SCRATCH;
+  } else {
+    unsigned char* tiles = c.base + Core<W, NX>::STAGES * chunk_bytes(W);  // after the ring
+    const int ab = a_bytes(W, NX, nd);
+    c.ring.buf = c.base;
+    c.a = tiles + (Shape<W>::SPLIT ? 0 : c.group * ab);
+    c.h = nullptr;
+    c.part = nullptr;
+    c.pts = reinterpret_cast<float*>(c.a + NX * A_CHUNK_BYTES);
+    c.raw = reinterpret_cast<float*>(c.a) + (Shape<W>::SPLIT ? c.group * 4 * P : 0);
+    c.ring.full = reinterpret_cast<uint64_t*>(tiles + Shape<W>::GROUPS * ab);
+    c.ring.empty = c.ring.full + Core<W, NX>::STAGES;
+  }
   return c;
 }
 
 // The MLP of one tile, once this thread has written its part of the x_pe
-// and d_pe A tiles: publish them, run the MLP, and leave raw [4][P] in the
+// and d_pe A tiles: publish them, run the MLP, and leave raw [4][PTS] in the
 // io() warpgroup's core.raw, readable by it on return.
 template <int W, int NX, bool FAST>
 __device__ __forceinline__ void mlp_tile(Core<W, NX>& core, const Net& net) {
-  tile_publish<W>(core.group);
-  // the d_pe chunk count picks one of two inlined cores at run time: the
-  // builds with a single inlined core spill (PERF.md)
-  if (core.nd == 1) {
-    mlp_core_wgmma<W, NX, 1, FAST>(core.a, core.raw, net, core.ring, core.group);
-  } else {
-    mlp_core_wgmma<W, NX, 2, FAST>(core.a, core.raw, net, core.ring, core.group);
-  }
-  if constexpr (Shape<W>::SPLIT) {
-    // warpgroup 0's raw += warpgroup 1's partial sums, one value a thread
+  if constexpr (NX == 0) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    float* raw0 = reinterpret_cast<float*>(core.a);
-    raw0[threadIdx.x] += raw0[4 * P + threadIdx.x];
-    __syncthreads();
+    mlp_transposed<W, FAST>(core.a, core.h, core.part, core.raw, net, core.ring, core.group);
+    return;
   } else {
-    wg_barrier(core.group);
+    tile_publish<W>(core.group);
+    // the d_pe chunk count picks one of two inlined cores at run time: the
+    // builds with a single inlined core spill (PERF.md)
+    if (core.nd == 1) {
+      mlp_core_wgmma<W, NX, 1, FAST>(core.a, core.raw, net, core.ring, core.group);
+    } else {
+      mlp_core_wgmma<W, NX, 2, FAST>(core.a, core.raw, net, core.ring, core.group);
+    }
+    if constexpr (Shape<W>::SPLIT) {
+      // warpgroup 0's raw += warpgroup 1's partial sums, one value a thread
+      __syncthreads();
+      float* raw0 = reinterpret_cast<float*>(core.a);
+      raw0[threadIdx.x] += raw0[4 * P + threadIdx.x];
+      __syncthreads();
+    } else {
+      wg_barrier(core.group);
+    }
   }
 }
 
-// One tile, once its [6][P] points are in core.pts (published by
+// One tile, once its [6][PTS] points are in core.pts (published by
 // core.sync()): encode (cos as sin(y + pi/2), or with TRUE_COS a true
 // cosf), then mlp_tile.
 template <int W, int NX, bool FAST, bool TRUE_COS>
 __device__ __forceinline__ void run_tile(Core<W, NX>& core, const Net& net) {
-  encode_tiles<NX, TRUE_COS, Shape<W>::SPLIT>(
-      core.pts, core.a, core.a + (NX + Shape<W>::H) * A_CHUNK_BYTES, net, core.nd, core.group);
+  if constexpr (NX == 0) {
+    const int nx = x_chunks(net.in_ch);
+    encode_transposed<TRUE_COS>(core.pts, core.a, core.a + nx * T_CHUNK_BYTES, net, nx,
+                                core.nd);
+  } else {
+    encode_tiles<NX, TRUE_COS, Shape<W>::SPLIT>(
+        core.pts, core.a, core.a + (NX + Shape<W>::H) * A_CHUNK_BYTES, net, core.nd, core.group);
+  }
   mlp_tile<W, NX, FAST>(core, net);
 }
 
-// Calls L::run<W, NX>(args...) for a net's trunk width (256 or 512) and
-// x_pe chunks: the instantiations of the core (W = 512 takes at most three
-// x_pe chunks: four leave no room for the ring). cudaErrorInvalidValue for
-// any other.
+// A tile's x_pe and d_pe from rows [0, here) of x_pe [*, in_ch] and d_pe
+// [*, in_ch_views], every column of each, into the core's tiles.
+template <int W, int NX>
+__device__ __forceinline__ void load_tile_encodings(const float* x_pe, const float* d_pe,
+                                                    int here, Core<W, NX>& core,
+                                                    const Net& net) {
+  if constexpr (NX == 0) {
+    const int nx = x_chunks(net.in_ch);
+    load_transposed(x_pe, net.in_ch, nx, here, core.a);
+    load_transposed(d_pe, net.in_ch_views, core.nd, here, core.a + nx * T_CHUNK_BYTES);
+  } else {
+    load_encodings<W, NX>(x_pe, d_pe, here, core.a, net, core.nd, core.group);
+  }
+}
+
+// The template argument NX of a net's core: its x_pe chunks on the
+// standard core, 0 on the transposed one.
+inline int core_nx(int width, int in_ch, int in_ch_views) {
+  return transposed(width, in_ch, in_ch_views) ? 0 : x_chunks(in_ch);
+}
+
+// Points of a block tile of a net's core.
+inline int tile_points(int width, int in_ch, int in_ch_views) {
+  return transposed(width, in_ch, in_ch_views) ? TP : width == N ? 2 * P : P;
+}
+
+// Calls L::run<W, NX>(args...) for a net's trunk width (256, 512 or 1024)
+// and core_nx: the instantiations of the cores (the standard core at W = 512
+// takes at most three x_pe chunks: four leave no room for the ring).
+// cudaErrorInvalidValue for any other.
 template <typename L, typename... Args>
 int dispatch(int width, int nx, Args... args) {
   if (width == N) {
     switch (nx) {
+      case 0: return L::template run<N, 0>(args...);
       case 1: return L::template run<N, 1>(args...);
       case 2: return L::template run<N, 2>(args...);
       case 3: return L::template run<N, 3>(args...);
@@ -618,29 +1051,35 @@ int dispatch(int width, int nx, Args... args) {
     }
   } else if (width == 2 * N) {
     switch (nx) {
+      case 0: return L::template run<2 * N, 0>(args...);
       case 1: return L::template run<2 * N, 1>(args...);
       case 2: return L::template run<2 * N, 2>(args...);
       case 3: return L::template run<2 * N, 3>(args...);
       default: break;
     }
+  } else if (width == 4 * N && nx == 0) {
+    return L::template run<4 * N, 0>(args...);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Dynamic shared memory a launch asks for: the core, aligned.
 inline int launch_bytes(int width, int in_ch, int in_ch_views) {
-  return core_bytes(width, x_chunks(in_ch), d_chunks(in_ch_views)) + SMEM_ALIGN;
+  const int nx = x_chunks(in_ch), nd = d_chunks(in_ch_views);
+  return (transposed(width, in_ch, in_ch_views) ? t_core_bytes(width, nx, nd)
+                                                : core_bytes(width, nx, nd)) +
+         SMEM_ALIGN;
 }
 
 }  // namespace wg
 }  // namespace nerf
 
-// Bytes of the wgmma core's packed weights (raymarch.py pack_wgmma_weights)
-// and of the shared memory it needs for a net (the library refuses a launch
-// that asks for more than the device's nerf_smem_optin()). Defined once in
-// each shared library, as the limits of nerf_mlp.cuh.
+// Bytes of the wgmma cores' packed weights (raymarch.py pack_wgmma_weights)
+// and of the shared memory the core of a net needs (the library refuses a
+// launch that asks for more than the device's nerf_smem_optin()). Defined
+// once in each shared library, as the limits of nerf_mlp.cuh.
 extern "C" {
-long long nerf_wgmma_plan_bytes(int width, int depth, unsigned skip_mask, int in_ch,
+long long nerf_wgmma_plan_bytes(int width, int depth, unsigned long long skip_mask, int in_ch,
                                 int in_ch_views) {
   return nerf::wg::make_plan(nullptr, width, depth, skip_mask, in_ch, in_ch_views).tile_bytes();
 }

@@ -23,28 +23,34 @@
 // bf16 (nerf_mlp_wgmma.cuh; 1.888 ms); per sample it reads 4 bytes of z and
 // writes 4 bytes of weight.
 //
-// Design: persistent blocks walk groups of R whole rays (R*S points,
-// groups blockIdx.x, +gridDim.x, ...) and run the MLP over each group in
-// sub-tiles of the core's tile, keeping the raw outputs and depths in
-// shared [4][R*S] and [R*S] buffers beside the core. The MLP:
+// Design: persistent blocks walk groups of R whole rays (groups blockIdx.x,
+// +gridDim.x, ...) and run the MLP over each group's points in sub-tiles of
+// the core's tile, keeping the raw outputs and depths in shared [4][R*seg]
+// and [R*seg] buffers beside the core. A group takes its rays' samples in
+// segments of seg: all S at once where the buffers fit R rays of S samples
+// (every S of the exact and production renders at the default net), else
+// one ray per group in segments of the most samples that fit (a multiple of
+// the sub-tile when at least one fits), so any S runs. The MLP:
 //   - float32: sub-tiles of the FP32 core's tile (nerf_mlp.cuh: 128 or 64
-//     points at W = 256, 64 or 32 at W = 512), R up to tile / gcd(S, tile):
-//     the tile and R that waste the least of the FP32 pipes, given what the
-//     buffers leave room for (at W = 256: 128 points and R = 2 for S = 64
-//     and 192, 64 points and R = 4 for S = 144);
+//     points at W = 256, 64 or 32 at W = 512, 32 or 16 at W = 1024), R up
+//     to tile / gcd(S, tile): the tile and R that waste the least of the
+//     FP32 pipes, given what the buffers leave room for (at W = 256: 128
+//     points and R = 2 for S = 64 and 192, 64 points and R = 4 for S = 144);
 //   - bf16: sub-tiles of the wgmma core's tile (nerf_mlp_wgmma.cuh: 128
-//     points at W = 256, 64 at W = 512), R = tile / gcd(S, tile) where the
-//     buffers fit (R = 2 for S = 64 and 192 at W = 256), else the fewest
-//     rays that fill one sub-tile.
+//     points at W = 256, 64 at W = 512, 32 on the transposed core), R =
+//     tile / gcd(S, tile) where the buffers fit (R = 2 for S = 64 and 192 at
+//     W = 256), else the fewest rays that fill one sub-tile.
 // Both stream their packed weights through the core's shared-memory ring
 // (each header reckons the weight traffic).
-// When all of a block's points are in, the block turns every point's
-// density into alpha and its logits into sigmoids in parallel; then thread
-// r runs ray r's exclusive product and sums over shared memory in sample
-// order (the order of torch.cumprod), in float32. The TPU kernel computed
-// the product as exp(log(1 - alpha) @ U) with a triangular matrix only
-// because Mosaic has no cumprod; here it is a plain loop of a few
-// multiply-adds per sample.
+// When all of a segment's points are in, the block turns every point's
+// density into alpha and its logits into sigmoids in parallel (a segment's
+// last sample reads the next depth from z); then thread r runs ray r's
+// exclusive product and sums over shared memory in sample order (the order
+// of torch.cumprod), in float32, from the transmittance and sums that the
+// ray's earlier segments left in shared memory, so a segmented ray sums
+// exactly as a whole one. The TPU kernel computed the product as
+// exp(log(1 - alpha) @ U) with a triangular matrix only because Mosaic has
+// no cumprod; here it is a plain loop of a few multiply-adds per sample.
 
 #include "nerf_mlp_wgmma.cuh"
 
@@ -52,30 +58,40 @@ using namespace nerf;
 
 namespace {
 
-// shared bytes per point of a ray group: raw [4] and z
+// shared bytes per point of a segment: raw [4] and z; per ray of a group:
+// its transmittance and its r, g, b, depth and acc sums, carried from one
+// segment to the next
 constexpr int POINT_BYTES = 5 * 4;
+constexpr int RAY_BYTES = 6 * 4;
 
-// Alpha-composites the block's n_here rays from shared ray_raw [4][stride]
-// (r, g, b logits, sigma; sigma and the logits are overwritten) and ray_z
-// [stride]; called by every thread of the block once all points are in.
-__device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, int stride,
-                                          int n_here, int S, long long ray0,
-                                          const float* __restrict__ rays_d, int white_bkgd,
+// Alpha-composites samples [s0, s0 + len) of the block's n_here rays (from
+// ray0) from shared ray_raw [4][stride] (r, g, b logits, sigma; sigma and
+// the logits are overwritten) and ray_z [stride], the rays' earlier
+// segments' transmittance and sums in carry [6][R]; writes the segment's
+// weights, and each ray's maps after its last segment. Called by every
+// thread of the block once the segment's points are in.
+__device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, float* carry,
+                                          int stride, int R, int n_here, int s0, int len, int S,
+                                          long long ray0, const float* __restrict__ rays_d,
+                                          const float* __restrict__ z_vals, int white_bkgd,
                                           float* __restrict__ rgb_map,
                                           float* __restrict__ disp_map,
                                           float* __restrict__ acc_map,
                                           float* __restrict__ weights,
                                           float* __restrict__ depth_map) {
   const int tid = threadIdx.x;
-  const int T = n_here * S;
+  const int T = n_here * len;
   __syncthreads();
 
   // ---- per point, in parallel: alpha over the raw density, sigmoid rgb --
   for (int l = tid; l < T; l += THREADS) {
-    const int s = l % S;
-    const float* d = rays_d + (ray0 + l / S) * 3;
+    const int r = l / len, sl = l - r * len, s = s0 + sl;
+    const long long ray = ray0 + r;
+    const float* d = rays_d + ray * 3;
     const float dn = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
-    const float dist = (s + 1 < S ? ray_z[l + 1] - ray_z[l] : 1e10f) * dn;
+    float dist = 1e10f;
+    if (s + 1 < S) dist = (sl + 1 < len ? ray_z[l + 1] : z_vals[ray * S + s + 1]) - ray_z[l];
+    dist *= dn;
     float* sigma = ray_raw + 3 * stride + l;
     *sigma = 1.f - expf(-fmaxf(*sigma, 0.f) * dist);
 #pragma unroll
@@ -88,48 +104,66 @@ __device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, in
   // ---- compositing: thread r owns ray ray0 + r, product and sums in order
   if (tid < n_here) {
     const long long ray = ray0 + tid;
-    const int l0 = tid * S;
+    const int l0 = tid * len;
     float trans = 1.f, r = 0.f, g = 0.f, b = 0.f, dep = 0.f, acc = 0.f;
-    for (int s = 0; s < S; ++s) {
+    if (s0 > 0) {
+      trans = carry[tid];
+      r = carry[R + tid];
+      g = carry[2 * R + tid];
+      b = carry[3 * R + tid];
+      dep = carry[4 * R + tid];
+      acc = carry[5 * R + tid];
+    }
+    for (int s = 0; s < len; ++s) {
       const int l = l0 + s;
       const float alpha = ray_raw[3 * stride + l];
       const float w = alpha * trans;
       trans = trans * (1.f - alpha + 1e-10f);
-      weights[ray * S + s] = w;
+      weights[ray * S + s0 + s] = w;
       r += w * ray_raw[l];
       g += w * ray_raw[stride + l];
       b += w * ray_raw[2 * stride + l];
       dep += w * ray_z[l];
       acc += w;
     }
-    if (white_bkgd) {
-      r += 1.f - acc;
-      g += 1.f - acc;
-      b += 1.f - acc;
+    if (s0 + len < S) {
+      carry[tid] = trans;
+      carry[R + tid] = r;
+      carry[2 * R + tid] = g;
+      carry[3 * R + tid] = b;
+      carry[4 * R + tid] = dep;
+      carry[5 * R + tid] = acc;
+    } else {
+      if (white_bkgd) {
+        r += 1.f - acc;
+        g += 1.f - acc;
+        b += 1.f - acc;
+      }
+      rgb_map[ray * 3] = r;
+      rgb_map[ray * 3 + 1] = g;
+      rgb_map[ray * 3 + 2] = b;
+      acc_map[ray] = acc;
+      depth_map[ray] = dep;
+      disp_map[ray] = 1.f / fmaxf(dep / fmaxf(acc, 1e-10f), 1e-10f);
     }
-    rgb_map[ray * 3] = r;
-    rgb_map[ray * 3 + 1] = g;
-    rgb_map[ray * 3 + 2] = b;
-    acc_map[ray] = acc;
-    depth_map[ray] = dep;
-    disp_map[ray] = 1.f / fmaxf(dep / fmaxf(acc, 1e-10f), 1e-10f);
   }
-  __syncthreads();  // ray_raw and ray_z are free again
+  __syncthreads();  // ray_raw, ray_z and carry are free again
 }
 
-// Point l of the block's T = n_here * S points (rays from ray0): its
-// depth into ray_z[l] and x = o + d * z (no fma, like the reference) into
-// column p of a [6][stride] tile; zero past T.
+// Point l of a segment's T = n_here * len points (rays from ray0, samples
+// from s0): its depth into ray_z[l] and x = o + d * z (no fma, like the
+// reference) into column p of a [6][stride] tile; zero past T.
 __device__ __forceinline__ void ray_point(const float* __restrict__ rays_o,
                                           const float* __restrict__ rays_d,
                                           const float* __restrict__ viewdirs,
                                           const float* __restrict__ z_vals, long long ray0,
-                                          int S, int l, int T, float* ray_z, float* pts,
-                                          int stride, int p) {
+                                          int S, int s0, int len, int l, int T, float* ray_z,
+                                          float* pts, int stride, int p) {
   float x[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (l < T) {
-    const long long ray = ray0 + l / S;
-    const float zv = z_vals[ray0 * S + l];
+    const int r = l / len;
+    const long long ray = ray0 + r;
+    const float zv = z_vals[ray * S + s0 + (l - r * len)];
     ray_z[l] = zv;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -141,25 +175,29 @@ __device__ __forceinline__ void ray_point(const float* __restrict__ rays_o,
   for (int c = 0; c < 6; ++c) pts[c * stride + p] = x[c];
 }
 
-// The sub-tiles of TILE points that a block runs over its ray groups.
+// The sub-tiles of TILE points that a block runs over its ray groups'
+// segments.
 template <int TILE>
-__device__ __forceinline__ long long block_tiles(long long n_rays, int S, int R) {
+__device__ __forceinline__ long long block_tiles(long long n_rays, int S, int R, int seg) {
   const long long groups = (n_rays + R - 1) / R;
   long long tiles = 0;
   for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const long long n_here = n_rays - grp * R < R ? n_rays - grp * R : R;
-    tiles += (n_here * S + TILE - 1) / TILE;
+    for (int s0 = 0; s0 < S; s0 += seg) {
+      const int len = S - s0 < seg ? S - s0 : seg;
+      tiles += (n_here * len + TILE - 1) / TILE;
+    }
   }
   return tiles;
 }
 
-// float32: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays
-// in sub-tiles of TILE points on the FP32 core.
+// float32: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays,
+// in segments of seg samples, in sub-tiles of TILE points on the FP32 core.
 template <int TILE, int W>
 __global__ void __launch_bounds__(THREADS, 1)
 render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                 const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
-                long long n_rays, int n_samples, int rays_per_block, Net net, Plan plan,
+                long long n_rays, int n_samples, int rays_per_block, int seg, Net net, Plan plan,
                 int rx, int rd, int white_bkgd, float* __restrict__ rgb_map,
                 float* __restrict__ disp_map, float* __restrict__ acc_map,
                 float* __restrict__ weights, float* __restrict__ depth_map) {
@@ -167,82 +205,99 @@ render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays
   const int tid = threadIdx.x;
   const int S = n_samples;
   const int R = rays_per_block;
-  const int stride = R * S;
+  const int stride = R * seg;
   const long long groups = (n_rays + R - 1) / R;
   f32::Core<TILE, W> core = f32::make_core<TILE, W>(smem4, plan, rx, rd);
-  // [4][R*S] the group's raw field, then [R*S] its depths
+  // [4][R*seg] the segment's raw field, [R*seg] its depths, [6][R] the carry
   unsigned char* core_end =
       reinterpret_cast<unsigned char*>(smem4) + f32::core_bytes(TILE, W, rx, rd);
   float* ray_raw = reinterpret_cast<float*>(core_end);
   float* ray_z = ray_raw + 4 * stride;
-  core.ring.init(block_tiles<TILE>(n_rays, S, R) * plan.per_tile);
+  float* carry = ray_z + stride;
+  core.ring.init(block_tiles<TILE>(n_rays, S, R, seg) * plan.per_tile);
   for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const long long ray0 = grp * R;
     const int n_here = static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R);
-    const int T = n_here * S;
-    for (int t0 = 0; t0 < T; t0 += TILE) {
-      __syncthreads();  // the previous sub-tile's raw outputs are read
-      if (tid < TILE) {
-        ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, t0 + tid, T, ray_z, core.pts, TILE,
-                  tid);
+    for (int s0 = 0; s0 < S; s0 += seg) {
+      const int len = S - s0 < seg ? S - s0 : seg;
+      const int T = n_here * len;
+      for (int t0 = 0; t0 < T; t0 += TILE) {
+        __syncthreads();  // the previous sub-tile's raw outputs are read
+        if (tid < TILE) {
+          ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, s0, len, t0 + tid, T, ray_z,
+                    core.pts, TILE, tid);
+        }
+        __syncthreads();
+        f32::run_tile<TILE, W, false>(core, net);
+        for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
+          const int c = idx / TILE, p = idx % TILE;
+          if (t0 + p < T) ray_raw[c * stride + t0 + p] = core.raw[c * TILE + p];
+        }
       }
-      __syncthreads();
-      f32::run_tile<TILE, W, false>(core, net);
-      for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
-        const int c = idx / TILE, p = idx % TILE;
-        if (t0 + p < T) ray_raw[c * stride + t0 + p] = core.raw[c * TILE + p];
-      }
+      composite(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d, z_vals,
+                white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
     }
-    composite(ray_raw, ray_z, stride, n_here, S, ray0, rays_d, white_bkgd, rgb_map, disp_map,
-              acc_map, weights, depth_map);
   }
 }
 
-// bf16: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays in
-// sub-tiles of wg::Shape<W>::TILE points: at W = 256 warpgroup g runs
-// points [64g, 64g+64) of each 128-point sub-tile, at W = 512 both run the
-// columns of one 64-point sub-tile. FAST: net.fast_epilogue.
+// bf16: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays, in
+// segments of seg samples, in sub-tiles of wg::Core<W, NX>::TILE points: at
+// W = 256 warpgroup g runs points [64g, 64g+64) of each 128-point sub-tile,
+// at W = 512 both run the columns of one 64-point sub-tile, on the
+// transposed core (NX = 0) of one 32-point sub-tile. FAST:
+// net.fast_epilogue.
 template <int W, int NX, bool FAST>
 __global__ void __launch_bounds__(THREADS, 1)
 render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                   const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
-                  long long n_rays, int n_samples, int rays_per_block, Net net,
+                  long long n_rays, int n_samples, int rays_per_block, int seg, Net net,
                   Plan plan, int nd, int white_bkgd, float* __restrict__ rgb_map,
                   float* __restrict__ disp_map, float* __restrict__ acc_map,
                   float* __restrict__ weights, float* __restrict__ depth_map) {
   extern __shared__ float4 smem4[];
-  constexpr int TILE = wg::Shape<W>::TILE;
+  constexpr int TILE = wg::Core<W, NX>::TILE, PTS = wg::Core<W, NX>::PTS;
   const int S = n_samples;
   const int R = rays_per_block;
-  const int stride = R * S;
+  const int stride = R * seg;
   const long long groups = (n_rays + R - 1) / R;
   wg::Core<W, NX> core = wg::make_core<W, NX>(smem4, plan, nd);
-  // [4][R*S] the group's raw field, then [R*S] its depths
-  float* ray_raw = reinterpret_cast<float*>(core.base + wg::core_bytes(W, NX, nd));
+  // [4][R*seg] the segment's raw field, [R*seg] its depths, [6][R] the carry
+  int core_size;
+  if constexpr (NX == 0) {
+    core_size = wg::t_core_bytes(W, wg::x_chunks(net.in_ch), nd);
+  } else {
+    core_size = wg::core_bytes(W, NX, nd);
+  }
+  float* ray_raw = reinterpret_cast<float*>(core.base + core_size);
   float* ray_z = ray_raw + 4 * stride;
-  core.ring.init(block_tiles<TILE>(n_rays, S, R) * plan.per_tile);
+  float* carry = ray_z + stride;
+  core.ring.init(block_tiles<TILE>(n_rays, S, R, seg) * plan.per_tile);
   const int t = threadIdx.x & 127;
   for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const long long ray0 = grp * R;
     const int n_here = static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R);
-    const int T = n_here * S;
-    for (int t0 = 0; t0 < T; t0 += TILE) {
-      const int l0 = t0 + core.point0();  // this warpgroup's first point
-      core.sync();                        // the previous sub-tile's pts and raw are read
-      if (core.io() && t < P) {
-        ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, l0 + t, T, ray_z, core.pts, P, t);
-      }
-      core.sync();
-      wg::run_tile<W, NX, FAST, false>(core, net);
-      if (core.io()) {
-        for (int idx = t; idx < 4 * P; idx += 128) {
-          const int c = idx / P, p = idx % P;
-          if (l0 + p < T) ray_raw[c * stride + l0 + p] = core.raw[c * P + p];
+    for (int s0 = 0; s0 < S; s0 += seg) {
+      const int len = S - s0 < seg ? S - s0 : seg;
+      const int T = n_here * len;
+      for (int t0 = 0; t0 < T; t0 += TILE) {
+        const int l0 = t0 + core.point0();  // this warpgroup's first point
+        core.sync();                        // the previous sub-tile's pts and raw are read
+        if (core.io() && t < PTS) {
+          ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, s0, len, l0 + t, T, ray_z,
+                    core.pts, PTS, t);
+        }
+        core.sync();
+        wg::run_tile<W, NX, FAST, false>(core, net);
+        if (core.io()) {
+          for (int idx = t; idx < 4 * PTS; idx += 128) {
+            const int c = idx / PTS, p = idx % PTS;
+            if (l0 + p < T) ray_raw[c * stride + l0 + p] = core.raw[c * PTS + p];
+          }
         }
       }
+      composite(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d, z_vals,
+                white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
     }
-    composite(ray_raw, ray_z, stride, n_here, S, ray0, rays_d, white_bkgd, rgb_map, disp_map,
-              acc_map, weights, depth_map);
   }
 }
 
@@ -255,15 +310,29 @@ int gcd(int a, int b) {
   return a;
 }
 
-// bf16 rays per group for S samples per ray: R*S a multiple of the
-// `tile`-point sub-tile where that keeps R*S <= max_points, else the fewest
+// Shared bytes of a group of `rays` rays in segments of `seg` samples.
+long long group_bytes(int rays, int seg) {
+  return static_cast<long long>(rays) * (static_cast<long long>(seg) * POINT_BYTES + RAY_BYTES);
+}
+
+// bf16 rays per group for whole rays of S samples in `room` bytes: R*S a
+// multiple of the `tile`-point sub-tile where that fits, else the fewest
 // rays that fill one sub-tile, else as many as fit (0 when not one does).
-int block_rays(int n_samples, int tile, int max_points) {
+int block_rays(int n_samples, int tile, long long room) {
   const int r = tile / gcd(n_samples, tile);
-  if (r * n_samples <= max_points) return r;
+  if (group_bytes(r, n_samples) <= room) return r;
   const int fill = n_samples >= tile ? 1 : (tile + n_samples - 1) / n_samples;
-  const int fit = max_points / n_samples;
-  return fill < fit ? fill : fit;
+  const long long fit = room / group_bytes(1, n_samples);
+  return fill < fit ? fill : static_cast<int>(fit);
+}
+
+// Samples per segment of one ray per group in `room` bytes: the most that
+// fit, rounded down to whole sub-tiles of `tile` points where at least one
+// fits; 0 when not one sample does.
+int segment_samples(int tile, long long room) {
+  const long long fit = room < RAY_BYTES ? 0 : (room - RAY_BYTES) / POINT_BYTES;
+  const long long seg = fit >= tile ? fit / tile * tile : fit;
+  return static_cast<int>(seg < 0x7fffffff ? seg : 0x7fffffff);
 }
 
 // The FP32 core's smaller tile runs at this fraction of its big tile's rate
@@ -271,20 +340,22 @@ int block_rays(int n_samples, int tile, int max_points) {
 // H100: 0.80-0.87)
 constexpr float SMALL_TILE_RATE = 0.85f;
 
-// The float32 sub-tile (the width's big tile or half of it) and rays per
-// group for S samples: of the ray counts up to tile / gcd(S, tile) whose
-// buffers fit beside each tile's core, the pair that runs the group's
-// points fastest, counting the pad points of its last sub-tile and
-// SMALL_TILE_RATE; 0 if none fits.
-int pick_f32(int n_samples, int width, int rx, int rd, int smem_max, int* tile, int* rays) {
+// The float32 sub-tile (the width's big tile or half of it), rays per group
+// and samples per segment for S samples: of the ray counts up to tile /
+// gcd(S, tile) whose whole rays fit beside each tile's core, the pair that
+// runs the group's points fastest, counting the pad points of its last
+// sub-tile and SMALL_TILE_RATE; where no whole ray fits, one ray per group
+// in the longest segments (the big tile where a sub-tile's points fit, else
+// the small); false if not one sample fits.
+bool pick_f32(int n_samples, int width, int rx, int rd, int smem_max, int* tile, int* rays,
+              int* seg) {
   float best = 0.f;
   const int big = f32::big_tile(width);
   const int tiles[2] = {big, big / 2};
   for (const int t : tiles) {
     const long long room = smem_max - f32::core_bytes(t, width, rx, rd);
     const int most = t / gcd(n_samples, t);
-    for (int r = 1; r <= most && static_cast<long long>(r) * n_samples * POINT_BYTES <= room;
-         ++r) {
+    for (int r = 1; r <= most && group_bytes(r, n_samples) <= room; ++r) {
       const long long points = static_cast<long long>(r) * n_samples;
       const float rate = (t == big ? 1.f : SMALL_TILE_RATE) * static_cast<float>(points) /
                          static_cast<float>((points + t - 1) / t * t);
@@ -292,10 +363,21 @@ int pick_f32(int n_samples, int width, int rx, int rd, int smem_max, int* tile, 
         best = rate;
         *tile = t;
         *rays = r;
+        *seg = n_samples;
       }
     }
   }
-  return best > 0.f;
+  if (best > 0.f) return true;
+  for (const int t : tiles) {
+    const int s = segment_samples(t, smem_max - f32::core_bytes(t, width, rx, rd));
+    if (s >= t || (t == big / 2 && s > 0)) {
+      *tile = t;
+      *rays = 1;
+      *seg = s;
+      return true;
+    }
+  }
+  return false;
 }
 
 // The launches of one instantiation, for the cores' dispatch.
@@ -303,11 +385,11 @@ struct TileF32 {
   template <int TILE, int W>
   static int run(long long blocks, size_t smem, cudaStream_t s, const float* rays_o,
                  const float* rays_d, const float* viewdirs, const float* z_vals, long long n_rays,
-                 int n_samples, int rays, Net net, Plan plan, int rx, int rd, int white_bkgd,
-                 float* rgb_map, float* disp_map, float* acc_map, float* weights_out,
-                 float* depth_map) {
+                 int n_samples, int rays, int seg, Net net, Plan plan, int rx, int rd,
+                 int white_bkgd, float* rgb_map, float* disp_map, float* acc_map,
+                 float* weights_out, float* depth_map) {
     return launch_persistent(render_tile_f32<TILE, W>, blocks, smem, s, rays_o, rays_d, viewdirs,
-                             z_vals, n_rays, n_samples, rays, net, plan, rx, rd, white_bkgd,
+                             z_vals, n_rays, n_samples, rays, seg, net, plan, rx, rd, white_bkgd,
                              rgb_map, disp_map, acc_map, weights_out, depth_map);
   }
 };
@@ -317,12 +399,12 @@ struct TileWgmma {
   template <int W, int NX>
   static int run(long long blocks, size_t smem, cudaStream_t s, const float* rays_o,
                  const float* rays_d, const float* viewdirs, const float* z_vals, long long n_rays,
-                 int n_samples, int rays, Net net, Plan plan, int nd, int white_bkgd,
+                 int n_samples, int rays, int seg, Net net, Plan plan, int nd, int white_bkgd,
                  float* rgb_map, float* disp_map, float* acc_map, float* weights_out,
                  float* depth_map) {
     return launch_persistent(render_tile_wgmma<W, NX, FAST>, blocks, smem, s, rays_o, rays_d,
-                             viewdirs, z_vals, n_rays, n_samples, rays, net, plan, nd, white_bkgd,
-                             rgb_map, disp_map, acc_map, weights_out, depth_map);
+                             viewdirs, z_vals, n_rays, n_samples, rays, seg, net, plan, nd,
+                             white_bkgd, rgb_map, disp_map, acc_map, weights_out, depth_map);
   }
 };
 
@@ -330,29 +412,31 @@ struct TileWgmma {
 
 extern "C" {
 
-// The most samples per ray the kernel takes in this dtype for a net's
-// width and encodings (one ray per group), from the device's shared
-// memory; 0 when the core alone does not fit.
+// The most samples of one segment (one ray per group) in this dtype for a
+// net's width and encodings, from the device's shared memory; 0 when the
+// core leaves no room for one. A ray of more samples runs in segments.
 int render_tile_max_samples(int bf16, int width, int in_ch, int in_ch_views) {
   int smem_max = 0;
   if (smem_optin(&smem_max) != 0) return 0;
   const int core = bf16 ? wg::launch_bytes(width, in_ch, in_ch_views)
                         : f32::smallest_bytes(width, in_ch, in_ch_views);
-  return smem_max > core ? (smem_max - core) / POINT_BYTES : 0;
+  return segment_samples(1, static_cast<long long>(smem_max) - core);
 }
 
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
 // for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
-// to a trunk of `width` (256 or 512); packed: the weight chunks of the core
-// this dtype runs (raymarch.py pack_f32_weights in float32,
+// to a trunk of `width` (256, 512 or 1024); skip_mask: bit i set when layer
+// i's output is concatenated with x_pe; packed: the weight chunks of the
+// core this dtype runs (raymarch.py pack_f32_weights in float32,
 // pack_wgmma_weights in bf16; 16-byte aligned). Returns a cudaError_t
 // value: 0 when the launch was accepted.
 int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
                 const float* z_vals, long long n_rays, int n_samples,
-                const void* const* weights, int width, int depth, unsigned skip_mask,
-                int in_ch, int in_ch_views, int bf16, const void* packed,
-                int fast_epilogue, int white_bkgd, float* rgb_map, float* disp_map,
-                float* acc_map, float* weights_out, float* depth_map, void* stream) {
+                const void* const* weights, int width, int depth,
+                unsigned long long skip_mask, int in_ch, int in_ch_views, int bf16,
+                const void* packed, int fast_epilogue, int white_bkgd, float* rgb_map,
+                float* disp_map, float* acc_map, float* weights_out, float* depth_map,
+                void* stream) {
   Net net;
   const int err = make_net(weights, width, depth, skip_mask, in_ch, in_ch_views,
                            fast_epilogue, &net);
@@ -366,36 +450,41 @@ int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     const int core = wg::launch_bytes(width, in_ch, in_ch_views);
-    const int room = smem_max - core;
-    const int rays = room < 0 ? 0 : block_rays(n_samples, width == 256 ? 2 * P : P,
-                                               room / POINT_BYTES);
+    const long long room = static_cast<long long>(smem_max) - core;
+    const int tile = wg::tile_points(width, in_ch, in_ch_views);
+    int rays = room < 0 ? 0 : block_rays(n_samples, tile, room);
+    int seg = n_samples;
     if (rays < 1) {
+      rays = 1;
+      seg = room < 0 ? 0 : segment_samples(tile, room);
+    }
+    if (seg < 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const size_t smem = core + static_cast<size_t>(rays) * n_samples * POINT_BYTES;
+    const size_t smem = core + static_cast<size_t>(group_bytes(rays, seg));
     const Plan plan = wg::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
-    const int nx = wg::x_chunks(in_ch), nd = wg::d_chunks(in_ch_views);
+    const int nx = wg::core_nx(width, in_ch, in_ch_views), nd = wg::d_chunks(in_ch_views);
     const long long blocks = (n_rays + rays - 1) / rays;
     return fast_epilogue
         ? wg::dispatch<TileWgmma<true>>(width, nx, blocks, smem, s, rays_o, rays_d, viewdirs,
-                                        z_vals, n_rays, n_samples, rays, net, plan, nd,
+                                        z_vals, n_rays, n_samples, rays, seg, net, plan, nd,
                                         white_bkgd, rgb_map, disp_map, acc_map, weights_out,
                                         depth_map)
         : wg::dispatch<TileWgmma<false>>(width, nx, blocks, smem, s, rays_o, rays_d, viewdirs,
-                                         z_vals, n_rays, n_samples, rays, net, plan, nd,
+                                         z_vals, n_rays, n_samples, rays, seg, net, plan, nd,
                                          white_bkgd, rgb_map, disp_map, acc_map, weights_out,
                                          depth_map);
   }
   const int rx = f32::rows(in_ch), rd = f32::rows(in_ch_views);
-  int tile = 0, rays = 0;
-  if (!pick_f32(n_samples, width, rx, rd, smem_max, &tile, &rays)) {
+  int tile = 0, rays = 0, seg = 0;
+  if (!pick_f32(n_samples, width, rx, rd, smem_max, &tile, &rays, &seg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan plan = f32::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
   const size_t smem =
-      f32::core_bytes(tile, width, rx, rd) + static_cast<size_t>(rays) * n_samples * POINT_BYTES;
+      f32::core_bytes(tile, width, rx, rd) + static_cast<size_t>(group_bytes(rays, seg));
   return f32::dispatch<TileF32>(width, tile, (n_rays + rays - 1) / rays, smem, s, rays_o, rays_d,
-                                viewdirs, z_vals, n_rays, n_samples, rays, net, plan, rx, rd,
+                                viewdirs, z_vals, n_rays, n_samples, rays, seg, net, plan, rx, rd,
                                 white_bkgd, rgb_map, disp_map, acc_map, weights_out, depth_map);
 }
 

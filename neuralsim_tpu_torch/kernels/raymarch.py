@@ -15,12 +15,14 @@ PyTorch twin. Every wrapper computes in bfloat16 unless asked for float32,
 as the JAX package's wrappers do. In bfloat16 every kernel multiplies on
 the tensor cores (``nerf_mlp_wgmma.cuh``) from the chunks of
 ``pack_wgmma_weights``; in float32 on the FP32 core (``nerf_mlp.cuh``) from
-the chunks of ``pack_f32_weights``. Both cores take a trunk of 256 or 512
-(a narrower net is zero-padded to the next of the two by ``pad_params``,
-which is exact), up to 32 trunk layers and encodings of multires <= 42,
-multires_views <= 20, where they fit in a block's shared memory
-(``_check_supported`` names what does not); the padded weights and their
-chunks are prepared once per weight set and dtype (``_packed_weights``).
+the chunks of ``pack_f32_weights``. Both cores take a trunk of 256, 512 or
+1024 (a narrower net is zero-padded to the next of the three by
+``pad_params``, which is exact), up to 64 trunk layers and encodings up to
+multires and multires_views 128 where they fit in a block's shared memory
+(``_check_supported`` names what they do not take); the render tile takes
+any number of samples per ray. The
+padded weights and their chunks are prepared once per weight set and dtype
+(``_packed_weights``).
 Gradients of the first four
 recompute through a twin in float32, as the JAX custom_vjp backwards do;
 ``fused_render_tile`` is forward only, as in JAX, and raises when asked for
@@ -181,7 +183,7 @@ def _segments(params, net: NeRFNetConfig) -> List[torch.Tensor]:
 
 
 # trunk widths the CUDA cores are built for: a net is padded to the next one
-CORE_WIDTHS = (256, 512)
+CORE_WIDTHS = (256, 512, 1024)
 # wgmma weight chunks (nerf_mlp_wgmma.cuh): 64 input rows each
 CHUNK_K = 64
 # FP32-core weight chunks (nerf_mlp.cuh): 16 input rows each
@@ -312,7 +314,9 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, wha
     return weights, packed
 
 
-_NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+# weights, width, depth, skip mask (64 bits: one per trunk layer), in_ch,
+# in_ch_views, bf16
+_NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong,
              ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _ARGTYPES = {
     "nerf_march": ("nerf_march", [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
@@ -327,7 +331,7 @@ _ARGTYPES = {
 _QUERIES = [(fn, [], ctypes.c_int) for fn in (
     "nerf_width", "nerf_max_layers", "nerf_max_in_ch", "nerf_max_in_ch_views",
     "nerf_smem_optin")] + [
-    (fn, [ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int],
+    (fn, [ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int],
      ctypes.c_longlong) for fn in ("nerf_f32_plan_bytes", "nerf_wgmma_plan_bytes")] + [
     (fn, [ctypes.c_int] * 3, ctypes.c_int)
     for fn in ("nerf_f32_smem_bytes", "nerf_wgmma_smem_bytes")]
@@ -488,6 +492,11 @@ def _launch_mlp(kind: str, params, a, b, net: NeRFNetConfig,
     return raw
 
 
+# shared bytes of one render-tile sample beside its core: raw [4] and z,
+# and its ray's carried transmittance and five sums (render_tile.cu)
+_SAMPLE_BYTES = 5 * 4 + 6 * 4
+
+
 def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
                         net: NeRFNetConfig, white_bkgd: bool,
                         compute_dtype: torch.dtype, fast_epilogue: bool):
@@ -500,13 +509,16 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
     net_args, _weights = _net_args(params, net, device, bf16, lib, what)
-    # a block keeps its rays' raw field in shared memory beside its MLP core
+    # a block keeps a segment of its rays' raw field in shared memory beside
+    # its MLP core: a ray of more samples than one segment holds runs in
+    # segments, but one sample and its ray's carried sums must fit
     with _on(device):
-        max_samples = lib.render_tile_max_samples(int(bf16), net_args[1], net.input_ch,
-                                                  net.input_ch_views)
-    if s > max_samples:
-        raise NotImplementedError(f"{what} kernel: at most {max_samples} samples per ray in "
-                                  f"{compute_dtype} for this net, got {s}")
+        segment = lib.render_tile_max_samples(int(bf16), net_args[1], net.input_ch,
+                                              net.input_ch_views)
+    if segment < 1:
+        raise NotImplementedError(
+            f"{what} kernel: the {net_args[1]}-wide core leaves no room in shared memory for "
+            f"one sample ({_SAMPLE_BYTES} bytes) in {compute_dtype}")
     f32 = dict(dtype=torch.float32, device=device)
     rgb, disp, acc = torch.empty((n, 3), **f32), torch.empty(n, **f32), torch.empty(n, **f32)
     weights, depth = torch.empty((n, s), **f32), torch.empty(n, **f32)

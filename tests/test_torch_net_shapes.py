@@ -3,11 +3,14 @@
 - A net without view directions or without an encoding marches through the
   plain ``query_points`` + ``raw2outputs`` on the card too, as in the JAX
   package: no kernel launches, and the render equals the JAX one.
-- A trunk narrower than a core width (256 or 512) is zero-padded to the
-  next one (``raymarch.pad_params``, ``core_width``), which is exact; the
-  cores take up to 32 trunk layers and encodings up to multires 42 /
-  multires_views 20 (x_pe in up to four 64-row wgmma chunks, d_pe in two). The padded weights are packed into the FP32 core's
-  float32 chunks (``pack_f32_weights``) and the wgmma core's bf16 chunks;
+- A trunk narrower than a core width (256, 512 or 1024) is zero-padded to
+  the next one (``raymarch.pad_params``, ``core_width``), which is exact;
+  the cores take up to 64 trunk layers (a 64-bit skip mask) and encodings
+  up to multires / multires_views 128 where they fit in shared memory (the
+  wgmma cores' x_pe and d_pe chunks: the standard core's up to four and
+  two, the transposed core's as many as fit). The padded weights are
+  packed into the FP32 core's float32 chunks (``pack_f32_weights``) and the
+  wgmma cores' bf16 chunks;
   the FP32 core's consumption of its chunks is emulated here layer by
   layer, as ``csrc/nerf_mlp.cuh`` runs it, and the chunk plans and shared
   memory of both cores are written out here from the CUDA headers
@@ -51,9 +54,19 @@ NETS = {
     "8x512": dict(netwidth=512, netwidth_fine=512),
     "4x384": dict(netdepth=4, netwidth=384, netdepth_fine=4, netwidth_fine=384, skips=(2,)),
     # longer encodings: 147 / 75 channels (three x_pe chunks of the wgmma
-    # core, two d_pe chunks) and the longest the cores take, 255 / 123
+    # core, two d_pe chunks) and 255 / 123, the longest of the standard core
     "8x256_pe24_12": dict(multires=24, multires_views=12),
     "8x256_pe42_20": dict(multires=42, multires_views=20),
+    # the widest core width (mip-NeRF 360's 1024-wide MLP), a width padded to
+    # it, and a trunk past 32 layers (skip bits above 32)
+    "4x1024": dict(netdepth=4, netwidth=1024, netdepth_fine=4, netwidth_fine=1024, skips=(2,)),
+    "4x768": dict(netdepth=4, netwidth=768, netdepth_fine=4, netwidth_fine=768, skips=(2,)),
+    "40x256": dict(netdepth=40, netdepth_fine=40, skips=(4, 20, 36)),
+    # encodings the standard wgmma core has no room for (the transposed core)
+    "4x512_pe42_20": dict(netdepth=4, netwidth=512, netdepth_fine=4, netwidth_fine=512,
+                          skips=(2,), multires=42, multires_views=20),
+    "4x256_pe50_24": dict(netdepth=4, netdepth_fine=4, skips=(2,), multires=50,
+                          multires_views=24),
 }
 
 
@@ -294,17 +307,28 @@ def test_f32_core_order_computes_the_twin(name):
 SMEM_OPTIN = 232_448
 
 
+def transposed(width, in_ch, in_ch_views):
+    """Whether a bf16 net runs on the transposed wgmma core
+    (csrc/nerf_mlp_wgmma.cuh ``transposed``): every 1024-wide net, a 512-wide
+    one with more than four chunks of encodings, a 256-wide one with more
+    than four x_pe or two d_pe chunks."""
+    nx, nd = -(-in_ch // 64), -(-in_ch_views // 64)
+    return width == 1024 or (width == 512 and nx + nd > 4) or (width == 256 and (nx > 4 or nd > 2))
+
+
 class _FakeMarchLibrary:
     """Stands in for the built nerf_march library and records each call of
     the C entry. Its limits are parameters (the defaults those of the CUDA
     headers); its chunk plans and shared-memory sizes are the formulas of
     csrc/nerf_mlp.cuh (FP32 core: ring stages of 16 KB, kc = 16 KB / 4W
-    rows; smallest tile 64 points at W = 256, 32 at 512) and
-    csrc/nerf_mlp_wgmma.cuh (64-row chunks; three ring stages at W = 256
-    with at most two x_pe chunks, else two; A tiles per warpgroup at W =
-    256, shared at 512), written out here."""
+    rows; smallest tile 64 points at W = 256, 32 at 512, 16 at 1024) and
+    csrc/nerf_mlp_wgmma.cuh (64-row chunks; the standard core: three ring
+    stages at W = 256 with at most two x_pe chunks, else two; A tiles per
+    warpgroup at W = 256, shared at 512; the transposed core: two rings of
+    two pieces of min(W/2, 256) rows, h and the encodings in [32][64]
+    chunks of 4 KB, a 6 KB scratch), written out here."""
 
-    def __init__(self, width=512, max_layers=36, max_in_ch=256, max_in_ch_views=128,
+    def __init__(self, width=1024, max_layers=68, max_in_ch=771, max_in_ch_views=771,
                  smem_optin=SMEM_OPTIN):
         self.limits = (width, max_layers, max_in_ch, max_in_ch_views, smem_optin)
         self.calls = []
@@ -347,6 +371,9 @@ class _FakeMarchLibrary:
     @staticmethod
     def nerf_wgmma_smem_bytes(width, in_ch, in_ch_views):
         nx, nd = -(-in_ch // 64), -(-in_ch_views // 64)
+        if transposed(width, in_ch, in_ch_views):
+            piece = min(width // 2, 256) * 128
+            return 4 * piece + (width // 64 + nx + nd) * 4096 + 6144 + 1024
         stages = 3 if width == 256 and nx <= 2 else 2
         tiles = (2 if width == 256 else 1) * (nx + width // 64 + nd) * 8192
         return stages * width * 128 + tiles + 2 * stages * 8 + 1024
@@ -367,13 +394,15 @@ def fake_march(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "24x256", "8x512", "4x384",
-                                  "8x256_pe42_20"])
+                                  "8x256_pe42_20", "4x1024", "4x768", "40x256",
+                                  "4x512_pe42_20", "4x256_pe50_24"])
 def test_march_launch_pads_and_packs(fake_march, name, dtype):
     """(e) On the kernel route a net reaches the C entry padded to its core
-    width (256 or 512): every weight pointer is the padded tensor (bf16
-    kernels rounded), the packed pointer is the chunk stream of the core the
-    dtype runs, and the width, depth, skips and encodings' channel counts
-    are the net's."""
+    width (256, 512 or 1024): every weight pointer is the padded tensor
+    (bf16 kernels rounded), the packed pointer is the chunk stream of the
+    core the dtype runs, and the width, depth, skips (a 64-bit mask: the
+    40-deep net's skip after layer 36) and encodings' channel counts are the
+    net's."""
     net = _net(name)
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(6))
     n, s = 5, 7
@@ -385,7 +414,8 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
     assert rm.fused_nerf_march.launches == 1
     assert len(args) == len(rm._ARGTYPES["nerf_march"][1])
     ptrs, width, depth, skip_mask, in_ch, in_ch_views, bf16, packed = args[6:14]
-    assert width == (256 if net.netwidth <= 256 else 512)
+    assert width == rm.core_width(net.netwidth) == min(
+        w for w in (256, 512, 1024) if w >= net.netwidth)
     assert (depth, skip_mask, in_ch, in_ch_views) == (
         net.netdepth, sum(1 << sk for sk in net.skips), net.input_ch, net.input_ch_views)
     assert bf16 == int(dtype == torch.bfloat16)
@@ -400,19 +430,21 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
 
 
 def test_kernels_refuse_what_the_cores_do_not_take(fake_march):
-    """Width above 512, depth above 32, encodings past multires 42 /
-    multires_views 20, and (bf16) a 512-wide trunk with 256 x_pe rows, whose
-    wgmma core does not fit a block's shared memory: NotImplementedError,
-    naming the limit (the bytes for the last), before any launch. The same
-    512-wide net launches in float32 (the FP32 core's 32-point tiles fit)."""
+    """Width above 1024, depth above 64, encodings past multires /
+    multires_views 128 (2^128 is past float32), and (bf16) a 1024-wide trunk
+    with 363 x_pe and 123 d_pe channels, whose transposed wgmma core does
+    not fit a block's shared memory: NotImplementedError, naming the limit
+    (the bytes for the last), before any launch. The same 1024-wide net
+    launches in float32 (the FP32 core's 16-point tiles fit)."""
     rays = [torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 4)]
     both = (torch.float32, torch.bfloat16)
-    cases = {"trunk width 513": (dict(netwidth=513, netwidth_fine=513), both),
-             "depth<=32": (dict(netdepth=33, netdepth_fine=33), both),
-             "multires<=42": (dict(multires=43), both),
-             "multires_views<=20": (dict(multires_views=21), both),
-             "needs 238624 bytes of shared memory": (
-                 dict(netwidth=512, netwidth_fine=512, multires=42), (torch.bfloat16,))}
+    cases = {"trunk width 1025": (dict(netwidth=1025, netwidth_fine=1025), both),
+             "depth<=64": (dict(netdepth=65, netdepth_fine=65), both),
+             "multires<=128": (dict(multires=129), both),
+             "multires_views<=128": (dict(multires_views=129), both),
+             "needs 236544 bytes of shared memory": (
+                 dict(netwidth=1024, netwidth_fine=1024, multires=60, multires_views=20),
+                 (torch.bfloat16,))}
     for message, (kw, dtypes) in cases.items():
         net = tcfg.NeRFNetConfig(**{**dict(netdepth=4, netdepth_fine=4, skips=(2,)), **kw})
         params = init_nerf_params(net, generator=torch.Generator().manual_seed(7))
