@@ -4,6 +4,7 @@ of this repository (or more) on one NVIDIA GPU, in turns, so that versions
 of a kernel are compared on the same card in the same call.
 
     python3 chip_compare.py OLD_CHECKOUT NEW_CHECKOUT [MORE ...] [--rounds 2]
+                            [--net 8x1024]
 
 Each round runs the checkouts in order and then in reverse (OLD, NEW, NEW,
 OLD for two); each run is a child process started in that checkout
@@ -22,9 +23,19 @@ shapes (``chip_smoke.march_inputs``' camera sphere):
 with CUDA events (kernels: median of 7 single launches after 2 warm-ups,
 and as KEY_b10 the median of 3 means over 10 back-to-back launches, the
 kernel's device time) and the host clock around a synchronised render
-(median of RENDERS). It prints one JSON line per run, then a summary line:
-the median over a version's runs of each number, and each later
-checkout's medians over OLD's. Without a CUDA device it exits nonzero.
+(median of RENDERS). With ``--net 8x1024`` a child times instead, on random
+weights of the 8x1024 net (mip-NeRF 360's width; PE 10/4):
+  - each of the five kernel wrappers in float32 at N = 8192 rays x S = 64
+    and 192 (median of 3 single launches after a warm-up, and as KEY_b10
+    the mean over 10 back-to-back launches), beside the same shapes' plain
+    twin (median of 3) and chain_ms (the MLP as one torch.matmul per layer
+    on encodings computed beforehand, TF32 off; median of 3);
+  - NeuralSimRenderer.render_images on 8x1024 box-scene weights, K = 8
+    poses at 100x100, the exact render in float32 through each of the three
+    march routes (median of WIDE_RENDERS after one untimed render).
+It prints one JSON line per run, then a summary line: the median over a
+version's runs of each number, and each later checkout's medians over
+OLD's. Without a CUDA device it exits nonzero.
 """
 
 from __future__ import annotations
@@ -43,9 +54,94 @@ BATCH = 10
 # synchronised renders of one render-time median (a 28 ms production render
 # moves by up to 9% between renders)
 RENDERS = 9
+# the same for the 8x1024 renders (~10 s each in float32)
+WIDE_RENDERS = 2
+# the nets a child times: the default (every kernel, both dtypes, three
+# renders) or the 8x1024 net (float32 kernels, twins, chain_ms, renders)
+NETS = ("default", "8x1024")
 
 
-def child():
+def events(fn, reps=7, warmup=2, batch=1):
+    """Median ms of reps timings (CUDA events) of `batch` back-to-back calls
+    of fn, per call, after `warmup` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / batch)
+    return statistics.median(times)
+
+
+def child_widest(out, rays):
+    """The --net 8x1024 numbers into out (rays(n, s): a ray batch on the
+    card)."""
+    import torch
+
+    from chip_smoke import chain_mlp
+    from neuralsim_tpu_torch.bilevel.psi_init import psi_init
+    from neuralsim_tpu_torch.config import NeRFNetConfig, NeuralSimConfig
+    from neuralsim_tpu_torch.kernels import raymarch as rm
+    from neuralsim_tpu_torch.models.box_scene import box_scene_params
+    from neuralsim_tpu_torch.models.nerf import init_nerf_params, nerf_apply
+    from neuralsim_tpu_torch.ops.encoding import positional_encoding
+    from neuralsim_tpu_torch.pipeline import NeuralSimRenderer
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    net = NeRFNetConfig(netwidth=1024, netwidth_fine=1024)
+    params = init_nerf_params(net, generator=torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        for s in (64, 192):
+            r = rays(8192, s)
+            pts, dirs = rm.ray_points(*r)
+            x_pe, d_pe = (positional_encoding(pts, net.multires),
+                          positional_encoding(dirs, net.multires_views))
+            kernels = (("fused_nerf_march", rm.fused_nerf_march, rm.march_channels_ref, r),
+                       ("fused_nerf_mlp_widepe", rm.fused_nerf_mlp_widepe, rm.mlp_widepe_ref,
+                        (pts, dirs)),
+                       ("fused_render_tile", rm.fused_render_tile, rm.render_tile_ref, r),
+                       ("fused_nerf_mlp", rm.fused_nerf_mlp, nerf_apply, (x_pe, d_pe)),
+                       ("fused_nerf_mlp_pe", rm.fused_nerf_mlp_pe, rm.mlp_pe_ref, (pts, dirs)))
+            for name, fn, twin, args in kernels:
+                key = f"{name}_f32_S{s}"
+                out[key] = events(lambda: fn(params, *args, net, compute_dtype=f32), 3, 1)
+                out[f"{key}_b{BATCH}"] = events(
+                    lambda: fn(params, *args, net, compute_dtype=f32), 1, 0, BATCH)
+                out[f"{key}_twin"] = events(
+                    lambda: twin(params, *args, net, compute_dtype=f32), 3, 1)
+            out[f"chain_f32_S{s}"] = events(lambda: chain_mlp(params, x_pe, d_pe, net), 3, 1)
+            del r, pts, dirs, x_pe, d_pe
+            torch.cuda.empty_cache()
+        box = box_scene_params(net, generator=torch.Generator().manual_seed(3), device=dev)
+        psi = psi_init("5")
+        routes = {"fused_nerf_march": {}, "fused_nerf_mlp_widepe": dict(fuse_pointgen=False),
+                  "fused_render_tile": dict(fuse_compositing=True)}
+        for route, opts in routes.items():
+            cfg = NeuralSimConfig().replace(net=net)
+            cfg = cfg.replace(render=dataclasses.replace(cfg.render, compute_dtype="float32",
+                                                         **opts))
+            renderer = NeuralSimRenderer(cfg, models={"coarse": box, "fine": box}, device=dev)
+            noise = renderer.render_images(psi, torch.Generator().manual_seed(0), num_k=8)[1]
+            seconds = []
+            for _ in range(WIDE_RENDERS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                renderer._render_impl(psi, noise)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            out[f"render_{route}_f32_s"] = statistics.median(seconds)
+
+
+def child(net_name):
     # the checkout is the working directory; this file may lie elsewhere
     sys.path[0] = os.getcwd()
     import torch
@@ -69,21 +165,6 @@ def child():
     gen = torch.Generator().manual_seed(0)
     params = init_nerf_params(net, generator=gen, device=dev)
 
-    def events(fn, reps=7, warmup=2, batch=1):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(batch):
-                fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b) / batch)
-        return statistics.median(times)
-
     def time_kernel(key, fn):
         # one launch between the events (what one call costs the stream, the
         # wrapper's host latency included: +-3% between identical kernels
@@ -101,6 +182,10 @@ def child():
         return [t.to(dev) for t in (o, d, vd, z)]
 
     out = {"checkout": os.getcwd()}
+    if net_name == "8x1024":
+        child_widest(out, rays)
+        print("RESULT " + json.dumps(out), flush=True)
+        return
     f32 = torch.float32
     with torch.no_grad():
         for n, s in ((8192, 64), (8192, 192), (8192, 16), (32768, 16)):
@@ -157,14 +242,21 @@ def child():
     print("RESULT " + json.dumps(out), flush=True)
 
 
+def option(args, flag, default):
+    """The value after flag in args (removed from them), else default."""
+    if flag not in args:
+        return default
+    i = args.index(flag)
+    value = args[i + 1]
+    del args[i:i + 2]
+    return value
+
+
 def main():
     args = [a for a in sys.argv[1:] if a != CHILD]
-    rounds = 1
-    if "--rounds" in args:
-        i = args.index("--rounds")
-        rounds = int(args[i + 1])
-        del args[i:i + 2]
-    if len(args) < 2:
+    rounds = int(option(args, "--rounds", 1))
+    net_name = option(args, "--net", "default")
+    if len(args) < 2 or net_name not in NETS:
         raise SystemExit(__doc__)
     checkouts = [os.path.abspath(a) for a in args]
     labels = ["old", "new"] + [f"new{i}" for i in range(2, len(checkouts))]
@@ -174,7 +266,8 @@ def main():
     runs = {checkout: [] for checkout in checkouts}
     for _ in range(rounds):
         for checkout in checkouts + checkouts[::-1]:
-            proc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), CHILD],
+            proc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), CHILD,
+                                   "--net", net_name],
                                   cwd=checkout, capture_output=True, text=True, timeout=1200)
             lines = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")]
             if proc.returncode != 0 or not lines:
@@ -190,11 +283,11 @@ def main():
     for label in labels[1:]:
         summary[f"{label}_over_old"] = {k: v / summary["old"][k]
                                         for k, v in summary[label].items() if summary["old"].get(k)}
-    print(json.dumps({"card": smi, "summary": summary}), flush=True)
+    print(json.dumps({"card": smi, "net": net_name, "summary": summary}), flush=True)
 
 
 if __name__ == "__main__":
     if CHILD in sys.argv:
-        child()
+        child(option(sys.argv, "--net", "default"))
     else:
         main()

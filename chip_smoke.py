@@ -10,7 +10,9 @@ Phases, each of which exits nonzero when it fails:
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
   2. build: nvcc builds every kernels/csrc/*.cu for sm_90a, one process per
      source, all started together; ptxas registers and spills of each
-     instantiation, and a list of those that spill (with their bytes);
+     instantiation, a list of those that spill (with their bytes), and the
+     registers and spills of the FP32 core's W = 1024 instantiations on
+     lines of their own;
   3. every kernel vs its plain twin at full width (8x256 NeRF, PE 10/4) in
      float32 and bfloat16, on random-init (default and He-scaled) and
      box-scene weights:
@@ -34,9 +36,16 @@ Phases, each of which exits nonzero when it fails:
      next core width: 4x128, 8x100 with multires 12 / multires_views 6,
      8x512, 4x384 (padded to 512), 24x256 with skips (4, 12), 8x256 with
      multires 24 / multires_views 12 and 42 / 20, 8x1024, 4x768 (padded to
-     1024), 40x256 with skips (4, 20, 36), and on the transposed wgmma core
-     8x512 with multires 42 / 20 and 4x256 with multires 50 / 24 (the long
-     encodings at the ragged shapes only); the render tile on LONG_RAYS:
+     1024), 40x256 with skips (4, 20, 36), 72x256 with skips (4, 40, 68)
+     (its bf16 render tile on the default init only: BF16_ILL_CONDITIONED),
+     and on the transposed wgmma core 8x512 with multires 42 / 20, 4x256
+     with multires 50 / 24 and 4x512 with multires 130 / multires_views 4
+     (2^k is +inf from k = 128 on: every output is NaN, and the kernels'
+     must be NaN exactly where the twin's are), and 4x1024 with multires
+     42 / 20, on the FP32 core's 16-point tiles (the long encodings at the
+     ragged shapes only), each net's FP32 launch
+     plans logged (tile; the render tile's rays and segments at S = 64 and
+     192); the render tile on LONG_RAYS:
      rays longer than one segment (the default net at S = 2048 in bf16 and
      8192 in float32, 8x1024 at 2048 and 8192) and 8x1024 at S = 192; then
      the five kernels on the 8x512 and 8x1024 nets at N=8192 x S=64 and 192
@@ -204,6 +213,7 @@ it exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import logging
@@ -283,8 +293,8 @@ RAGGED = (1001, 48)
 RAY_SHAPES = ((N_RAYS, 64, True), (N_RAYS, 192, True), (N_RAYS, 16, True),
               (32768, 16, True), (N_RAYS, 144, True), RAGGED + (False,), (3, 5, False))
 # nets beyond the default, checked at these (N, S): the kernels take a trunk
-# zero-padded to the next core width (256, 512 or 1024), up to 64 layers
-# deep, and encodings up to multires 128 where they fit in shared memory
+# zero-padded to the next core width (256, 512 or 1024), any depth, and any
+# encodings that fit in shared memory
 EXTRA_NETS = {
     "4x128": dict(netdepth=4, netwidth=128, netdepth_fine=4, netwidth_fine=128, skips=(2,)),
     "8x100_pe12_6": dict(netwidth=100, netwidth_fine=100, multires=12, multires_views=6),
@@ -302,15 +312,34 @@ EXTRA_NETS = {
     "8x1024": dict(netwidth=1024, netwidth_fine=1024),
     "4x768": dict(netdepth=4, netwidth=768, netdepth_fine=4, netwidth_fine=768, skips=(2,)),
     "40x256": dict(netdepth=40, netdepth_fine=40, skips=(4, 20, 36)),
+    # past 64 layers (skips in the second word of the skip mask)
+    "72x256": dict(netdepth=72, netdepth_fine=72, skips=(4, 40, 68)),
     # encodings the standard wgmma core has no room for: the transposed core
     # at widths 512 and 256
     "8x512_pe42_20": dict(netwidth=512, netwidth_fine=512, multires=42, multires_views=20),
     "4x256_pe50_24": dict(netdepth=4, netdepth_fine=4, skips=(2,), multires=50,
                           multires_views=24),
+    # past multires 128 (k = 129 is the first exponent past float32's): NaN
+    # outputs, on both cores
+    "4x512_pe130_4": dict(netdepth=4, netwidth=512, netdepth_fine=4, netwidth_fine=512,
+                          skips=(2,), multires=130, multires_views=4),
+    # the FP32 core's 16-point tiles at W = 1024 (long encodings)
+    "4x1024_pe42_20": dict(netdepth=4, netwidth=1024, netdepth_fine=4, netwidth_fine=1024,
+                           skips=(2,), multires=42, multires_views=20),
 }
 EXTRA_SHAPES = ((N_RAYS, 64), RAGGED, (3, 5))
 # nets checked at the ragged shapes only
-RAGGED_ONLY = ("8x256_pe42_20", "8x512_pe42_20", "4x256_pe50_24")
+RAGGED_ONLY = ("8x256_pe42_20", "8x512_pe42_20", "4x256_pe50_24", "4x512_pe130_4",
+               "4x1024_pe42_20")
+# nets whose outputs are NaN (in kernel and twin alike)
+NAN_NETS = ("4x512_pe130_4",)
+# nets whose bf16 render tile on He-scaled weights the twin itself does not
+# determine to the bf16 rule: over 72 bf16-rounded layers, the twin with its
+# products summed in float64 moves one ray of this check's 1,001 ragged rays
+# by 0.55 in acc (0.1%, the rule's edge; on the CPU), and the kernel on the
+# card moved two. Their render tile is held in bf16 on the default init (and
+# in float32 on both inits), their other kernels on both
+BF16_ILL_CONDITIONED = ("72x256",)
 # the wide nets whose kernels are timed (N_RAYS x WIDE_S, their chain_ms
 # beside them) and rendered on the main path: WIDE through the ray march,
 # WIDEST through all three routes
@@ -607,11 +636,17 @@ def phase_device():
     return name, smi
 
 
+# an FP32-core kernel at W = 1024 in a mangled name: its tile and
+# (nerf_mlp_f32) input stage
+F32_WIDEST = re.compile(r"(nerf_march_f32|nerf_mlp_f32|render_tile_f32)ILi(\d+)ELi1024E"
+                        r"(?:Li(\d)E)?")
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"build: {len(built)} sources in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
-    spills = []
+    spills, widest = [], []
     for name, (path, seconds, report) in built.items():
         log(f"build {name}.cu: {seconds:.1f} s -> {path.name}")
         kernel = None
@@ -620,15 +655,23 @@ def phase_build():
                 kernel = line.split("'")[1] if "'" in line else line.strip()
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
+                m = F32_WIDEST.search(kernel or "")
+                if m:
+                    args = ", ".join(g for g in (m.group(2), "1024", m.group(3)) if g)
+                    widest.append(f"{m.group(1)}<{args}>: {line.split(':', 1)[-1].strip()}")
             spilled = [int(b) for b in re.findall(r"(\d+) bytes spill", line)]
             if any(spilled):
                 spills.append(f"{name}.cu {kernel}: {sum(spilled)} bytes spill (stores + loads)")
+    for line in widest:
+        log(f"build FP32 core W=1024 {line}")
     log("build spills: " + ("; ".join(spills) if spills else "none"))
     return spills
 
 
-def check(kernel, params, args, net, dtype, tag):
-    """Kernel vs twin on the same inputs; returns the max abs error."""
+def check(kernel, params, args, net, dtype, tag, nan=False):
+    """Kernel vs twin on the same inputs; returns the max abs error. nan:
+    the twin's outputs hold NaN, and the kernel's must be NaN exactly where
+    they are (the values elsewhere compared as usual)."""
     wrapper, twin = KERNELS[kernel][:2]
     with torch.no_grad():
         got = wrapper(params, *args, net, compute_dtype=dtype)
@@ -636,6 +679,16 @@ def check(kernel, params, args, net, dtype, tag):
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    if nan:
+        masks = [torch.isnan(w) for w in want]
+        if not any(m.any() for m in masks):
+            raise AssertionError(f"twin outputs hold no NaN: {tag}")
+        if not all(torch.equal(torch.isnan(g), m) for g, m in zip(got, masks)):
+            raise AssertionError(f"kernel NaN where the twin's is not, or not where it is: {tag}")
+        log(f"  {tag}: NaN at {sum(int(m.sum()) for m in masks)} of "
+            f"{sum(m.numel() for m in masks)} values in kernel and twin alike")
+        got = tuple(torch.where(m, 0.0, g) for g, m in zip(got, masks))
+        want = tuple(torch.where(m, 0.0, w) for w, m in zip(want, masks))
     if not all(torch.isfinite(g).all() for g in got):
         raise AssertionError(f"kernel output not finite: {tag}")
     if kernel == "fused_render_tile":
@@ -743,9 +796,10 @@ def phase_kernels(net, peaks):
         torch.cuda.empty_cache()
     rec["fused_render_tile"]["max_samples"] = render_tile_maxima(net)
     for name, kw in EXTRA_NETS.items():
-        rec_net = timed_phase(f"3 net {name}", check_net, NeRFNetConfig(**kw), name, gen)
+        rec_net, plans = timed_phase(f"3 net {name}", check_net, NeRFNetConfig(**kw), name, gen)
         for kernel, errs in rec_net.items():
             rec[kernel].setdefault("err_nets", {})[name] = errs
+        rec["fused_nerf_march"].setdefault("f32_plans", {})[name] = plans
     rec["fused_render_tile"]["long_rays"] = timed_phase("3 long rays", check_long_rays, net, gen)
     for key, name, reps in (("wide", WIDE, 3), ("widest", WIDEST, 2)):
         wide, wide_chain = timed_phase(f"3 times {name}", time_wide_net, name, gen, peaks, reps)
@@ -846,12 +900,13 @@ def time_wide_net(name, gen, peaks, reps):
 def check_net(net, name, gen):
     """Every kernel vs its twin on one more net (random and He-scaled
     weights, both dtypes) at EXTRA_SHAPES (the ragged ones for RAGGED_ONLY):
-    {kernel: {dtype: max abs err}}."""
+    ({kernel: {dtype: max abs err}}, the net's FP32 launch plans)."""
     random = init_nerf_params(net, generator=gen, device=DEVICE)
     weights = {"random": random,
                "random_he": {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0)
                              for k, v in random.items()}}
     out = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in KERNELS}
+    plans = f32_plans(net, name)
     shapes = [sh for sh in EXTRA_SHAPES if name not in RAGGED_ONLY or sh[0] != N_RAYS]
     for n, s in shapes:
         rays = march_inputs(n, s, gen, DEVICE)
@@ -859,14 +914,39 @@ def check_net(net, name, gen):
             args = inputs(net, rays)
             for scene, params in weights.items():
                 for dtype in (torch.float32, torch.bfloat16):
+                    if (name in BF16_ILL_CONDITIONED and kernel == "fused_render_tile"
+                            and scene == "random_he" and dtype == torch.bfloat16):
+                        continue
                     e = check(kernel, params, args, net, dtype,
-                              f"{kernel} net {name} {scene} N={n} S={s} {str(dtype)[6:]}")
+                              f"{kernel} net {name} {scene} N={n} S={s} {str(dtype)[6:]}",
+                              nan=name in NAN_NETS)
                     out[kernel][str(dtype)[6:]] = max(out[kernel][str(dtype)[6:]], e)
     log(f"kernel vs twin on net {name} ({net.netdepth}x{net.netwidth}, multires "
         f"{net.multires}/{net.multires_views}): max abs err "
         + ", ".join(f"{k} f32 {v['float32']:.2e} bf16 {v['bfloat16']:.2e}"
                     for k, v in out.items()))
-    return out
+    return out, plans
+
+
+def f32_plans(net, name):
+    """The FP32 core's launch plans for a net on this card, logged: the
+    point kernels' tile and shared bytes, and the render tile's (also rays
+    per group and samples per segment) at S = 64 and 192."""
+    width = rm.core_width(net.netwidth)
+    ints = [ctypes.c_int() for _ in range(3)]
+    refs = [ctypes.pointer(i) for i in ints]
+    with torch.cuda.device(DEVICE):
+        smem = rm._library("nerf_march").nerf_f32_launch_bytes(
+            width, net.input_ch, net.input_ch_views, refs[0])
+        plans = {"points": dict(tile=ints[0].value, smem=smem)}
+        lib = rm._library("render_tile")
+        for s in WIDE_S:
+            smem = lib.render_tile_f32_plan(s, width, net.input_ch, net.input_ch_views, *refs)
+            plans[f"render_tile_S{s}"] = dict(zip(("tile", "rays", "seg"),
+                                                  (i.value for i in ints)), smem=smem)
+    log(f"FP32 launch plans of net {name} (W = {width}): " + "; ".join(
+        f"{k} " + ", ".join(f"{a} {b}" for a, b in v.items()) for k, v in plans.items()))
+    return plans
 
 
 def phase_backward(net):
@@ -3328,6 +3408,7 @@ def main():
                                     mesh["two_ranks"]["train"]["train_launches"]],
             } if kernel == "fused_nerf_march" else None,
             "max_err_nets": r["err_nets"],
+            "f32_plans": r.get("f32_plans"),
             "wide": r["wide"],
             "widest": r["widest"],
             "main_path_wide": {name: runs.get(kernel) for name, runs in wide_main.items()},

@@ -3,18 +3,24 @@
 NVIDIA GPU, in one process, so that design choices of the cores are
 compared on the same card in the same call.
 
-    python3 chip_variants.py [--rounds 3]
+    python3 chip_variants.py [--rounds 3] [--nets 8x1024[,8x256,...]]
+                             [--variants "committed,max as fmaxf"]
+                             [--kernels fused_nerf_march,fused_render_tile,...]
 
 Each variant is the repository's ``neuralsim_tpu_torch/kernels/csrc/`` with
-a few text edits of ``nerf_mlp.cuh`` (VARIANTS below), built with nvcc under ``kernels/_build/variants/`` (gitignored,
-removed at the end). The script prints each variant's ptxas registers and
-spills for the ray-march kernels, then, in turns over the rounds,
-its times in float32 and bf16 (the bf16 kernel runs the tensor-core core,
-which shares the weight ring) at N = 8192 rays on random weights of the
-default net (S = 64, 192 and 16) and of an 8x512 net (S = 64), each
-checked against the plain twin first (float32 2e-3, bf16 by the bf16 rule
-of chip_smoke.py); then one JSON line: the median time of each variant,
-net and shape. Without a CUDA device it exits nonzero.
+a few text edits of its headers (VARIANTS below), built with nvcc under
+``kernels/_build/variants/`` (gitignored, removed at the end). The script
+prints each variant's ptxas registers and spills for the ray-march kernels,
+then, in turns over the rounds, the times of fused_nerf_march (or of the
+wrappers that ``--kernels`` names) at N = 8192 rays on random weights of
+the nets it lists (NETS: the default net at S = 64, 192 and 16
+and an 8x512 net at S = 64, in float32 and bf16, whose kernel runs the
+tensor-core core, which shares the weight ring; the 8x1024 net at S = 64
+and 192 in float32), each checked against the plain twin first (float32
+2e-3, bf16 by the bf16 rule of chip_smoke.py) unless the variant is timed
+only (its values are wrong by design); then one JSON line: the median time
+of each variant, net and shape. ``--nets`` keeps the nets named and
+``--variants`` the variants. Without a CUDA device it exits nonzero.
 """
 
 from __future__ import annotations
@@ -77,36 +83,87 @@ LAST_WARP_RELEASE = """    if ((threadIdx.x & 31) == 0) {
       }
     }
 """
-# the FP32 core at W = 512 on 32-point tiles with 16-row ring stages (32 KB;
-# W = 256 then falls to 64-point tiles) instead of 64-point tiles with
-# 8-row stages: the alternative to the committed design the shared memory
-# of a 64-point tile with 16-row stages leaves (233,504 B)
-STAGE_BYTES = "constexpr int WIDE_BYTES = 16 * 1024;"
-BIG_TILE = "constexpr int big_tile(int width) { return 128 * 256 / width; }"
 F32 = "nerf_mlp.cuh"
-# variant -> [(file, old text, new text)]
+F32_WG = "nerf_mlp_wgmma.cuh"
+FMAX_NAN = 'asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));'
+LOAD2 = "return __ldg(reinterpret_cast<const float2*>(p));"
+# the ring stage's bytes and the ring depth of the FP32 core
+STAGE_BYTES = "return width == MAX_W && tile == big_tile(width) ? 32 * 1024 : 16 * 1024;"
+STAGES = "constexpr int STAGES = 2;      // weight ring depth"
+BIG_TILE = "constexpr int big_tile(int width) { return 128 * 256 / width; }"
+# 16 KB (4-row) stages at W = 1024, the ring the 32 KB stages replaced
+SMALL_STAGES = (F32, STAGE_BYTES,
+                STAGE_BYTES.replace("width == MAX_W && tile == big_tile(width) ? 32 * 1024 : ",
+                                    ""))
+# the copy of a stage: a variant that skips it re-serves the stages' old
+# bytes (its values are wrong), which bounds what the L2 weight stream costs
+COPY = """    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n"
+                 ::"r"(bar), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\\n"
+        ::"r"(smem_addr(buf + s * plan.wide_bytes)), "l"(plan.packed + off), "r"(bytes),
+          "r"(bar) : "memory");
+"""
+NO_COPY = """    (void)off;
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");
+"""
+ALL = ("8x256", "8x512", "8x1024")
+# variant -> ([(file, old text, new text)], the nets it is timed on)
 VARIANTS = {
-    "committed": [],
-    "unroll 4": [(F32, UNROLL, UNROLL.replace("unroll 8", "unroll 4"))],
-    "last warp refills": [
+    "committed": ([], ALL),
+    "unroll 4": ([(F32, UNROLL, UNROLL.replace("unroll 8", "unroll 4"))], ALL),
+    "last warp refills": ([
         (F32, EMPTY_INIT, "        *reinterpret_cast<int*>(empty + s) = 0;\n"),
         (F32, FIRST_ISSUES, LANE0_FIRST_ISSUES),
-        (F32, RELEASE, LAST_WARP_RELEASE)],
-    "W = 512: 32-point tiles, 16-row stages": [
-        (F32, STAGE_BYTES, STAGE_BYTES.replace("16 * 1024", "32 * 1024")),
+        (F32, RELEASE, LAST_WARP_RELEASE)], ALL),
+    # the FP32 core at W = 512 on 32-point tiles with 16-row ring stages (32
+    # KB; W = 256 then falls to 64-point tiles) instead of 64-point tiles
+    # with 8-row stages: the alternative to the committed design the shared
+    # memory of a 64-point tile with 16-row stages leaves (233,504 B)
+    "W = 512: 32-point tiles, 16-row stages": ([
+        (F32, STAGE_BYTES,
+         STAGE_BYTES.replace(": 16 * 1024", ": width == 512 ? 32 * 1024 : 16 * 1024")),
         (F32, BIG_TILE,
          BIG_TILE.replace("128 * 256 / width", "width == 512 ? 32 : 128 * 256 / width"))],
+        ("8x256", "8x512")),
+    # the W = 1024 ring against its 2 stages of 32 KB (8 rows): 2, 3 and 4
+    # stages of 16 KB (4 rows; 2 is the ring of the core before the split,
+    # 4 the same shared memory as 2 x 32 KB). A ring deeper than 2 leaves
+    # the W = 256 and 512 kernels their smaller tiles (not timed here)
+    "W = 1024: 2 stages of 16 KB": ([SMALL_STAGES], ("8x1024",)),
+    "W = 1024: 3 stages of 16 KB": ([SMALL_STAGES, (F32, STAGES, STAGES.replace("2;", "3;"))],
+                                    ("8x1024",)),
+    "W = 1024: 4 stages of 16 KB": ([SMALL_STAGES, (F32, STAGES, STAGES.replace("2;", "4;"))],
+                                    ("8x1024",)),
+    # timed only: no weight stream from L2 (the stages keep their bytes)
+    "W = 1024: no copy (times only)": ([(F32, COPY, NO_COPY)], ("8x1024",)),
+    # ReLU and the render tile's clamps as fmaxf (a NaN becomes 0; multires
+    # past 128 then renders finite values where the JAX package's are NaN):
+    # what max.NaN costs
+    "max as fmaxf": ([(F32, FMAX_NAN, "r = fmaxf(a, b);")], ("8x256",)),
+    # the wgmma core's biases read by plain loads, as before the net table
+    "wgmma biases by plain loads": ([(F32_WG, LOAD2,
+                                      "return *reinterpret_cast<const float2*>(p);")],
+                                    ("8x256",)),
 }
-# the nets timed: the default, and the reference's --netwidth 512 (at S = 64)
-NETS = {"8x256": (NeRFNetConfig(), (64, 192, 16)),
-        "8x512": (NeRFNetConfig(netwidth=512, netwidth_fine=512), (64,))}
+TIMED_ONLY = ("W = 1024: no copy (times only)",)
+# the nets timed: the default, the reference's --netwidth 512 (at S = 64),
+# and mip-NeRF 360's 8x1024 (float32): (config, S values, dtypes)
+BOTH = (torch.float32, torch.bfloat16)
+NETS = {"8x256": (NeRFNetConfig(), (64, 192, 16), BOTH),
+        "8x512": (NeRFNetConfig(netwidth=512, netwidth_fine=512), (64,), BOTH),
+        "8x1024": (NeRFNetConfig(netwidth=1024, netwidth_fine=1024), (64, 192),
+                   (torch.float32,))}
 
 
-def build_variants(root: Path):
-    """{variant: (csrc, build dir)}, each built; prints ptxas lines."""
+def build_variants(root: Path, names, sources):
+    """{variant: (csrc, build dir)} of the variants named, each with the
+    sources named built; prints the ray march's ptxas lines."""
     source, build_dir = build.CSRC, build.BUILD_DIR
     out = {}
-    for name, edits in VARIANTS.items():
+    for name in names:
+        edits = VARIANTS[name][0]
         d = root / name.replace(" ", "_").replace(",", "") / "csrc"
         shutil.copytree(source, d)
         for file, old, new in edits:
@@ -115,11 +172,11 @@ def build_variants(root: Path):
                 raise SystemExit(f"chip_variants: variant {name!r} no longer applies")
             (d / file).write_text(text.replace(old, new))
         build.CSRC, build.BUILD_DIR = d, d.parent / "_build"
-        _, seconds, report = build.build_all(["nerf_march"])["nerf_march"]
+        _, seconds, report = build.build_all(sources)["nerf_march"]
         lines, kernel = [], ""
         for line in report.splitlines():
             if "Compiling entry function" in line:
-                kernel = re.search(r"nerf_march_(f32|wgmma)ILi(\d+)ELi(\d+)", line).group(0)[11:]
+                kernel = re.search(r"nerf_march_(f32|wgmma)I(Li\d+E)+", line).group(0)[11:]
             elif "Used" in line or "spill" in line:
                 lines.append(f"{kernel}: {line.split('ptxas info    :')[-1].strip()}")
         print(f"variant {name}: built in {seconds:.1f} s; ptxas: {lines}", flush=True)
@@ -132,32 +189,53 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_variants: torch.cuda.is_available() is false")
     rounds = int(sys.argv[sys.argv.index("--rounds") + 1]) if "--rounds" in sys.argv else 3
+    nets = (sys.argv[sys.argv.index("--nets") + 1].split(",") if "--nets" in sys.argv
+            else list(NETS))
+    names = [name for name, (_, on) in VARIANTS.items() if set(on) & set(nets)]
+    if "--variants" in sys.argv:
+        keep = sys.argv[sys.argv.index("--variants") + 1].split(",")
+        names = [name for name in names if name in keep]
+    kernels = (sys.argv[sys.argv.index("--kernels") + 1].split(",") if "--kernels" in sys.argv
+               else ["fused_nerf_march"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
-    cases = [(net_name, net, init_nerf_params(net, generator=gen, device="cuda"), s,
-              cs.march_inputs(cs.N_RAYS, s, gen, "cuda"))
-             for net_name, (net, shapes) in NETS.items() for s in shapes]
+    cases = []
+    for net_name in nets:
+        net, shapes, dtypes = NETS[net_name]
+        params = init_nerf_params(net, generator=gen, device="cuda")
+        cases += [(net_name, net, params, s, cs.march_inputs(cs.N_RAYS, s, gen, "cuda"), dtypes)
+                  for s in shapes]
     root = build.BUILD_DIR / "variants"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        libs = build_variants(root)
+        sources = sorted({cs.REPLACES[k][0][:-3] for k in kernels} | {"nerf_march"})
+        libs = build_variants(root, names, sources)
         times = {}
         for _ in range(rounds):
             for name, (csrc, build_dir) in libs.items():
                 build.CSRC, build.BUILD_DIR = csrc, build_dir
                 build.load.cache_clear()
                 rm._library.cache_clear()
-                for net_name, net, params, s, r in cases:
-                    for dtype in (torch.float32, torch.bfloat16):
+                for net_name, net, params, s, r, dtypes in cases:
+                    if net_name not in VARIANTS[name][1]:
+                        continue
+                    for kernel, dtype in [(k, d) for k in kernels for d in dtypes]:
+                        wrapper, _, inputs = cs.KERNELS[kernel]
+                        args = inputs(net, r)
                         key = f"{net_name}_{str(dtype)[6:]}_S{s}"
+                        if kernel != "fused_nerf_march":
+                            key = f"{kernel}_{key}"
                         with torch.no_grad():
-                            cs.check("fused_nerf_march", params, r, net, dtype,
-                                     f"variant {name} {key}")
-                            ms = cs.time_ms(lambda: rm.fused_nerf_march(params, *r, net, dtype))
+                            if name not in TIMED_ONLY:
+                                cs.check(kernel, params, args, net, dtype, f"variant {name} {key}")
+                            ms = cs.time_ms(
+                                lambda: wrapper(params, *args, net, compute_dtype=dtype),
+                                reps=5 if net_name == "8x1024" else 7)
                         times.setdefault(name, {}).setdefault(key, []).append(ms)
+                        print(f"variant {name} {key}: {ms:.3f} ms", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"card": smi, "rounds": rounds, "median_ms": {

@@ -167,19 +167,18 @@ extern "C" {
 
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
 // for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
-// to a trunk of `width` (256, 512 or 1024); skip_mask: bit i set when layer
-// i's output is concatenated with x_pe; packed: the weight chunks of the core
-// this dtype runs (raymarch.py pack_f32_weights in float32,
-// pack_wgmma_weights in bf16; 16-byte aligned). Returns a cudaError_t
-// value: 0 when the launch was accepted.
+// to a trunk of `width` (256, 512 or 1024); table: the net's device table
+// (Net: bias pointers, then the skip mask's words); n_skips: the number of
+// skips; packed: the weight chunks of the core this dtype runs (raymarch.py
+// pack_f32_weights in float32, pack_wgmma_weights in bf16; 16-byte
+// aligned). Returns a cudaError_t value: 0 when the launch was accepted.
 int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
                const float* z_vals, long long n_rays, int n_samples,
-               const void* const* weights, int width, int depth,
-               unsigned long long skip_mask,
-               int in_ch, int in_ch_views, int bf16, const void* packed, float* sigma,
-               float* rgb, void* stream) {
+               const void* const* weights, const void* table, int width, int depth,
+               int n_skips, int in_ch, int in_ch_views, int bf16, const void* packed,
+               float* sigma, float* rgb, void* stream) {
   Net net;
-  const int err = make_net(weights, width, depth, skip_mask, in_ch, in_ch_views, 0, &net);
+  const int err = make_net(weights, table, width, depth, in_ch, in_ch_views, 0, &net);
   if (err != 0) return err;
   const long long total = n_rays * n_samples;
   if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16 ||
@@ -188,7 +187,7 @@ int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    const Plan plan = wg::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
+    const Plan plan = wg::make_plan(packed, width, depth, n_skips, in_ch, in_ch_views);
     return wg::dispatch<MarchWgmma>(width, wg::core_nx(width, in_ch, in_ch_views), total,
                                     static_cast<size_t>(wg::launch_bytes(width, in_ch, in_ch_views)),
                                     s, rays_o, rays_d, viewdirs, z_vals, n_samples, net, plan,
@@ -198,7 +197,7 @@ int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
   int tile = 0;
   const int e = f32::pick_tile(width, rx, rd, 0, &tile);
   if (e != 0) return e;
-  const Plan plan = f32::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
+  const Plan plan = f32::make_plan(packed, tile, width, depth, n_skips, in_ch, in_ch_views);
   return f32::dispatch<MarchF32>(width, tile, total,
                                  static_cast<size_t>(f32::core_bytes(tile, width, rx, rd)), s,
                                  rays_o, rays_d, viewdirs, z_vals, n_samples, net, plan, rx, rd,

@@ -184,11 +184,10 @@ struct MlpWgmma {
 // One stage's kernel in one dtype.
 template <int INPUT>
 int launch_stage(int bf16, int total, const float* a, const float* b, int width,
-                 const void* packed, unsigned long long skip_mask, const Net& net,
-                 cudaStream_t s, float* out) {
+                 const void* packed, int n_skips, const Net& net, cudaStream_t s, float* out) {
   if (bf16) {
     const Plan plan =
-        wg::make_plan(packed, width, net.depth, skip_mask, net.in_ch, net.in_ch_views);
+        wg::make_plan(packed, width, net.depth, n_skips, net.in_ch, net.in_ch_views);
     return wg::dispatch<MlpWgmma<INPUT>>(
         width, wg::core_nx(width, net.in_ch, net.in_ch_views), total,
         static_cast<size_t>(wg::launch_bytes(width, net.in_ch, net.in_ch_views)), s, a, b, net,
@@ -198,7 +197,8 @@ int launch_stage(int bf16, int total, const float* a, const float* b, int width,
   int tile = 0;
   const int e = f32::pick_tile(width, rx, rd, 0, &tile);
   if (e != 0) return e;
-  const Plan plan = f32::make_plan(packed, width, net.depth, skip_mask, net.in_ch, net.in_ch_views);
+  const Plan plan =
+      f32::make_plan(packed, tile, width, net.depth, n_skips, net.in_ch, net.in_ch_views);
   return f32::dispatch<MlpF32<INPUT>>(width, tile, total,
                                       static_cast<size_t>(f32::core_bytes(tile, width, rx, rd)),
                                       s, a, b, net, plan, rx, rd, out);
@@ -212,17 +212,18 @@ extern "C" {
 // kind 1: true cos) or x_pe [M,in_ch] and d_pe [M,in_ch_views] (kind 2).
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
 // for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
-// to a trunk of `width` (256, 512 or 1024); skip_mask: bit i set when layer
-// i's output is concatenated with x_pe; packed: the weight chunks of the core
-// the dtype runs (raymarch.py pack_wgmma_weights in bf16, pack_f32_weights
-// in float32; 16-byte aligned). out: raw [M,4]. Returns a cudaError_t
-// value: 0 when the launch was accepted.
+// to a trunk of `width` (256, 512 or 1024); table: the net's device table
+// (Net: bias pointers, then the skip mask's words); n_skips: the number of
+// skips; packed: the weight chunks of the core the dtype runs (raymarch.py
+// pack_wgmma_weights in bf16, pack_f32_weights in float32; 16-byte
+// aligned). out: raw [M,4]. Returns a cudaError_t value: 0 when the launch
+// was accepted.
 int nerf_mlp(const float* a, const float* b, long long total, int kind,
-             const void* const* weights, int width, int depth, unsigned long long skip_mask,
+             const void* const* weights, const void* table, int width, int depth, int n_skips,
              int in_ch, int in_ch_views, int bf16, const void* packed, float* out,
              void* stream) {
   Net net;
-  const int err = make_net(weights, width, depth, skip_mask, in_ch, in_ch_views, 0, &net);
+  const int err = make_net(weights, table, width, depth, in_ch, in_ch_views, 0, &net);
   if (err != 0) return err;
   if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16 ||
       total > 0x7fffffffLL - 2 * P) {
@@ -232,11 +233,11 @@ int nerf_mlp(const float* a, const float* b, long long total, int kind,
   const int m = static_cast<int>(total);
   switch (kind) {
     case PROJECTION:
-      return launch_stage<PROJECTION>(bf16, m, a, b, width, packed, skip_mask, net, s, out);
+      return launch_stage<PROJECTION>(bf16, m, a, b, width, packed, n_skips, net, s, out);
     case TRUE_COS:
-      return launch_stage<TRUE_COS>(bf16, m, a, b, width, packed, skip_mask, net, s, out);
+      return launch_stage<TRUE_COS>(bf16, m, a, b, width, packed, n_skips, net, s, out);
     case ENCODED:
-      return launch_stage<ENCODED>(bf16, m, a, b, width, packed, skip_mask, net, s, out);
+      return launch_stage<ENCODED>(bf16, m, a, b, width, packed, n_skips, net, s, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,13 +10,11 @@
 //     the C functions that report them to the Python wrapper): a trunk of
 //     W = 256, 512 or 1024 (the wrapper zero-pads a narrower net's weights
 //     to the next of the three, which is exact: pad columns hold
-//     ReLU(0 + 0) = 0 and meet zero rows), at most MAX_DEPTH (64) trunk
-//     layers with any skips (the bits of a 64-bit skip mask), encodings of
-//     multires and multires_views <= 128 (MAX_X, MAX_D: the frequencies
-//     2^k, k < 128, that a float32 holds), and what fits in a block's shared
-//     memory (the cores' *_smem_bytes, which the wrapper checks: every net
-//     up to multires 42 / multires_views 20 fits both cores at every
-//     width);
+//     ReLU(0 + 0) = 0 and meet zero rows), any depth and any skips (the
+//     wrapper's device table of bias pointers and skip-mask words, Net),
+//     and any encodings that fit in a block's shared memory (the cores'
+//     *_smem_bytes, which the wrapper checks: every net up to multires 42 /
+//     multires_views 20 fits both cores at every width);
 //   - the positional encoding of a point, with cos as sin(y + pi/2) (the
 //     JAX projection form) or as a true cosf (TRUE_COS, the form of
 //     fused_nerf_mlp_pe);
@@ -27,17 +25,21 @@
 //     The bf16 tensor-core core, which every bf16 instantiation runs, is
 //     nerf_mlp_wgmma.cuh.
 //
-// FP32 core. Bound on the card: operations. One point of the default net
-// costs 593,408 multiply-adds (1.19 MFLOP) and moves at most 376 bytes, so a
-// kernel on this core is bound by the FP32 rate (67 TFLOP/s on an H100 SXM:
-// 27.86 ms for 8192 rays x 192 samples). The products are fmaf on the FP32
-// pipes: true float32 like the JAX package's Precision.HIGHEST, never TF32.
+// FP32 core. All five TPU kernels run it in float32: _march_channels_kernel
+// (nerf_march.cu), _mlp_widepe_kernel, _mlp_kernel and _mlp_pe_kernel
+// (nerf_mlp.cu) and _render_tile_kernel (render_tile.cu). Bound on the card:
+// operations. One point of the default net costs 593,408 multiply-adds
+// (1.19 MFLOP) and moves at most 376 bytes, so a kernel on this core is
+// bound by the FP32 rate (67 TFLOP/s on an H100 SXM: 27.86 ms for 8192 rays
+// x 192 samples; 425.3 ms for the 8x1024 net). The products are fmaf on the
+// FP32 pipes: true float32 like the JAX package's Precision.HIGHEST, never
+// TF32.
 //
-// What bounds such a core below that rate: the weight reads (a W-wide
-// layer product feeds each FMA a weight; read by every warp from L1 they
-// compete with the FMAs), the weight stream from L2 (the whole net per
-// tile), the issue slots of the shared-memory loads, and bank conflicts in
-// the epilogue's column stores. The design:
+// What bounds such a core below that rate: the shared-memory reads that
+// feed the FMAs (a W-wide layer product feeds each FMA a weight and an
+// activation), the weight stream from L2 (the whole net per tile), the
+// ring's waits, and bank conflicts in the epilogue's column stores. The
+// design:
 //   - persistent blocks (one per SM) of 256 threads over tiles of TILE
 //     points: 128 at W = 256, 64 at W = 512 and 32 at W = 1024, so that a
 //     block's layer output stays W x TILE = 32,768 values, 128 accumulators
@@ -45,33 +47,50 @@
 //     speed per point at W = 256);
 //   - the host packs the weights once per weight set (raymarch.py
 //     pack_f32_weights) into chunks of 16 input rows, in the order the core
-//     consumes them, each row's columns permuted so that a thread's columns
-//     {cg + 16j} are float4 lying beside its neighbours'. The chunks run
-//     through a 2-stage ring (Ring below) of 16 KB stages, KC = 16 rows of
-//     W = 256 (8 rows of W = 512 and 4 of W = 1024: the ring delivers each
-//     packed chunk as two or four; with 16-row stages a 64-point tile of
-//     W = 512 needs 233,504 B, 1 KB over what a block may have), so the
+//     consumes them, each row's columns permuted so that column cg + 16 j
+//     lies at position 64 (j / 4) + 4 cg + j % 4: a lane's columns are
+//     float4 lying beside its neighbours'. The chunks run through a 2-stage
+//     ring (Ring below) of KC = 16 rows at W = 256 and 8 rows at 512 (16 KB
+//     stages) and at 1024 (32 KB: 4-row stages, at any ring depth, ran 10%
+//     slower; 4 rows on the 16-point tiles of long encodings), so the
 //     weights are shared-memory reads common to all eight warps, and the
-//     next chunk lands while this one multiplies. Each 128-point tile of the default net reads the
-//     2.38 MB of chunks from L2: 29 GB per launch at 8192 x 192 points,
-//     0.8 TB/s at 38 ms, well inside the L2's rate;
-//   - each thread owns a PT x W/16 register tile (8 points x 16 columns at
-//     W = 256, 4 x 32 at 512, 2 x 64 at 1024): per input row one or two
-//     activation loads (broadcast within a half-warp) and W/64
-//     conflict-free float4 weight loads feed 128 fmaf. At W = 1024 that is
-//     16 weight loads per 128 fmaf (4 at W = 256), and each 32-point tile
-//     reads the whole net's packed chunks from L2 (36.2 MB for the 8x1024
-//     default-shaped net: 1.78 TB per 8192 x 192 launch); a simple core
-//     that is right, whose second pass is queued (ROADMAP.md);
+//     next stage lands while this one multiplies. Each
+//     128-point tile of the default net reads the 2.38 MB of chunks from
+//     L2: 29 GB per launch at 8192 x 192 points, 0.8 TB/s at 38 ms, well
+//     inside the L2's rate;
+//   - the 16 half-warps of a block split a layer's output (Split below):
+//     below W = 1024 each holds a point group of TILE/16 points and all W
+//     columns (8 points x 16 columns a lane at W = 256, 4 x 32 at 512); per
+//     input row a lane's one or two activation loads (broadcast within the
+//     half-warp) and W/64 conflict-free float4 weight loads feed 128 fmaf,
+//     so that shared memory serves the FMAs with room to spare (a warp reads
+//     a 1 KB weight row for 16 points at W = 256): 66-72% of the FP32 rate
+//     at W = 256 and 512 (PERF.md);
+//   - at W = 1024 the same lane tile would be 2 points x 64 columns: a warp
+//     reads the whole 4 KB weight row for 4 points, so per input row the
+//     block's shared-memory reads take as long as its FMAs, and the core ran
+//     at 45% of the FP32 rate. There the half-warps split the columns
+//     instead: on 32-point tiles 4 column quarters x 4 point groups of 8, on
+//     16-point tiles 8 column eighths x 2 point groups. A lane keeps the
+//     W = 256 lane tile (8 points x 16 columns of its quarter, 8 x 8 of its
+//     eighth), and a warp reads 1 KB of weights per row for 16 points, the
+//     W = 256 ratio: 69-72% of the FP32 rate on the 8x1024 net (PERF.md).
+//     The packing is unchanged: quarter Q's columns lie in positions
+//     [256 Q, 256 Q + 256) of a row in W = 256 order. A 32-point
+//     tile reads the 36.2 MB of the 8x1024 net's chunks from L2 (1.78 TB per
+//     8192 x 192 launch): a ring that skips the copies ran only 4% faster
+//     (chip_variants.py), so the stream is not what bounds it;
 //   - activations never leave shared memory: feature-major [row][point]
 //     tiles with a row stride of TILE + 4 floats, so the epilogue's stores
 //     by 16 lanes to 16 rows fall in distinct banks;
 //   - the skip concat [x_pe, h] and the views concat [feature, d_pe] are one
 //     run of chunks each, read from two tiles; the alpha and rgb heads are
 //     reduced from the registers of the last trunk and the views layer over
-//     the 16 lanes that share a point group.
-// It runs at 68-71% of the FP32 peak at 8192 x 64 and x 192 points on an
-// H100 (PERF.md); variants of it are timed by chip_variants.py.
+//     the 16 lanes that share a point group and, where the columns are
+//     split, then over the parts in part order through shared memory (no
+//     atomics: a fixed order). Each output column's dot product runs over
+//     the input rows in chunk order inside one lane at every width.
+// Variants of it are timed by chip_variants.py.
 //
 // bf16 (the wgmma core) rounds where the JAX package rounds: the encodings,
 // the weight matrices (rounded by the caller) and each post-ReLU
@@ -84,8 +103,9 @@
 // on nvcc's fast-math flag (tests/test_torch_imports.py checks both).
 // Above multires 20 the top rows are float32 noise in both packages (the
 // ulp of 2^20 * |x| is about 0.1 rad); the JAX kernels compute them
-// anyway, and so does the port (2^k is built from its exponent bits, so k
-// stops at 127: multires <= 128).
+// anyway, and so does the port. From k = 128 on, 2^k is +inf in float32 in
+// both packages, so those rows are NaN, and ReLU keeps a NaN (as torch.relu
+// and jnp.maximum do): such a net's outputs are NaN as the JAX package's.
 
 #pragma once
 
@@ -99,61 +119,75 @@ namespace nerf {
 constexpr int P = 64;          // points per warpgroup of the wgmma core
 constexpr int THREADS = 256;   // 8 warps per block, both cores
 constexpr int MAX_W = 1024;    // widest trunk; both cores take W = 256, 512 and 1024
-constexpr int MAX_X = 3 + 6 * 128;  // channels of the position encoding (multires <= 128)
-constexpr int MAX_D = 3 + 6 * 128;  // channels of the view encoding
-constexpr int MAX_DEPTH = 64;  // trunk layers: the bits of a skip mask
-constexpr int MAX_LAYERS = MAX_DEPTH + 4;  // trunk + feature, alpha, views, rgb
 constexpr float HALF_PI = 1.57079632679489661923f;
 
 struct Net {
-  // biases [out] of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb,
-  // padded to the core's width; the alpha [W][1] and rgb [W/2][3] kernels
-  // (row-major). The trunk, feature and views kernels reach the cores only
-  // as packed chunks (Plan), so their pointers stay out of the parameters.
-  const float* b[MAX_LAYERS];
+  // the net's device table (raymarch.py _packed_weights builds it once per
+  // weight set): the bias pointers [out] of pts_0 .. pts_{depth-1},
+  // feature, alpha, views_0, rgb (padded to the core's width), then the
+  // skip mask in 64-bit words (bit i % 64 of word i / 64: layer i's output
+  // is concatenated with x_pe); read with __ldg, so a net of any depth
+  // passes in a few words
+  const unsigned long long* table;
+  // the alpha [W][1] and rgb [W/2][3] kernels (row-major). The trunk,
+  // feature and views kernels reach the cores only as packed chunks (Plan)
   const float* alpha_k;
   const float* rgb_k;
-  // bit i of the 64-bit skip mask (word i / 32): layer i's output is
-  // concatenated with x_pe; read a word at a time, as the biases are
-  unsigned skip_mask[2];
   int depth;
   int in_ch;
   int in_ch_views;
   int fast_epilogue;
 };
-// a kernel parameter, passed by value beside a Plan and a few pointers:
-// far inside the 4 KB a launch's parameters may take
-static_assert(sizeof(Net) <= 1024, "Net outgrows the kernel parameter space");
 
 // The Net of a C call: weights is a host array of 2 * (depth + 4) device
 // pointers, kernel then bias per layer, padded to a trunk of `width` (256,
-// 512 or 1024). Returns a cudaError_t value.
-inline int make_net(const void* const* weights, int width, int depth,
-                    unsigned long long skip_mask, int in_ch, int in_ch_views, int fast_epilogue,
-                    Net* net) {
-  if ((width != 256 && width != 512 && width != MAX_W) || depth + 4 > MAX_LAYERS || depth < 1 ||
-      in_ch < 1 || in_ch > MAX_X || in_ch_views < 1 || in_ch_views > MAX_D) {
+// 512 or 1024); table the net's device table (8-byte aligned). Returns a
+// cudaError_t value.
+inline int make_net(const void* const* weights, const void* table, int width, int depth,
+                    int in_ch, int in_ch_views, int fast_epilogue, Net* net) {
+  if ((width != 256 && width != 512 && width != MAX_W) || depth < 1 || in_ch < 1 ||
+      in_ch_views < 1 || table == nullptr || reinterpret_cast<uintptr_t>(table) % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *net = Net{};
-  for (int i = 0; i < depth + 4; ++i) {
-    net->b[i] = static_cast<const float*>(weights[2 * i + 1]);
-  }
+  net->table = static_cast<const unsigned long long*>(table);
   net->alpha_k = static_cast<const float*>(weights[2 * (depth + 1)]);
   net->rgb_k = static_cast<const float*>(weights[2 * (depth + 3)]);
   net->depth = depth;
-  net->skip_mask[0] = static_cast<unsigned>(skip_mask);
-  net->skip_mask[1] = static_cast<unsigned>(skip_mask >> 32);
   net->in_ch = in_ch;
   net->in_ch_views = in_ch_views;
   net->fast_epilogue = fast_epilogue;
   return 0;
 }
 
+// The bias of layer i: pts_i for i < depth, then feature, alpha, views_0,
+// rgb.
+__device__ __forceinline__ const float* bias_of(const Net& net, int i) {
+  return reinterpret_cast<const float*>(__ldg(net.table + i));
+}
+
 // Whether trunk layer i's output is concatenated with x_pe.
 __device__ __forceinline__ bool skips_after(const Net& net, int i) {
-  return (net.skip_mask[i >> 5] >> (i & 31)) & 1u;
+  return (__ldg(net.table + net.depth + 4 + (i >> 6)) >> (i & 63)) & 1ull;
 }
+
+// Whether trunk layer i + 1 reads [x_pe, h]. The cores read it, and layer
+// i's bias pointer, before layer i's products, so that the table's latency
+// (an L2 read where L1 lost it) hides behind them.
+__device__ __forceinline__ bool prefetch_skip(const Net& net, int i) {
+  return i + 1 < net.depth && skips_after(net, i);
+}
+
+// max(a, b), NaN when either is NaN (max.NaN; fmaxf would return the
+// other operand).
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// ReLU that keeps a NaN, as torch.relu and jnp.maximum(x, 0) do.
+__device__ __forceinline__ float relu(float v) { return fmax_nan(v, 0.f); }
 
 // The dynamic shared memory a block of the current device may opt into.
 inline int smem_optin(int* bytes) {
@@ -204,7 +238,7 @@ int launch_persistent(void (*kernel)(Params...), long long work, size_t smem_byt
 // xyz points at the point's first coordinate in a [3][stride] tile; zero
 // for c >= n_ch. cos(y) is sin(y + pi/2) like the JAX projection form, or
 // cosf(y) with TRUE_COS; y = x * 2^k is exact either way (2^k built from
-// its exponent bits: k reaches 41).
+// its exponent bits, +inf from k = 128 on as 2.0 ** k is in float32).
 template <bool TRUE_COS>
 __device__ __forceinline__ float encode(const float* xyz, int stride, int c, int n_ch) {
   if (c < 3) return xyz[c * stride];
@@ -213,7 +247,8 @@ __device__ __forceinline__ float encode(const float* xyz, int stride, int c, int
   const int k = j / 6;
   const int r = j - 6 * k;
   const int dim = r % 3;
-  const float y = __fmul_rn(xyz[dim * stride], __int_as_float((127 + k) << 23));
+  const int e = 127 + k < 255 ? 127 + k : 255;
+  const float y = __fmul_rn(xyz[dim * stride], __int_as_float(e << 23));
   if constexpr (TRUE_COS) {
     return r < 3 ? sinf(y) : cosf(y);
   } else {
@@ -379,44 +414,63 @@ struct Ring {
 
 namespace f32 {
 
-constexpr int STAGES = 2;                     // weight ring depth
-constexpr int PACK_ROWS = 16;                 // input rows of a packed chunk
-constexpr int WIDE_BYTES = 16 * 1024;         // a ring stage: KC rows of W columns
-constexpr int NARROW_BYTES = WIDE_BYTES / 2;  // the same rows of the views layer's W/2
-
-// Input rows per ring stage at trunk width W: 16 at W = 256, 8 at 512, 4 at
-// 1024.
-__host__ __device__ constexpr int kc(int width) { return WIDE_BYTES / (4 * width); }
+constexpr int STAGES = 2;      // weight ring depth
+constexpr int PACK_ROWS = 16;  // input rows of a packed chunk
 
 // Points per tile at trunk width W, and the smaller tile where a net's
 // encodings leave no room for it: 128 / 64 at W = 256, 64 / 32 at 512,
 // 32 / 16 at 1024.
 __host__ __device__ constexpr int big_tile(int width) { return 128 * 256 / width; }
 
+// Bytes of a ring stage for tiles of `tile` points at trunk width W: KC
+// rows of W columns (the same rows of the views layer's W/2 columns take
+// half a stage). 32 KB on the 32-point tiles of W = 1024, where 16 KB
+// stages (4 rows) ran 10% slower at any ring depth (chip_variants.py,
+// PERF.md: a stage's barriers every 512 FMAs a lane); 16 KB elsewhere,
+// which leaves the 16-point tiles of long encodings their room.
+__host__ __device__ constexpr int stage_bytes(int tile, int width) {
+  return width == MAX_W && tile == big_tile(width) ? 32 * 1024 : 16 * 1024;
+}
+
+// Input rows per ring stage: 16 at W = 256, 8 at 512 and at 1024 on 32-point
+// tiles, 4 at 1024 on 16-point tiles.
+__host__ __device__ constexpr int kc(int tile, int width) {
+  return stage_bytes(tile, width) / (4 * width);
+}
+
+// Column parts of a layer's output at trunk width W (Split): 4 on 32-point
+// tiles and 8 on 16-point tiles at W = 1024, else 1.
+__host__ __device__ constexpr int col_parts(int tile, int width) {
+  return width == MAX_W ? 128 / tile : 1;
+}
+
 // Rows of an encoding tile: the channels rounded up to whole packed chunks.
 inline int rows(int channels) { return (channels + PACK_ROWS - 1) / PACK_ROWS * PACK_ROWS; }
 
-// The chunk order per tile, in ring stages of kc(width) rows: layer 0
-// (x_pe), each trunk layer i >= 1 (x_pe first after a skip, then the h
-// chunks), the feature layer, then the views layer (the feature's h chunks,
-// then the d_pe chunks, W/2 columns). A packed chunk of 16 rows is two
-// stages at W = 512 and four at 1024: its rows lie contiguous.
-inline Plan make_plan(const void* packed, int width, int depth, unsigned long long skip_mask,
+// The chunk order per tile of `tile` points, in ring stages of kc(tile,
+// width) rows: layer 0 (x_pe), each trunk layer i >= 1 (x_pe first after a
+// skip, then the h chunks), the feature layer, then the views layer (the
+// feature's h chunks, then the d_pe chunks, W/2 columns). A packed chunk of
+// 16 rows is two or four stages: its rows lie contiguous.
+inline Plan make_plan(const void* packed, int tile, int width, int depth, int n_skips,
                       int in_ch, int in_ch_views) {
-  const int k = kc(width);
+  const int k = kc(tile, width), bytes = stage_bytes(tile, width);
   const int nx = rows(in_ch) / k, nd = rows(in_ch_views) / k, h = width / k;
-  const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcountll(skip_mask) + h;
-  return Plan{static_cast<const unsigned char*>(packed), n_wide + h + nd, n_wide, WIDE_BYTES,
-              NARROW_BYTES};
+  const int n_wide = nx + h * (depth - 1) + nx * n_skips + h;
+  return Plan{static_cast<const unsigned char*>(packed), n_wide + h + nd, n_wide, bytes,
+              bytes / 2};
 }
 
 // Shared memory of the core for tiles of `tile` points at trunk width
 // `width`, rx rows of x_pe and rd of d_pe: the ring, the activation tiles h
 // [W], x [rx], d [rd] (row stride tile + 4), the points [6][tile], the raw
-// outputs [4][tile], then the ring's barriers. Every part starts 16-byte
+// outputs [4][tile], where the columns are split the heads' partial sums
+// [4][parts][tile], then the ring's barriers. Every part starts 16-byte
 // aligned.
 __host__ __device__ constexpr int core_bytes(int tile, int width, int rx, int rd) {
-  return STAGES * WIDE_BYTES + (width + rx + rd) * (tile + 4) * 4 + 10 * tile * 4 +
+  return STAGES * stage_bytes(tile, width) + (width + rx + rd) * (tile + 4) * 4 +
+         10 * tile * 4 +
+         (col_parts(tile, width) > 1 ? 16 * col_parts(tile, width) * tile : 0) +
          2 * STAGES * 8;
 }
 
@@ -446,16 +500,47 @@ int dispatch(int width, int tile, Args... args) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Thread roles on tiles of TILE points at trunk width W. The 16 half-warps
+// of a block split a layer's output into PARTS column parts x NPG point
+// groups: half-warp hw takes part hw / NPG (the two half-warps of a warp
+// share it, so their weight loads broadcast) and point group hw % NPG.
+// Lane cg of a half-warp holds PT points x C columns {col0 + cg + 16 j} of
+// its part, whose SPAN columns start at col0 = part * SPAN; the views
+// layer's W/2 columns split the same way (C/2 a lane from col0 / 2). Below
+// W = 1024 one part: 8 points x 16 columns at W = 256 (128-point tiles),
+// 4 x 32 at 512. At W = 1024 quarters on 32-point tiles and eighths on
+// 16-point tiles, 8 points x 16 and 8 x 8 columns a lane.
+template <int TILE, int W>
+struct Split {
+  static constexpr int PARTS = col_parts(TILE, W);
+  static constexpr int NPG = 16 / PARTS;
+  static constexpr int PT = TILE / NPG;
+  static constexpr int SPAN = W / PARTS;
+  static constexpr int C = SPAN / 16;
+  static_assert(PT * NPG == TILE && (PT == 1 || PT == 2 || PT % 4 == 0) && C % 8 == 0,
+                "a lane holds 1, 2 or 4k points and whole float4 of trunk and views columns");
+  __device__ static int part() { return PARTS == 1 ? 0 : (threadIdx.x >> 4) / NPG; }
+  __device__ static int group() { return (threadIdx.x >> 4) % NPG; }
+};
+
 template <int TILE, int W>
 struct Core {
   Ring<STAGES> ring;
-  float* h;    // [W][TILE + 4] activations
-  float* x;    // [rx][TILE + 4] position encoding
-  float* d;    // [rd][TILE + 4] view encoding
-  float* pts;  // [6][TILE] x, y, z, vx, vy, vz
-  float* raw;  // [4][TILE] r, g, b logits, sigma
+  float* h;      // [W][TILE + 4] activations
+  float* x;      // [rx][TILE + 4] position encoding
+  float* d;      // [rd][TILE + 4] view encoding
+  float* pts;    // [6][TILE] x, y, z, vx, vy, vz
+  float* raw;    // [4][TILE] r, g, b logits, sigma
+  float* heads;  // [4][PARTS][TILE] the heads' sums over each column part
   int rx;
   int rd;
+
+  // Where part `part` of head channel c (r, g, b, sigma) goes: raw itself
+  // when the columns are not split.
+  __device__ float* head(int c, int part) {
+    constexpr int PARTS = Split<TILE, W>::PARTS;
+    return PARTS == 1 ? raw + c * TILE : heads + (c * PARTS + part) * TILE;
+  }
 };
 
 // Pointers into the core's shared memory at the start of the kernel's
@@ -464,15 +549,17 @@ struct Core {
 template <int TILE, int W>
 __device__ __forceinline__ Core<TILE, W> make_core(void* dyn, const Plan& plan, int rx, int rd) {
   constexpr int HS = TILE + 4;
+  constexpr int PARTS = Split<TILE, W>::PARTS;
   Core<TILE, W> c;
   unsigned char* base = static_cast<unsigned char*>(dyn);
   c.ring.buf = base;
-  c.h = reinterpret_cast<float*>(base + STAGES * WIDE_BYTES);
+  c.h = reinterpret_cast<float*>(base + STAGES * stage_bytes(TILE, W));
   c.x = c.h + W * HS;
   c.d = c.x + rx * HS;
   c.pts = c.d + rd * HS;
   c.raw = c.pts + 6 * TILE;
-  c.ring.full = reinterpret_cast<uint64_t*>(c.raw + 4 * TILE);
+  c.heads = c.raw + 4 * TILE;
+  c.ring.full = reinterpret_cast<uint64_t*>(c.heads + (PARTS > 1 ? 4 * PARTS * TILE : 0));
   c.ring.empty = c.ring.full + STAGES;
   c.ring.plan = plan;
   c.rx = rx;
@@ -480,10 +567,8 @@ __device__ __forceinline__ Core<TILE, W> make_core(void* dyn, const Plan& plan, 
   return c;
 }
 
-// Thread roles: column group cg (columns {cg + 16j}) and point group pg
-// (points [PT*pg, PT*pg + PT)); a half-warp shares its point group.
+// Lane cg of a half-warp: its columns {col0 + cg + 16j} (Split).
 __device__ __forceinline__ int col_group() { return threadIdx.x & 15; }
-__device__ __forceinline__ int point_group() { return threadIdx.x >> 4; }
 
 // The PT floats at p (16-byte aligned for PT >= 4, 8-byte for 2) into v.
 template <int PT>
@@ -508,10 +593,11 @@ __device__ __forceinline__ void load_points(float (&v)[PT], const float* p) {
 }
 
 // acc[p][4q + e] += sum over the chunk's KC rows k of act[k][p] *
-// w[k][cg + 16 (4q + e)]: act points at the thread's first point in row 0
-// of a [KC][HS] activation block, w at the thread's first float4 in row 0
-// of a packed chunk (NQ float4 of each row per thread, 64 floats apart).
-template <int PT, int NQ, int HS, int KC>
+// w[k][64q + e]: act points at the thread's first point in row 0 of a
+// [KC][HS] activation block, w at the thread's first float4 in row 0 of a
+// ring stage whose rows are ROW floats (NQ float4 of each row per thread,
+// 64 floats apart).
+template <int PT, int NQ, int HS, int KC, int ROW>
 __device__ __forceinline__ void chunk_fma(float (&acc)[PT][4 * NQ], const float* act,
                                           const float* w) {
 #pragma unroll 8
@@ -521,7 +607,7 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[PT][4 * NQ], const float*
     float b[4 * NQ];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
-      const float4 t = *reinterpret_cast<const float4*>(w + k * (64 * NQ) + 64 * q);
+      const float4 t = *reinterpret_cast<const float4*>(w + k * ROW + 64 * q);
       b[4 * q] = t.x;
       b[4 * q + 1] = t.y;
       b[4 * q + 2] = t.z;
@@ -535,17 +621,17 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[PT][4 * NQ], const float*
   }
 }
 
-// The products of one layer: acc += [a0 (n0 chunks of rows), a1 (n1)] . W
-// over the next n0 + n1 chunks of the ring.
-template <int PT, int NQ, int HS, int KC>
+// The products of one layer: acc += [a0 (n0 stages of rows), a1 (n1)] . W
+// over the next n0 + n1 stages of the ring, for the thread's points from p0
+// and its columns' packed positions from wpos.
+template <int PT, int NQ, int HS, int KC, int ROW>
 __device__ __forceinline__ void layer(float (&acc)[PT][4 * NQ], const float* a0, int n0,
-                                      const float* a1, int n1, Ring<STAGES>& ring) {
-  const int off = point_group() * PT;
-  const int wcol = 4 * col_group();
+                                      const float* a1, int n1, Ring<STAGES>& ring, int p0,
+                                      int wpos) {
 #pragma unroll 1
   for (int c = 0; c < n0 + n1; ++c) {
     const float* act = c < n0 ? a0 + c * (KC * HS) : a1 + (c - n0) * (KC * HS);
-    chunk_fma<PT, NQ, HS, KC>(acc, act + off, ring.acquire_floats() + wcol);
+    chunk_fma<PT, NQ, HS, KC, ROW>(acc, act + p0, ring.acquire_floats() + wpos);
     ring.release();
   }
 }
@@ -572,34 +658,39 @@ __device__ __forceinline__ float group_sum(float v) {
 // synchronised on return. Consumes the tile's plan.per_tile chunks.
 template <int TILE, int W>
 __device__ __forceinline__ void mlp_tile(Core<TILE, W>& core, const Net& net) {
-  constexpr int PT = TILE / 16;   // points of a thread
-  constexpr int C = W / 16;       // columns of a thread
+  using S = Split<TILE, W>;
+  constexpr int PT = S::PT;  // points of a thread
+  constexpr int C = S::C;    // trunk columns of a thread
   constexpr int HS = TILE + 4;
-  constexpr int KC = kc(W);
+  constexpr int KC = kc(TILE, W);
   const int cg = col_group();
-  const int p0 = point_group() * PT;
+  const int part = S::part();
+  const int p0 = S::group() * PT;
+  const int col0 = part * S::SPAN;  // the part's first trunk column, and its packed position
   const int depth = net.depth;
   const int nx = core.rx / KC, nd = core.rd / KC;
   float acc[PT][C];
 
   // ---- trunk layers 0 .. depth-1, then the feature layer (i == depth) -----
+  bool with_x = true;  // layer 0 reads x_pe
 #pragma unroll 1
   for (int i = 0; i <= depth; ++i) {
+    // the net's table read before the products (prefetch_skip)
+    const float* bias = bias_of(net, i);
+    const bool next_x = prefetch_skip(net, i);
     zero(acc);
-    const bool with_x = i == 0 || (i < depth && skips_after(net, i - 1));
-    layer<PT, C / 4, HS, KC>(acc, core.x, with_x ? nx : 0, core.h, i == 0 ? 0 : W / KC,
-                             core.ring);
+    layer<PT, C / 4, HS, KC, W>(acc, core.x, with_x ? nx : 0, core.h, i == 0 ? 0 : W / KC,
+                                core.ring, p0, col0 + 4 * cg);
     __syncthreads();  // every warp has read h
-    const float* bias = net.b[i];
-    const bool relu = i < depth;  // the feature layer has none
+    const bool relu_on = i < depth;  // the feature layer has none
 #pragma unroll
     for (int j = 0; j < C; ++j) {
-      const int col = cg + 16 * j;
+      const int col = col0 + cg + 16 * j;
       const float b = __ldg(bias + col);
 #pragma unroll
       for (int p = 0; p < PT; ++p) {
         float v = acc[p][j] + b;
-        if (relu) v = fmaxf(v, 0.f);
+        if (relu_on) v = relu(v);
         acc[p][j] = v;
       }
       float* dst = core.h + col * HS + p0;
@@ -616,32 +707,36 @@ __device__ __forceinline__ void mlp_tile(Core<TILE, W>& core, const Net& net) {
       }
     }
     if (i == depth - 1) {
-      // density head (alpha [W][1]) on the trunk output in the registers
+      // density head (alpha [W][1]) on the trunk output in the registers:
+      // the part's sum, or with one part the head itself
       const float* ak = net.alpha_k;
       float s[PT];
 #pragma unroll
       for (int p = 0; p < PT; ++p) s[p] = 0.f;
 #pragma unroll
       for (int j = 0; j < C; ++j) {
-        const float w = __ldg(ak + cg + 16 * j);
+        const float w = __ldg(ak + col0 + cg + 16 * j);
 #pragma unroll
         for (int p = 0; p < PT; ++p) s[p] = fmaf(acc[p][j], w, s[p]);
       }
-      const float b = __ldg(net.b[depth + 1]);
+      const float b = S::PARTS == 1 ? __ldg(bias_of(net, depth + 1)) : 0.f;
 #pragma unroll
       for (int p = 0; p < PT; ++p) {
         const float t = group_sum(s[p]);
-        if (cg == 0) core.raw[3 * TILE + p0 + p] = t + b;
+        if (cg == 0) core.head(3, part)[p0 + p] = t + b;
       }
     }
     __syncthreads();
+    with_x = next_x;
   }
 
   // ---- views layer: [feature, d_pe] -> W/2, ReLU; then the rgb head ------
+  const float* vb = bias_of(net, depth + 2);
+  const float* rb = bias_of(net, depth + 3);
   float accv[PT][C / 2];
   zero(accv);
-  layer<PT, C / 8, HS, KC>(accv, core.h, W / KC, core.d, nd, core.ring);
-  const float* vb = net.b[depth + 2];
+  layer<PT, C / 8, HS, KC, W / 2>(accv, core.h, W / KC, core.d, nd, core.ring, p0,
+                                  col0 / 2 + 4 * cg);
   const float* rk = net.rgb_k;
   float s[3][PT];
 #pragma unroll
@@ -651,23 +746,34 @@ __device__ __forceinline__ void mlp_tile(Core<TILE, W>& core, const Net& net) {
   }
 #pragma unroll
   for (int j = 0; j < C / 2; ++j) {
-    const int col = cg + 16 * j;
+    const int col = col0 / 2 + cg + 16 * j;
     const float b = __ldg(vb + col);
     const float w[3] = {__ldg(rk + 3 * col), __ldg(rk + 3 * col + 1), __ldg(rk + 3 * col + 2)};
 #pragma unroll
     for (int p = 0; p < PT; ++p) {
-      const float v = fmaxf(accv[p][j] + b, 0.f);
+      const float v = relu(accv[p][j] + b);
 #pragma unroll
       for (int c = 0; c < 3; ++c) s[c][p] = fmaf(v, w[c], s[c][p]);
     }
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float b = __ldg(net.b[depth + 3] + c);
+    const float b = S::PARTS == 1 ? __ldg(rb + c) : 0.f;
 #pragma unroll
     for (int p = 0; p < PT; ++p) {
       const float t = group_sum(s[c][p]);
-      if (cg == 0) core.raw[c * TILE + p0 + p] = t + b;
+      if (cg == 0) core.head(c, part)[p0 + p] = t + b;
+    }
+  }
+  if constexpr (S::PARTS > 1) {
+    // each head: its parts' sums in part order, then the bias
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < 4 * TILE; idx += THREADS) {
+      const int c = idx / TILE, p = idx % TILE;
+      float v = core.head(c, 0)[p];
+#pragma unroll
+      for (int q = 1; q < S::PARTS; ++q) v += core.head(c, q)[p];
+      core.raw[c * TILE + p] = v + __ldg(c == 3 ? bias_of(net, depth + 1) : rb + c);
     }
   }
   __syncthreads();
@@ -704,21 +810,27 @@ inline int smallest_bytes(int width, int in_ch, int in_ch_views) {
 // shared library (each includes this header from one source).
 extern "C" {
 int nerf_width() { return nerf::MAX_W; }
-int nerf_max_layers() { return nerf::MAX_LAYERS; }
-int nerf_max_in_ch() { return nerf::MAX_X; }
-int nerf_max_in_ch_views() { return nerf::MAX_D; }
 // the dynamic shared memory a block of the current device may opt into
 int nerf_smem_optin() {
   int bytes = 0;
   return nerf::smem_optin(&bytes) == 0 ? bytes : 0;
 }
 // bytes of the FP32 core's packed weights (raymarch.py pack_f32_weights)
-long long nerf_f32_plan_bytes(int width, int depth, unsigned long long skip_mask, int in_ch,
-                              int in_ch_views) {
-  return nerf::f32::make_plan(nullptr, width, depth, skip_mask, in_ch, in_ch_views).tile_bytes();
+long long nerf_f32_plan_bytes(int width, int depth, int n_skips, int in_ch, int in_ch_views) {
+  return nerf::f32::make_plan(nullptr, nerf::f32::big_tile(width), width, depth, n_skips, in_ch,
+                              in_ch_views)
+      .tile_bytes();
 }
 // shared memory of the FP32 core's smallest tile for a net
 int nerf_f32_smem_bytes(int width, int in_ch, int in_ch_views) {
   return nerf::f32::smallest_bytes(width, in_ch, in_ch_views);
+}
+// the shared memory and tile with which the point kernels (nerf_march.cu,
+// nerf_mlp.cu) launch the FP32 core for a net on the current device; 0 bytes
+// when no tile fits
+int nerf_f32_launch_bytes(int width, int in_ch, int in_ch_views, int* tile) {
+  const int rx = nerf::f32::rows(in_ch), rd = nerf::f32::rows(in_ch_views);
+  if (nerf::f32::pick_tile(width, rx, rd, 0, tile) != 0 || *tile == 0) return 0;
+  return nerf::f32::core_bytes(*tile, width, rx, rd);
 }
 }

@@ -132,9 +132,9 @@ __host__ __device__ constexpr int core_bytes(int width, int nx, int nd) {
 // chunks), feature (h), then views (the feature's h chunks and the d_pe
 // chunks, N = W/2).
 inline Plan make_plan_standard(const void* packed, int width, int depth,
-                               unsigned long long skip_mask, int in_ch, int in_ch_views) {
+                               int n_skips, int in_ch, int in_ch_views) {
   const int nx = x_chunks(in_ch), h = width / CHUNK_K;
-  const int n_wide = nx + h * (depth - 1) + nx * __builtin_popcountll(skip_mask) + h;
+  const int n_wide = nx + h * (depth - 1) + nx * n_skips + h;
   return Plan{static_cast<const unsigned char*>(packed), n_wide + h + d_chunks(in_ch_views),
               n_wide, chunk_bytes(width), chunk_bytes(width / 2)};
 }
@@ -287,8 +287,11 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// Two floats of a net's weights or biases, through the read-only path: a
+// bias pointer comes from the net's table in global memory, and a plain
+// load through it could alias the epilogue's shared-memory stores.
 __device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+  return __ldg(reinterpret_cast<const float2*>(p));
 }
 
 template <int NC>
@@ -318,7 +321,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[NC / 2], const float* bias
       const float bb = (e & 1) ? b.y : b.x;
       float x = acc[4 * j + e];
       x = FAST ? round_bf16(x) + round_bf16(bb) : x + bb;
-      if (RELU) x = fmaxf(x, 0.f);
+      if (RELU) x = relu(x);
       acc[4 * j + e] = round_bf16(x);
     }
     if (h != nullptr) {
@@ -460,18 +463,23 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
   float acc[N / 2];
 
   // ---- trunk -------------------------------------------------------------
+  bool with_x = false;  // layer i (> 0) reads [x_pe, h]
   for (int i = 0; i < net.depth; ++i) {
+    // the net's table read before the products (prefetch_skip)
+    const float* bias = bias_of(net, i) + col0;
+    const bool next_x = prefetch_skip(net, i);
     zero<N>(acc);
     if (i == 0) {
       layer_mma<N, 4>(acc, x, b_rows, NX, ring);
-    } else if (skips_after(net, i - 1)) {
+    } else if (with_x) {
       layer_mma<N, 4>(acc, x, b_rows, NX + S::H, ring);  // [x_pe, h]
     } else {
       layer_mma<N, 4>(acc, h, b_rows, S::H, ring);
     }
     tile_sync<W>(group);  // every warp's products that read h are complete
-    epilogue<N, true, FAST>(acc, net.b[i] + col0, h_tile, col0);
+    epilogue<N, true, FAST>(acc, bias, h_tile, col0);
     tile_publish<W>(group);
+    with_x = next_x;
   }
 
   // ---- density head (alpha [W][1]) on the trunk output, CUDA cores -------
@@ -487,17 +495,19 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
     top = row_sum(top);
     bot = row_sum(bot);
     if ((lane & 3) == 0) {
-      const float b = head_bias ? __ldg(net.b[net.depth + 1]) : 0.f;
+      const float b = head_bias ? __ldg(bias_of(net, net.depth + 1)) : 0.f;
       raw[3 * P + row] = top + b;
       raw[3 * P + row + 8] = bot + b;
     }
   }
 
   // ---- feature layer (no ReLU, rounded after its bias) -------------------
+  const float* feature_bias = bias_of(net, net.depth) + col0;
+  const float* views_bias = bias_of(net, net.depth + 2) + vcol0;
   zero<N>(acc);
   layer_mma<N, 4>(acc, h, b_rows, S::H, ring);
   tile_sync<W>(group);
-  epilogue<N, false, false>(acc, net.b[net.depth] + col0, h_tile, col0);
+  epilogue<N, false, false>(acc, feature_bias, h_tile, col0);
   tile_publish<W>(group);
 
   // ---- views layer: [feature, d_pe] -> W/2, ReLU -------------------------
@@ -511,7 +521,7 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
     default: layer_mma<NV, 4>(accv, h, bv_rows, S::H + ND, ring); break;
   }
   // the rgb head reads the registers: nothing to store
-  epilogue<NV, true, FAST>(accv, net.b[net.depth + 2] + vcol0, nullptr, 0);
+  epilogue<NV, true, FAST>(accv, views_bias, nullptr, 0);
 
   // ---- rgb head (rgb [W/2][3]), CUDA cores -------------------------------
   const float* rk = net.rgb_k + 3 * vcol0;
@@ -530,7 +540,7 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
   for (int c = 0; c < 3; ++c) {
     const float t = row_sum(top[c]), b = row_sum(bot[c]);
     if ((lane & 3) == 0) {
-      const float bias = head_bias ? __ldg(net.b[net.depth + 3] + c) : 0.f;
+      const float bias = head_bias ? __ldg(bias_of(net, net.depth + 3) + c) : 0.f;
       raw[c * P + row] = t + bias;
       raw[c * P + row + 8] = b + bias;
     }
@@ -622,19 +632,19 @@ __host__ __device__ inline bool transposed(int width, int in_ch, int in_ch_views
 // The transposed core's plan: the same packed chunks (pack_wgmma_weights),
 // each warpgroup's pieces counted (Plan::ways = 2).
 inline Plan make_plan_transposed(const void* packed, int width, int depth,
-                                 unsigned long long skip_mask, int in_ch, int in_ch_views) {
+                                 int n_skips, int in_ch, int in_ch_views) {
   const int nx = x_chunks(in_ch), h = width / CHUNK_K, run = width / 2 / t_piece_rows(width);
-  const int wide = nx + h * (depth - 1) + nx * __builtin_popcountll(skip_mask) + h;
+  const int wide = nx + h * (depth - 1) + nx * n_skips + h;
   const int narrow = h + d_chunks(in_ch_views);
   return Plan{static_cast<const unsigned char*>(packed), wide * run + narrow, wide * run,
               t_piece_bytes(width), width / 4 * CHUNK_K * 2, 2, run};
 }
 
-inline Plan make_plan(const void* packed, int width, int depth, unsigned long long skip_mask,
+inline Plan make_plan(const void* packed, int width, int depth, int n_skips,
                       int in_ch, int in_ch_views) {
   return transposed(width, in_ch, in_ch_views)
-      ? make_plan_transposed(packed, width, depth, skip_mask, in_ch, in_ch_views)
-      : make_plan_standard(packed, width, depth, skip_mask, in_ch, in_ch_views);
+      ? make_plan_transposed(packed, width, depth, n_skips, in_ch, in_ch_views)
+      : make_plan_standard(packed, width, depth, n_skips, in_ch, in_ch_views);
 }
 
 // acc += A B on one k16 step, m64n32k16 (A the weights, B the activations).
@@ -728,7 +738,7 @@ __device__ __forceinline__ void epilogue_t(float (&acc)[M][16], const float* bia
         for (int lo = 0; lo < 2; ++lo) {
           float x = acc[m][4 * j + 2 * hi + lo];
           x = FAST ? round_bf16(x) + round_bf16(bb) : x + bb;
-          if (RELU) x = fmaxf(x, 0.f);
+          if (RELU) x = relu(x);
           x = round_bf16(x);
           acc[m][4 * j + 2 * hi + lo] = x;
           if (h != nullptr) {
@@ -803,22 +813,28 @@ __device__ __forceinline__ void mlp_transposed(unsigned char* x_tiles, unsigned 
   float acc[T::MB][16];
 
   // ---- trunk -------------------------------------------------------------
+  bool with_x = true;  // layer 0 reads x_pe
   for (int i = 0; i < net.depth; ++i) {
+    // the net's table read before the products (prefetch_skip)
+    const float* bias = bias_of(net, i) + col0;
+    const bool next_x = prefetch_skip(net, i);
     zero_t(acc);
-    const bool with_x = i == 0 || skips_after(net, i - 1);
     layer_t<T::MB, T::PB, T::RUN>(acc, x, with_x ? nx : 0, h, i == 0 ? 0 : T::H, 4, ring);
     __syncthreads();  // every warp's products that read h are complete
-    epilogue_t<T::MB, true, FAST>(acc, net.b[i] + col0, h_tiles, col0);
+    epilogue_t<T::MB, true, FAST>(acc, bias, h_tiles, col0);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
+    with_x = next_x;
   }
   head_t<T::MB, 1>(acc, net.alpha_k + col0, part, 3);
 
   // ---- feature layer (no ReLU, rounded after its bias) -------------------
+  const float* feature_bias = bias_of(net, net.depth) + col0;
+  const float* views_bias = bias_of(net, net.depth + 2) + vcol0;
   zero_t(acc);
   layer_t<T::MB, T::PB, T::RUN>(acc, h, T::H, h, 0, 4, ring);
   __syncthreads();
-  epilogue_t<T::MB, false, false>(acc, net.b[net.depth] + col0, h_tiles, col0);
+  epilogue_t<T::MB, false, false>(acc, feature_bias, h_tiles, col0);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
@@ -827,7 +843,7 @@ __device__ __forceinline__ void mlp_transposed(unsigned char* x_tiles, unsigned 
   zero_t(accv);
   const int last = (net.in_ch_views - CHUNK_K * (nd - 1) + 15) / 16;
   layer_t<T::MV, T::MV, 1>(accv, h, T::H, d, nd, last, ring);
-  epilogue_t<T::MV, true, FAST>(accv, net.b[net.depth + 2] + vcol0, nullptr, 0);
+  epilogue_t<T::MV, true, FAST>(accv, views_bias, nullptr, 0);
   head_t<T::MV, 3>(accv, net.rgb_k + 3 * vcol0, part, 0);
 
   // ---- the heads' sums over the 8 warps, in order ------------------------
@@ -837,7 +853,8 @@ __device__ __forceinline__ void mlp_transposed(unsigned char* x_tiles, unsigned 
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < THREADS / 32; ++w) v += part[(4 * w + c) * TP + p];
-    raw[c * TP + p] = v + __ldg(c == 3 ? net.b[net.depth + 1] : net.b[net.depth + 3] + c);
+    raw[c * TP + p] =
+        v + __ldg(c == 3 ? bias_of(net, net.depth + 1) : bias_of(net, net.depth + 3) + c);
   }
   __syncthreads();
 }
@@ -1079,9 +1096,8 @@ inline int launch_bytes(int width, int in_ch, int in_ch_views) {
 // launch that asks for more than the device's nerf_smem_optin()). Defined
 // once in each shared library, as the limits of nerf_mlp.cuh.
 extern "C" {
-long long nerf_wgmma_plan_bytes(int width, int depth, unsigned long long skip_mask, int in_ch,
-                                int in_ch_views) {
-  return nerf::wg::make_plan(nullptr, width, depth, skip_mask, in_ch, in_ch_views).tile_bytes();
+long long nerf_wgmma_plan_bytes(int width, int depth, int n_skips, int in_ch, int in_ch_views) {
+  return nerf::wg::make_plan(nullptr, width, depth, n_skips, in_ch, in_ch_views).tile_bytes();
 }
 int nerf_wgmma_smem_bytes(int width, int in_ch, int in_ch_views) {
   return nerf::wg::launch_bytes(width, in_ch, in_ch_views);

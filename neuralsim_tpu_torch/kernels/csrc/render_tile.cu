@@ -35,7 +35,9 @@
 //     points at W = 256, 64 or 32 at W = 512, 32 or 16 at W = 1024), R up
 //     to tile / gcd(S, tile): the tile and R that waste the least of the
 //     FP32 pipes, given what the buffers leave room for (at W = 256: 128
-//     points and R = 2 for S = 64 and 192, 64 points and R = 4 for S = 144);
+//     points and R = 2 for S = 64 and 192, 64 points and R = 4 for S = 144;
+//     at W = 1024: 32 points, whole rays for S = 64 and segments of 96 for
+//     S = 192);
 //   - bf16: sub-tiles of the wgmma core's tile (nerf_mlp_wgmma.cuh: 128
 //     points at W = 256, 64 at W = 512, 32 on the transposed core), R =
 //     tile / gcd(S, tile) where the buffers fit (R = 2 for S = 64 and 192 at
@@ -93,7 +95,7 @@ __device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, fl
     if (s + 1 < S) dist = (sl + 1 < len ? ray_z[l + 1] : z_vals[ray * S + s + 1]) - ray_z[l];
     dist *= dn;
     float* sigma = ray_raw + 3 * stride + l;
-    *sigma = 1.f - expf(-fmaxf(*sigma, 0.f) * dist);
+    *sigma = 1.f - expf(-relu(*sigma) * dist);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       ray_raw[c * stride + l] = 1.f / (1.f + expf(-ray_raw[c * stride + l]));
@@ -144,7 +146,7 @@ __device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, fl
       rgb_map[ray * 3 + 2] = b;
       acc_map[ray] = acc;
       depth_map[ray] = dep;
-      disp_map[ray] = 1.f / fmaxf(dep / fmaxf(acc, 1e-10f), 1e-10f);
+      disp_map[ray] = 1.f / fmax_nan(dep / fmax_nan(acc, 1e-10f), 1e-10f);
     }
   }
   __syncthreads();  // ray_raw, ray_z and carry are free again
@@ -341,12 +343,14 @@ int segment_samples(int tile, long long room) {
 constexpr float SMALL_TILE_RATE = 0.85f;
 
 // The float32 sub-tile (the width's big tile or half of it), rays per group
-// and samples per segment for S samples: of the ray counts up to tile /
-// gcd(S, tile) whose whole rays fit beside each tile's core, the pair that
-// runs the group's points fastest, counting the pad points of its last
-// sub-tile and SMALL_TILE_RATE; where no whole ray fits, one ray per group
-// in the longest segments (the big tile where a sub-tile's points fit, else
-// the small); false if not one sample fits.
+// and samples per segment for S samples: of each tile's plans, the one that
+// runs the points fastest, counting the pad points of each sub-tile run and
+// SMALL_TILE_RATE. A tile's plans: whole rays, R up to tile / gcd(S, tile)
+// of them where they fit beside the tile's core, else one ray per group in
+// the longest segments that fit (whole sub-tiles of the big tile; a
+// segmented ray costs only its segments' compositing passes, so at
+// W = 1024, S = 192 the 32-point tile in two segments beats whole rays on
+// 16-point tiles); false if not one sample fits.
 bool pick_f32(int n_samples, int width, int rx, int rd, int smem_max, int* tile, int* rays,
               int* seg) {
   float best = 0.f;
@@ -354,30 +358,33 @@ bool pick_f32(int n_samples, int width, int rx, int rd, int smem_max, int* tile,
   const int tiles[2] = {big, big / 2};
   for (const int t : tiles) {
     const long long room = smem_max - f32::core_bytes(t, width, rx, rd);
-    const int most = t / gcd(n_samples, t);
-    for (int r = 1; r <= most && group_bytes(r, n_samples) <= room; ++r) {
-      const long long points = static_cast<long long>(r) * n_samples;
-      const float rate = (t == big ? 1.f : SMALL_TILE_RATE) * static_cast<float>(points) /
-                         static_cast<float>((points + t - 1) / t * t);
+    const float speed = t == big ? 1.f : SMALL_TILE_RATE;
+    const auto consider = [&](int r, int s, long long padded) {
+      const float rate = speed * static_cast<float>(static_cast<long long>(r) * n_samples) /
+                         static_cast<float>(padded);
       if (rate > best) {
         best = rate;
         *tile = t;
         *rays = r;
-        *seg = n_samples;
+        *seg = s;
       }
+    };
+    const int most = t / gcd(n_samples, t);
+    bool whole = false;
+    for (int r = 1; r <= most && group_bytes(r, n_samples) <= room; ++r) {
+      const long long points = static_cast<long long>(r) * n_samples;
+      consider(r, n_samples, (points + t - 1) / t * t);
+      whole = true;
     }
-  }
-  if (best > 0.f) return true;
-  for (const int t : tiles) {
-    const int s = segment_samples(t, smem_max - f32::core_bytes(t, width, rx, rd));
+    const int s = whole ? 0 : segment_samples(t, room);
     if (s >= t || (t == big / 2 && s > 0)) {
-      *tile = t;
-      *rays = 1;
-      *seg = s;
-      return true;
+      // full segments of s samples, then the rest, each in sub-tiles of t
+      const long long padded = static_cast<long long>(n_samples / s) * ((s + t - 1) / t * t) +
+                               (n_samples % s + t - 1) / t * t;
+      consider(1, s, padded);
     }
   }
-  return false;
+  return best > 0.f;
 }
 
 // The launches of one instantiation, for the cores' dispatch.
@@ -423,23 +430,36 @@ int render_tile_max_samples(int bf16, int width, int in_ch, int in_ch_views) {
   return segment_samples(1, static_cast<long long>(smem_max) - core);
 }
 
+// The FP32 core's plan of a launch for S samples on the current device (the
+// sub-tile, rays per group and samples per segment) and its shared memory;
+// 0 bytes when not one sample fits.
+int render_tile_f32_plan(int n_samples, int width, int in_ch, int in_ch_views, int* tile,
+                         int* rays, int* seg) {
+  int smem_max = 0;
+  const int rx = f32::rows(in_ch), rd = f32::rows(in_ch_views);
+  if (n_samples < 1 || smem_optin(&smem_max) != 0 ||
+      !pick_f32(n_samples, width, rx, rd, smem_max, tile, rays, seg)) {
+    return 0;
+  }
+  return f32::core_bytes(*tile, width, rx, rd) + static_cast<int>(group_bytes(*rays, *seg));
+}
+
 // weights: host array of 2 * (depth + 4) device pointers, kernel then bias
 // for each of pts_0 .. pts_{depth-1}, feature, alpha, views_0, rgb, padded
-// to a trunk of `width` (256, 512 or 1024); skip_mask: bit i set when layer
-// i's output is concatenated with x_pe; packed: the weight chunks of the
-// core this dtype runs (raymarch.py pack_f32_weights in float32,
-// pack_wgmma_weights in bf16; 16-byte aligned). Returns a cudaError_t
-// value: 0 when the launch was accepted.
+// to a trunk of `width` (256, 512 or 1024); table: the net's device table
+// (Net: bias pointers, then the skip mask's words); n_skips: the number of
+// skips; packed: the weight chunks of the core this dtype runs (raymarch.py
+// pack_f32_weights in float32, pack_wgmma_weights in bf16; 16-byte
+// aligned). Returns a cudaError_t value: 0 when the launch was accepted.
 int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
                 const float* z_vals, long long n_rays, int n_samples,
-                const void* const* weights, int width, int depth,
-                unsigned long long skip_mask, int in_ch, int in_ch_views, int bf16,
-                const void* packed, int fast_epilogue, int white_bkgd, float* rgb_map,
-                float* disp_map, float* acc_map, float* weights_out, float* depth_map,
-                void* stream) {
+                const void* const* weights, const void* table, int width, int depth,
+                int n_skips, int in_ch, int in_ch_views, int bf16, const void* packed,
+                int fast_epilogue, int white_bkgd, float* rgb_map, float* disp_map,
+                float* acc_map, float* weights_out, float* depth_map, void* stream) {
   Net net;
-  const int err = make_net(weights, width, depth, skip_mask, in_ch, in_ch_views,
-                           fast_epilogue, &net);
+  const int err =
+      make_net(weights, table, width, depth, in_ch, in_ch_views, fast_epilogue, &net);
   if (err != 0) return err;
   if (n_samples < 1 || packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -462,7 +482,7 @@ int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const size_t smem = core + static_cast<size_t>(group_bytes(rays, seg));
-    const Plan plan = wg::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
+    const Plan plan = wg::make_plan(packed, width, depth, n_skips, in_ch, in_ch_views);
     const int nx = wg::core_nx(width, in_ch, in_ch_views), nd = wg::d_chunks(in_ch_views);
     const long long blocks = (n_rays + rays - 1) / rays;
     return fast_epilogue
@@ -480,7 +500,7 @@ int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
   if (!pick_f32(n_samples, width, rx, rd, smem_max, &tile, &rays, &seg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan plan = f32::make_plan(packed, width, depth, skip_mask, in_ch, in_ch_views);
+  const Plan plan = f32::make_plan(packed, tile, width, depth, n_skips, in_ch, in_ch_views);
   const size_t smem =
       f32::core_bytes(tile, width, rx, rd) + static_cast<size_t>(group_bytes(rays, seg));
   return f32::dispatch<TileF32>(width, tile, (n_rays + rays - 1) / rays, smem, s, rays_o, rays_d,

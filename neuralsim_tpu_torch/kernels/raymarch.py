@@ -17,12 +17,11 @@ the tensor cores (``nerf_mlp_wgmma.cuh``) from the chunks of
 ``pack_wgmma_weights``; in float32 on the FP32 core (``nerf_mlp.cuh``) from
 the chunks of ``pack_f32_weights``. Both cores take a trunk of 256, 512 or
 1024 (a narrower net is zero-padded to the next of the three by
-``pad_params``, which is exact), up to 64 trunk layers and encodings up to
-multires and multires_views 128 where they fit in a block's shared memory
-(``_check_supported`` names what they do not take); the render tile takes
-any number of samples per ray. The
-padded weights and their chunks are prepared once per weight set and dtype
-(``_packed_weights``).
+``pad_params``, which is exact), any depth and any encodings that fit in a
+block's shared memory (``_check_supported`` names what they do not take);
+the render tile takes any number of samples per ray. The padded weights,
+their chunks and the net's device table (bias pointers and skip-mask words)
+are prepared once per weight set and dtype (``_packed_weights``).
 Gradients of the first four
 recompute through a twin in float32, as the JAX custom_vjp backwards do;
 ``fused_render_tile`` is forward only, as in JAX, and raises when asked for
@@ -266,6 +265,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def net_table(weights: List[torch.Tensor], depth: int, skips) -> torch.Tensor:
+    """The kernels' device table of a net (``Net`` in csrc/nerf_mlp.cuh):
+    the bias pointers of ``weights`` (``param_keys`` order: pts_0 ..
+    pts_{depth-1}, feature, alpha, views_0, rgb), then the skip mask in
+    64-bit words (bit i % 64 of word i // 64: layer i's output is
+    concatenated with x_pe), as int64 on the weights' device."""
+    words = [sum(1 << (sk % 64) for sk in skips if sk // 64 == i) for i in range(-(-depth // 64))]
+    values = [w.data_ptr() for w in weights[1::2]] + words
+    return torch.tensor([v - (1 << 64) if v >= 1 << 63 else v for v in values],
+                        dtype=torch.int64).to(weights[0].device)
+
+
 # prepared weights of the last few (weight set, dtype, core), keyed by the
 # tensors' ids and versions; the entry holds the tensors, so an id is not
 # reused while cached
@@ -274,13 +285,13 @@ _PACKED_SETS = 8
 
 
 def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, what: str):
-    """(padded weights in ``param_keys`` order, packed chunks) of one weight
-    set for a launch: every weight zero-padded to the core width of its
-    trunk (``pad_params``, ``core_width``) and each kernel rounded to bf16 in
-    bf16; from them the chunks of the core the dtype runs:
-    ``pack_wgmma_weights`` in bf16, ``pack_f32_weights`` in float32,
-    checked against the library's chunk plan. Once per weight set and dtype;
-    an in-place update of a weight prepares again."""
+    """(padded weights in ``param_keys`` order, packed chunks, device
+    table) of one weight set for a launch: every weight zero-padded to the
+    core width of its trunk (``pad_params``, ``core_width``) and each kernel
+    rounded to bf16 in bf16; from them the chunks of the core the dtype
+    runs: ``pack_wgmma_weights`` in bf16, ``pack_f32_weights`` in float32,
+    checked against the library's chunk plan; and ``net_table``. Once per
+    weight set and dtype; an in-place update of a weight prepares again."""
     keys = param_keys(depth)
     tensors = tuple(params[k] for k in keys)
     key = (tuple((id(t), t._version) for t in tensors), net.input_ch, net.input_ch_views,
@@ -295,8 +306,7 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, wha
         padded = {k: round_to(t, torch.bfloat16) if k.endswith("kernel") else t
                   for k, t in padded.items()}
     weights = [_aligned(padded[k]) for k in keys]
-    skip_mask = sum(1 << sk for sk in net.skips)
-    plan = (width, depth, skip_mask, net.input_ch, net.input_ch_views)
+    plan = (width, depth, len(set(net.skips)), net.input_ch, net.input_ch_views)
     if bf16:
         packed = pack_wgmma_weights(padded, net)
         want = lib.nerf_wgmma_plan_bytes(*plan)
@@ -308,16 +318,16 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, wha
         raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
                          f"{packed.data_ptr():#x} do not match the kernel's chunk plan "
                          f"({want} bytes)")
-    _PACKED[key] = (tensors, weights, packed)
+    table = net_table(weights, depth, net.skips)
+    _PACKED[key] = (tensors, weights, packed, table)
     if len(_PACKED) > _PACKED_SETS:
         _PACKED.popitem(last=False)
-    return weights, packed
+    return weights, packed, table
 
 
-# weights, width, depth, skip mask (64 bits: one per trunk layer), in_ch,
-# in_ch_views, bf16
-_NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int]
+# weights (host array of device pointers), the net's device table, width,
+# depth, number of skips, in_ch, in_ch_views, bf16
+_NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 6
 _ARGTYPES = {
     "nerf_march": ("nerf_march", [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
                    + _NET_ARGS + [ctypes.c_void_p] * 4),
@@ -327,22 +337,25 @@ _ARGTYPES = {
                     + _NET_ARGS + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                     + [ctypes.c_void_p] * 6),
 }
+_INT_OUT = ctypes.POINTER(ctypes.c_int)
 # every library's queries: (name, argtypes, restype)
-_QUERIES = [(fn, [], ctypes.c_int) for fn in (
-    "nerf_width", "nerf_max_layers", "nerf_max_in_ch", "nerf_max_in_ch_views",
-    "nerf_smem_optin")] + [
-    (fn, [ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int],
-     ctypes.c_longlong) for fn in ("nerf_f32_plan_bytes", "nerf_wgmma_plan_bytes")] + [
+_QUERIES = [(fn, [], ctypes.c_int) for fn in ("nerf_width", "nerf_smem_optin")] + [
+    (fn, [ctypes.c_int] * 5, ctypes.c_longlong)
+    for fn in ("nerf_f32_plan_bytes", "nerf_wgmma_plan_bytes")] + [
     (fn, [ctypes.c_int] * 3, ctypes.c_int)
-    for fn in ("nerf_f32_smem_bytes", "nerf_wgmma_smem_bytes")]
+    for fn in ("nerf_f32_smem_bytes", "nerf_wgmma_smem_bytes")] + [
+    ("nerf_f32_launch_bytes", [ctypes.c_int] * 3 + [_INT_OUT], ctypes.c_int)]
+# the render tile's own: (name, argtypes, restype)
+_RENDER_TILE_QUERIES = [
+    ("render_tile_max_samples", [ctypes.c_int] * 4, ctypes.c_int),
+    ("render_tile_f32_plan", [ctypes.c_int] * 4 + [_INT_OUT] * 3, ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     fn_name, argtypes = _ARGTYPES[name]
-    queries = _QUERIES + ([("render_tile_max_samples", [ctypes.c_int] * 4, ctypes.c_int)]
-                          if name == "render_tile" else [])
+    queries = _QUERIES + (_RENDER_TILE_QUERIES if name == "render_tile" else [])
     for fn, args, res in [(fn_name, argtypes, ctypes.c_int)] + queries:
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = res
@@ -361,12 +374,6 @@ def _check_supported(params, net: NeRFNetConfig, lib, what: str, bf16: bool, dev
     depth = _depth(params)
     if not net.use_viewdirs or net.i_embed != 0:
         raise NotImplementedError(f"{what} kernel: needs use_viewdirs=True and i_embed=0")
-    max_x, max_d = lib.nerf_max_in_ch(), lib.nerf_max_in_ch_views()
-    if (net.input_ch > max_x or net.input_ch_views > max_d
-            or depth + 4 > lib.nerf_max_layers()):
-        raise NotImplementedError(
-            f"{what} kernel: multires<={(max_x - 3) // 6}, multires_views<={(max_d - 3) // 6} "
-            f"and depth<={lib.nerf_max_layers() - 4} only, got depth {depth} and {net}")
     if any(s >= depth - 1 for s in net.skips):
         raise NotImplementedError(f"{what} kernel: a skip after the last "
                                   "trunk layer is not supported")
@@ -427,12 +434,11 @@ def _net_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str):
     for key in param_keys(depth):
         if params[key].device != device:
             raise ValueError(f"{what}: {key} is on {params[key].device}, the inputs on {device}")
-    weights, packed = _packed_weights(params, net, depth, bf16, lib, what)
+    weights, packed, table = _packed_weights(params, net, depth, bf16, lib, what)
     ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-    skip_mask = sum(1 << sk for sk in net.skips)
     width = core_width(params["pts_0_kernel"].shape[1])
-    return ([ptrs, width, depth, skip_mask, net.input_ch, net.input_ch_views, int(bf16),
-             packed.data_ptr()], weights + [packed])
+    return ([ptrs, table.data_ptr(), width, depth, len(set(net.skips)), net.input_ch,
+             net.input_ch_views, int(bf16), packed.data_ptr()], weights + [packed, table])
 
 
 def _run(fn, device, what: str, *args):
@@ -513,11 +519,11 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
     # its MLP core: a ray of more samples than one segment holds runs in
     # segments, but one sample and its ray's carried sums must fit
     with _on(device):
-        segment = lib.render_tile_max_samples(int(bf16), net_args[1], net.input_ch,
+        segment = lib.render_tile_max_samples(int(bf16), net_args[2], net.input_ch,
                                               net.input_ch_views)
     if segment < 1:
         raise NotImplementedError(
-            f"{what} kernel: the {net_args[1]}-wide core leaves no room in shared memory for "
+            f"{what} kernel: the {net_args[2]}-wide core leaves no room in shared memory for "
             f"one sample ({_SAMPLE_BYTES} bytes) in {compute_dtype}")
     f32 = dict(dtype=torch.float32, device=device)
     rgb, disp, acc = torch.empty((n, 3), **f32), torch.empty(n, **f32), torch.empty(n, **f32)

@@ -5,8 +5,8 @@
   package: no kernel launches, and the render equals the JAX one.
 - A trunk narrower than a core width (256, 512 or 1024) is zero-padded to
   the next one (``raymarch.pad_params``, ``core_width``), which is exact;
-  the cores take up to 64 trunk layers (a 64-bit skip mask) and encodings
-  up to multires / multires_views 128 where they fit in shared memory (the
+  the cores take any depth (the net's device table of bias pointers and
+  skip-mask words) and any encodings that fit in shared memory (the
   wgmma cores' x_pe and d_pe chunks: the standard core's up to four and
   two, the transposed core's as many as fit). The padded weights are
   packed into the FP32 core's float32 chunks (``pack_f32_weights``) and the
@@ -62,6 +62,8 @@ NETS = {
     "4x1024": dict(netdepth=4, netwidth=1024, netdepth_fine=4, netwidth_fine=1024, skips=(2,)),
     "4x768": dict(netdepth=4, netwidth=768, netdepth_fine=4, netwidth_fine=768, skips=(2,)),
     "40x256": dict(netdepth=40, netdepth_fine=40, skips=(4, 20, 36)),
+    # past 64 layers: skips in both 64-bit words of the skip mask
+    "72x256": dict(netdepth=72, netdepth_fine=72, skips=(4, 40, 68)),
     # encodings the standard wgmma core has no room for (the transposed core)
     "4x512_pe42_20": dict(netdepth=4, netwidth=512, netdepth_fine=4, netwidth_fine=512,
                           skips=(2,), multires=42, multires_views=20),
@@ -225,16 +227,25 @@ class _Chunks:
         return _unpermute(chunk)
 
 
-def _emulate_f32_core(packed, padded, net, x_pe, d_pe):
+def _emulate_f32_core(packed, padded, net, x_pe, d_pe, parts=1):
     """raw [M,4] as csrc/nerf_mlp.cuh's mlp_tile computes it from the packed
     chunks: x_pe and d_pe in tiles of 16-row chunks (zero rows past the
     channels), layer i reads [x_pe chunks if i == 0 or after a skip, then 16
     h chunks], the feature layer 16 h chunks, the views layer 16 feature
-    chunks then the d_pe chunks; heads from the layer outputs."""
+    chunks then the d_pe chunks; heads from the layer outputs, each summed
+    over `parts` equal column blocks in block order, then its bias (the
+    core's column parts: 4 or 8 at W = 1024, else 1)."""
     def tiles(a):
         rows = -(-a.shape[1] // rm.F32_CHUNK_K) * rm.F32_CHUNK_K
         a = torch.nn.functional.pad(a, (0, rows - a.shape[1]))
         return list(a.split(rm.F32_CHUNK_K, dim=1))
+
+    def head(v, name):
+        k, cols = padded[f"{name}_kernel"], v.shape[1] // parts
+        out = v[:, :cols] @ k[:cols]
+        for q in range(1, parts):
+            out = out + v[:, q * cols:(q + 1) * cols] @ k[q * cols:(q + 1) * cols]
+        return out + padded[f"{name}_bias"]
 
     depth = rm._depth(padded)
     width = padded["pts_0_kernel"].shape[1]
@@ -249,10 +260,10 @@ def _emulate_f32_core(packed, padded, net, x_pe, d_pe):
         v = acc + padded[f"{name}_bias"]
         h = torch.relu(v) if i < depth else v
         if i == depth - 1:
-            alpha = h @ padded["alpha_kernel"] + padded["alpha_bias"]
+            alpha = head(h, "alpha")
     acc = sum(a @ ring.next(width // 2) for a in tiles(h) + d_tiles)
     v = torch.relu(acc + padded["views_0_bias"])
-    rgb = v @ padded["rgb_kernel"] + padded["rgb_bias"]
+    rgb = head(v, "rgb")
     assert ring.off == packed.numel()                     # every chunk consumed once
     return torch.cat([rgb, alpha], dim=-1)
 
@@ -275,8 +286,7 @@ def test_f32_chunks_read_back_as_the_padded_weights(name):
         got = torch.cat([ring.next(n) for _ in range(-(-k // rm.F32_CHUNK_K))])
         torch.testing.assert_close(got[:k], seg, rtol=0, atol=0)
         assert not got[k:].any()
-    plan = (width, net.netdepth, sum(1 << sk for sk in net.skips), net.input_ch,
-            net.input_ch_views)
+    plan = (width, net.netdepth, len(net.skips), net.input_ch, net.input_ch_views)
     assert ring.off * 4 == packed.numel() * 4 == rm.f32_bytes(
         net.netdepth, len(net.skips), width, net.input_ch, net.input_ch_views)
     assert packed.numel() * 4 == _FakeMarchLibrary.nerf_f32_plan_bytes(*plan)
@@ -316,57 +326,78 @@ def transposed(width, in_ch, in_ch_views):
     return width == 1024 or (width == 512 and nx + nd > 4) or (width == 256 and (nx > 4 or nd > 2))
 
 
+def f32_core_bytes(tile, width, rx, rd):
+    """core_bytes of csrc/nerf_mlp.cuh: the ring's two stages (16 KB, 32 KB
+    on the 32-point tiles of W = 1024), the h, x and d tiles (row stride
+    tile + 4), points and raw
+    outputs, the heads' partial sums where the columns are split (4 parts on
+    32-point tiles, 8 on 16-point tiles at W = 1024), the ring's barriers."""
+    parts = 128 // tile if width == 1024 else 1
+    stage = 32768 if (width, tile) == (1024, 32) else 16384
+    return (2 * stage + (width + rx + rd) * (tile + 4) * 4 + 10 * tile * 4
+            + (16 * parts * tile if parts > 1 else 0) + 32)
+
+
+def f32_pick_tile(width, rx, rd, extra, smem=SMEM_OPTIN):
+    """pick_tile of csrc/nerf_mlp.cuh: the big tile, else half of it, else 0."""
+    big = 128 * 256 // width
+    return next((t for t in (big, big // 2) if f32_core_bytes(t, width, rx, rd) + extra <= smem),
+                0)
+
+
+def f32_rows(channels):
+    return -(-channels // 16) * 16
+
+
 class _FakeMarchLibrary:
     """Stands in for the built nerf_march library and records each call of
     the C entry. Its limits are parameters (the defaults those of the CUDA
     headers); its chunk plans and shared-memory sizes are the formulas of
-    csrc/nerf_mlp.cuh (FP32 core: ring stages of 16 KB, kc = 16 KB / 4W
-    rows; smallest tile 64 points at W = 256, 32 at 512, 16 at 1024) and
-    csrc/nerf_mlp_wgmma.cuh (64-row chunks; the standard core: three ring
-    stages at W = 256 with at most two x_pe chunks, else two; A tiles per
-    warpgroup at W = 256, shared at 512; the transposed core: two rings of
-    two pieces of min(W/2, 256) rows, h and the encodings in [32][64]
-    chunks of 4 KB, a 6 KB scratch), written out here."""
+    csrc/nerf_mlp.cuh (FP32 core: ring stages of 16 KB, 32 KB on the
+    32-point tiles of W = 1024, of 16, 8 and 8 rows on the big tiles; the
+    plan's bytes do not depend on the stage; smallest tile 64 points at
+    W = 256, 32 at 512, 16 at 1024; ``f32_core_bytes``) and
+    csrc/nerf_mlp_wgmma.cuh (64-row
+    chunks; the standard core: three ring stages at W = 256 with at most two
+    x_pe chunks, else two; A tiles per warpgroup at W = 256, shared at 512;
+    the transposed core: two rings of two pieces of min(W/2, 256) rows, h
+    and the encodings in [32][64] chunks of 4 KB, a 6 KB scratch), written
+    out here."""
 
-    def __init__(self, width=1024, max_layers=68, max_in_ch=771, max_in_ch_views=771,
-                 smem_optin=SMEM_OPTIN):
-        self.limits = (width, max_layers, max_in_ch, max_in_ch_views, smem_optin)
+    def __init__(self, width=1024, smem_optin=SMEM_OPTIN):
+        self.limits = (width, smem_optin)
         self.calls = []
 
     def nerf_width(self):
         return self.limits[0]
 
-    def nerf_max_layers(self):
+    def nerf_smem_optin(self):
         return self.limits[1]
 
-    def nerf_max_in_ch(self):
-        return self.limits[2]
-
-    def nerf_max_in_ch_views(self):
-        return self.limits[3]
-
-    def nerf_smem_optin(self):
-        return self.limits[4]
-
     @staticmethod
-    def nerf_f32_plan_bytes(width, depth, skip_mask, in_ch, in_ch_views):
-        kc = 16384 // (4 * width)
-        nx, nd = (-(-c // 16) * 16 // kc for c in (in_ch, in_ch_views))
+    def nerf_f32_plan_bytes(width, depth, n_skips, in_ch, in_ch_views):
+        stage = 32768 if width == 1024 else 16384
+        kc = stage // (4 * width)
+        nx, nd = (f32_rows(c) // kc for c in (in_ch, in_ch_views))
         h = width // kc
-        n_wide = nx + h * (depth - 1) + nx * bin(skip_mask).count("1") + h
-        return n_wide * 16384 + (h + nd) * 8192
+        n_wide = nx + h * (depth - 1) + nx * n_skips + h
+        return n_wide * stage + (h + nd) * stage // 2
 
     @staticmethod
-    def nerf_wgmma_plan_bytes(width, depth, skip_mask, in_ch, in_ch_views):
+    def nerf_wgmma_plan_bytes(width, depth, n_skips, in_ch, in_ch_views):
         nx, nd, h = -(-in_ch // 64), -(-in_ch_views // 64), width // 64
-        n_wide = nx + h * (depth - 1) + nx * bin(skip_mask).count("1") + h
+        n_wide = nx + h * (depth - 1) + nx * n_skips + h
         return n_wide * width * 128 + (h + nd) * (width // 2) * 128
 
     @staticmethod
     def nerf_f32_smem_bytes(width, in_ch, in_ch_views):
-        tile = 128 * 256 // width // 2
-        rx, rd = (-(-c // 16) * 16 for c in (in_ch, in_ch_views))
-        return 2 * 16384 + (width + rx + rd) * (tile + 4) * 4 + 10 * tile * 4 + 32
+        return f32_core_bytes(128 * 256 // width // 2, width, f32_rows(in_ch),
+                              f32_rows(in_ch_views))
+
+    def nerf_f32_launch_bytes(self, width, in_ch, in_ch_views, tile):
+        rx, rd = f32_rows(in_ch), f32_rows(in_ch_views)
+        tile.contents.value = f32_pick_tile(width, rx, rd, 0, self.limits[1])
+        return f32_core_bytes(tile.contents.value, width, rx, rd) if tile.contents.value else 0
 
     @staticmethod
     def nerf_wgmma_smem_bytes(width, in_ch, in_ch_views):
@@ -394,14 +425,15 @@ def fake_march(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "24x256", "8x512", "4x384",
-                                  "8x256_pe42_20", "4x1024", "4x768", "40x256",
+                                  "8x256_pe42_20", "4x1024", "4x768", "40x256", "72x256",
                                   "4x512_pe42_20", "4x256_pe50_24"])
 def test_march_launch_pads_and_packs(fake_march, name, dtype):
     """(e) On the kernel route a net reaches the C entry padded to its core
     width (256, 512 or 1024): every weight pointer is the padded tensor
     (bf16 kernels rounded), the packed pointer is the chunk stream of the
-    core the dtype runs, and the width, depth, skips (a 64-bit mask: the
-    40-deep net's skip after layer 36) and encodings' channel counts are the
+    core the dtype runs, the table holds the padded biases' pointers and the
+    skip mask's 64-bit words (the 40-deep net's skip after layer 36), and
+    the width, depth, skip count and encodings' channel counts are the
     net's."""
     net = _net(name)
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(6))
@@ -413,14 +445,20 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
     (args,) = fake_march.calls
     assert rm.fused_nerf_march.launches == 1
     assert len(args) == len(rm._ARGTYPES["nerf_march"][1])
-    ptrs, width, depth, skip_mask, in_ch, in_ch_views, bf16, packed = args[6:14]
+    ptrs, table, width, depth, n_skips, in_ch, in_ch_views, bf16, packed = args[6:15]
     assert width == rm.core_width(net.netwidth) == min(
         w for w in (256, 512, 1024) if w >= net.netwidth)
-    assert (depth, skip_mask, in_ch, in_ch_views) == (
-        net.netdepth, sum(1 << sk for sk in net.skips), net.input_ch, net.input_ch_views)
+    assert (depth, n_skips, in_ch, in_ch_views) == (
+        net.netdepth, len(net.skips), net.input_ch, net.input_ch_views)
     assert bf16 == int(dtype == torch.bfloat16)
-    weights, image = rm._packed_weights(params, net, depth, bool(bf16), fake_march, "test")
+    weights, image, words = rm._packed_weights(params, net, depth, bool(bf16), fake_march,
+                                               "test")
     assert packed == image.data_ptr() and list(ptrs) == [w.data_ptr() for w in weights]
+    assert table == words.data_ptr() and words.dtype == torch.int64
+    assert words[:depth + 4].tolist() == [w.data_ptr() for w in weights[1::2]]
+    mask = sum(1 << sk for sk in net.skips)
+    assert [w % 2 ** 64 for w in words[depth + 4:].tolist()] == [
+        (mask >> (64 * i)) % 2 ** 64 for i in range(-(-depth // 64))]
     padded = {k: round_to(v, dtype) if k.endswith("kernel") else v
               for k, v in rm.pad_params(params, net, width).items()}
     for key, w in zip(rm.param_keys(depth), weights):
@@ -430,18 +468,25 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
 
 
 def test_kernels_refuse_what_the_cores_do_not_take(fake_march):
-    """Width above 1024, depth above 64, encodings past multires /
-    multires_views 128 (2^128 is past float32), and (bf16) a 1024-wide trunk
-    with 363 x_pe and 123 d_pe channels, whose transposed wgmma core does
-    not fit a block's shared memory: NotImplementedError, naming the limit
-    (the bytes for the last), before any launch. The same 1024-wide net
-    launches in float32 (the FP32 core's 16-point tiles fit)."""
+    """Trunks wider than 1024 (1025 and 2048), and encodings that overflow a
+    block's shared memory: in float32 a 256-wide trunk with multires 75 (464
+    rows of x_pe beside 32 of d_pe) and a 1024-wide one with multires and
+    multires_views 130 (784 rows each, past the 16-point tile's room), and
+    in bf16 a 1024-wide trunk with 363 x_pe and 123 d_pe channels, whose
+    transposed wgmma core does not fit: NotImplementedError, naming the
+    limit (the bytes for the last three), before any launch. The same
+    1024-wide net launches in float32 (the FP32 core's 16-point tiles fit).
+    Depth and multires themselves have no limit (the other tests of this
+    file and tests/test_torch_wide_nets.py take 72 layers and multires 130)."""
     rays = [torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 4)]
     both = (torch.float32, torch.bfloat16)
     cases = {"trunk width 1025": (dict(netwidth=1025, netwidth_fine=1025), both),
-             "depth<=64": (dict(netdepth=65, netdepth_fine=65), both),
-             "multires<=128": (dict(multires=129), both),
-             "multires_views<=128": (dict(multires_views=129), both),
+             "trunk width 2048": (dict(netwidth=2048, netwidth_fine=2048), both),
+             "needs 239904 bytes of shared memory per block in float32": (
+                 dict(multires=75), (torch.float32,)),
+             "needs 242848 bytes of shared memory per block in float32": (
+                 dict(netwidth=1024, netwidth_fine=1024, multires=130, multires_views=130),
+                 (torch.float32,)),
              "needs 236544 bytes of shared memory": (
                  dict(netwidth=1024, netwidth_fine=1024, multires=60, multires_views=20),
                  (torch.bfloat16,))}

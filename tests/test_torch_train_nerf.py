@@ -473,14 +473,14 @@ class _WeightReadingMarch(_FakeMarchLibrary):
     from the cached padded set whose pointers it gets (so a stale cache
     entry would show in its output). Outputs are written by pointer."""
 
-    def nerf_march(self, o, d, v, z, n, s, ptrs, width, depth, skip_mask, in_ch,
+    def nerf_march(self, o, d, v, z, n, s, ptrs, table, width, depth, n_skips, in_ch,
                    in_ch_views, bf16, packed, sigma_out, rgb_out, stream):
         self.calls.append((n, s))
         entry = [e for e in rm._PACKED.values()
                  if [w.data_ptr() for w in e[1]] == list(ptrs[:len(e[1])])]
         assert len(entry) == 1, "the weights handed over are not one cached set"
-        _, weights, image = entry[0]
-        assert image.data_ptr() == packed
+        _, weights, image, words = entry[0]
+        assert image.data_ptr() == packed and words.data_ptr() == table
         params = dict(zip(rm.param_keys(depth), weights))
 
         def at(ptr, count):

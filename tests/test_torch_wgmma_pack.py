@@ -97,7 +97,7 @@ def test_packed_weights_are_cached_per_weight_set(bf16, name):
     first = rm._packed_weights(params, net, depth, bf16, lib, "test")
     assert rm._packed_weights(params, net, depth, bf16, lib, "test")[1] is first[1]
     params["pts_1_kernel"].mul_(2.0)                # an in-place update packs again
-    weights, again = rm._packed_weights(params, net, depth, bf16, lib, "test")
+    weights, again, _ = rm._packed_weights(params, net, depth, bf16, lib, "test")
     assert again is not first[1]
     padded = rm.pad_params(params, net, rm.core_width(net.netwidth))
     if bf16:
@@ -137,12 +137,12 @@ def test_mlp_launch_passes_packed_weights_to_the_wgmma_stages(monkeypatch, wrapp
     assert raw.shape == (m, 4) and fn.launches == 1
     (args,) = lib.calls
     assert len(args) == len(rm._ARGTYPES["nerf_mlp"][1])
-    assert args[3] == rm._KINDS[kind] and args[10] == int(dtype == torch.bfloat16)
-    assert args[5] == 256                           # the core width
-    packed = args[11]
+    assert args[3] == rm._KINDS[kind] and args[11] == int(dtype == torch.bfloat16)
+    assert args[6] == 256                           # the core width
+    packed = args[12]
     bf16 = dtype == torch.bfloat16
     assert packed is not None and packed % 16 == 0
-    _, image = rm._packed_weights(params, net, rm._depth(params), bf16, lib, wrapper)
+    _, image, _ = rm._packed_weights(params, net, rm._depth(params), bf16, lib, wrapper)
     assert packed == image.data_ptr()
     padded = {k: round_to(v, dtype) if k.endswith("kernel") else v
               for k, v in rm.pad_params(params, net, 256).items()}

@@ -14,6 +14,13 @@ number of samples per ray.
   (``Ring<2, true>``): its plan and piece offsets are written out here from
   the header, and the MLP computed from those pieces in the core's order
   gives the twin.
+- The FP32 core at W = 1024 splits a layer's columns over its half-warps
+  (``Split`` in ``csrc/nerf_mlp.cuh``: 4 quarters on 32-point tiles, 8
+  eighths on 16-point tiles): its lane map is written out here and covers
+  every (point, column) once, each part's packed positions read back as its
+  block of columns, the MLP with the heads summed in the kernel's part order
+  gives the twin, and its launch plans (tile, the render tile's rays and
+  segments) fit a block's shared memory.
 - The render tile composites a ray that does not fit its block's shared
   memory in segments, carrying the transmittance and sums across them:
   emulated here as ``csrc/render_tile.cu`` runs it, it equals raw2outputs.
@@ -23,6 +30,7 @@ them against their twins on the same nets.
 """
 
 import ctypes
+import math
 
 import jax
 import jax.numpy as jnp
@@ -45,9 +53,14 @@ from tests.test_torch_net_shapes import (
     NETS,
     SMEM_OPTIN,
     _dense_in_order,
+    _emulate_f32_core,
     _encoded,
     _FakeMarchLibrary,
     _he,
+    _unpermute,
+    f32_core_bytes,
+    f32_pick_tile,
+    f32_rows,
     transposed,
 )
 
@@ -180,13 +193,13 @@ def test_padding_to_1024_is_exact(monkeypatch, width, dtype):
 
 # ------------------------------------------- the transposed core's plan --
 
-def _transposed_plan(width, depth, skip_mask, in_ch, in_ch_views):
+def _transposed_plan(width, depth, n_skips, in_ch, in_ch_views):
     """make_plan_transposed of csrc/nerf_mlp_wgmma.cuh: each warpgroup's
     pieces per tile, its wide ones, their bytes and run."""
     nx, nd, h = -(-in_ch // 64), -(-in_ch_views // 64), width // 64
     rows = min(width // 2, 256)
     run = width // 2 // rows
-    wide = nx + h * (depth - 1) + nx * bin(skip_mask).count("1") + h
+    wide = nx + h * (depth - 1) + nx * n_skips + h
     return dict(per_tile=wide * run + h + nd, n_wide=wide * run, wide_bytes=rows * 128,
                 narrow_bytes=width // 4 * 128, run=run)
 
@@ -268,13 +281,13 @@ def test_transposed_core_pieces_compute_the_twin(name):
     params = _he(init_nerf_params(net, generator=torch.Generator().manual_seed(8)))
     padded = rm.pad_params(params, net, width)
     image = rm.pack_wgmma_weights(padded, net)
-    skip_mask = sum(1 << sk for sk in net.skips)
-    plan = _transposed_plan(width, net.netdepth, skip_mask, net.input_ch, net.input_ch_views)
+    plan = _transposed_plan(width, net.netdepth, len(net.skips), net.input_ch,
+                            net.input_ch_views)
     spans = sorted(p for g in range(2) for p in _pieces(plan, g))
     assert spans[0][0] == 0 and all(a[0] + a[1] == b[0] for a, b in zip(spans, spans[1:]))
     total = spans[-1][0] + spans[-1][1]
     assert total == image.numel() * 2 == _FakeMarchLibrary.nerf_wgmma_plan_bytes(
-        width, net.netdepth, skip_mask, net.input_ch, net.input_ch_views)
+        width, net.netdepth, len(net.skips), net.input_ch, net.input_ch_views)
     assert _FakeMarchLibrary.nerf_wgmma_smem_bytes(width, net.input_ch,
                                                    net.input_ch_views) <= SMEM_OPTIN
     x_pe, d_pe = _encoded(net, 24, 9)
@@ -292,7 +305,11 @@ def test_wide_plans_and_shared_memory():
     of float32 ones (d_pe in 16-row chunks); its cores fit a block: the
     transposed wgmma core in 211,968 B with the default encodings and
     232,448 (every byte) with seven chunks of encodings, the FP32 core's
-    16-point tile in 123,040."""
+    16-point tile in 125,088 (two 16 KB ring stages: 32 KB stages are for
+    the 32-point tile; its heads' eight partial sums included). The net's
+    depth and skips reach the kernels through a device table of int64 words
+    (``raymarch.net_table``), so no C argument limits them: a skip after
+    layer 68 of 72 sits in the table's second skip word."""
     net = TNet(netwidth=1024, netwidth_fine=1024)
     assert net.netdepth == 8 and net.skips == (4,)
     assert rm.wgmma_bytes(8, 1, 1024, net.input_ch, net.input_ch_views) == (
@@ -302,14 +319,166 @@ def test_wide_plans_and_shared_memory():
     assert lib.nerf_wgmma_smem_bytes(1024, 63, 27) == 211_968
     assert lib.nerf_wgmma_smem_bytes(1024, 5 * 64, 2 * 64) == SMEM_OPTIN
     assert lib.nerf_wgmma_smem_bytes(1024, 5 * 64 + 1, 2 * 64) > SMEM_OPTIN
-    assert lib.nerf_f32_smem_bytes(1024, 63, 27) == 123_040
-    assert lib.nerf_width() == 1024 and lib.nerf_max_layers() == 68
-    # the skip mask travels as 64 bits: a skip after layer 36 survives ctypes
-    mask = sum(1 << sk for sk in NETS["40x256"]["skips"])
-    assert mask >= 2 ** 36 and rm._NET_ARGS[3] is ctypes.c_ulonglong
-    assert ctypes.c_ulonglong(mask).value == mask
-    assert all(args[2] is ctypes.c_ulonglong for fn, args, _ in rm._QUERIES
-               if fn.endswith("plan_bytes"))
+    assert lib.nerf_f32_smem_bytes(1024, 63, 27) == 125_088
+    assert lib.nerf_width() == 1024
+    # the table: the biases' pointers, then the skip mask's 64-bit words
+    weights = [torch.zeros(2) for _ in range(2 * (72 + 4))]
+    table = rm.net_table(weights, 72, (4, 40, 63, 68))
+    assert table.dtype == torch.int64 and table.numel() == 72 + 4 + 2
+    assert table[:76].tolist() == [w.data_ptr() for w in weights[1::2]]
+    assert table[76:].tolist() == [(1 << 4) + (1 << 40) - (1 << 63), 1 << 4]
+    assert rm._NET_ARGS[1] is ctypes.c_void_p and rm._NET_ARGS[4] is ctypes.c_int
+
+
+# --------------------------------------------- the FP32 core's split lanes --
+
+def _split(tile, width):
+    """Split<TILE, W> of csrc/nerf_mlp.cuh: (column parts, point groups,
+    points a lane, trunk columns a part)."""
+    parts = 128 // tile if width == 1024 else 1
+    npg = 16 // parts
+    return parts, npg, tile // npg, width // parts
+
+
+def _packed_column(pos):
+    """The column that _f32_chunks puts at position pos of a packed row."""
+    return (pos // 4) % 16 + 16 * (4 * (pos // 64) + pos % 4)
+
+
+def _lane_reads(tile, width, views):
+    """Yields (warp, lane, point, packed position, the column the lane takes
+    it for) over one row of a layer, as mlp_tile reads it: half-warp hw =
+    (32 warp + lane) >> 4 takes part hw // NPG and point group hw % NPG;
+    lane cg = lane & 15 holds PT points from PT * group and, of a row of n
+    columns (W, or W / 2 in the views layer), reads float4 q < n / PARTS /
+    64 at position (n / PARTS) part + 64 q + 4 cg, whose element e it
+    multiplies into its column (n / PARTS) part + cg + 16 (4 q + e)."""
+    parts, npg, pt, _ = _split(tile, width)
+    n = width // 2 if views else width
+    span = n // parts
+    for warp in range(8):
+        for lane in range(32):
+            hw = (32 * warp + lane) >> 4
+            part, group, cg = hw // npg, hw % npg, lane & 15
+            for q in range(span // 64):
+                for e in range(4):
+                    for point in range(pt * group, pt * group + pt):
+                        yield (warp, lane, point, span * part + 64 * q + 4 * cg + e,
+                               span * part + cg + 16 * (4 * q + e))
+
+
+@pytest.mark.parametrize("views", [False, True], ids=["trunk", "views"])
+@pytest.mark.parametrize("tile, width", [(32, 1024), (16, 1024), (128, 256), (64, 512)])
+def test_split_lanes_cover_each_point_and_column_once(tile, width, views):
+    """The lane map of the FP32 core (quarters of the columns on 32-point
+    tiles and eighths on 16-point tiles at W = 1024; one part below it) reads
+    every (point, packed position) of a layer's row exactly once, the
+    position holds the column the lane accumulates, and the two half-warps
+    of a warp share a part (their weight loads broadcast)."""
+    n = width // 2 if views else width
+    reads = list(_lane_reads(tile, width, views))
+    cells = [(point, pos) for _, _, point, pos, _ in reads]
+    assert len(cells) == len(set(cells)) == tile * n
+    assert all(_packed_column(pos) == col for _, _, _, pos, col in reads)
+    parts_of_warp = {}
+    for warp, lane, _, pos, _ in reads:
+        parts_of_warp.setdefault(warp, set()).add(pos // (n // _split(tile, width)[0]))
+    assert all(len(v) == 1 for v in parts_of_warp.values())
+    # a lane holds 8 points x 16 trunk columns at W = 1024 on 32-point tiles,
+    # 8 x 8 on 16-point tiles: 128 and 64 accumulators
+    lane0 = [r for r in reads if r[:2] == (0, 0)]
+    assert len(lane0) == {(32, 1024): 128, (16, 1024): 64, (128, 256): 128,
+                          (64, 512): 128}[(tile, width)] // (2 if views else 1)
+
+
+@pytest.mark.parametrize("width, parts", [(1024, 4), (1024, 8), (512, 1)])
+def test_split_parts_read_back_as_column_blocks(width, parts):
+    """Each column part's packed positions, [n/parts * part, n/parts * (part +
+    1)) of a row of n columns, read back through ``_unpermute`` (the W = 256
+    order of a part of 256 columns) as that part's block of columns, for the
+    trunk (n = W) and views (n = W / 2) rows: the packing needs no change for
+    the split core."""
+    for n in (width, width // 2):
+        w = torch.arange(16 * n, dtype=torch.float32).reshape(16, n)
+        packed = rm._f32_chunks(w).reshape(16, n)
+        span = n // parts
+        for part in range(parts):
+            block = packed[:, span * part:span * (part + 1)]
+            torch.testing.assert_close(_unpermute(block), w[:, span * part:span * (part + 1)],
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tile", [32, 16])
+@pytest.mark.parametrize("name", ["4x1024", "4x768"])
+def test_f32_core_heads_in_part_order_compute_the_twin(name, tile):
+    """The W = 1024 FP32 core sums the alpha and rgb heads over its column
+    parts in part order (4 quarters on 32-point tiles, 8 eighths on 16-point
+    tiles) after each part's half-warp sum: the MLP from the packed chunks
+    with the heads so summed is the twin."""
+    net = TNet(**NETS[name])
+    params = _he(init_nerf_params(net, generator=torch.Generator().manual_seed(11)))
+    padded = rm.pad_params(params, net, 1024)
+    x_pe, d_pe = _encoded(net, 24, 12)
+    parts = _split(tile, 1024)[0]
+    got = _emulate_f32_core(rm.pack_f32_weights(padded, net), padded, net, x_pe, d_pe, parts)
+    want = nerf_apply(params, x_pe, d_pe, net)
+    assert want.abs().max() > 0.1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _group_bytes(rays, seg):
+    return rays * (seg * 20 + 24)
+
+
+def _render_tile_f32_plan(s, width, in_ch, in_ch_views, smem=SMEM_OPTIN):
+    """pick_f32 of csrc/render_tile.cu: (tile, rays, seg) of the render
+    tile's FP32 launch for S = s samples."""
+    rx, rd = f32_rows(in_ch), f32_rows(in_ch_views)
+    big, best, plan = 128 * 256 // width, 0.0, None
+    for t in (big, big // 2):
+        room = smem - f32_core_bytes(t, width, rx, rd)
+        speed = 1.0 if t == big else 0.85
+        candidates = [(r, s, -(-r * s // t) * t) for r in range(1, t // math.gcd(s, t) + 1)
+                      if _group_bytes(r, s) <= room]
+        if not candidates:
+            fit = (room - 24) // 20 if room >= 24 else 0
+            seg = fit // t * t if fit >= t else fit
+            if seg >= t or (t == big // 2 and seg > 0):
+                candidates = [(1, seg, s // seg * -(-seg // t) * t + -(-(s % seg) // t) * t)]
+        for r, seg, padded in candidates:
+            rate = speed * r * s / padded
+            if rate > best:
+                best, plan = rate, (t, r, seg)
+    return plan
+
+
+def test_f32_launch_plans_fit_shared_memory():
+    """With the default encodings every FP32 kernel's plan fits a block's
+    232,448 B: the point kernels (1, 2, 4, 5) on 128-, 64- and 32-point
+    tiles at W = 256, 512 and 1024 (230,176 B at 1024: two 32 KB ring
+    stages and the heads' partial sums); the render tile (3) at W = 1024 on
+    the same 32-point tile, whole rays at S = 64 and two segments of 96
+    samples at S = 192 (232,120 B), where whole rays would need the 16-point
+    tile; at W = 256 its plans of PR 13 (128 points and 2 rays at S = 64 and
+    192, 64 points and 4 rays at S = 144)."""
+    lib = _FakeMarchLibrary()
+    in_ch, in_ch_views = TNet().input_ch, TNet().input_ch_views
+    rx, rd = f32_rows(in_ch), f32_rows(in_ch_views)
+    tile = ctypes.c_int()
+    for width, want in ((256, 128), (512, 64), (1024, 32)):
+        smem = lib.nerf_f32_launch_bytes(width, in_ch, in_ch_views, ctypes.pointer(tile))
+        assert tile.value == want == f32_pick_tile(width, rx, rd, 0)
+        assert smem == f32_core_bytes(want, width, rx, rd) <= SMEM_OPTIN
+    assert f32_core_bytes(32, 1024, rx, rd) == 230_176
+    plans = {(w, s): _render_tile_f32_plan(s, w, in_ch, in_ch_views)
+             for w in (256, 512, 1024) for s in (64, 144, 192)}
+    for (w, s), (t, rays, seg) in plans.items():
+        assert f32_core_bytes(t, w, rx, rd) + _group_bytes(rays, seg) <= SMEM_OPTIN
+    assert plans[(1024, 64)] == (32, 1, 64) and plans[(1024, 192)] == (32, 1, 96)
+    assert f32_core_bytes(32, 1024, rx, rd) + _group_bytes(1, 96) == 232_120
+    assert _group_bytes(1, 192) > SMEM_OPTIN - f32_core_bytes(32, 1024, rx, rd)
+    assert plans[(256, 64)] == (128, 2, 64) and plans[(256, 192)] == (128, 2, 192)
+    assert plans[(256, 144)] == (64, 4, 144)
 
 
 # ------------------------------------------- the render tile's segments --
@@ -401,7 +570,7 @@ def test_render_tile_takes_any_samples_per_ray(monkeypatch, dtype):
             out = rm.fused_render_tile(params, *rays, net, compute_dtype=dtype)
         assert rm.fused_render_tile.launches == 1 and out[3].shape == (2, 4096)
         (args,) = lib.calls
-        assert (args[4], args[5], args[7]) == (2, 4096, rm.core_width(net.netwidth))
+        assert (args[4], args[5], args[8]) == (2, 4096, rm.core_width(net.netwidth))
         lib = _FakeRenderTileLibrary(0)
         with pytest.raises(NotImplementedError, match="no room in shared memory for one "
                                                       "sample"):
