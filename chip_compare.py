@@ -12,11 +12,13 @@ OLD for two); each run is a child process started in that checkout
 the versions never share a library. A child times, on
 random weights of the default net (8x256, PE 10/4) and the pipeline's ray
 shapes (``chip_smoke.march_inputs``' camera sphere):
-  - each of the five kernel wrappers in float32 at N = 8192 rays x S = 64
-    and 192 samples (M = N*S points for the point-major ones), and
-    fused_nerf_march also at S = 16 and at N = 32768, S = 16; each in bf16
-    (the tensor-core core) at S = 192, and fused_nerf_march in bf16 at
-    S = 64 too;
+  - each of the five kernel wrappers in float32 and in bf16 (the tensor-core
+    core) at N = 8192 rays x S = 64 and 192 samples (M = N*S points for the
+    point-major ones), and fused_nerf_march in float32 also at S = 16 and at
+    N = 32768, S = 16;
+  - each of the five in bf16 on random weights of the 8x512 net at S = 64
+    and 192 (the standard wgmma core's other width), and fused_nerf_march in
+    bf16 on the 8x1024 net at S = 64 (the transposed wgmma core);
   - NeuralSimRenderer.render_images on box-scene weights, K = 8 poses at
     100x100: the exact render (64 + 128 samples, the ray march) in float32
     and bf16, and the production render (production_mode()) in float32;
@@ -35,7 +37,14 @@ weights of the 8x1024 net (mip-NeRF 360's width; PE 10/4):
     march routes (median of WIDE_RENDERS after one untimed render).
 It prints one JSON line per run, then a summary line: the median over a
 version's runs of each number, and each later checkout's medians over
-OLD's. Without a CUDA device it exits nonzero.
+OLD's; and, for the default net, each checkout's bf16 outputs of the five
+kernels at S = 192, the 8x512 net's at S = 64 and the 8x1024 net's at S =
+64 on random and on He-scaled weights (the same weights and rays in every
+checkout) against OLD's: bit-equal, or the largest difference; and the
+8x1024 bf16 render tile on SMOKE_DRAWS' inputs (smoke_draws), each
+checkout's against the twin by the bf16 rule, beside the twin against its
+float64 and chunk-order sums (smoke_draws_witness). Without a CUDA device
+it exits nonzero.
 """
 
 from __future__ import annotations
@@ -43,9 +52,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 CHILD = "--child"
@@ -59,6 +70,11 @@ WIDE_RENDERS = 2
 # the nets a child times: the default (every kernel, both dtypes, three
 # renders) or the 8x1024 net (float32 kernels, twins, chain_ms, renders)
 NETS = ("default", "8x1024")
+# the environment variable naming the file where a child saves its bf16
+# outputs (the first run of each checkout)
+OUTPUTS = "CHIP_COMPARE_OUTPUTS"
+# the environment variable naming the file of SMOKE_DRAWS' inputs
+DRAWS = "CHIP_COMPARE_DRAWS"
 
 
 def events(fn, reps=7, warmup=2, batch=1):
@@ -182,6 +198,7 @@ def child(net_name):
         return [t.to(dev) for t in (o, d, vd, z)]
 
     out = {"checkout": os.getcwd()}
+    outputs = {}
     if net_name == "8x1024":
         child_widest(out, rays)
         print("RESULT " + json.dumps(out), flush=True)
@@ -206,18 +223,19 @@ def child(net_name):
                                    ("fused_nerf_mlp_pe", rm.fused_nerf_mlp_pe, pts, dirs),
                                    ("fused_nerf_mlp", rm.fused_nerf_mlp, x_pe, d_pe)):
                 time_kernel(f"{name}_f32_{key}", lambda: fn(params, a, b, net, f32))
+            time_kernel(f"fused_render_tile_bf16_{key}",
+                        lambda: rm.fused_render_tile(params, *r, net,
+                                                     compute_dtype=torch.bfloat16))
+            for name, fn, a, b in (
+                    ("fused_nerf_mlp_widepe", rm.fused_nerf_mlp_widepe, pts, dirs),
+                    ("fused_nerf_mlp_pe", rm.fused_nerf_mlp_pe, pts, dirs),
+                    ("fused_nerf_mlp", rm.fused_nerf_mlp, x_pe, d_pe)):
+                time_kernel(f"{name}_bf16_{key}", lambda: fn(params, a, b, net, torch.bfloat16))
             if s == 192:
-                time_kernel("fused_render_tile_bf16_S192",
-                            lambda: rm.fused_render_tile(params, *r, net,
-                                                         compute_dtype=torch.bfloat16))
-                for name, fn, a, b in (
-                        ("fused_nerf_mlp_widepe", rm.fused_nerf_mlp_widepe, pts, dirs),
-                        ("fused_nerf_mlp_pe", rm.fused_nerf_mlp_pe, pts, dirs),
-                        ("fused_nerf_mlp", rm.fused_nerf_mlp, x_pe, d_pe)):
-                    time_kernel(f"{name}_bf16_S192",
-                                lambda: fn(params, a, b, net, torch.bfloat16))
+                bf16_outputs(outputs, "default", params, net, r, pts, dirs, x_pe, d_pe)
             del r, pts, dirs, x_pe, d_pe
             torch.cuda.empty_cache()
+        wide_bf16(out, outputs, rays)
 
         box = box_scene_params(net, generator=torch.Generator().manual_seed(0), device=dev)
         models = {"coarse": box, "fine": box}
@@ -239,7 +257,179 @@ def child(net_name):
                 seconds.append(time.perf_counter() - t0)
             out[f"render_{tag}_s"] = statistics.median(seconds)
             out[f"render_{tag}_budget"] = renderer.rc.hit_budget
+    save = os.environ.get(OUTPUTS)
+    if save and not os.path.exists(save):
+        torch.save(outputs, save)
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def bf16_outputs(outputs, net_name, params, net, r, pts, dirs, x_pe, d_pe):
+    """The five kernels' bf16 outputs on one ray batch, on the CPU, into
+    outputs[net_name]."""
+    import torch
+
+    from neuralsim_tpu_torch.kernels import raymarch as rm
+
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        got = {"fused_nerf_march": rm.fused_nerf_march(params, *r, net, bf16),
+               "fused_render_tile": rm.fused_render_tile(params, *r, net, compute_dtype=bf16),
+               "fused_nerf_mlp_widepe": rm.fused_nerf_mlp_widepe(params, pts, dirs, net, bf16),
+               "fused_nerf_mlp_pe": rm.fused_nerf_mlp_pe(params, pts, dirs, net, bf16),
+               "fused_nerf_mlp": rm.fused_nerf_mlp(params, x_pe, d_pe, net, bf16)}
+    outputs[net_name] = {k: [t.cpu() for t in (v if isinstance(v, tuple) else (v,))]
+                         for k, v in got.items()}
+
+
+def he_scaled(params):
+    """chip_smoke.py's He-scaled weights: every kernel times sqrt(6)."""
+    return {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0) for k, v in params.items()}
+
+
+def wide_bf16(out, outputs, rays):
+    """The five kernels in bf16 on the 8x512 net at S = 64 and 192 (their
+    outputs at S = 64 into outputs["8x512"]), and fused_nerf_march in bf16
+    on the 8x1024 net at S = 64, into out; the five's outputs on the 8x1024
+    net at S = 64 on its random and He-scaled weights into
+    outputs["8x1024"] and ["8x1024_he"], and the render tile's on the
+    SMOKE_DRAWS inputs (the file DRAWS names) into ["smoke_draws"]."""
+    import torch
+
+    from neuralsim_tpu_torch.config import NeRFNetConfig
+    from neuralsim_tpu_torch.kernels import raymarch as rm
+    from neuralsim_tpu_torch.models.nerf import init_nerf_params
+    from neuralsim_tpu_torch.ops.encoding import positional_encoding
+
+    bf16 = torch.bfloat16
+    for width in (512, 1024):
+        net = NeRFNetConfig(netwidth=width, netwidth_fine=width)
+        params = init_nerf_params(net, generator=torch.Generator().manual_seed(width),
+                                  device="cuda")
+        with torch.no_grad():
+            for s in ((64, 192) if width == 512 else (64,)):
+                r = rays(8192, s)
+                pts, dirs = rm.ray_points(*r)
+                x_pe, d_pe = (positional_encoding(pts, net.multires),
+                              positional_encoding(dirs, net.multires_views))
+                kernels = (("fused_nerf_march", lambda: rm.fused_nerf_march(params, *r, net, bf16)),
+                           ("fused_render_tile", lambda: rm.fused_render_tile(
+                               params, *r, net, compute_dtype=bf16)),
+                           ("fused_nerf_mlp_widepe", lambda: rm.fused_nerf_mlp_widepe(
+                               params, pts, dirs, net, bf16)),
+                           ("fused_nerf_mlp_pe", lambda: rm.fused_nerf_mlp_pe(
+                               params, pts, dirs, net, bf16)),
+                           ("fused_nerf_mlp", lambda: rm.fused_nerf_mlp(
+                               params, x_pe, d_pe, net, bf16)))
+                for name, fn in kernels[:1 if width == 1024 else 5]:
+                    key = f"{name}_bf16_8x{width}_S{s}"
+                    out[key] = events(fn, reps=3, warmup=1)
+                    out[f"{key}_b{BATCH}"] = events(fn, reps=3, warmup=1, batch=BATCH)
+                if s == 64:
+                    bf16_outputs(outputs, f"8x{width}", params, net, r, pts, dirs, x_pe, d_pe)
+                if width == 1024:
+                    bf16_outputs(outputs, "8x1024_he", he_scaled(params), net, r, pts, dirs,
+                                 x_pe, d_pe)
+                del r, pts, dirs, x_pe, d_pe
+                torch.cuda.empty_cache()
+    if os.environ.get(DRAWS):
+        params, r = torch.load(os.environ[DRAWS])
+        got = rm.fused_render_tile({k: v.cuda() for k, v in params.items()},
+                                   *[t.cuda() for t in r], net, compute_dtype=bf16)
+        outputs["smoke_draws"] = {"fused_render_tile": [t.cpu() for t in got]}
+
+
+def smoke_draws(path):
+    """SMOKE_DRAWS: the inputs that chip_smoke.py's phase 3 gave the 8x1024
+    net's He-scaled check at its ragged shape (1,001 rays x 48 samples)
+    while its cluster walks still drew from the phase's generator, made on
+    the CPU and saved to path: (He-scaled params, rays). There the bf16
+    render tile moved the depth of 2 of the 1,001 rays past the bf16 rule."""
+    import torch
+
+    import chip_smoke as cs
+    from neuralsim_tpu_torch.config import NeRFNetConfig
+    from neuralsim_tpu_torch.models.box_scene import box_scene_params
+    from neuralsim_tpu_torch.models.nerf import init_nerf_params
+
+    gen, cpu = torch.Generator().manual_seed(0), "cpu"
+    init_nerf_params(NeRFNetConfig(), generator=gen, device=cpu)
+    box_scene_params(NeRFNetConfig(), generator=gen, device=cpu)
+    for n, s, _ in cs.RAY_SHAPES:
+        cs.march_inputs(n, s, gen, cpu)
+    for net in (NeRFNetConfig(), NeRFNetConfig(**cs.EXTRA_NETS[cs.WIDE])):
+        init_nerf_params(net, generator=gen, device=cpu)
+        for n, s in cs.CLUSTER_SHAPES + ((cs.N_RAYS, 192),):
+            cs.march_inputs(n, s, gen, cpu)
+    for name, kw in cs.EXTRA_NETS.items():
+        params = init_nerf_params(NeRFNetConfig(**kw), generator=gen, device=cpu)
+        shapes = [sh for sh in cs.EXTRA_SHAPES if name not in cs.RAGGED_ONLY or sh[0] != cs.N_RAYS]
+        rays = {sh: cs.march_inputs(*sh, gen, cpu) for sh in shapes}
+        if name == "8x1024":
+            torch.save((he_scaled(params), rays[cs.RAGGED]), path)
+            return
+
+
+def smoke_draws_witness(path, outputs, labels):
+    """On SMOKE_DRAWS' inputs, the bf16 rule's share of values past it and
+    the largest difference, per output (rgb, disp, acc, weights, depth):
+    each checkout's render tile against the twin, and the twin against
+    itself with float64 sums and with each layer's products summed in
+    float32 over 64-row chunks one after another (the cores' order)."""
+    import torch
+
+    import chip_smoke as cs
+    import neuralsim_tpu_torch.models.nerf as tn
+    from neuralsim_tpu_torch.config import NeRFNetConfig
+    from neuralsim_tpu_torch.kernels import raymarch as rm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = NeRFNetConfig(**cs.EXTRA_NETS["8x1024"])
+    params, r = torch.load(path)
+    params, r = {k: v.cuda() for k, v in params.items()}, [t.cuda() for t in r]
+
+    def twin(p, rays):
+        with torch.no_grad():
+            return rm.render_tile_ref(p, *rays, net, compute_dtype=torch.bfloat16)
+
+    def chunked(h, kernel, bias, compute_dtype):
+        a, w = tn.round_to(h, compute_dtype), tn.round_to(kernel, compute_dtype)
+        acc = torch.zeros(a.shape[0], w.shape[1], dtype=a.dtype, device=a.device)
+        for k0 in range(0, a.shape[1], 64):
+            acc = acc + a[:, k0:k0 + 64] @ w[k0:k0 + 64]
+        return acc + bias.to(a.dtype)
+
+    def rule(got, want):
+        return [(cs.bf16_rule(g.double().cuda(), w.double())[1],
+                 float((g.double().cuda() - w.double()).abs().max())) for g, w in zip(got, want)]
+
+    want = twin(params, r)
+    out = {label: rule(o["smoke_draws"]["fused_render_tile"], want)
+           for label, o in zip(labels, outputs)}
+    out["twin_float64"] = rule(twin({k: v.double() for k, v in params.items()},
+                                    [t.double() for t in r]), want)
+    plain, tn._dense = tn._dense, chunked
+    try:
+        out["twin_chunk_order"] = rule(twin(params, r), want)
+    finally:
+        tn._dense = plain
+    return out
+
+
+def compare_outputs(paths, labels):
+    """Each later checkout's saved bf16 outputs against OLD's: {label:
+    {net: {kernel: "bit-equal" or the largest difference}}}."""
+    import torch
+
+    saved = [torch.load(path) for path in paths]
+    old = saved[0]
+    out = {}
+    for label, new in zip(labels[1:], saved[1:]):
+        out[label] = {
+            net: {k: ("bit-equal" if all(torch.equal(a, b) for a, b in zip(v, new[net][k]))
+                      else max(float((a - b).abs().max()) for a, b in zip(v, new[net][k])))
+                  for k, v in kernels.items()}
+            for net, kernels in old.items()}
+    return out, saved
 
 
 def option(args, flag, default):
@@ -264,11 +454,20 @@ def main():
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     runs = {checkout: [] for checkout in checkouts}
+    saved = tempfile.mkdtemp()
+    paths = [os.path.join(saved, f"{i}.pt") for i in range(len(checkouts))]
+    draws = os.path.join(saved, "draws.pt")
+    if net_name == "default":
+        smoke_draws(draws)
     for _ in range(rounds):
         for checkout in checkouts + checkouts[::-1]:
+            env = dict(os.environ, **{OUTPUTS: paths[checkouts.index(checkout)]})
+            if net_name == "default":
+                env[DRAWS] = draws
             proc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), CHILD,
                                    "--net", net_name],
-                                  cwd=checkout, capture_output=True, text=True, timeout=1200)
+                                  cwd=checkout, capture_output=True, text=True, timeout=1200,
+                                  env=env)
             lines = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")]
             if proc.returncode != 0 or not lines:
                 sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
@@ -283,6 +482,10 @@ def main():
     for label in labels[1:]:
         summary[f"{label}_over_old"] = {k: v / summary["old"][k]
                                         for k, v in summary[label].items() if summary["old"].get(k)}
+    if net_name == "default":
+        summary["bf16_outputs_vs_old"], outputs = compare_outputs(paths, labels)
+        summary["smoke_draws_bf16_rule"] = smoke_draws_witness(draws, outputs, labels)
+    shutil.rmtree(saved, ignore_errors=True)
     print(json.dumps({"card": smi, "net": net_name, "summary": summary}), flush=True)
 
 

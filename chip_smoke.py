@@ -189,7 +189,10 @@ Phases, each of which exits nonzero when it fails:
      loading the kernels this run built) against one process: a K = MESH_K
      epoch with float32 strips (K split over the data axis, the inner
      train data-parallel, the strips' images split) at MESH_INNER_STEPS
-     inner steps, checked, and at the default 50, reported; and
+     inner steps, checked in two parts: the inner train's step against one
+     process's, and the stages after it (v, grad_E, the strips, psi)
+     against one process started from the rank's trained detector; the
+     epoch end to end, and at the default 50 inner steps, reported; and
      MESH_TRAIN_STEPS train_nerf steps at N_rand MESH_RAYS (each rank 512
      rays), at the tolerances by the MESH_* constants; each rank's kernel 1
      launches, seconds per part, and which collectives gloo runs on CUDA
@@ -418,24 +421,33 @@ PSNR_RISE_DB = 5.0
 # (tests/test_driver_mesh.py:96-120: psi rtol 1e-5 / atol 1e-7, at the psi
 # learning rate MESH_LR, which keeps the step small enough for psi's
 # tolerance to mean what it means there, as in
-# tests/test_torch_driver_mesh.py; grad_psi within the JAX test's rtol 2e-3
-# taken of its norm: its absolute atol 2e-6 is the scale of that test's ~0
-# gradient, and no absolute floor fits both states phase 12 starts from
-# (NVIDIA H100 80GB HBM3, 700 W): from a fresh detector the norm was 2.2e5
-# and bins the saturated softmax leaves at ~1e-4 moved by 1.3e-4, from
-# phase 10's trained one the norm was 0.43 and bins at 2.4e-4 moved by
-# 1.5e-6; both 2e-4 of the norm or less; inner loss
-# 1e-3; mAP rtol 1e-2 / atol 1e-3; the gathered renders F32_TOL); the same
-# epoch at the default 50 inner steps, reported (over 50 steps the data
-# axis's other summation order moves grad_psi far more, as cuDNN's
-# algorithms do: PERF.md); and MESH_TRAIN_STEPS train_nerf steps at N_rand
-# MESH_RAYS on MESH_VIEWS box views at the 100x100 camera (losses
-# MESH_TRAIN_REL relative, each parameter tensor MESH_PARAM_REL of its norm,
-# the ranks' parameters equal)
+# tests/test_torch_driver_mesh.py; grad_psi within the JAX test's rtol 2e-3,
+# MESH_GRAD_REL, taken of its norm: its absolute atol 2e-6 is the scale of
+# that test's ~0 gradient, and no absolute floor fits both states phase 12
+# starts from (NVIDIA H100 80GB HBM3, 700 W): from a fresh detector the
+# norm was 2.2e5 and bins the saturated softmax leaves at ~1e-4 moved by
+# 1.3e-4, from phase 10's trained one the norm was 0.43 and bins at 2.4e-4
+# moved by 1.5e-6; both 2e-4 of the norm or less; inner loss 1e-3; mAP rtol
+# 1e-2 / atol 1e-3; the gathered renders F32_TOL). grad_psi is held against
+# one process that starts its later stages from the rank's own trained
+# detector, and the data-parallel inner train by its step (trained minus
+# starting trainable parameters, a learning rate times the summed
+# gradients) within the same MESH_GRAD_REL of the one process's step:
+# phase 10's epoch 0 runs cuDNN's default algorithms, so the state phase 12
+# starts from differs run to run, and from some of them grad_psi follows
+# the inner train's rounding, as the 50-step epoch's does (PERF.md gives
+# the runs). The end-to-end difference, and the one that one process shows
+# between the two trained detectors, are reported; so is the same epoch at
+# the default 50 inner steps (over 50 steps the data axis's other summation
+# order moves grad_psi far more, as cuDNN's algorithms do: PERF.md); and
+# MESH_TRAIN_STEPS train_nerf steps at N_rand MESH_RAYS on MESH_VIEWS box
+# views at the 100x100 camera (losses MESH_TRAIN_REL relative, each
+# parameter tensor MESH_PARAM_REL of its norm, the ranks' parameters equal)
 MESH_REL = 1e-6
 MESH_K, MESH_LR, MESH_INNER_STEPS = 8, 1e-8, 2
 MESH_TRAIN_STEPS, MESH_RAYS, MESH_VIEWS = 3, 1024, 4
 MESH_TRAIN_REL, MESH_PARAM_REL = 1e-5, 1e-4
+MESH_GRAD_REL = 2e-3
 MESH_TIMEOUT = 600.0
 COUNTED = (rm.fused_nerf_march, rm.fused_nerf_mlp_widepe, rm.fused_nerf_mlp_pe,
            rm.fused_nerf_mlp, rm.fused_render_tile)
@@ -640,32 +652,112 @@ def phase_device():
 # (nerf_mlp_f32) input stage
 F32_WIDEST = re.compile(r"(nerf_march_f32|nerf_mlp_f32|render_tile_f32)ILi(\d+)ELi1024E"
                         r"(?:Li(\d)E)?")
+# the bf16 kernels of the standard wgmma core (W = 256 with NX 1-4, W = 512
+# with NX 1-3 x_pe chunks): clusters of blocks with a producer warpgroup
+STANDARD_CORE = re.compile(r"(nerf_march_wgmma|nerf_mlp_wgmma|render_tile_wgmma)"
+                           r"ILi(256|512)ELi([1-4])E(?:Li(\d)E)?(?:Lb(\d)E)?")
+# the standard core's tile walks that a cluster must get right, (N, S): a
+# single ray, fewer tiles than clusters, odd tile counts, a last ray group
+# smaller than the others; a hang or a wrong masked slot fails the run
+CLUSTER_SHAPES = ((1, 1), (1, 2), (1, 64), (3, 5), (129, 1), (130, 2), (67, 64), (1001, 48),
+                  (8191, 3))
+
+
+def sass_registers(path):
+    """{kernel: the highest register a thread of it uses + 1} from the
+    library's SASS (cuobjdump): on the standard wgmma core the consumers'
+    count past setmaxnreg, which ptxas's launch count does not show; {}
+    where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+        elif name:
+            regs = [int(r) for r in re.findall(r"(?<![U\w])R(\d+)", line)]
+            if regs:
+                out[name] = max(out.get(name, 0), max(regs) + 1)
+    return out
 
 
 def phase_build():
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"build: {len(built)} sources in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
-    spills, widest = [], []
+    spills, widest, standard = [], [], []
     for name, (path, seconds, report) in built.items():
         log(f"build {name}.cu: {seconds:.1f} s -> {path.name}")
-        kernel = None
+        kernel, used = None, sass_registers(path)
         for line in report.splitlines():
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1] if "'" in line else line.strip()
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 log(f"  ptxas {kernel}: {line.strip()}")
                 m = F32_WIDEST.search(kernel or "")
                 if m:
                     args = ", ".join(g for g in (m.group(2), "1024", m.group(3)) if g)
                     widest.append(f"{m.group(1)}<{args}>: {line.split(':', 1)[-1].strip()}")
+                m = STANDARD_CORE.search(kernel or "")
+                if m and "spill" in line:
+                    args = ", ".join(g for g in m.groups()[1:] if g)
+                    standard.append(
+                        f"{m.group(1)}<{args}>: {line.split(':', 1)[-1].strip()}; SASS: "
+                        f"{used.get(kernel, 'not measured')} registers a consumer thread")
             spilled = [int(b) for b in re.findall(r"(\d+) bytes spill", line)]
             if any(spilled):
                 spills.append(f"{name}.cu {kernel}: {sum(spilled)} bytes spill (stores + loads)")
     for line in widest:
         log(f"build FP32 core W=1024 {line}")
+    for line in standard:
+        log(f"build standard wgmma core (clusters, a producer warpgroup) {line}")
     log("build spills: " + ("; ".join(spills) if spills else "none"))
     return spills
+
+
+def cluster_launch(kernel):
+    """The last cluster launch of a kernel's library: (blocks per cluster,
+    blocks, the device's most active clusters, threads per block)."""
+    lib = rm._library(REPLACES[kernel][0][:-3])
+    info = (ctypes.c_int * 4)()
+    lib.nerf_wgmma_last_launch(info)
+    return tuple(info)
+
+
+def check_cluster_walks(gen):
+    """Every bf16 kernel against its twin on the default net and WIDE at
+    CLUSTER_SHAPES (the render tile from S = 2: its twin returns no weights
+    at S = 1), each launch a cluster of the standard core (of 2 blocks at
+    W = 512, of 1 at 256); logs each kernel's cluster launch at N_RAYS x
+    192: {net: {kernel: launch}}."""
+    out = {}
+    for name in ("default", WIDE):
+        net = NeRFNetConfig() if name == "default" else NeRFNetConfig(**EXTRA_NETS[name])
+        want = 2 if rm.core_width(net.netwidth) == 512 else 1
+        params = init_nerf_params(net, generator=gen, device=DEVICE)
+        for n, s in CLUSTER_SHAPES + ((N_RAYS, 192),):
+            rays = march_inputs(n, s, gen, DEVICE)
+            for kernel, (_, _, inputs) in KERNELS.items():
+                if kernel == "fused_render_tile" and s == 1:
+                    continue
+                check(kernel, params, inputs(net, rays), net, torch.bfloat16,
+                      f"{kernel} cluster walk net {name} N={n} S={s}")
+                cluster, grid, active, threads = cluster_launch(kernel)
+                if cluster != want or threads != 384:
+                    raise AssertionError(f"{kernel} on {name} did not launch as clusters of "
+                                         f"{want} with a producer warpgroup: "
+                                         f"{cluster_launch(kernel)}")
+                if (n, s) == (N_RAYS, 192):
+                    out.setdefault(name, {})[kernel] = dict(
+                        cluster=cluster, grid=grid, max_active_clusters=active, threads=threads)
+                    log(f"cluster launch {kernel} net {name} N={n} S={s}: {cluster} blocks a "
+                        f"cluster, grid {grid}, MaxActiveClusters {active}, {threads} threads")
+        log(f"cluster walks net {name}: every bf16 kernel held to its twin at "
+            f"{len(CLUSTER_SHAPES)} tile walks (N, S) {CLUSTER_SHAPES}")
+    return out
 
 
 def check(kernel, params, args, net, dtype, tag, nan=False):
@@ -795,6 +887,11 @@ def phase_kernels(net, peaks):
         del rays
         torch.cuda.empty_cache()
     rec["fused_render_tile"]["max_samples"] = render_tile_maxima(net)
+    # its own generator: the draws of the checks after it stay those they had
+    walks = timed_phase("3 cluster walks", check_cluster_walks, torch.Generator().manual_seed(1))
+    for name, launches in walks.items():
+        for kernel, launch in launches.items():
+            rec[kernel].setdefault("cluster_launch", {})[name] = launch
     for name, kw in EXTRA_NETS.items():
         rec_net, plans = timed_phase(f"3 net {name}", check_net, NeRFNetConfig(**kw), name, gen)
         for kernel, errs in rec_net.items():
@@ -3087,10 +3184,13 @@ def mesh_train(ds, device, mesh=None):
     return state.params, losses, seconds
 
 
-def mesh_epoch(cfg, models, val, args, draws, out_dir, device, mesh=None):
+def mesh_epoch(cfg, models, val, args, draws, out_dir, device, mesh=None, theta=None):
     """One epoch of phase 12(b) on this process (a rank, or the one
-    process): its record's numbers, renders, seconds and kernel 1 launches
-    (all, and those of the render)."""
+    process): its record's numbers, renders, seconds, kernel 1 launches
+    (all, and those of the render) and the trainable parameters the inner
+    train left (``theta``). Given ``theta``, the stages after the inner
+    train start from those parameters in place of its own (its losses are
+    kept)."""
     drv = driver.BilevelDriver(cfg, models, val, object_class=1, output_dir=out_dir,
                                device=device, mesh=mesh)
     kept = {"render_launches": 0}
@@ -3104,15 +3204,28 @@ def mesh_epoch(cfg, models, val, args, draws, out_dir, device, mesh=None):
         return out
 
     drv._render = counted
+    train = driver.inner_train
+
+    def trained_to_theta(*a, **k):
+        state, metrics = train(*a, **k)
+        given = {n: torch.as_tensor(v).to(device, copy=True) for n, v in theta.items()}
+        return state._replace(params={**state.params, **given}), metrics
+
+    if theta is not None:
+        driver.inner_train = trained_to_theta
     sync(device)
     zero_counts()
     t0 = time.perf_counter()
-    record = drv.run_epoch(1, *args, draws=draws)
+    try:
+        record = drv.run_epoch(1, *args, draws=draws)
+    finally:
+        driver.inner_train = train
     sync(device)
+    trained, _ = trainer.split_trainable(record["detector_state"].params, cfg.detector)
     return {"epoch_s": time.perf_counter() - t0, "launches": counts(), "psi": record["psi"],
             "grad_psi": record["grad_psi"], "inner_loss": record["inner_loss"],
             "map": map_values(record["map"]), "renders": kept["renders"],
-            "render_launches": kept["render_launches"]}
+            "render_launches": kept["render_launches"], "theta": to_cpu(trained)}
 
 
 def _mesh_rank(path, device):
@@ -3143,6 +3256,8 @@ def _mesh_rank(path, device):
     for name, cfg, args, draws in inputs["epochs"]:
         res[name] = mesh_epoch(cfg, inputs["models"], inputs["val"], args, draws,
                                os.path.join(inputs["out"], name), device, mesh)
+        if name != "checked":
+            del res[name]["theta"]
     zero_counts()
     res["train_params"], res["train_loss"], res["train_s"] = mesh_train(inputs["ds"], device,
                                                                         mesh)
@@ -3155,7 +3270,7 @@ def mesh_two_ranks(rerun, box):
     refuses two ranks on one device) against one process (see the MESH_*
     constants), both under deterministic cuDNN."""
     res = {"one_process": {}}
-    epochs, want = [], {}
+    epochs, want, starts = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         torch.backends.cudnn.deterministic = True
         try:
@@ -3165,6 +3280,7 @@ def mesh_two_ranks(rerun, box):
                     object_class=1, output_dir=os.path.join(tmp, "draws"),
                     device=DEVICE).draw_epoch()
                 epochs.append((name, cfg, to_cpu(args), to_cpu(draws)))
+                starts[name] = (cfg, args, draws)
                 want[name] = mesh_epoch(cfg, rerun["models"], rerun["val"], args, draws,
                                         os.path.join(tmp, "one", name), DEVICE)
             ds = mesh_dataset(box)
@@ -3180,6 +3296,18 @@ def mesh_two_ranks(rerun, box):
         ranks = parallel_launch.launch(_mesh_rank, 2, (path, DEVICE.type), device=DEVICE.type,
                                        backend="gloo", timeout=MESH_TIMEOUT)
         res["launch_s"] = time.perf_counter() - t0
+        # the checked epoch in one process once more, its stages after the
+        # inner train started from each rank's trained detector
+        c_cfg, c_args, c_draws = starts["checked"]
+        torch.backends.cudnn.deterministic = True
+        try:
+            at_rank = [mesh_epoch(c_cfg, rerun["models"], rerun["val"], c_args, c_draws,
+                                  os.path.join(tmp, "at_rank", str(r["rank"])), DEVICE,
+                                  theta=r["checked"]["theta"]) for r in ranks]
+        finally:
+            torch.backends.cudnn.deterministic = False
+    start, _ = trainer.split_trainable(c_args[2].params, c_cfg.detector)
+    start = {n: v.detach().cpu().double() for n, v in start.items()}
     res["backend"], res["gloo_cuda"] = ranks[0]["backend"], ranks[0]["gloo_cuda"]
     res["setup_s"] = [r["setup_s"] for r in ranks]
     for name, w in want.items():
@@ -3201,14 +3329,30 @@ def mesh_two_ranks(rerun, box):
         f" (one process {res['one_process']['train']['launches']['fused_nerf_march']})")
     w = want["checked"]
     finite = np.isfinite(w["map"])
-    for r in ranks:
+    step_one = torch.cat([(w["theta"][n].double() - v).reshape(-1) for n, v in start.items()])
+    for r, one in zip(ranks, at_rank):
         tag, got = f"rank {r['rank']}", r["checked"]
         close(f"{tag} renders", got["renders"], w["renders"].cpu().numpy(), 0.0, F32_TOL)
         close(f"{tag} psi", got["psi"], w["psi"].cpu().numpy(), 1e-5, 1e-7)
+        step = torch.cat([(torch.from_numpy(got["theta"][n]).double() - v).reshape(-1)
+                          for n, v in start.items()])
+        rel_norm(f"mesh {tag} inner train step", step, step_one, MESH_GRAD_REL)
         g, gw = np.asarray(got["grad_psi"], np.float64), np.asarray(w["grad_psi"], np.float64)
+        ga = np.asarray(one["grad_psi"], np.float64)
         log(f"mesh [{tag} grad_psi]: largest elementwise difference "
-            f"{float(np.max(np.abs(g - gw) / np.abs(gw))):.3e} relative")
-        rel_norm(f"mesh {tag} grad_psi", torch.from_numpy(g), torch.from_numpy(gw), 2e-3)
+            f"{float(np.max(np.abs(g - ga) / np.abs(ga))):.3e} relative from one process on "
+            f"the rank's trained detector")
+        rel_norm(f"mesh {tag} grad_psi", torch.from_numpy(g), torch.from_numpy(ga),
+                 MESH_GRAD_REL)
+        e2e = {"grad_psi_rel": float(np.linalg.norm(g - gw) / np.linalg.norm(gw)),
+               "one_process_between_detectors": float(np.linalg.norm(ga - gw)
+                                                      / np.linalg.norm(gw)),
+               "step_rel": float((step - step_one).norm() / step_one.norm())}
+        res.setdefault("checked_end_to_end", []).append(e2e)
+        log(f"mesh [{tag}] end to end (reported): grad_psi {e2e['grad_psi_rel']:.3e} of the "
+            f"norm from one process's own epoch, which moves "
+            f"{e2e['one_process_between_detectors']:.3e} between its own and the rank's "
+            f"trained detector (steps {e2e['step_rel']:.3e} apart)")
         close(f"{tag} inner loss", got["inner_loss"], w["inner_loss"], 1e-3, 0.0)
         close(f"{tag} mAP", got["map"][finite], w["map"][finite], 1e-2, 1e-3)
         close(f"{tag} train losses", r["train_loss"], want_loss, MESH_TRAIN_REL, 0.0)
@@ -3414,6 +3558,7 @@ def main():
             "main_path_wide": {name: runs.get(kernel) for name, runs in wide_main.items()},
             "max_samples": r.get("max_samples"),
             "long_rays": r.get("long_rays"),
+            "cluster_launch_bf16": r.get("cluster_launch"),
             "build_spills": spills,
             "shape": f"N={N_RAYS} rays x S samples (M = N*S points); "
                      "ms/plain_ms/bound_ms at float32 S=192, *_bf16 at bfloat16 S=192; "

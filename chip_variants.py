@@ -6,21 +6,28 @@ compared on the same card in the same call.
     python3 chip_variants.py [--rounds 3] [--nets 8x1024[,8x256,...]]
                              [--variants "committed,max as fmaxf"]
                              [--kernels fused_nerf_march,fused_render_tile,...]
+                             [--s 64,192] [--dtypes bfloat16]
+                             [--parent CHECKOUT]
 
 Each variant is the repository's ``neuralsim_tpu_torch/kernels/csrc/`` with
-a few text edits of its headers (VARIANTS below), built with nvcc under
+a few text edits of its headers (VARIANTS below), or the ``csrc/`` of the
+checkout that ``--parent`` names (default ``_archive/parent``, gitignored:
+unpack the parent commit there with ``git archive``), built with nvcc under
 ``kernels/_build/variants/`` (gitignored, removed at the end). The script
-prints each variant's ptxas registers and spills for the ray-march kernels,
-then, in turns over the rounds, the times of fused_nerf_march (or of the
+prints each variant's ptxas registers, spills and warnings for the
+ray-march kernels, then, in turns over the rounds, the times of
+fused_nerf_march (or of the
 wrappers that ``--kernels`` names) at N = 8192 rays on random weights of
 the nets it lists (NETS: the default net at S = 64, 192 and 16
-and an 8x512 net at S = 64, in float32 and bf16, whose kernel runs the
+and an 8x512 net at S = 64 and 192, in float32 and bf16, whose kernel runs the
 tensor-core core, which shares the weight ring; the 8x1024 net at S = 64
 and 192 in float32), each checked against the plain twin first (float32
 2e-3, bf16 by the bf16 rule of chip_smoke.py) unless the variant is timed
-only (its values are wrong by design); then one JSON line: the median time
-of each variant, net and shape. ``--nets`` keeps the nets named and
-``--variants`` the variants. Without a CUDA device it exits nonzero.
+only (its values are wrong by design), timed as single launches (median of
+7) and as the mean of BATCH back-to-back launches (``_b10``, the device
+time); then one JSON line: the median times of each variant, net and shape. ``--nets`` keeps the nets named,
+``--variants`` the variants, ``--s`` the sample counts and ``--dtypes``
+the dtypes. Without a CUDA device it exits nonzero.
 """
 
 from __future__ import annotations
@@ -108,8 +115,47 @@ COPY = """    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %
 NO_COPY = """    (void)off;
     asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");
 """
+# the standard wgmma core's heads: a variant that skips them is timed only
+# (its values are wrong) and bounds what they cost
+DENSITY_HEAD = "  // ---- density head (alpha [W][1]) on the trunk output, CUDA cores -------\n  {"
+RGB_HEAD = "  for (int j = 0; j < NV / 8; ++j) {\n    const int k0 = 8 * j + 2 * (lane & 3);"
+# the standard wgmma core's cluster sizes (2 blocks at W = 512, 1 at 256),
+# swapped by a variant
+CLUSTERS = "constexpr int cluster_size(int width) { return width == 2 * N ? 2 : 1; }"
+# the epilogue's stores into the A tiles: a variant without them is timed
+# only (the next layer reads stale activations) and bounds what they cost
+EPILOGUE_STORE = """    if (h != nullptr) {
+      store_bf16x2(h, row, col0 + col, acc[4 * j], acc[4 * j + 1]);
+      store_bf16x2(h, row + 8, col0 + col, acc[4 * j + 2], acc[4 * j + 3]);
+    }"""
+# the producer's copy of a chunk part: a variant without it arrives on the
+# stage's full barrier alone (no bytes expected, none sent), so the
+# consumers re-read the stages' old bytes
+MC_COPY = """      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n"
+                   ::"r"(bar), "r"(bytes) : "memory");
+      if constexpr (CLUSTER == 1) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];\\n"
+            ::"r"(dst), "l"(src), "r"(part), "r"(bar) : "memory");
+      } else {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            ".multicast::cluster [%0], [%1], %2, [%3], %4;\\n"
+            ::"r"(dst), "l"(src), "r"(part), "r"(bar),
+              "h"(static_cast<uint16_t>((1u << CLUSTER) - 1u)) : "memory");
+      }
+"""
+MC_NO_COPY = """      (void)dst;
+      (void)src;
+      (void)bytes;
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");
+"""
 ALL = ("8x256", "8x512", "8x1024")
-# variant -> ([(file, old text, new text)], the nets it is timed on)
+# variant -> ([(file, old text, new text)], the nets it is timed on); edits
+# None: the csrc/ of the checkout that --parent names (default
+# _archive/parent), built the same way
+PARENT = "parent"
 VARIANTS = {
     "committed": ([], ALL),
     "unroll 4": ([(F32, UNROLL, UNROLL.replace("unroll 8", "unroll 4"))], ALL),
@@ -146,39 +192,78 @@ VARIANTS = {
     "wgmma biases by plain loads": ([(F32_WG, LOAD2,
                                       "return *reinterpret_cast<const float2*>(p);")],
                                     ("8x256",)),
+    # timed only, on the standard wgmma core (bf16 at W = 256 and 512): a
+    # ring that issues no copies (what the L2 weight stream costs, the most
+    # that sharing each chunk across a cluster can give), an epilogue that
+    # stores nothing into the A tiles (what its stores cost), and no alpha
+    # or rgb head (with the rgb head gone the views layer's epilogue is dead
+    # code too)
+    "wgmma: no copy (times only)": ([(F32, COPY, NO_COPY), (F32_WG, MC_COPY, MC_NO_COPY)],
+                                    ("8x256", "8x512")),
+    "wgmma: epilogue stores nothing (times only)": ([
+        (F32_WG, EPILOGUE_STORE, EPILOGUE_STORE.replace("h != nullptr", "false"))],
+        ("8x256", "8x512")),
+    "wgmma: heads skipped (times only)": ([
+        (F32_WG, DENSITY_HEAD, DENSITY_HEAD.replace("\n  {", "\n  if (false) {")),
+        (F32_WG, RGB_HEAD, RGB_HEAD.replace("j < NV / 8", "j < 0"))], ("8x256", "8x512")),
+    PARENT: (None, ("8x256", "8x512")),
+    "wgmma: the other cluster size": ([(F32_WG, CLUSTERS, CLUSTERS.replace("? 2 : 1", "? 1 : 2"))],
+                                      ("8x256", "8x512")),
 }
-TIMED_ONLY = ("W = 1024: no copy (times only)",)
+# back-to-back launches of one device-time sample
+BATCH = 10
+TIMED_ONLY = ("W = 1024: no copy (times only)", "wgmma: no copy (times only)",
+              "wgmma: epilogue stores nothing (times only)", "wgmma: heads skipped (times only)")
 # the nets timed: the default, the reference's --netwidth 512 (at S = 64),
 # and mip-NeRF 360's 8x1024 (float32): (config, S values, dtypes)
 BOTH = (torch.float32, torch.bfloat16)
 NETS = {"8x256": (NeRFNetConfig(), (64, 192, 16), BOTH),
-        "8x512": (NeRFNetConfig(netwidth=512, netwidth_fine=512), (64,), BOTH),
+        "8x512": (NeRFNetConfig(netwidth=512, netwidth_fine=512), (64, 192), BOTH),
         "8x1024": (NeRFNetConfig(netwidth=1024, netwidth_fine=1024), (64, 192),
                    (torch.float32,))}
 
 
-def build_variants(root: Path, names, sources):
+def batched_ms(fn):
+    """ms per call of BATCH back-to-back calls of fn (CUDA events), after
+    one: the kernel's device time, without the wrapper's host latency that a
+    single launch's time carries."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(BATCH):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / BATCH
+
+
+def build_variants(root: Path, names, sources, parent: Path):
     """{variant: (csrc, build dir)} of the variants named, each with the
-    sources named built; prints the ray march's ptxas lines."""
+    sources named built; prints their ptxas lines and warnings."""
     source, build_dir = build.CSRC, build.BUILD_DIR
     out = {}
     for name in names:
         edits = VARIANTS[name][0]
-        d = root / name.replace(" ", "_").replace(",", "") / "csrc"
-        shutil.copytree(source, d)
-        for file, old, new in edits:
+        d = root / re.sub(r"[^A-Za-z0-9]+", "_", name) / "csrc"
+        shutil.copytree(source if edits is not None else parent, d)
+        for file, old, new in edits or ():
             text = (d / file).read_text()
             if text.count(old) != 1:
                 raise SystemExit(f"chip_variants: variant {name!r} no longer applies")
             (d / file).write_text(text.replace(old, new))
         build.CSRC, build.BUILD_DIR = d, d.parent / "_build"
-        _, seconds, report = build.build_all(sources)["nerf_march"]
+        built = build.build_all(sources)
         lines, kernel = [], ""
-        for line in report.splitlines():
-            if "Compiling entry function" in line:
-                kernel = re.search(r"nerf_march_(f32|wgmma)I(Li\d+E)+", line).group(0)[11:]
-            elif "Used" in line or "spill" in line:
-                lines.append(f"{kernel}: {line.split('ptxas info    :')[-1].strip()}")
+        for src_name in sources:
+            for line in built[src_name][2].splitlines():
+                if "Compiling entry function" in line:
+                    kernel = re.search(r"(nerf_march|render_tile)_(f32|wgmma)I(L[ib]\d+E)+",
+                                       line)
+                    kernel = kernel.group(0) if kernel else ""
+                elif kernel and ("Used" in line or "spill" in line or "warning" in line):
+                    lines.append(f"{kernel}: {line.split('ptxas info    :')[-1].strip()}")
+        seconds = max(b[1] for b in built.values())
         print(f"variant {name}: built in {seconds:.1f} s; ptxas: {lines}", flush=True)
         out[name] = (d, d.parent / "_build")
     build.CSRC, build.BUILD_DIR = source, build_dir
@@ -197,6 +282,10 @@ def main():
         names = [name for name in names if name in keep]
     kernels = (sys.argv[sys.argv.index("--kernels") + 1].split(",") if "--kernels" in sys.argv
                else ["fused_nerf_march"])
+    only_s = ({int(s) for s in sys.argv[sys.argv.index("--s") + 1].split(",")}
+              if "--s" in sys.argv else None)
+    only_dtypes = ({getattr(torch, d) for d in sys.argv[sys.argv.index("--dtypes") + 1].split(",")}
+                   if "--dtypes" in sys.argv else None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
@@ -205,20 +294,28 @@ def main():
     cases = []
     for net_name in nets:
         net, shapes, dtypes = NETS[net_name]
+        shapes = [s for s in shapes if only_s is None or s in only_s]
+        dtypes = tuple(d for d in dtypes if only_dtypes is None or d in only_dtypes)
         params = init_nerf_params(net, generator=gen, device="cuda")
         cases += [(net_name, net, params, s, cs.march_inputs(cs.N_RAYS, s, gen, "cuda"), dtypes)
                   for s in shapes]
+    parent = Path(sys.argv[sys.argv.index("--parent") + 1] if "--parent" in sys.argv
+                  else "_archive/parent") / "neuralsim_tpu_torch" / "kernels" / "csrc"
     root = build.BUILD_DIR / "variants"
     shutil.rmtree(root, ignore_errors=True)
+    queries = list(rm._QUERIES)
     try:
         sources = sorted({cs.REPLACES[k][0][:-3] for k in kernels} | {"nerf_march"})
-        libs = build_variants(root, names, sources)
+        libs = build_variants(root, names, sources, parent)
         times = {}
         for _ in range(rounds):
             for name, (csrc, build_dir) in libs.items():
                 build.CSRC, build.BUILD_DIR = csrc, build_dir
                 build.load.cache_clear()
                 rm._library.cache_clear()
+                # a parent's library may lack the newer queries
+                lib = build.load("nerf_march")
+                rm._QUERIES[:] = [q for q in queries if hasattr(lib, q[0])]
                 for net_name, net, params, s, r, dtypes in cases:
                     if net_name not in VARIANTS[name][1]:
                         continue
@@ -231,12 +328,15 @@ def main():
                         with torch.no_grad():
                             if name not in TIMED_ONLY:
                                 cs.check(kernel, params, args, net, dtype, f"variant {name} {key}")
-                            ms = cs.time_ms(
-                                lambda: wrapper(params, *args, net, compute_dtype=dtype),
-                                reps=5 if net_name == "8x1024" else 7)
+                            fn = lambda: wrapper(params, *args, net, compute_dtype=dtype)  # noqa: E731
+                            ms = cs.time_ms(fn, reps=5 if net_name == "8x1024" else 7)
+                            b10 = batched_ms(fn)
                         times.setdefault(name, {}).setdefault(key, []).append(ms)
-                        print(f"variant {name} {key}: {ms:.3f} ms", flush=True)
+                        times[name].setdefault(f"{key}_b{BATCH}", []).append(b10)
+                        print(f"variant {name} {key}: {ms:.3f} ms, mean of {BATCH} back to back "
+                              f"{b10:.3f} ms", flush=True)
     finally:
+        rm._QUERIES[:] = queries
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"card": smi, "rounds": rounds, "median_ms": {
         name: {k: statistics.median(v) for k, v in t.items()} for name, t in times.items()}}),

@@ -95,13 +95,15 @@ nerf_march_f32(const float* __restrict__ rays_o, const float* __restrict__ rays_
   }
 }
 
-// bf16: blocks of two warpgroups over tiles of wg::Core<W, NX>::TILE points
-// (tiles blockIdx.x, +gridDim.x, ...): at W = 256 warpgroup g runs points
-// [64g, 64g+64) of each 128-point tile, at W = 512 both run the columns of
-// one 64-point tile, on the transposed core (NX = 0) both run the columns of
-// one 32-point tile.
+// bf16: blocks of two consumer warpgroups over tiles of wg::Core<W,
+// NX>::TILE points (tile slots blockIdx.x, +gridDim.x, ...; a slot past the
+// last tile runs masked, see Core::slots): at W = 256 warpgroup g runs
+// points [64g, 64g+64) of each 128-point tile, at W = 512 both run the
+// columns of one 64-point tile (both in clusters, with a producer
+// warpgroup), on the transposed core (NX = 0) both run the columns of one
+// 32-point tile.
 template <int W, int NX>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(wg::Core<W, NX>::BLOCK, 1)
 nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                  const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
                  int total, int n_samples, Net net, Plan plan, int nd,
@@ -109,11 +111,12 @@ nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ray
   extern __shared__ float4 smem4[];
   constexpr int TILE = wg::Core<W, NX>::TILE, PTS = wg::Core<W, NX>::PTS;
   const int n_tiles = (total + TILE - 1) / TILE;
-  const int mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
   wg::Core<W, NX> core = wg::make_core<W, NX>(smem4, plan, nd);
-  core.ring.init(static_cast<long long>(mine) * plan.per_tile);
+  const long long slots = core.slots(n_tiles);
+  if (wg::start(core, slots * plan.per_tile)) return;
   const int t = threadIdx.x & 127;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  for (long long k = 0; k < slots; ++k) {
+    const int tile = static_cast<int>(blockIdx.x + k * gridDim.x);
     const int base = tile * TILE + core.point0();
     core.sync();  // the previous tile's points and raw are read
     if (core.io() && t < PTS) {
@@ -135,6 +138,7 @@ nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ray
       }
     }
   }
+  wg::finish(core);
 }
 
 // The launches of one instantiation, for the cores' dispatch.
@@ -155,9 +159,9 @@ struct MarchWgmma {
                  const float* rays_d, const float* viewdirs, const float* z_vals, int n_samples,
                  Net net, Plan plan, int nd, float* sigma, float* rgb) {
     constexpr int TILE = wg::Core<W, NX>::TILE;
-    return launch_persistent(nerf_march_wgmma<W, NX>, (total + TILE - 1) / TILE, smem, s, rays_o,
-                             rays_d, viewdirs, z_vals, static_cast<int>(total), n_samples, net,
-                             plan, nd, sigma, rgb);
+    return wg::launch_core<W, NX>(nerf_march_wgmma<W, NX>, (total + TILE - 1) / TILE, smem, s,
+                                  rays_o, rays_d, viewdirs, z_vals, static_cast<int>(total),
+                                  n_samples, net, plan, nd, sigma, rgb);
   }
 };
 
@@ -181,8 +185,10 @@ int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
   const int err = make_net(weights, table, width, depth, in_ch, in_ch_views, 0, &net);
   if (err != 0) return err;
   const long long total = n_rays * n_samples;
+  // a cluster's masked tile slots reach up to 4 P points past the end:
+  // their indices must stay in int as well
   if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16 ||
-      total > 0x7fffffffLL - 2 * P) {
+      total > 0x7fffffffLL - 8 * P) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

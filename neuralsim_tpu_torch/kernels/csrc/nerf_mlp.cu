@@ -108,23 +108,26 @@ nerf_mlp_f32(const float* __restrict__ a, const float* __restrict__ b, int total
   }
 }
 
-// bf16: blocks of two warpgroups over tiles of wg::Core<W, NX>::TILE points
-// (tiles blockIdx.x, +gridDim.x, ...): at W = 256 warpgroup g runs points
-// [64g, 64g+64) of each 128-point tile, at W = 512 both run the columns of
-// one 64-point tile, on the transposed core (NX = 0) both run the columns of
-// one 32-point tile.
+// bf16: blocks of two consumer warpgroups over tiles of wg::Core<W,
+// NX>::TILE points (tile slots blockIdx.x, +gridDim.x, ...; a slot past the
+// last tile runs masked, see Core::slots): at W = 256 warpgroup g runs
+// points [64g, 64g+64) of each 128-point tile, at W = 512 both run the
+// columns of one 64-point tile (both in clusters, with a producer
+// warpgroup), on the transposed core (NX = 0) both run the columns of one
+// 32-point tile.
 template <int W, int NX, int INPUT>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(wg::Core<W, NX>::BLOCK, 1)
 nerf_mlp_wgmma(const float* __restrict__ a, const float* __restrict__ b, int total, Net net,
                Plan plan, int nd, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   constexpr int TILE = wg::Core<W, NX>::TILE, PTS = wg::Core<W, NX>::PTS;
   const int n_tiles = (total + TILE - 1) / TILE;
-  const int mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
   wg::Core<W, NX> core = wg::make_core<W, NX>(smem4, plan, nd);
-  core.ring.init(static_cast<long long>(mine) * plan.per_tile);
+  const long long slots = core.slots(n_tiles);
+  if (wg::start(core, slots * plan.per_tile)) return;
   const int t = threadIdx.x & 127;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  for (long long k = 0; k < slots; ++k) {
+    const int tile = static_cast<int>(blockIdx.x + k * gridDim.x);
     const int base = tile * TILE + core.point0();
     const int here = total - base < PTS ? total - base : PTS;  // <= 0 past the end
     core.sync();  // the previous tile's inputs and raw are read
@@ -157,6 +160,7 @@ nerf_mlp_wgmma(const float* __restrict__ a, const float* __restrict__ b, int tot
       }
     }
   }
+  wg::finish(core);
 }
 
 // The launches of one instantiation, for the cores' dispatch.
@@ -176,8 +180,8 @@ struct MlpWgmma {
   static int run(int total, size_t smem, cudaStream_t s, const float* a, const float* b, Net net,
                  Plan plan, int nd, float* out) {
     constexpr int TILE = wg::Core<W, NX>::TILE;
-    return launch_persistent(nerf_mlp_wgmma<W, NX, INPUT>, (total + TILE - 1) / TILE, smem, s,
-                             a, b, total, net, plan, nd, out);
+    return wg::launch_core<W, NX>(nerf_mlp_wgmma<W, NX, INPUT>, (total + TILE - 1) / TILE, smem,
+                                  s, a, b, total, net, plan, nd, out);
   }
 };
 
@@ -225,8 +229,10 @@ int nerf_mlp(const float* a, const float* b, long long total, int kind,
   Net net;
   const int err = make_net(weights, table, width, depth, in_ch, in_ch_views, 0, &net);
   if (err != 0) return err;
+  // a cluster's masked tile slots reach up to 4 P points past the end:
+  // their indices must stay in int as well
   if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16 ||
-      total > 0x7fffffffLL - 2 * P) {
+      total > 0x7fffffffLL - 8 * P) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

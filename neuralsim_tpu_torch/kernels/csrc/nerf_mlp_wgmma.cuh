@@ -17,24 +17,35 @@
 // TFLOP/s a launch on 8192 rays x 192 samples takes at least 1.887 ms.
 //
 // Design of the standard core:
-//   - a block is two consumer warpgroups (256 threads). Each warpgroup
-//     issues wgmma.mma_async m64n256k16 (trunk, feature) and m64n128k16
-//     (views) over 64 points, with f32 accumulators in registers (128 per
-//     thread, the most a thread can hold beside its addresses); every
-//     trunk, feature and views product runs on the tensor cores;
+//   - a block is two consumer warpgroups (threads 0-255) and a producer
+//     warpgroup (256-383): 384 threads. The producer gives up registers
+//     (setmaxnreg.dec to PRODUCER_REGS) and one of its threads issues every
+//     weight copy; the consumers raise theirs (setmaxnreg.inc to
+//     CONSUMER_REGS; 2 x 128 x 240 + 128 x 24 = 64,512 of the SM's 65,536).
+//     Each consumer warpgroup issues wgmma.mma_async m64n256k16 (trunk,
+//     feature) and m64n128k16 (views) over 64 points, with f32 accumulators
+//     in registers (128 per thread); every trunk, feature and views product
+//     runs on the tensor cores;
 //   - W = 256: warpgroup g owns points [64g, 64g+64) of the block's
 //     128-point tile and all columns, in A tiles of its own, so one
-//     warpgroup barrier, not a block barrier, stands between layers;
+//     warpgroup barrier, not a block barrier, stands between layers. (A
+//     skew of warpgroup 1 one chunk behind warpgroup 0, so that one
+//     warpgroup's epilogue runs under the other's products, made kernel 1
+//     11% slower: with both warpgroups holding two chunks a chunk apart, the
+//     three ring stages leave none loading; PERF.md);
 //   - W = 512: the two warpgroups split the columns of one 64-point tile
 //     (g owns trunk columns [256g, 256g+256) and views columns [128g,
-//     128g+128)) over one shared A tile; a block barrier between a layer's
-//     products and its epilogue lets both finish reading A before either
-//     writes, and the alpha and rgb heads add the two halves' partial sums;
+//     128g+128)) over one shared A tile; a barrier of the 256 consumer
+//     threads between a layer's products and its epilogue lets both finish
+//     reading A before either writes, and the alpha and rgb heads add the
+//     two halves' partial sums (no skew: both need all of h);
 //   - activations never touch device memory: a layer's epilogue (bias in
 //     f32, ReLU, round to bf16) writes its rows and columns into the A tile
-//     in the layout wgmma reads ([64][64] K-chunks, 128-byte swizzle). (Kept
-//     in registers as the next layer's A fragments, the 64 packed registers
-//     beside the 128 accumulators spilled.);
+//     in the layout wgmma reads ([64][64] K-chunks, 128-byte swizzle), 64
+//     scalar 32-bit stores a thread per layer (stmatrix.m8n8.x4, 16 a
+//     thread, ran 4% slower at W = 256 and no faster at 512: PERF.md).
+//     (Kept in registers as the next layer's A fragments, the 64 packed
+//     registers beside the 128 accumulators spilled.);
 //   - the encodings x_pe (up to 256 channels, in NX = 1-4 chunks of 64; 63
 //     -> 64 by default; longer ones run on the transposed core) and d_pe
 //     (up to 128 channels, in nd = 1 or 2 chunks,
@@ -60,24 +71,37 @@
 // Three stages where they fit (W = 256 and NX <= 2), else two; W = 512
 // takes NX + nd <= 4 chunks of encodings, W = 256 up to NX = 4 and nd = 2
 // (on two stages: 229,408 B + 1024); the transposed core takes the rest.
+// The cluster and the producer add no shared memory: the cluster shares the
+// ring's barriers.
 //
 // Weight traffic (standard core). The host packs the weights once (raymarch.py
 // pack_wgmma_weights) into bf16 chunks of 64 input rows, each in the exact
 // shared-memory image the B descriptor reads ([N][64], 128-byte swizzle):
 // 34 chunks of 32 KB (N = 256) and 5 of 16 KB (views, N = 128), 1.196 MB
-// for the default 8x256 net. Thread 0 streams them with one cp.async.bulk
-// each through the ring (the Ring of nerf_mlp.cuh, which the FP32 core
-// shares), so the next chunks are in flight while one multiplies, and a
-// warpgroup frees a chunk only after issuing its next one, so the tensor
-// core has the next product queued. At W = 512 a chunk holds both
-// warpgroups' columns, each reading its half through an offset descriptor.
-// Blocks are persistent (one per SM) and the ring runs on from one tile
-// into the next. Each tile still reads all of the chunks from L2: at
-// S = 192, 12,288 tiles of the default net read 14.7 GB per launch, served
-// by the 50 MB L2. Larger tiles, and cluster multicast of each chunk, are
-// what cut that next.
+// for the default 8x256 net. Blocks are persistent and launched as clusters
+// of cluster_size(W) blocks on neighbouring SMs (cudaLaunchKernelEx; the
+// grid is cudaOccupancyMaxActiveClusters clusters, or fewer where there are
+// fewer tiles), and the ring (McRing) runs on from one tile into the next.
+// W = 512 takes clusters of 2: every chunk goes to both blocks, the producer
+// of rank r copies part r of it (half its bytes, one cp.async.bulk ...
+// .multicast::cluster) into the same stage of each block, so each block's
+// full barrier expects the whole chunk, and a stage is refilled only once
+// the consumer warps of both blocks have released it (each warp arrives on
+// its own block's empty barrier and, through mapa, on its partner's). The
+// blocks of a cluster therefore walk the same number of tile slots: a block
+// with fewer tiles runs its last slots masked (zero points, no outputs),
+// and a cluster barrier follows the barriers' init and precedes exit, so no
+// block leaves while a partner may still copy or arrive into it. Each tile
+// still multiplies every chunk, but L2 serves each chunk once per cluster:
+// at S = 192 the 8x512 net reads 114 GB per launch without a cluster, 57 GB
+// with one of 2. W = 256 takes clusters of 1 (the same code, no partner):
+// there the stream cost 7-9% of a launch and halving it bought nothing
+// measurable (PERF.md); 12,288 tiles of the default net at S = 192 read
+// 14.7 GB.
 
 #pragma once
+
+#include <type_traits>
 
 #include "nerf_mlp.cuh"
 
@@ -90,6 +114,17 @@ constexpr int NV = N / 2;                         // views columns of one produc
 constexpr int A_CHUNK_BYTES = P * CHUNK_K * 2;    // 8 KB: [64 rows][64] bf16
 constexpr int SMEM_ALIGN = 1024;                  // the swizzle's repeat
 static_assert(4 * P == THREADS, "W = 512 sums the heads' halves one value a thread");
+
+// The standard core's clusters (blocks that share each weight chunk by
+// multicast: 2 at W = 512, 1 at W = 256), its block (the THREADS consumer
+// threads and a producer warpgroup) and the registers of each role
+// (setmaxnreg).
+constexpr int cluster_size(int width) { return width == 2 * N ? 2 : 1; }
+constexpr int STD_THREADS = THREADS + 128;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+static_assert(2 * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536,
+              "the roles' registers must fit the SM's register file");
 
 // What the trunk width sets: W = 256 runs two 64-point tiles per block, one
 // per warpgroup; W = 512 one, its columns split between the warpgroups.
@@ -173,6 +208,137 @@ __device__ __forceinline__ void store_bf16x2(unsigned char* tile, int row, int c
 __device__ __forceinline__ void wg_barrier(int group) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
 }
+
+// A barrier of the block's THREADS consumer threads (named barrier 3): the
+// whole block of the transposed core, all but the producer warpgroup of the
+// standard core's.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 3, %0;\n" ::"n"(THREADS) : "memory");
+}
+
+// The warpgroup of this thread, uniform across its warp (setmaxnreg must
+// run in warpgroup-uniform code).
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+}
+
+// This block's rank within its cluster (0 outside a cluster launch).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// A barrier of every thread of every block of the cluster, with release /
+// acquire order across it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The standard core's weight ring across a cluster of CLUSTER blocks (the
+// FP32 and transposed cores keep Ring). The chunks go round STAGES stages
+// (of plan.wide_bytes each) in order in every block of the cluster. One
+// producer thread per block streams them: the block of rank r copies part r
+// (1/CLUSTER of a chunk's bytes) into the same stage of every block with one
+// multicast cp.async.bulk, after arming its own full[s] for the whole
+// chunk; empty[s] completes when the 8 consumer warps of every block of the
+// cluster are done with the stage, and only then does any producer refill
+// it. Consumers track the stage and phase of the chunk they acquire next and
+// the stage of the oldest chunk they hold.
+template <int STAGES, int CLUSTER>
+struct McRing {
+  static constexpr int WARPS = THREADS / 32;
+  static_assert(CLUSTER == 1 || CLUSTER == 2, "clusters of 1 or 2 blocks");
+  unsigned char* buf;
+  uint64_t* full;
+  uint64_t* empty;
+  Plan plan;
+  int read_stage;     // the chunk acquired next
+  uint32_t read_phase;
+  int free_stage;     // the oldest chunk held
+
+  // Every thread of the block calls it once: the barriers, then a cluster
+  // barrier, so that no partner's copy or arrive reaches them earlier.
+  __device__ void init() {
+    read_stage = free_stage = 0;
+    read_phase = 0;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(full + s)));
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                     ::"r"(smem_addr(empty + s)), "n"(WARPS * CLUSTER));
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_sync();
+  }
+
+  // The producer thread of the block of rank `rank`: `total` chunks of the
+  // plan's sequence, each into the next stage once every block freed it.
+  __device__ void produce(long long total, uint32_t rank) {
+    int s = 0, q = 0;
+    uint32_t phase = 0;
+#pragma unroll 1
+    for (long long i = 0; i < total; ++i) {
+      if (i >= STAGES) Ring<STAGES>::wait(empty + s, phase ^ 1u);
+      const bool wide = q < plan.n_wide;
+      const int bytes = wide ? plan.wide_bytes : plan.narrow_bytes;
+      const size_t off = wide ? static_cast<size_t>(q) * plan.wide_bytes
+                              : static_cast<size_t>(plan.n_wide) * plan.wide_bytes +
+                                    static_cast<size_t>(q - plan.n_wide) * plan.narrow_bytes;
+      const int part = bytes / CLUSTER;
+      const uint32_t bar = smem_addr(full + s);
+      const uint32_t dst = smem_addr(buf + s * plan.wide_bytes) + rank * part;
+      const unsigned char* src = plan.packed + off + rank * part;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(bar), "r"(bytes) : "memory");
+      if constexpr (CLUSTER == 1) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];\n"
+            ::"r"(dst), "l"(src), "r"(part), "r"(bar) : "memory");
+      } else {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+            ::"r"(dst), "l"(src), "r"(part), "r"(bar),
+              "h"(static_cast<uint16_t>((1u << CLUSTER) - 1u)) : "memory");
+      }
+      q = q + 1 == plan.per_tile ? 0 : q + 1;
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+  }
+
+  // The next chunk's shared address, once all of it has landed.
+  __device__ uint32_t acquire() {
+    Ring<STAGES>::wait(full + read_stage, read_phase);
+    const int s = read_stage;
+    if (++read_stage == STAGES) {
+      read_stage = 0;
+      read_phase ^= 1u;
+    }
+    return smem_addr(buf + s * plan.wide_bytes);
+  }
+
+  // This warp is done with its oldest chunk (its reads of the stage have
+  // completed): lane r arrives on the empty barrier of the cluster's block
+  // of rank r.
+  __device__ void release() {
+    __syncwarp();
+    const uint32_t lane = threadIdx.x & 31;
+    if (lane < CLUSTER) {
+      uint32_t remote;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                   : "=r"(remote) : "r"(smem_addr(empty + free_stage)), "r"(lane));
+      asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+    }
+    __syncwarp();
+    if (++free_stage == STAGES) free_stage = 0;
+  }
+};
 
 // acc += A B on one k16 step, m64n256k16: A [64 x 16] and B [16 x 256] bf16 in
 // shared memory behind their descriptors (K-major, 128-byte swizzle).
@@ -338,11 +504,11 @@ __device__ __forceinline__ float row_sum(float v) {
 }
 
 // The barrier between the threads that share a set of A tiles: the
-// warpgroup at W = 256, the block at W = 512.
+// warpgroup at W = 256, the two consumer warpgroups at W = 512.
 template <int W>
 __device__ __forceinline__ void tile_sync(int group) {
   if constexpr (Shape<W>::SPLIT) {
-    __syncthreads();
+    consumer_sync();
   } else {
     wg_barrier(group);
   }
@@ -912,8 +1078,15 @@ struct Core {
   static constexpr int PTS = TRANSPOSED ? TP : P;
   // both warpgroups work on one tile
   static constexpr bool SHARED = TRANSPOSED || W != N;
+  // blocks of a cluster and threads of a block: the standard core's
+  // clusters multicast every chunk, and its blocks add a producer warpgroup
+  static constexpr int CLUSTER = TRANSPOSED ? 1 : cluster_size(W);
+  static constexpr int BLOCK = TRANSPOSED ? THREADS : STD_THREADS;
+  using RingType =
+      typename std::conditional<TRANSPOSED, Ring<STAGES, true>, McRing<STAGES, CLUSTER>>::type;
   unsigned char* base;  // 1024-aligned
-  Ring<STAGES, TRANSPOSED> ring;
+  RingType ring;
+  uint32_t rank;        // this block's rank in its cluster
   unsigned char* a;     // this warpgroup's A tiles: x_pe (NX chunks), h, d_pe (nd);
                         // transposed: the x_pe then d_pe chunks
   unsigned char* h;     // transposed: the h chunks
@@ -936,12 +1109,19 @@ struct Core {
       tile_sync<W>(group);
     }
   }
+  // The tile slots of this block, of tiles blockIdx.x, + gridDim.x, ...:
+  // as many as the first block of its cluster has tiles below n_tiles, so
+  // that every block of a cluster consumes every chunk (a slot past the
+  // last tile runs masked).
+  __device__ long long slots(long long n_tiles) const {
+    const long long first = static_cast<long long>(blockIdx.x) - rank;
+    return n_tiles > first ? (n_tiles - first + gridDim.x - 1) / gridDim.x : 0;
+  }
 };
 
 // Pointers into the core's shared memory, from the kernel's dynamic shared
 // buffer (aligned up to SMEM_ALIGN here; launches ask for core_bytes +
-// SMEM_ALIGN plus their own part). The ring is set up by Ring::init,
-// called by every thread.
+// SMEM_ALIGN plus their own part). The ring is set up by start().
 template <int W, int NX>
 __device__ __forceinline__ Core<W, NX> make_core(void* dyn, const Plan& plan, int nd) {
   Core<W, NX> c;
@@ -950,6 +1130,7 @@ __device__ __forceinline__ Core<W, NX> make_core(void* dyn, const Plan& plan, in
   const uint32_t pad = (SMEM_ALIGN - (smem_addr(dyn) & (SMEM_ALIGN - 1))) & (SMEM_ALIGN - 1);
   c.base = static_cast<unsigned char*>(dyn) + pad;
   c.ring.plan = plan;
+  c.rank = NX == 0 ? 0u : cluster_rank();
   c.group = threadIdx.x >> 7;
   c.nd = nd;
   if constexpr (NX == 0) {
@@ -999,14 +1180,45 @@ __device__ __forceinline__ void mlp_tile(Core<W, NX>& core, const Net& net) {
     }
     if constexpr (Shape<W>::SPLIT) {
       // warpgroup 0's raw += warpgroup 1's partial sums, one value a thread
-      __syncthreads();
+      consumer_sync();
       float* raw0 = reinterpret_cast<float*>(core.a);
       raw0[threadIdx.x] += raw0[4 * P + threadIdx.x];
-      __syncthreads();
+      consumer_sync();
     } else {
       wg_barrier(core.group);
     }
   }
+}
+
+// Sets up the core's ring for `chunks` chunks; every thread of the block
+// calls it first. Standard core: the producer warpgroup streams the chunks,
+// waits at the cluster barrier that ends the kernel, and gets true (its
+// kernel returns); the consumers get false and call finish() after their
+// last tile slot. Transposed core: Ring::init, false.
+template <int W, int NX>
+__device__ __forceinline__ bool start(Core<W, NX>& core, long long chunks) {
+  if constexpr (NX == 0) {
+    core.ring.init(chunks);
+    return false;
+  } else {
+    core.ring.init();
+    if (warpgroup() == THREADS / 128) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+      if (threadIdx.x == THREADS) core.ring.produce(chunks, core.rank);
+      __syncwarp();
+      cluster_sync();
+      return true;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    return false;
+  }
+}
+
+// The consumers' end of a kernel: on the standard core the cluster barrier,
+// so that no block exits while a partner may still copy or arrive into it.
+template <int W, int NX>
+__device__ __forceinline__ void finish(Core<W, NX>&) {
+  if constexpr (NX != 0) cluster_sync();
 }
 
 // One tile, once its [6][PTS] points are in core.pts (published by
@@ -1080,6 +1292,94 @@ int dispatch(int width, int nx, Args... args) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The last cluster launch of this library (chip_smoke.py prints it): blocks
+// per cluster, blocks, the device's most active clusters of the kernel at
+// its shared memory, threads per block.
+inline int last_launch[4] = {0, 0, 0, 0};
+
+// cudaOccupancyMaxActiveClusters of a kernel at a cluster size and shared
+// memory, asked once per process (a query costs host time at every launch
+// otherwise).
+struct ActiveClusters {
+  const void* kernel;
+  size_t smem_bytes;
+  int cluster;
+  int active;
+};
+inline ActiveClusters active_clusters[64];
+inline int n_active_clusters = 0;
+
+// Launches `kernel` on persistent clusters of `cluster` blocks of `threads`
+// threads: as many clusters as the device keeps active at once
+// (cudaOccupancyMaxActiveClusters), at most enough for `work` blocks.
+// Returns a cudaError_t value: 0 when the launch was accepted.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), long long work, int cluster, int threads,
+                    size_t smem_bytes, cudaStream_t stream, Args... args) {
+  int smem_max = 0;
+  const int e = smem_optin(&smem_max);
+  if (e != 0) return e;
+  if (work < 1 || smem_bytes > static_cast<size_t>(smem_max)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster), 1, 1);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  for (int i = 0; i < n_active_clusters; ++i) {
+    const ActiveClusters& a = active_clusters[i];
+    if (a.kernel == reinterpret_cast<const void*>(kernel) && a.smem_bytes == smem_bytes &&
+        a.cluster == cluster) {
+      active = a.active;
+    }
+  }
+  if (active == 0) {
+    err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (n_active_clusters < 64) {
+      active_clusters[n_active_clusters++] =
+          ActiveClusters{reinterpret_cast<const void*>(kernel), smem_bytes, cluster, active};
+    }
+  }
+  const long long want = (work + cluster - 1) / cluster;
+  const long long n = want < active ? want : active;
+  cfg.gridDim = dim3(static_cast<unsigned>(n * cluster), 1, 1);
+  last_launch[0] = cluster;
+  last_launch[1] = static_cast<int>(n * cluster);
+  last_launch[2] = active;
+  last_launch[3] = threads;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches a kernel of core Core<W, NX> on `work` block tiles: the
+// standard core on clusters (launch_clusters), the transposed core on one
+// persistent block per SM.
+template <int W, int NX, typename... Params, typename... Args>
+int launch_core(void (*kernel)(Params...), long long work, size_t smem_bytes,
+                cudaStream_t stream, Args... args) {
+  using C = Core<W, NX>;
+  if constexpr (C::TRANSPOSED) {
+    return launch_persistent(kernel, work, smem_bytes, stream, args...);
+  } else {
+    return launch_clusters(kernel, work, C::CLUSTER, C::BLOCK, smem_bytes, stream, args...);
+  }
+}
+
 // Dynamic shared memory a launch asks for: the core, aligned.
 inline int launch_bytes(int width, int in_ch, int in_ch_views) {
   const int nx = x_chunks(in_ch), nd = d_chunks(in_ch_views);
@@ -1101,5 +1401,12 @@ long long nerf_wgmma_plan_bytes(int width, int depth, int n_skips, int in_ch, in
 }
 int nerf_wgmma_smem_bytes(int width, int in_ch, int in_ch_views) {
   return nerf::wg::launch_bytes(width, in_ch, in_ch_views);
+}
+// The last cluster launch of the standard core in this library, into
+// info[4]: blocks per cluster, blocks, the device's most active clusters
+// of that kernel, threads per block. Returns 0.
+int nerf_wgmma_last_launch(int* info) {
+  for (int i = 0; i < 4; ++i) info[i] = nerf::wg::last_launch[i];
+  return 0;
 }
 }

@@ -66,12 +66,24 @@ namespace {
 constexpr int POINT_BYTES = 5 * 4;
 constexpr int RAY_BYTES = 6 * 4;
 
+// The barrier of the threads that composite: the whole block of the FP32
+// core (CONSUMERS false), the THREADS consumer threads of a wgmma block.
+template <bool CONSUMERS>
+__device__ __forceinline__ void composite_sync() {
+  if constexpr (CONSUMERS) {
+    wg::consumer_sync();
+  } else {
+    __syncthreads();
+  }
+}
+
 // Alpha-composites samples [s0, s0 + len) of the block's n_here rays (from
 // ray0) from shared ray_raw [4][stride] (r, g, b logits, sigma; sigma and
 // the logits are overwritten) and ray_z [stride], the rays' earlier
 // segments' transmittance and sums in carry [6][R]; writes the segment's
-// weights, and each ray's maps after its last segment. Called by every
-// thread of the block once the segment's points are in.
+// weights, and each ray's maps after its last segment. Called by each of
+// the block's THREADS compositing threads once the segment's points are in.
+template <bool CONSUMERS>
 __device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, float* carry,
                                           int stride, int R, int n_here, int s0, int len, int S,
                                           long long ray0, const float* __restrict__ rays_d,
@@ -83,7 +95,7 @@ __device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, fl
                                           float* __restrict__ depth_map) {
   const int tid = threadIdx.x;
   const int T = n_here * len;
-  __syncthreads();
+  composite_sync<CONSUMERS>();
 
   // ---- per point, in parallel: alpha over the raw density, sigmoid rgb --
   for (int l = tid; l < T; l += THREADS) {
@@ -101,7 +113,7 @@ __device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, fl
       ray_raw[c * stride + l] = 1.f / (1.f + expf(-ray_raw[c * stride + l]));
     }
   }
-  __syncthreads();
+  composite_sync<CONSUMERS>();
 
   // ---- compositing: thread r owns ray ray0 + r, product and sums in order
   if (tid < n_here) {
@@ -149,7 +161,7 @@ __device__ __forceinline__ void composite(float* ray_raw, const float* ray_z, fl
       disp_map[ray] = 1.f / fmax_nan(dep / fmax_nan(acc, 1e-10f), 1e-10f);
     }
   }
-  __syncthreads();  // ray_raw, ray_z and carry are free again
+  composite_sync<CONSUMERS>();  // ray_raw, ray_z and carry are free again
 }
 
 // Point l of a segment's T = n_here * len points (rays from ray0, samples
@@ -177,13 +189,14 @@ __device__ __forceinline__ void ray_point(const float* __restrict__ rays_o,
   for (int c = 0; c < 6; ++c) pts[c * stride + p] = x[c];
 }
 
-// The sub-tiles of TILE points that a block runs over its ray groups'
+// The sub-tiles of TILE points that block `block` runs over its ray groups'
 // segments.
 template <int TILE>
-__device__ __forceinline__ long long block_tiles(long long n_rays, int S, int R, int seg) {
+__device__ __forceinline__ long long block_tiles(long long block, long long n_rays, int S, int R,
+                                                 int seg) {
   const long long groups = (n_rays + R - 1) / R;
   long long tiles = 0;
-  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+  for (long long grp = block; grp < groups; grp += gridDim.x) {
     const long long n_here = n_rays - grp * R < R ? n_rays - grp * R : R;
     for (int s0 = 0; s0 < S; s0 += seg) {
       const int len = S - s0 < seg ? S - s0 : seg;
@@ -216,7 +229,7 @@ render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays
   float* ray_raw = reinterpret_cast<float*>(core_end);
   float* ray_z = ray_raw + 4 * stride;
   float* carry = ray_z + stride;
-  core.ring.init(block_tiles<TILE>(n_rays, S, R, seg) * plan.per_tile);
+  core.ring.init(block_tiles<TILE>(blockIdx.x, n_rays, S, R, seg) * plan.per_tile);
   for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const long long ray0 = grp * R;
     const int n_here = static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R);
@@ -236,8 +249,8 @@ render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays
           if (t0 + p < T) ray_raw[c * stride + t0 + p] = core.raw[c * TILE + p];
         }
       }
-      composite(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d, z_vals,
-                white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
+      composite<false>(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d,
+                       z_vals, white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
     }
   }
 }
@@ -245,11 +258,14 @@ render_tile_f32(const float* __restrict__ rays_o, const float* __restrict__ rays
 // bf16: the block walks ray groups blockIdx.x, +gridDim.x, ... of R rays, in
 // segments of seg samples, in sub-tiles of wg::Core<W, NX>::TILE points: at
 // W = 256 warpgroup g runs points [64g, 64g+64) of each 128-point sub-tile,
-// at W = 512 both run the columns of one 64-point sub-tile, on the
-// transposed core (NX = 0) of one 32-point sub-tile. FAST:
+// at W = 512 both run the columns of one 64-point sub-tile (both in
+// clusters, with a producer warpgroup), on the transposed core (NX = 0) of
+// one 32-point sub-tile. A block with fewer sub-tiles than the most of its
+// cluster runs the difference masked after its own (zero points, no
+// outputs), so that every block of a cluster consumes every chunk. FAST:
 // net.fast_epilogue.
 template <int W, int NX, bool FAST>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(wg::Core<W, NX>::BLOCK, 1)
 render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                   const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
                   long long n_rays, int n_samples, int rays_per_block, int seg, Net net,
@@ -261,7 +277,6 @@ render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ra
   const int S = n_samples;
   const int R = rays_per_block;
   const int stride = R * seg;
-  const long long groups = (n_rays + R - 1) / R;
   wg::Core<W, NX> core = wg::make_core<W, NX>(smem4, plan, nd);
   // [4][R*seg] the segment's raw field, [R*seg] its depths, [6][R] the carry
   int core_size;
@@ -273,34 +288,49 @@ render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ra
   float* ray_raw = reinterpret_cast<float*>(core.base + core_size);
   float* ray_z = ray_raw + 4 * stride;
   float* carry = ray_z + stride;
-  core.ring.init(block_tiles<TILE>(n_rays, S, R, seg) * plan.per_tile);
+  const long long mine = block_tiles<TILE>(blockIdx.x, n_rays, S, R, seg);
+  long long slots = 0;
+  for (int r = 0; r < wg::Core<W, NX>::CLUSTER; ++r) {
+    const long long n = block_tiles<TILE>(blockIdx.x - core.rank + r, n_rays, S, R, seg);
+    slots = n > slots ? n : slots;
+  }
+  if (wg::start(core, slots * plan.per_tile)) return;
   const int t = threadIdx.x & 127;
-  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+  // one loop over the slots, so that the core is inlined once: slot k is
+  // sub-tile t0 of segment s0 of group grp while k < mine, then masked
+  long long grp = blockIdx.x;
+  int s0 = 0, t0 = 0;
+  for (long long k = 0; k < slots; ++k) {
+    const bool real = k < mine;
     const long long ray0 = grp * R;
-    const int n_here = static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R);
-    for (int s0 = 0; s0 < S; s0 += seg) {
-      const int len = S - s0 < seg ? S - s0 : seg;
-      const int T = n_here * len;
-      for (int t0 = 0; t0 < T; t0 += TILE) {
-        const int l0 = t0 + core.point0();  // this warpgroup's first point
-        core.sync();                        // the previous sub-tile's pts and raw are read
-        if (core.io() && t < PTS) {
-          ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, s0, len, l0 + t, T, ray_z,
-                    core.pts, PTS, t);
-        }
-        core.sync();
-        wg::run_tile<W, NX, FAST, false>(core, net);
-        if (core.io()) {
-          for (int idx = t; idx < 4 * PTS; idx += 128) {
-            const int c = idx / PTS, p = idx % PTS;
-            if (l0 + p < T) ray_raw[c * stride + l0 + p] = core.raw[c * PTS + p];
-          }
-        }
+    const int n_here = real ? static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R) : 0;
+    const int len = S - s0 < seg ? S - s0 : seg;
+    const int T = n_here * len;           // 0 when masked: zero points, no outputs
+    const int l0 = t0 + core.point0();    // this warpgroup's first point
+    core.sync();                          // the previous sub-tile's pts and raw are read
+    if (core.io() && t < PTS) {
+      ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, s0, len, l0 + t, T, ray_z, core.pts,
+                PTS, t);
+    }
+    core.sync();
+    wg::run_tile<W, NX, FAST, false>(core, net);
+    if (core.io()) {
+      for (int idx = t; idx < 4 * PTS; idx += 128) {
+        const int c = idx / PTS, p = idx % PTS;
+        if (l0 + p < T) ray_raw[c * stride + l0 + p] = core.raw[c * PTS + p];
       }
-      composite(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d, z_vals,
-                white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
+    }
+    if (real && (t0 += TILE) >= T) {
+      composite<true>(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d,
+                      z_vals, white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
+      t0 = 0;
+      if ((s0 += seg) >= S) {
+        s0 = 0;
+        grp += gridDim.x;
+      }
     }
   }
+  wg::finish(core);
 }
 
 int gcd(int a, int b) {
@@ -409,9 +439,10 @@ struct TileWgmma {
                  int n_samples, int rays, int seg, Net net, Plan plan, int nd, int white_bkgd,
                  float* rgb_map, float* disp_map, float* acc_map, float* weights_out,
                  float* depth_map) {
-    return launch_persistent(render_tile_wgmma<W, NX, FAST>, blocks, smem, s, rays_o, rays_d,
-                             viewdirs, z_vals, n_rays, n_samples, rays, seg, net, plan, nd,
-                             white_bkgd, rgb_map, disp_map, acc_map, weights_out, depth_map);
+    return wg::launch_core<W, NX>(render_tile_wgmma<W, NX, FAST>, blocks, smem, s, rays_o,
+                                  rays_d, viewdirs, z_vals, n_rays, n_samples, rays, seg, net,
+                                  plan, nd, white_bkgd, rgb_map, disp_map, acc_map, weights_out,
+                                  depth_map);
   }
 };
 

@@ -344,7 +344,8 @@ _QUERIES = [(fn, [], ctypes.c_int) for fn in ("nerf_width", "nerf_smem_optin")] 
     for fn in ("nerf_f32_plan_bytes", "nerf_wgmma_plan_bytes")] + [
     (fn, [ctypes.c_int] * 3, ctypes.c_int)
     for fn in ("nerf_f32_smem_bytes", "nerf_wgmma_smem_bytes")] + [
-    ("nerf_f32_launch_bytes", [ctypes.c_int] * 3 + [_INT_OUT], ctypes.c_int)]
+    ("nerf_f32_launch_bytes", [ctypes.c_int] * 3 + [_INT_OUT], ctypes.c_int),
+    ("nerf_wgmma_last_launch", [_INT_OUT], ctypes.c_int)]
 # the render tile's own: (name, argtypes, restype)
 _RENDER_TILE_QUERIES = [
     ("render_tile_max_samples", [ctypes.c_int] * 4, ctypes.c_int),
