@@ -51,6 +51,20 @@ Phases, each of which exits nonzero when it fails:
      the five kernels on the 8x512 and 8x1024 nets at N=8192 x S=64 and 192
      in both dtypes: kernel, twin and bound ms (the bound from the net's own
      work), the share of the bound, and chain_ms beside them;
+  3s. the streaming core (csrc/nerf_mlp_stream.cuh) on the nets no FP32 or
+     wgmma core has room for (STREAM_NETS): 8x1152 in float32 and bf16,
+     8x1664 in bf16, 8x256 with multires 75 in float32 and 8x1024 with
+     multires 60 / multires_views 20 in bf16. Each net's route is logged
+     (every kernel on the streaming core in those dtypes; the nets of phase
+     3 keep the FP32 and wgmma cores, which phase 3 asserts and logs
+     too); every kernel against its twin at N=8192 x S=64 (He-scaled
+     weights) and the ragged 1001x48 (random and He-scaled) at F32_TOL / the
+     bf16 rule; one timed launch of every kernel at S=64 and of the ray march
+     and the render tile at S=192, beside the bound from the net's own work;
+     8x1664 in float32 refused by every wrapper, naming the JAX budget; then
+     a K=2 render at 50x50 through the ray march on 8x1152 box-scene weights
+     at full width (2 launches of fused_nerf_march, none of the others; rgb
+     within F32_TOL of the twin's render);
   4. backward: one backward through each differentiable wrapper's
      autograd.Function against plain autograd through the recompute it
      stands for; the render tile refuses a gradient on the card;
@@ -194,9 +208,12 @@ Phases, each of which exits nonzero when it fails:
      against one process started from the rank's trained detector; the
      epoch end to end, and at the default 50 inner steps, reported; and
      MESH_TRAIN_STEPS train_nerf steps at N_rand MESH_RAYS (each rank 512
-     rays), at the tolerances by the MESH_* constants; each rank's kernel 1
-     launches, seconds per part, and which collectives gloo runs on CUDA
-     tensors.
+     rays), the same steps with density noise (raw_noise_std 1.0), and
+     one step with a sparse fine pass (fine_fraction 0.5) from a box pair
+     (MESH_TRAIN_MODES says why), each against one process's, at the
+     tolerances by the MESH_* constants; each rank's
+     kernel 1 launches, seconds per part, and which collectives gloo runs on
+     CUDA tensors.
      A JSON line {"mesh": ...}. ``python3 chip_smoke.py --mesh`` runs this
      phase alone on its own inputs (mesh_inputs);
  13. the run's total seconds; a JSON line of the kernels' numbers (float32 times under the
@@ -206,7 +223,8 @@ Phases, each of which exits nonzero when it fails:
      in fused_nerf_march's record, the wide renders in each route's),
      after checking that each kernel's bf16 time (tensor cores) is at most
      WGMMA_FRACTION of its own float32 time at S=192 on the default net,
-     and fused_nerf_march's also on 8x512 at S=64; then the last line
+     and fused_nerf_march's also on 8x512 at S=64, with each kernel's
+     streaming-core launches and numbers beside them; then the last line
      {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the rest of the repository beside it,
@@ -355,6 +373,26 @@ WIDE_S = (64, 192)
 LONG_RAYS = (("default", 1024, 2048, "bfloat16"), ("default", 128, 8192, "float32"),
              ("8x1024", 1024, 192, "float32"), ("8x1024", 1024, 192, "bfloat16"),
              ("8x1024", 64, 2048, "bfloat16"), ("8x1024", 32, 8192, "float32"))
+# nets that no FP32 or wgmma core has room for, in the dtypes in which the
+# streaming core (csrc/nerf_mlp_stream.cuh) takes them: a trunk past 1024,
+# and encodings past the cores' shared memory in one dtype (the other dtype
+# keeps its core); (net, dtypes). The same 8x1664 in float32 is past the
+# JAX kernels' budget (raymarch.jax_vmem_bytes) and must be refused
+STREAM_NETS = {
+    "8x1152": (dict(netwidth=1152, netwidth_fine=1152), ("float32", "bfloat16")),
+    "8x1664": (dict(netwidth=1664, netwidth_fine=1664), ("bfloat16",)),
+    "8x256_pe75": (dict(multires=75), ("float32",)),
+    "8x1024_pe60_20": (dict(netwidth=1024, netwidth_fine=1024, multires=60, multires_views=20),
+                       ("bfloat16",)),
+}
+STREAM_REFUSED = ("8x1664", "float32")
+# the streaming core's checks (He-scaled weights at N_RAYS x 64, random and
+# He-scaled at RAGGED), its times (every kernel at S = 64, the ray march and
+# the render tile at S = 192: one launch each, after the checks' warm-up),
+# and its render: (net, K poses, camera side) through the ray march
+STREAM_SHAPES = ((N_RAYS, 64), RAGGED)
+STREAM_S192 = ("fused_nerf_march", "fused_render_tile")
+STREAM_RENDER = ("8x1152", 2, 50)
 # the main path's three march routes and the render options that pick them
 ROUTES = {"fused_nerf_march": {}, "fused_nerf_mlp_widepe": dict(fuse_pointgen=False),
           "fused_render_tile": dict(fuse_compositing=True)}
@@ -446,6 +484,21 @@ PSNR_RISE_DB = 5.0
 MESH_REL = 1e-6
 MESH_K, MESH_LR, MESH_INNER_STEPS = 8, 1e-8, 2
 MESH_TRAIN_STEPS, MESH_RAYS, MESH_VIEWS = 3, 1024, 4
+# the train steps again with density noise and with a sparse fine pass (the
+# ranks draw the whole batch's noise and rank its gathered coarse opacity):
+# (render options, steps, the seed of the box pair the steps start from, or
+# None for the seeded random init). The sparse pass is held on one step
+# from a box pair (the dataset's box density, another rgb head), whose
+# coarse opacity is 0 on the 664 of 1,024 rays that miss the box, so the
+# k_sel-th ray is a zero ranked by index. Where the opacities saturate
+# (a random init, and the box pair after one step: the last sample's 1e10
+# interval turns any density there into alpha = 1) every ray's opacity lies
+# within an ulp of 1, the ranks' reductions over their blocks round them
+# one ulp (5.96e-8) apart from one process's, ties at the k_sel-th reorder
+# and another set of rays is chosen (chip_sparse_ties.py shows it): the
+# top-k itself is ill-conditioned there, in the JAX package too
+MESH_TRAIN_MODES = {"noise": (dict(raw_noise_std=1.0), MESH_TRAIN_STEPS, None),
+                    "sparse": (dict(fine_fraction=0.5), 1, 1)}
 MESH_TRAIN_REL, MESH_PARAM_REL = 1e-5, 1e-4
 MESH_GRAD_REL = 2e-3
 MESH_TIMEOUT = 600.0
@@ -847,6 +900,9 @@ def phase_kernels(net, peaks):
     weight_bytes = sum(t.numel() * 4 for t in weights["random"].values())
     rec = {k: {"err_f32": 0.0, "err_bf16": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {},
                "bound_by": {}} for k in KERNELS}
+    cores = assert_fixed_cores(net, "default")
+    for k in KERNELS:
+        rec[k]["cores"] = cores
     chain = {}
     for n, s, timed in RAY_SHAPES:
         rays = march_inputs(n, s, gen, dev)
@@ -1003,6 +1059,7 @@ def check_net(net, name, gen):
                "random_he": {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0)
                              for k, v in random.items()}}
     out = {kernel: {"float32": 0.0, "bfloat16": 0.0} for kernel in KERNELS}
+    assert_fixed_cores(net, name)
     plans = f32_plans(net, name)
     shapes = [sh for sh in EXTRA_SHAPES if name not in RAGGED_ONLY or sh[0] != N_RAYS]
     for n, s in shapes:
@@ -1023,6 +1080,210 @@ def check_net(net, name, gen):
         + ", ".join(f"{k} f32 {v['float32']:.2e} bf16 {v['bfloat16']:.2e}"
                     for k, v in out.items()))
     return out, plans
+
+
+def net_cores(net):
+    """The core of each library's route for a net in each dtype on this card
+    (raymarch.core_for, the route the wrappers take): {dtype: {"points":
+    the point kernels', "render_tile": the render tile's}}."""
+    out = {}
+    with torch.cuda.device(DEVICE):
+        for dtype in ("float32", "bfloat16"):
+            bf16 = dtype == "bfloat16"
+            out[dtype] = {
+                "points": rm.core_for(net, net.netwidth, bf16, rm._library("nerf_march")),
+                "render_tile": rm.core_for(net, net.netwidth, bf16, rm._library("render_tile"),
+                                           render_tile=True)}
+    return out
+
+
+def stream_plans(net, name):
+    """The streaming core's launch plans for a net on this card, logged: the
+    point kernels' tile and shared bytes, and the render tile's (also rays
+    per group and samples per segment) at S = 64 and 192."""
+    width = rm.stream_width(net.netwidth)
+    ints = [ctypes.c_int() for _ in range(3)]
+    refs = [ctypes.pointer(i) for i in ints]
+    with torch.cuda.device(DEVICE):
+        smem = rm._library("nerf_march").nerf_stream_launch_bytes(
+            width, net.input_ch, net.input_ch_views, refs[0])
+        plans = {"points": dict(tile=ints[0].value, smem=smem)}
+        lib = rm._library("render_tile")
+        for s in WIDE_S:
+            smem = lib.render_tile_stream_plan(s, width, net.input_ch, net.input_ch_views, *refs)
+            plans[f"render_tile_S{s}"] = dict(zip(("tile", "rays", "seg"),
+                                                  (i.value for i in ints)), smem=smem)
+    log(f"streaming core plans of net {name} (W = {width}): " + "; ".join(
+        f"{k} " + ", ".join(f"{a} {b}" for a, b in v.items()) for k, v in plans.items()))
+    if not all(p["smem"] > 0 for p in plans.values()):
+        raise AssertionError(f"net {name}: a streaming-core plan does not fit: {plans}")
+    return plans
+
+
+def assert_fixed_cores(net, name):
+    """A net the FP32 and wgmma cores took before the streaming core existed
+    keeps them: every route of it, logged."""
+    cores = net_cores(net)
+    log(f"cores of net {name}: " + "; ".join(
+        f"{dtype} points {c['points']}, render tile {c['render_tile']}"
+        for dtype, c in cores.items()))
+    want = {"float32": rm.F32_CORE, "bfloat16": rm.WGMMA_CORE}
+    if any(core != want[dtype] for dtype, c in cores.items() for core in c.values()):
+        raise AssertionError(f"net {name} changed core: {cores}")
+    return cores
+
+
+def phase_stream(peaks, smi):
+    """3s: the streaming core on STREAM_NETS: each net's route on this card
+    (every kernel on the streaming core in its dtypes), every kernel against
+    its twin at STREAM_SHAPES (F32_TOL in float32, the bf16 rule in bf16),
+    one timed launch of each kernel at N_RAYS x 64 and of STREAM_S192 at
+    N_RAYS x 192 beside its bound (the net's own work over the dtype's peak)
+    and the twin's time at 64; 8x1664 in float32 refused, naming the JAX
+    budget, before any launch; then the render of STREAM_RENDER. Returns
+    {"nets": {name: {dtype: {kernel: {...}}}}, "launches": each kernel's
+    launches in the checks and times, "render": {...}}."""
+    gen = torch.Generator().manual_seed(5)
+    zero_counts()
+    nets = {}
+    for name, (kw, dtypes) in STREAM_NETS.items():
+        t_net = time.perf_counter()
+        net = NeRFNetConfig(**kw)
+        cores = net_cores(net)
+        log(f"cores of net {name}: " + "; ".join(
+            f"{dtype} points {c['points']}, render tile {c['render_tile']}"
+            for dtype, c in cores.items()))
+        if any(core != rm.STREAM_CORE for dtype in dtypes for core in cores[dtype].values()):
+            raise AssertionError(f"net {name} is not on the streaming core: {cores}")
+        random = init_nerf_params(net, generator=gen, device=DEVICE)
+        he = {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0) for k, v in random.items()}
+        weight_bytes = sum(t.numel() * 4 for t in random.values())
+        plans = stream_plans(net, name)
+        rec = {dtype: {kernel: {"max_abs_err": 0.0, "core": cores[dtype], "plans": plans}
+                       for kernel in KERNELS} for dtype in dtypes}
+        for n, s in STREAM_SHAPES:
+            rays = march_inputs(n, s, gen, DEVICE)
+            inits = (("random", random), ("random_he", he)) if (n, s) == RAGGED else (
+                ("random_he", he),)
+            for kernel, (wrapper, twin, inputs) in KERNELS.items():
+                args = inputs(net, rays)
+                for dtype in dtypes:
+                    r = rec[dtype][kernel]
+                    for scene, params in inits:
+                        e = check(kernel, params, args, net, getattr(torch, dtype),
+                                  f"{kernel} stream net {name} {scene} N={n} S={s} {dtype}")
+                        r["max_abs_err"] = max(r["max_abs_err"], e)
+                    if n != N_RAYS:
+                        continue
+                    cd = getattr(torch, dtype)
+                    with torch.no_grad():
+                        ms = time_ms(lambda: wrapper(random, *args, net, compute_dtype=cd),
+                                     reps=1, warmup=0)
+                        if kernel == "fused_nerf_march":
+                            r["plain_ms_S64"] = time_ms(
+                                lambda: twin(random, *args, net, compute_dtype=cd), reps=1,
+                                warmup=0)
+                    peak = peaks[0] if dtype == "float32" else peaks[1]
+                    b, by = bound(*work(kernel, net, n, s, weight_bytes), peak, peaks[2])
+                    r.update(ms_S64=ms, bound_ms_S64=b, bound_by=by, share_S64=b / ms)
+                    log(f"time stream {name} {kernel} {dtype} S64 N={n}: kernel {ms:.3f} ms, "
+                        f"bound {b:.3f} ms ({by}), {b / ms:.1%} of the bound"
+                        + (f", twin {r['plain_ms_S64']:.3f} ms" if "plain_ms_S64" in r else ""))
+                del args
+            del rays
+            torch.cuda.empty_cache()
+        rays = march_inputs(N_RAYS, 192, gen, DEVICE)
+        for kernel in STREAM_S192:
+            wrapper = KERNELS[kernel][0]
+            for dtype in dtypes:
+                cd = getattr(torch, dtype)
+                with torch.no_grad():
+                    ms = time_ms(lambda: wrapper(random, *rays, net, compute_dtype=cd),
+                                 reps=1, warmup=0)
+                peak = peaks[0] if dtype == "float32" else peaks[1]
+                b, by = bound(*work(kernel, net, N_RAYS, 192, weight_bytes), peak, peaks[2])
+                rec[dtype][kernel].update(ms_S192=ms, bound_ms_S192=b, share_S192=b / ms)
+                log(f"time stream {name} {kernel} {dtype} S192 N={N_RAYS}: kernel {ms:.3f} ms, "
+                    f"bound {b:.3f} ms ({by}), {b / ms:.1%} of the bound")
+        del rays, random, he
+        torch.cuda.empty_cache()
+        nets[name] = rec
+        log(f"kernel vs twin on stream net {name} ({net.netdepth}x{net.netwidth}, multires "
+            f"{net.multires}/{net.multires_views}, {'/'.join(dtypes)}): max abs err "
+            + ", ".join(f"{k} {d} {rec[d][k]['max_abs_err']:.2e}" for d in dtypes for k in KERNELS)
+            + f" ({time.perf_counter() - t_net:.1f} s)")
+    launches = counts()
+    name, dtype = STREAM_REFUSED
+    net = NeRFNetConfig(**STREAM_NETS[name][0])
+    params = init_nerf_params(net, generator=gen, device=DEVICE)
+    rays = march_inputs(8, 8, gen, DEVICE)
+    for kernel, (wrapper, _, inputs) in KERNELS.items():
+        try:
+            with torch.no_grad():
+                wrapper(params, *inputs(net, rays), net, compute_dtype=getattr(torch, dtype))
+        except NotImplementedError as e:
+            if "budget" not in str(e):
+                raise
+            log(f"stream net {name} {dtype} {kernel} refused: {e}")
+        else:
+            raise AssertionError(f"{kernel} launched net {name} in {dtype}, past the JAX budget")
+    if counts() != launches:
+        raise AssertionError(f"a refused launch counted: {counts()} against {launches}")
+    del params, rays
+    torch.cuda.empty_cache()
+    return {"nets": nets, "launches": launches, "render": stream_render(*STREAM_RENDER, smi)}
+
+
+def stream_render(name, k, side, smi):
+    """The render of phase 5 (test mode, float32, 64 + 128 samples, the ray
+    march) on the box-scene weights of a streaming-core net at its full
+    width, K = k poses from psi_init("5") at a side x side camera (the
+    100x100 one scaled): fused_nerf_march 2 launches per ray chunk and no
+    other kernel, rgb finite in [0, 1], not empty, and within F32_TOL of the
+    twin's render."""
+    net = NeRFNetConfig(**STREAM_NETS[name][0])
+    cfg = NeuralSimConfig()
+    scale = side / cfg.camera.height
+    cam = dataclasses.replace(cfg.camera, height=side, width=side, fx=cfg.camera.fx * scale,
+                              fy=cfg.camera.fy * scale, cx=cfg.camera.cx * scale,
+                              cy=cfg.camera.cy * scale)
+    cfg = cfg.replace(net=net, camera=cam, sampler=dataclasses.replace(cfg.sampler,
+                                                                       n_samples_k=k))
+    box = box_scene_params(net, generator=torch.Generator().manual_seed(3), device=DEVICE)
+    models = {"coarse": box, "fine": box}
+    psi = psi_init("5")
+    renderer = NeuralSimRenderer(cfg, models=models, device=DEVICE)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rgb, noise = renderer.render_images(psi, torch.Generator().manual_seed(0), num_k=k)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    n_rays = k * side * side
+    expect = 2 * math.ceil(n_rays / renderer.rc.ray_chunk)
+    log(f"stream render [{name}, float32]: K={k} {side}x{side} images, {n_rays} rays, "
+        f"launches {launched} (expected {expect} of fused_nerf_march), {seconds:.3f} s "
+        f"= {n_rays / seconds:.0f} rays/s on {smi}")
+    if launched != {kn: (expect if kn == "fused_nerf_march" else 0) for kn in launched}:
+        raise AssertionError(f"stream render launched {launched}, expected {expect} of "
+                             "fused_nerf_march and no other kernel")
+    twin = NeuralSimRenderer(cfg.replace(render=dataclasses.replace(renderer.rc,
+                                                                    use_pallas=False)),
+                             models=models, device=DEVICE)
+    with torch.no_grad():
+        rgb_twin, _, acc = twin._render_impl(psi, noise)
+    if not (torch.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 1):
+        raise AssertionError("stream render: images not finite or outside [0, 1]")
+    hit = (acc > 0.5).float().mean().item()
+    if hit == 0.0:
+        raise AssertionError("stream render is empty: acc <= 0.5 everywhere")
+    err = (rgb - rgb_twin).abs().max().item()
+    log(f"stream render [{name}]: {hit:.3%} of pixels with acc > 0.5; rgb vs twin render max "
+        f"abs err {err:.3e} (limit {F32_TOL:g})")
+    torch.testing.assert_close(rgb, rgb_twin, rtol=0, atol=F32_TOL)
+    return dict(net=name, k=k, side=side, launches=launched, err_vs_twin=err, seconds=seconds,
+                rays_per_s=n_rays / seconds)
 
 
 def f32_plans(net, name):
@@ -3155,13 +3416,21 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def mesh_train(ds, device, mesh=None):
-    """MESH_TRAIN_STEPS steps of train_nerf from a seeded init: the default
-    pair, 64 + 128 samples, perturbed, float32, N_rand MESH_RAYS (the whole
-    batch's, split over the mesh's data axis). Returns (params, the
+def mesh_train(ds, device, mesh=None, steps=MESH_TRAIN_STEPS, init=None, **render):
+    """``steps`` steps of train_nerf from a seeded init (or the box pair of
+    seed ``init``): the default pair, 64 + 128 samples, perturbed, float32,
+    N_rand MESH_RAYS (the whole batch's, split over the mesh's data axis),
+    the render options overridden by ``render``. Returns (params, the
     steps' losses, seconds)."""
     cfg = NeuralSimConfig()
     tc = dataclasses.replace(cfg.train, n_rand=MESH_RAYS)
+    state = None
+    if init is not None:
+        box = box_scene_params(NeRFNetConfig(), generator=torch.Generator().manual_seed(init),
+                               device=device)
+        models = {"coarse": box, "fine": {k: v.clone() for k, v in box.items()}}
+        state = train_nerf.TrainState(models, train_nerf.make_optimizer(tc).init(models),
+                                      torch.zeros((), dtype=torch.int32, device=device))
     losses = []
     step = train_nerf.train_step
 
@@ -3175,8 +3444,9 @@ def mesh_train(ds, device, mesh=None):
         sync(device)
         t0 = time.perf_counter()
         state, _ = train_nerf.train_nerf(
-            ds, NeRFNetConfig(), cfg.render, tc, torch.Generator(device=device).manual_seed(0),
-            n_iters=MESH_TRAIN_STEPS, device=device, mesh=mesh)
+            ds, NeRFNetConfig(), dataclasses.replace(cfg.render, **render), tc,
+            torch.Generator(device=device).manual_seed(0), n_iters=steps, device=device,
+            mesh=mesh, state=state)
         sync(device)
         seconds = time.perf_counter() - t0
     finally:
@@ -3262,6 +3532,12 @@ def _mesh_rank(path, device):
     res["train_params"], res["train_loss"], res["train_s"] = mesh_train(inputs["ds"], device,
                                                                         mesh)
     res["train_launches"] = counts()
+    res["train_modes"] = {}
+    for mode, (render, steps, init) in MESH_TRAIN_MODES.items():
+        zero_counts()
+        params, loss, seconds = mesh_train(inputs["ds"], device, mesh, steps, init, **render)
+        res["train_modes"][mode] = dict(params=params, loss=loss, seconds=seconds,
+                                        launches=counts())
     return res
 
 
@@ -3287,6 +3563,12 @@ def mesh_two_ranks(rerun, box):
             zero_counts()
             want_params, want_loss, train_s = mesh_train(ds, DEVICE)
             res["one_process"]["train"] = {"seconds": train_s, "launches": counts()}
+            want_modes = {}
+            for mode, (render, steps, init) in MESH_TRAIN_MODES.items():
+                zero_counts()
+                params, loss, seconds = mesh_train(ds, DEVICE, None, steps, init, **render)
+                want_modes[mode] = dict(params=params, loss=loss, seconds=seconds,
+                                        launches=counts())
         finally:
             torch.backends.cudnn.deterministic = False
         path = os.path.join(tmp, "inputs.pt")
@@ -3356,17 +3638,8 @@ def mesh_two_ranks(rerun, box):
         close(f"{tag} inner loss", got["inner_loss"], w["inner_loss"], 1e-3, 0.0)
         close(f"{tag} mAP", got["map"][finite], w["map"][finite], 1e-2, 1e-3)
         close(f"{tag} train losses", r["train_loss"], want_loss, MESH_TRAIN_REL, 0.0)
-        rels = {}
-        for name in want_params:
-            for k, v in want_params[name].items():
-                v = v.detach().cpu().double()
-                rels[f"{name}.{k}"] = float((torch.from_numpy(r["train_params"][name][k]).double()
-                                             - v).norm() / v.norm())
-        res.setdefault("train_params_rel_max", []).append(max(rels.values()))
-        log(f"mesh {tag}: train params at most {max(rels.values()):.3e} of a tensor's norm "
-            f"from one process (limit {MESH_PARAM_REL:g})")
-        if not max(rels.values()) <= MESH_PARAM_REL:
-            raise AssertionError(f"mesh {tag}: train params {rels}")
+        res.setdefault("train_params_rel_max", []).append(
+            train_params_rel(tag, "train", r["train_params"], want_params))
     # reported: the default inner train's 50 steps, where grad_psi follows
     # the rounding of the inner train's sums (PERF.md)
     rw, rg = want["reported"], ranks[0]["reported"]
@@ -3385,6 +3658,7 @@ def mesh_two_ranks(rerun, box):
     a, b = (r["train_params"] for r in ranks)
     if not all(np.array_equal(a[n][k], b[n][k]) for n in a for k in a[n]):
         raise AssertionError("mesh two ranks: the ranks' train params differ")
+    res["train_modes"] = check_train_modes(ranks, want_modes)
     res["epoch_ranks_equal"] = all(np.array_equal(ranks[0][n][k], ranks[1][n][k])
                                    for n in want for k in ("psi", "grad_psi", "renders"))
     log(f"mesh two ranks: trained params equal to the bit on both ranks; epoch outputs "
@@ -3393,6 +3667,55 @@ def mesh_two_ranks(rerun, box):
             r["fused_nerf_march"] for r in res["train"]["train_launches"]]):
         raise AssertionError("mesh two ranks: a rank launched no kernel")
     return res
+
+
+def train_params_rel(tag, what, got, want):
+    """The largest distance of a rank's train params (numpy) from one
+    process's, relative to each tensor's norm, logged; at most
+    MESH_PARAM_REL."""
+    rels = {}
+    for name in want:
+        for k, v in want[name].items():
+            v = v.detach().cpu().double()
+            rels[f"{name}.{k}"] = float((torch.from_numpy(got[name][k]).double() - v).norm()
+                                        / v.norm())
+    log(f"mesh {tag}: {what} params at most {max(rels.values()):.3e} of a tensor's norm "
+        f"from one process (limit {MESH_PARAM_REL:g})")
+    if not max(rels.values()) <= MESH_PARAM_REL:
+        raise AssertionError(f"mesh {tag}: {what} params {rels}")
+    return max(rels.values())
+
+
+def check_train_modes(ranks, want_modes):
+    """Phase 12(b)'s train steps in MESH_TRAIN_MODES: each rank's losses
+    within MESH_TRAIN_REL and params within MESH_PARAM_REL of one process's
+    steps, the ranks' params equal to the bit, kernel 1 launched on each
+    rank: {mode: {...}}."""
+    out = {}
+    for mode, (render, steps, init) in MESH_TRAIN_MODES.items():
+        want = want_modes[mode]
+        rels = []
+        for r in ranks:
+            got, tag = r["train_modes"][mode], f"rank {r['rank']}"
+            close(f"{tag} train {mode} losses", got["loss"], want["loss"], MESH_TRAIN_REL, 0.0)
+            rels.append(train_params_rel(tag, f"train {mode}", got["params"], want["params"]))
+        a, b = (r["train_modes"][mode]["params"] for r in ranks)
+        if not all(np.array_equal(a[n][k], b[n][k]) for n in a for k in a[n]):
+            raise AssertionError(f"mesh two ranks: the ranks' {mode} train params differ")
+        launches = [r["train_modes"][mode]["launches"] for r in ranks]
+        out[mode] = {"render": render, "steps": steps, "box_seed": init, "params_rel_max": rels,
+                     "seconds": [r["train_modes"][mode]["seconds"] for r in ranks],
+                     "launches": launches, "loss": [r["train_modes"][mode]["loss"] for r in ranks],
+                     "one_process": {k: want[k] for k in ("seconds", "launches", "loss")}}
+        log(f"mesh two ranks, {steps} train steps with {render} from "
+            f"{'a seeded init' if init is None else f'the box pair of seed {init}'}: losses "
+            f"{out[mode]['loss'][0]} (one process {want['loss']}), fused_nerf_march launches "
+            f"per rank {[x['fused_nerf_march'] for x in launches]} (one process "
+            f"{want['launches']['fused_nerf_march']}), seconds {out[mode]['seconds']}")
+        if not all(x["fused_nerf_march"] > 0 for x in launches):
+            raise AssertionError(f"mesh two ranks: a rank's {mode} train steps launched no "
+                                 "kernel")
+    return out
 
 
 def phase_mesh(rerun, box, smi):
@@ -3460,6 +3783,7 @@ def main():
     spills = timed_phase("2 build", phase_build)
     net = NeRFNetConfig()
     rec, chain = timed_phase("3 kernels", phase_kernels, net, peaks)
+    stream = timed_phase("3s stream core", phase_stream, peaks, smi)
     timed_phase("4 backward", phase_backward, net)
     routes, routes16, box, cfg = timed_phase("5 main path", phase_main_path)
     plain_net = timed_phase("5b plain net", phase_plain_net, psi_init("5"))
@@ -3559,6 +3883,12 @@ def main():
             "max_samples": r.get("max_samples"),
             "long_rays": r.get("long_rays"),
             "cluster_launch_bf16": r.get("cluster_launch"),
+            "cores": r["cores"],
+            "stream": {"core": rm.STREAM_CORE, "launches": stream["launches"][kernel],
+                       "render_launches": stream["render"]["launches"][kernel],
+                       "render": stream["render"] if kernel == "fused_nerf_march" else None,
+                       "nets": {name: {dtype: recs[kernel] for dtype, recs in by_dtype.items()}
+                                for name, by_dtype in stream["nets"].items()}},
             "build_spills": spills,
             "shape": f"N={N_RAYS} rays x S samples (M = N*S points); "
                      "ms/plain_ms/bound_ms at float32 S=192, *_bf16 at bfloat16 S=192; "
@@ -3569,7 +3899,11 @@ def main():
                      "from the net's own work; chain_ms['wide' / 'widest'] beside them); "
                      f"main_path_wide: the K=8 renders on {WIDE} (ray march) and {WIDEST} "
                      "(every route) box-scene weights; long_rays: the render tile on rays "
-                     "longer than one segment",
+                     "longer than one segment; cores: the default net's core in each "
+                     "dtype; stream: the streaming core on STREAM_NETS (launches in its "
+                     "checks and times, and in the render of STREAM_RENDER; per net and "
+                     "dtype its max abs err, ms at S=64 (every kernel) and S=192 (the ray "
+                     "march and the render tile), bound and share)",
             "card": smi,
         })
     print(json.dumps({"render_grad": grad}), flush=True)

@@ -26,9 +26,14 @@
 //     (128-point tiles at W = 256, 64-point tiles whose columns the
 //     warpgroups split at W = 512; 32-point tiles of the transposed core at
 //     W = 1024 and for narrower nets with long encodings), its packed bf16
-//     weights streamed the same way.
+//     weights streamed the same way;
+//   - a net neither core of its dtype has room for (a trunk past 1024, or
+//     encodings past their shared memory), in either dtype: the streaming
+//     core of nerf_mlp_stream.cuh on tiles of 32 to 4 points, its weights
+//     read in place from L2 (entry nerf_march_stream).
 // Each header reckons its core's weight traffic.
 
+#include "nerf_mlp_stream.cuh"
 #include "nerf_mlp_wgmma.cuh"
 
 using namespace nerf;
@@ -141,6 +146,41 @@ nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ray
   wg::finish(core);
 }
 
+// The streaming core (the nets the other cores have no room for): the
+// block runs tiles blockIdx.x, +gridDim.x, ... of TILE points.
+template <int TILE>
+__global__ void __launch_bounds__(THREADS, 1)
+stream_march(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+             const float* __restrict__ viewdirs, const float* __restrict__ z_vals, int total,
+             int n_samples, Net net, stream::Layers layers, float* __restrict__ sigma,
+             float* __restrict__ rgb) {
+  extern __shared__ float4 smem4[];
+  const int n_tiles = (total + TILE - 1) / TILE;
+  stream::Core<TILE> core = stream::make_core<TILE>(smem4, layers, net);
+  const int tid = threadIdx.x;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * TILE;
+    __syncthreads();  // the previous tile's raw outputs are read
+    if (tid < TILE) {
+      make_point(rays_o, rays_d, viewdirs, z_vals, base + tid, total, n_samples, core.pts, TILE,
+                 tid);
+    }
+    __syncthreads();
+    stream::run_tile<TILE, false>(core, net);
+    for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
+      const int c = idx / TILE, p = idx % TILE;
+      const int g = base + p;
+      if (g < total) {
+        if (c == 3) {
+          sigma[g] = core.raw[3 * TILE + p];
+        } else {
+          rgb[static_cast<long long>(c) * total + g] = core.raw[c * TILE + p];
+        }
+      }
+    }
+  }
+}
+
 // The launches of one instantiation, for the cores' dispatch.
 struct MarchF32 {
   template <int TILE, int W>
@@ -162,6 +202,17 @@ struct MarchWgmma {
     return wg::launch_core<W, NX>(nerf_march_wgmma<W, NX>, (total + TILE - 1) / TILE, smem, s,
                                   rays_o, rays_d, viewdirs, z_vals, static_cast<int>(total),
                                   n_samples, net, plan, nd, sigma, rgb);
+  }
+};
+
+struct MarchStream {
+  template <int TILE>
+  static int run(long long total, size_t smem, cudaStream_t s, const float* rays_o,
+                 const float* rays_d, const float* viewdirs, const float* z_vals, int n_samples,
+                 Net net, stream::Layers layers, float* sigma, float* rgb) {
+    return launch_persistent(stream_march<TILE>, (total + TILE - 1) / TILE, smem, s, rays_o,
+                             rays_d, viewdirs, z_vals, static_cast<int>(total), n_samples, net,
+                             layers, sigma, rgb);
   }
 };
 
@@ -208,6 +259,35 @@ int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
                                  static_cast<size_t>(f32::core_bytes(tile, width, rx, rd)), s,
                                  rays_o, rays_d, viewdirs, z_vals, n_samples, net, plan, rx, rd,
                                  sigma, rgb);
+}
+
+// nerf_march on the streaming core (nerf_mlp_stream.cuh), for the nets the
+// other cores have no room for: the same arguments, with weights padded to
+// a trunk of `width` (a multiple of 64), `packed` the device table of the
+// padded kernels' pointers (raymarch.py stream_table; 8-byte aligned) and
+// n_skips unused (the skips are in `table`). Both dtypes: bf16 rounds where
+// the JAX package does. Returns a cudaError_t value.
+int nerf_march_stream(const float* rays_o, const float* rays_d, const float* viewdirs,
+                      const float* z_vals, long long n_rays, int n_samples,
+                      const void* const* weights, const void* table, int width, int depth,
+                      int n_skips, int in_ch, int in_ch_views, int bf16, const void* packed,
+                      float* sigma, float* rgb, void* stream_) {
+  Net net;
+  if (!stream::width_ok(width)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_net(weights, table, depth, in_ch, in_ch_views, 0, &net);
+  if (err != 0) return err;
+  const long long total = n_rays * n_samples;
+  if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 8 || total > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int tile = 0;
+  const int e = stream::pick_tile(width, in_ch, in_ch_views, 0, &tile);
+  if (e != 0) return e;
+  const stream::Layers layers{static_cast<const unsigned long long*>(packed), width, bf16};
+  return stream::dispatch<MarchStream>(
+      tile, total, static_cast<size_t>(stream::core_bytes(tile, width, in_ch, in_ch_views)),
+      static_cast<cudaStream_t>(stream_), rays_o, rays_d, viewdirs, z_vals, n_samples, net,
+      layers, sigma, rgb);
 }
 
 }  // extern "C"

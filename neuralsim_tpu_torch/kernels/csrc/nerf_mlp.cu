@@ -36,10 +36,14 @@
 //     transposed core at W = 1024 and for narrower nets with long
 //     encodings). A tile's rows are read as points into the core's [6][PTS]
 //     tile (encoded by the core, with a true cosf in TRUE_COS), or as x_pe
-//     and d_pe straight into the swizzled tiles (load_tile_encodings).
+//     and d_pe straight into the swizzled tiles (load_tile_encodings);
+//   - a net neither core of its dtype has room for, in either dtype: the
+//     streaming core of nerf_mlp_stream.cuh (entry nerf_mlp_stream), the
+//     inputs scattered into its [channel][point] tiles as on the FP32 core.
 // Both cores stream their packed weights through the shared-memory ring of
 // nerf_mlp.cuh.
 
+#include "nerf_mlp_stream.cuh"
 #include "nerf_mlp_wgmma.cuh"
 
 using namespace nerf;
@@ -163,6 +167,45 @@ nerf_mlp_wgmma(const float* __restrict__ a, const float* __restrict__ b, int tot
   wg::finish(core);
 }
 
+// The streaming core (the nets the other cores have no room for): the
+// block runs tiles blockIdx.x, +gridDim.x, ... of TILE points.
+template <int TILE, int INPUT>
+__global__ void __launch_bounds__(THREADS, 1)
+stream_mlp(const float* __restrict__ a, const float* __restrict__ b, int total, Net net,
+           stream::Layers layers, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int n_tiles = (total + TILE - 1) / TILE;
+  stream::Core<TILE> core = stream::make_core<TILE>(smem4, layers, net);
+  const int tid = threadIdx.x;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * TILE;
+    const int here = total - base < TILE ? total - base : TILE;
+    __syncthreads();  // the previous tile's raw outputs are read
+    if constexpr (INPUT == ENCODED) {
+      stream::load_encoded<TILE>(a, net.in_ch, base, here, core.x, layers.bf16 != 0);
+      stream::load_encoded<TILE>(b, net.in_ch_views, base, here, core.d, layers.bf16 != 0);
+      __syncthreads();
+      stream::mlp_tile<TILE>(core, net);
+    } else {
+      // a = points, b = view directions: the tile's rows of each are one
+      // run of 3 * TILE floats
+      const long long run = static_cast<long long>(base) * 3;
+      for (int idx = tid; idx < 6 * TILE; idx += THREADS) {
+        const int which = idx / (3 * TILE), j = idx - which * 3 * TILE;
+        const int p = j / 3, c = j - 3 * p;
+        const float* src = which ? b : a;
+        core.pts[(3 * which + c) * TILE + p] = p < here ? src[run + j] : 0.f;
+      }
+      __syncthreads();
+      stream::run_tile<TILE, INPUT == TRUE_COS>(core, net);
+    }
+    for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
+      const int p = idx >> 2, c = idx & 3;
+      if (p < here) out[static_cast<long long>(base) * 4 + idx] = core.raw[c * TILE + p];
+    }
+  }
+}
+
 // The launches of one instantiation, for the cores' dispatch.
 template <int INPUT>
 struct MlpF32 {
@@ -184,6 +227,30 @@ struct MlpWgmma {
                                   s, a, b, total, net, plan, nd, out);
   }
 };
+
+template <int INPUT>
+struct MlpStream {
+  template <int TILE>
+  static int run(int total, size_t smem, cudaStream_t s, const float* a, const float* b, Net net,
+                 stream::Layers layers, float* out) {
+    return launch_persistent(stream_mlp<TILE, INPUT>, (total + TILE - 1) / TILE, smem, s, a, b,
+                             total, net, layers, out);
+  }
+};
+
+// One stage's kernel on the streaming core.
+template <int INPUT>
+int launch_stream_stage(int total, const float* a, const float* b, int width, const void* packed,
+                        int bf16, const Net& net, cudaStream_t s, float* out) {
+  int tile = 0;
+  const int e = stream::pick_tile(width, net.in_ch, net.in_ch_views, 0, &tile);
+  if (e != 0) return e;
+  const stream::Layers layers{static_cast<const unsigned long long*>(packed), width, bf16};
+  return stream::dispatch<MlpStream<INPUT>>(
+      tile, total,
+      static_cast<size_t>(stream::core_bytes(tile, width, net.in_ch, net.in_ch_views)), s, a, b,
+      net, layers, out);
+}
 
 // One stage's kernel in one dtype.
 template <int INPUT>
@@ -244,6 +311,36 @@ int nerf_mlp(const float* a, const float* b, long long total, int kind,
       return launch_stage<TRUE_COS>(bf16, m, a, b, width, packed, n_skips, net, s, out);
     case ENCODED:
       return launch_stage<ENCODED>(bf16, m, a, b, width, packed, n_skips, net, s, out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// nerf_mlp on the streaming core (nerf_mlp_stream.cuh), for the nets the
+// other cores have no room for: the same arguments, with weights padded to
+// a trunk of `width` (a multiple of 64), `packed` the device table of the
+// padded kernels' pointers (raymarch.py stream_table; 8-byte aligned) and
+// n_skips unused. Returns a cudaError_t value.
+int nerf_mlp_stream(const float* a, const float* b, long long total, int kind,
+                    const void* const* weights, const void* table, int width, int depth,
+                    int n_skips, int in_ch, int in_ch_views, int bf16, const void* packed,
+                    float* out, void* stream_) {
+  Net net;
+  if (!stream::width_ok(width)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_net(weights, table, depth, in_ch, in_ch_views, 0, &net);
+  if (err != 0) return err;
+  if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 8 || total > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  const int m = static_cast<int>(total);
+  switch (kind) {
+    case PROJECTION:
+      return launch_stream_stage<PROJECTION>(m, a, b, width, packed, bf16, net, s, out);
+    case TRUE_COS:
+      return launch_stream_stage<TRUE_COS>(m, a, b, width, packed, bf16, net, s, out);
+    case ENCODED:
+      return launch_stream_stage<ENCODED>(m, a, b, width, packed, bf16, net, s, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

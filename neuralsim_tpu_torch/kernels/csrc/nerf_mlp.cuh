@@ -140,13 +140,13 @@ struct Net {
 };
 
 // The Net of a C call: weights is a host array of 2 * (depth + 4) device
-// pointers, kernel then bias per layer, padded to a trunk of `width` (256,
-// 512 or 1024); table the net's device table (8-byte aligned). Returns a
-// cudaError_t value.
-inline int make_net(const void* const* weights, const void* table, int width, int depth,
-                    int in_ch, int in_ch_views, int fast_epilogue, Net* net) {
-  if ((width != 256 && width != 512 && width != MAX_W) || depth < 1 || in_ch < 1 ||
-      in_ch_views < 1 || table == nullptr || reinterpret_cast<uintptr_t>(table) % 8) {
+// pointers, kernel then bias per layer, padded to the trunk width of the
+// core that runs it; table the net's device table (8-byte aligned). Returns
+// a cudaError_t value.
+inline int set_net(const void* const* weights, const void* table, int depth, int in_ch,
+                   int in_ch_views, int fast_epilogue, Net* net) {
+  if (depth < 1 || in_ch < 1 || in_ch_views < 1 || table == nullptr ||
+      reinterpret_cast<uintptr_t>(table) % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *net = Net{};
@@ -158,6 +158,15 @@ inline int make_net(const void* const* weights, const void* table, int width, in
   net->in_ch_views = in_ch_views;
   net->fast_epilogue = fast_epilogue;
   return 0;
+}
+
+// set_net for the FP32 and wgmma cores: a trunk of `width` 256, 512 or 1024.
+inline int make_net(const void* const* weights, const void* table, int width, int depth,
+                    int in_ch, int in_ch_views, int fast_epilogue, Net* net) {
+  if (width != 256 && width != 512 && width != MAX_W) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return set_net(weights, table, depth, in_ch, in_ch_views, fast_epilogue, net);
 }
 
 // The bias of layer i: pts_i for i < depth, then feature, alpha, views_0,

@@ -43,7 +43,10 @@
 //     tile / gcd(S, tile) where the buffers fit (R = 2 for S = 64 and 192 at
 //     W = 256), else the fewest rays that fill one sub-tile.
 // Both stream their packed weights through the core's shared-memory ring
-// (each header reckons the weight traffic).
+// (each header reckons the weight traffic). A net neither core of its
+// dtype has room for runs, in either dtype, on the streaming core of
+// nerf_mlp_stream.cuh (entry render_tile_stream): sub-tiles of its tile
+// (32 to 4 points) and the groups and segments of the bf16 plan.
 // When all of a segment's points are in, the block turns every point's
 // density into alpha and its logits into sigmoids in parallel (a segment's
 // last sample reads the next depth from z); then thread r runs ray r's
@@ -54,6 +57,7 @@
 // exp(log(1 - alpha) @ U) with a triangular matrix only because Mosaic has
 // no cumprod; here it is a plain loop of a few multiply-adds per sample.
 
+#include "nerf_mlp_stream.cuh"
 #include "nerf_mlp_wgmma.cuh"
 
 using namespace nerf;
@@ -333,6 +337,53 @@ render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ra
   wg::finish(core);
 }
 
+// The streaming core: the block walks ray groups blockIdx.x, +gridDim.x,
+// ... of R rays, in segments of seg samples, in sub-tiles of TILE points.
+template <int TILE>
+__global__ void __launch_bounds__(THREADS, 1)
+stream_render_tile(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+                   const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
+                   long long n_rays, int n_samples, int rays_per_block, int seg, Net net,
+                   stream::Layers layers, int white_bkgd, float* __restrict__ rgb_map,
+                   float* __restrict__ disp_map, float* __restrict__ acc_map,
+                   float* __restrict__ weights, float* __restrict__ depth_map) {
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x;
+  const int S = n_samples;
+  const int R = rays_per_block;
+  const int stride = R * seg;
+  const long long groups = (n_rays + R - 1) / R;
+  stream::Core<TILE> core = stream::make_core<TILE>(smem4, layers, net);
+  // [4][R*seg] the segment's raw field, [R*seg] its depths, [6][R] the carry
+  float* ray_raw = reinterpret_cast<float*>(smem4) +
+                   stream::core_bytes(TILE, layers.width, net.in_ch, net.in_ch_views) / 4;
+  float* ray_z = ray_raw + 4 * stride;
+  float* carry = ray_z + stride;
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long long ray0 = grp * R;
+    const int n_here = static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R);
+    for (int s0 = 0; s0 < S; s0 += seg) {
+      const int len = S - s0 < seg ? S - s0 : seg;
+      const int T = n_here * len;
+      for (int t0 = 0; t0 < T; t0 += TILE) {
+        __syncthreads();  // the previous sub-tile's raw outputs are read
+        if (tid < TILE) {
+          ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, s0, len, t0 + tid, T, ray_z,
+                    core.pts, TILE, tid);
+        }
+        __syncthreads();
+        stream::run_tile<TILE, false>(core, net);
+        for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
+          const int c = idx / TILE, p = idx % TILE;
+          if (t0 + p < T) ray_raw[c * stride + t0 + p] = core.raw[c * TILE + p];
+        }
+      }
+      composite<false>(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d,
+                       z_vals, white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
+    }
+  }
+}
+
 int gcd(int a, int b) {
   while (b) {
     const int t = a % b;
@@ -446,19 +497,75 @@ struct TileWgmma {
   }
 };
 
+struct TileStream {
+  template <int TILE>
+  static int run(long long blocks, size_t smem, cudaStream_t s, const float* rays_o,
+                 const float* rays_d, const float* viewdirs, const float* z_vals, long long n_rays,
+                 int n_samples, int rays, int seg, Net net, stream::Layers layers, int white_bkgd,
+                 float* rgb_map, float* disp_map, float* acc_map, float* weights_out,
+                 float* depth_map) {
+    return launch_persistent(stream_render_tile<TILE>, blocks, smem, s, rays_o, rays_d, viewdirs,
+                             z_vals, n_rays, n_samples, rays, seg, net, layers, white_bkgd,
+                             rgb_map, disp_map, acc_map, weights_out, depth_map);
+  }
+};
+
+// The streaming core's launch for S samples in `smem_max` bytes: the
+// largest tile that leaves room for one sample, then the bf16 plan's rays
+// per group (whole rays where they fit, else one ray in segments); false
+// when not one sample fits.
+bool plan_stream(int n_samples, int width, int in_ch, int in_ch_views, int smem_max, int* tile,
+                 int* rays, int* seg) {
+  if (stream::pick_tile(width, in_ch, in_ch_views, group_bytes(1, 1), tile) != 0 || *tile == 0) {
+    return false;
+  }
+  const long long room = smem_max - stream::core_bytes(*tile, width, in_ch, in_ch_views);
+  *rays = block_rays(n_samples, *tile, room);
+  *seg = n_samples;
+  if (*rays < 1) {
+    *rays = 1;
+    *seg = segment_samples(*tile, room);
+  }
+  return *seg >= 1;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The most samples of one segment (one ray per group) in this dtype for a
-// net's width and encodings, from the device's shared memory; 0 when the
-// core leaves no room for one. A ray of more samples runs in segments.
-int render_tile_max_samples(int bf16, int width, int in_ch, int in_ch_views) {
+// The most samples of one segment (one ray per group) on a core (0: the
+// FP32 core, 1: wgmma, 2: the streaming core at the tile of its launches)
+// for a net's width and encodings, from the device's shared memory; 0 when
+// the core leaves no room for one. A ray of more samples runs in segments.
+int render_tile_max_samples(int core, int width, int in_ch, int in_ch_views) {
   int smem_max = 0;
   if (smem_optin(&smem_max) != 0) return 0;
-  const int core = bf16 ? wg::launch_bytes(width, in_ch, in_ch_views)
-                        : f32::smallest_bytes(width, in_ch, in_ch_views);
-  return segment_samples(1, static_cast<long long>(smem_max) - core);
+  long long bytes;
+  if (core == 2) {
+    int tile = 0;
+    if (stream::pick_tile(width, in_ch, in_ch_views, group_bytes(1, 1), &tile) != 0 ||
+        tile == 0) {
+      return 0;
+    }
+    bytes = stream::core_bytes(tile, width, in_ch, in_ch_views);
+  } else {
+    bytes = core ? wg::launch_bytes(width, in_ch, in_ch_views)
+                 : f32::smallest_bytes(width, in_ch, in_ch_views);
+  }
+  return segment_samples(1, static_cast<long long>(smem_max) - bytes);
+}
+
+// The streaming core's plan of a launch for S samples on the current
+// device (the sub-tile, rays per group and samples per segment) and its
+// shared memory; 0 bytes when not one sample fits.
+long long render_tile_stream_plan(int n_samples, int width, int in_ch, int in_ch_views,
+                                  int* tile, int* rays, int* seg) {
+  int smem_max = 0;
+  if (n_samples < 1 || smem_optin(&smem_max) != 0 ||
+      !plan_stream(n_samples, width, in_ch, in_ch_views, smem_max, tile, rays, seg)) {
+    return 0;
+  }
+  return stream::core_bytes(*tile, width, in_ch, in_ch_views) + group_bytes(*rays, *seg);
 }
 
 // The FP32 core's plan of a launch for S samples on the current device (the
@@ -537,6 +644,41 @@ int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
   return f32::dispatch<TileF32>(width, tile, (n_rays + rays - 1) / rays, smem, s, rays_o, rays_d,
                                 viewdirs, z_vals, n_rays, n_samples, rays, seg, net, plan, rx, rd,
                                 white_bkgd, rgb_map, disp_map, acc_map, weights_out, depth_map);
+}
+
+// render_tile on the streaming core (nerf_mlp_stream.cuh), for the nets the
+// other cores have no room for: the same arguments, with weights padded to
+// a trunk of `width` (a multiple of 64), `packed` the device table of the
+// padded kernels' pointers (raymarch.py stream_table; 8-byte aligned) and
+// n_skips unused. Returns a cudaError_t value.
+int render_tile_stream(const float* rays_o, const float* rays_d, const float* viewdirs,
+                       const float* z_vals, long long n_rays, int n_samples,
+                       const void* const* weights, const void* table, int width, int depth,
+                       int n_skips, int in_ch, int in_ch_views, int bf16, const void* packed,
+                       int fast_epilogue, int white_bkgd, float* rgb_map, float* disp_map,
+                       float* acc_map, float* weights_out, float* depth_map, void* stream_) {
+  Net net;
+  if (!stream::width_ok(width)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_net(weights, table, depth, in_ch, in_ch_views, fast_epilogue, &net);
+  if (err != 0) return err;
+  if (n_samples < 1 || packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int smem_max = 0;
+  const int e = smem_optin(&smem_max);
+  if (e != 0) return e;
+  int tile = 0, rays = 0, seg = 0;
+  if (!plan_stream(n_samples, width, in_ch, in_ch_views, smem_max, &tile, &rays, &seg)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(stream::core_bytes(tile, width, in_ch, in_ch_views) +
+                                          group_bytes(rays, seg));
+  const stream::Layers layers{static_cast<const unsigned long long*>(packed), width, bf16};
+  return stream::dispatch<TileStream>(tile, (n_rays + rays - 1) / rays, smem,
+                                      static_cast<cudaStream_t>(stream_), rays_o, rays_d,
+                                      viewdirs, z_vals, n_rays, n_samples, rays, seg, net, layers,
+                                      white_bkgd, rgb_map, disp_map, acc_map, weights_out,
+                                      depth_map);
 }
 
 }  // extern "C"

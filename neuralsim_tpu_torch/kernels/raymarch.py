@@ -12,16 +12,25 @@
 On a tensor for which ``uses_kernel`` is true (a CUDA tensor) a wrapper
 launches its kernel or raises; on a CPU tensor it computes its plain
 PyTorch twin. Every wrapper computes in bfloat16 unless asked for float32,
-as the JAX package's wrappers do. In bfloat16 every kernel multiplies on
-the tensor cores (``nerf_mlp_wgmma.cuh``) from the chunks of
-``pack_wgmma_weights``; in float32 on the FP32 core (``nerf_mlp.cuh``) from
-the chunks of ``pack_f32_weights``. Both cores take a trunk of 256, 512 or
-1024 (a narrower net is zero-padded to the next of the three by
-``pad_params``, which is exact), any depth and any encodings that fit in a
-block's shared memory (``_check_supported`` names what they do not take);
-the render tile takes any number of samples per ray. The padded weights,
-their chunks and the net's device table (bias pointers and skip-mask words)
-are prepared once per weight set and dtype (``_packed_weights``).
+as the JAX package's wrappers do. ``core_for`` picks the MLP core of a net
+from its shape and the dtype, before any launch:
+
+- in bfloat16 the tensor cores (``nerf_mlp_wgmma.cuh``) from the chunks of
+  ``pack_wgmma_weights``; in float32 the FP32 core (``nerf_mlp.cuh``) from
+  the chunks of ``pack_f32_weights``. Both take a trunk of 256, 512 or 1024
+  (a narrower net is zero-padded to the next of the three by
+  ``pad_params``, which is exact), any depth and the encodings that fit
+  beside them in a block's shared memory;
+- every other net, in either dtype, the streaming core
+  (``nerf_mlp_stream.cuh``): a trunk padded to a multiple of 64, its
+  weights read in place through ``stream_table``, up to the JAX kernels'
+  own budget (``jax_vmem_bytes``); ``_check_supported`` raises, naming the
+  bytes, for a net past it or whose smallest tile does not fit.
+
+The render tile takes any number of samples per ray. The padded weights,
+their chunks or table and the net's device table (bias pointers and
+skip-mask words) are prepared once per weight set, dtype and core
+(``_packed_weights``).
 Gradients of the first four
 recompute through a twin in float32, as the JAX custom_vjp backwards do;
 ``fused_render_tile`` is forward only, as in JAX, and raises when asked for
@@ -37,7 +46,7 @@ import contextlib
 import ctypes
 import functools
 from collections import OrderedDict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -181,8 +190,14 @@ def _segments(params, net: NeRFNetConfig) -> List[torch.Tensor]:
     return segs + [params["feature_kernel"], views[:n_feature], views[n_feature:]]
 
 
-# trunk widths the CUDA cores are built for: a net is padded to the next one
+# trunk widths the FP32 and wgmma cores are built for: a net is padded to
+# the next one
 CORE_WIDTHS = (256, 512, 1024)
+# the streaming core's trunks: multiples of this
+STREAM_ALIGN = 64
+# the cores (core_for) and the code of each in the render tile's queries
+F32_CORE, WGMMA_CORE, STREAM_CORE = "fp32", "wgmma", "stream"
+CORE_CODES = {F32_CORE: 0, WGMMA_CORE: 1, STREAM_CORE: 2}
 # wgmma weight chunks (nerf_mlp_wgmma.cuh): 64 input rows each
 CHUNK_K = 64
 # FP32-core weight chunks (nerf_mlp.cuh): 16 input rows each
@@ -233,6 +248,13 @@ def pack_f32_weights(params: Dict[str, torch.Tensor], net: NeRFNetConfig) -> tor
     return torch.cat([_f32_chunks(w) for w in _segments(params, net)])
 
 
+def stream_width(width: int) -> int:
+    """The trunk width a net runs at on the streaming core: the next
+    multiple of STREAM_ALIGN (its warps take the columns in units of 32,
+    the views layer's W/2 included)."""
+    return -(-width // STREAM_ALIGN) * STREAM_ALIGN
+
+
 def core_width(width: int) -> int:
     """The trunk width a net of ``width`` runs at on the cores: the
     narrowest of CORE_WIDTHS that holds it (the widest past them, which the
@@ -260,6 +282,89 @@ def f32_bytes(depth: int, n_skips: int, width: int, in_ch: int, in_ch_views: int
     return (n_wide * width + (h + nd) * (width // 2)) * F32_CHUNK_K * 4
 
 
+# the JAX launchers' compiler_params: vmem_limit_bytes=100 * 1024 * 1024
+JAX_VMEM_LIMIT = 100 * 1024 * 1024
+# the JAX launchers' default point tiles (neuralsim_tpu/kernels/raymarch.py:
+# _fused_forward, _fused_forward_pe, _fused_forward_widepe,
+# _fused_march_channels) and the render tile's target points a grid step
+_JAX_TILES = {"fused_nerf_mlp": 2048, "fused_nerf_mlp_widepe": 4096,
+              "fused_nerf_march": 4096}
+_JAX_RENDER_TARGET = 4096
+
+
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def jax_vmem_bytes(kernel: str, net: NeRFNetConfig, width: int, depth: int, bf16: bool,
+                   n_samples: int = 0) -> int:
+    """The VMEM that the JAX kernel ``kernel`` (a wrapper's name) declares
+    for a net of trunk ``width`` and ``depth`` (the port's copy of the
+    rule of neuralsim_tpu/kernels/raymarch.py, which it does not import):
+    every block of its pallas_call double-buffered, the weights and the PE
+    constants at the compute dtype, the input and output tiles at theirs
+    (``n_samples``: the render tile's S, which sets its tiles and its
+    [S, S] triangle).
+
+    Each weight and bias is a whole-array block: ``_param_list`` (kernels
+    4 and 5: the kernels as they are, each bias [1, out]) or
+    ``_wide_param_list`` (kernels 1-3: x_pe rows padded to p_x =
+    round_up(in_ch, 64), d_pe rows to p_d = round_up(in_ch_views, 32)); the
+    wide kernels add six PE constants of p_x and of p_d values. Mosaic's
+    own scratch for the kernel's intermediates and its (8, 128) tile
+    padding cannot be reckoned without a TPU and are left out, so the sum
+    is at most what the JAX kernel needs: a net it takes is never refused
+    here (the rule errs toward taking more than JAX, never less)."""
+    cd = 2 if bf16 else 4
+    wide = kernel in ("fused_nerf_march", "fused_nerf_mlp_widepe", "fused_render_tile")
+    x = _round_up(net.input_ch, 64) if wide else net.input_ch
+    v = _round_up(net.input_ch_views, 32) if wide else net.input_ch_views
+    skips = set(net.skips)
+    weights = 0
+    for i in range(depth):
+        rows = x if i == 0 else width + (x if (i - 1) in skips else 0)
+        weights += rows * width + width
+    weights += (width * width + width) + (width + 1) + ((width + v) * (width // 2) + width // 2)
+    weights += (width // 2) * 3 + 3
+    consts = 6 * (x + v) if wide else 0
+    if kernel == "fused_render_tile":
+        s = n_samples
+        r = max(8, (max(1, _JAX_RENDER_TARGET // s) // 8) * 8)
+        consts += s * s                                   # the strict upper triangle
+        tiles = 4 * (2 * r * s * 3 + r * s + r) + 4 * (r * 3 + 3 * r + r * s)
+    elif kernel == "fused_nerf_mlp":
+        t = _JAX_TILES[kernel]
+        tiles = t * (net.input_ch + net.input_ch_views) * cd + t * 4 * 4
+    else:
+        t = (4096 if bf16 else 2048) if kernel == "fused_nerf_mlp_pe" else _JAX_TILES[kernel]
+        tiles = t * 6 * 4 + t * 4 * 4          # points and directions in, raw out
+    return 2 * ((weights + consts) * cd + tiles)
+
+
+def core_for(net: NeRFNetConfig, width: int, bf16: bool, lib, render_tile: bool = False) -> str:
+    """The MLP core that runs a net of trunk ``width`` in a dtype: the one
+    place the route is chosen, from the net's shape alone, before any
+    launch. The FP32 core in float32 and the wgmma core in bf16 for every
+    net they take (a trunk up to the library's ``nerf_width()``, padded to
+    ``core_width``, whose core fits the device's shared memory, and in the
+    render tile leaves room for one sample); the streaming core for every
+    other net. Reads the current device's shared memory: callers run it
+    under ``_on(device)``."""
+    if width <= lib.nerf_width():
+        padded = core_width(width)
+        smem = lib.nerf_wgmma_smem_bytes if bf16 else lib.nerf_f32_smem_bytes
+        if smem(padded, net.input_ch, net.input_ch_views) <= lib.nerf_smem_optin() and (
+                not render_tile or lib.render_tile_max_samples(
+                    int(bf16), padded, net.input_ch, net.input_ch_views) >= 1):
+            return WGMMA_CORE if bf16 else F32_CORE
+    return STREAM_CORE
+
+
+def padded_width(core: str, width: int) -> int:
+    """The trunk width a net of ``width`` takes on ``core``."""
+    return stream_width(width) if core == STREAM_CORE else core_width(width)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
@@ -272,9 +377,21 @@ def net_table(weights: List[torch.Tensor], depth: int, skips) -> torch.Tensor:
     64-bit words (bit i % 64 of word i // 64: layer i's output is
     concatenated with x_pe), as int64 on the weights' device."""
     words = [sum(1 << (sk % 64) for sk in skips if sk // 64 == i) for i in range(-(-depth // 64))]
-    values = [w.data_ptr() for w in weights[1::2]] + words
+    return _int64([w.data_ptr() for w in weights[1::2]] + words, weights[0].device)
+
+
+def _int64(values: List[int], device) -> torch.Tensor:
+    """Unsigned 64-bit values (pointers, mask words) as an int64 tensor."""
     return torch.tensor([v - (1 << 64) if v >= 1 << 63 else v for v in values],
-                        dtype=torch.int64).to(weights[0].device)
+                        dtype=torch.int64).to(device)
+
+
+def stream_table(weights: List[torch.Tensor]) -> torch.Tensor:
+    """The streaming core's table of a net's kernels (``Layers`` in
+    csrc/nerf_mlp_stream.cuh): the pointers of the padded kernels of
+    ``weights`` (``param_keys`` order: pts_0 .. pts_{depth-1}, feature,
+    alpha, views_0, rgb), as int64 on the weights' device."""
+    return _int64([w.data_ptr() for w in weights[0::2]], weights[0].device)
 
 
 # prepared weights of the last few (weight set, dtype, core), keyed by the
@@ -284,41 +401,49 @@ _PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
 _PACKED_SETS = 8
 
 
-def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, what: str):
-    """(padded weights in ``param_keys`` order, packed chunks, device
-    table) of one weight set for a launch: every weight zero-padded to the
-    core width of its trunk (``pad_params``, ``core_width``) and each kernel
-    rounded to bf16 in bf16; from them the chunks of the core the dtype
-    runs: ``pack_wgmma_weights`` in bf16, ``pack_f32_weights`` in float32,
-    checked against the library's chunk plan; and ``net_table``. Once per
-    weight set and dtype; an in-place update of a weight prepares again."""
+def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, what: str,
+                    core: Optional[str] = None):
+    """(padded weights in ``param_keys`` order, what the core reads, device
+    table) of one weight set for a launch on ``core`` (by default the
+    dtype's: wgmma in bf16, the FP32 core in float32): every weight
+    zero-padded to the core's width of its trunk (``pad_params``,
+    ``padded_width``) and each kernel rounded to bf16 in bf16; from them the
+    chunks of the FP32 and wgmma cores (``pack_f32_weights``,
+    ``pack_wgmma_weights``, checked against the library's chunk plan) or
+    the streaming core's ``stream_table``; and ``net_table``. Once per
+    weight set, dtype and core; an in-place update of a weight prepares
+    again."""
+    core = core or (WGMMA_CORE if bf16 else F32_CORE)
     keys = param_keys(depth)
     tensors = tuple(params[k] for k in keys)
     key = (tuple((id(t), t._version) for t in tensors), net.input_ch, net.input_ch_views,
-           tuple(net.skips), bf16)
+           tuple(net.skips), bf16, core)
     if key in _PACKED:
         _PACKED.move_to_end(key)
         return _PACKED[key][1:]
-    width = core_width(params["pts_0_kernel"].shape[1])
+    width = padded_width(core, params["pts_0_kernel"].shape[1])
     padded = pad_params({k: t.detach().to(torch.float32) for k, t in zip(keys, tensors)}, net,
                         width)
     if bf16:
         padded = {k: round_to(t, torch.bfloat16) if k.endswith("kernel") else t
                   for k, t in padded.items()}
     weights = [_aligned(padded[k]) for k in keys]
-    plan = (width, depth, len(set(net.skips)), net.input_ch, net.input_ch_views)
-    if bf16:
-        packed = pack_wgmma_weights(padded, net)
-        want = lib.nerf_wgmma_plan_bytes(*plan)
-    else:
-        packed = pack_f32_weights(padded, net)
-        want = lib.nerf_f32_plan_bytes(*plan)
-    nbytes = packed.numel() * packed.element_size()
-    if nbytes != want or packed.data_ptr() % 16:
-        raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
-                         f"{packed.data_ptr():#x} do not match the kernel's chunk plan "
-                         f"({want} bytes)")
     table = net_table(weights, depth, net.skips)
+    if core == STREAM_CORE:
+        packed = stream_table(weights)
+    else:
+        plan = (width, depth, len(set(net.skips)), net.input_ch, net.input_ch_views)
+        if bf16:
+            packed = pack_wgmma_weights(padded, net)
+            want = lib.nerf_wgmma_plan_bytes(*plan)
+        else:
+            packed = pack_f32_weights(padded, net)
+            want = lib.nerf_f32_plan_bytes(*plan)
+        nbytes = packed.numel() * packed.element_size()
+        if nbytes != want or packed.data_ptr() % 16:
+            raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
+                             f"{packed.data_ptr():#x} do not match the kernel's chunk plan "
+                             f"({want} bytes)")
     _PACKED[key] = (tensors, weights, packed, table)
     if len(_PACKED) > _PACKED_SETS:
         _PACKED.popitem(last=False)
@@ -328,6 +453,8 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, wha
 # weights (host array of device pointers), the net's device table, width,
 # depth, number of skips, in_ch, in_ch_views, bf16
 _NET_ARGS = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 6
+# (each library's entry; its argtypes, which its streaming core's entry,
+# ``{entry}_stream``, shares)
 _ARGTYPES = {
     "nerf_march": ("nerf_march", [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
                    + _NET_ARGS + [ctypes.c_void_p] * 4),
@@ -345,11 +472,14 @@ _QUERIES = [(fn, [], ctypes.c_int) for fn in ("nerf_width", "nerf_smem_optin")] 
     (fn, [ctypes.c_int] * 3, ctypes.c_int)
     for fn in ("nerf_f32_smem_bytes", "nerf_wgmma_smem_bytes")] + [
     ("nerf_f32_launch_bytes", [ctypes.c_int] * 3 + [_INT_OUT], ctypes.c_int),
-    ("nerf_wgmma_last_launch", [_INT_OUT], ctypes.c_int)]
+    ("nerf_wgmma_last_launch", [_INT_OUT], ctypes.c_int),
+    ("nerf_stream_smem_bytes", [ctypes.c_int] * 3, ctypes.c_longlong),
+    ("nerf_stream_launch_bytes", [ctypes.c_int] * 3 + [_INT_OUT], ctypes.c_longlong)]
 # the render tile's own: (name, argtypes, restype)
 _RENDER_TILE_QUERIES = [
     ("render_tile_max_samples", [ctypes.c_int] * 4, ctypes.c_int),
-    ("render_tile_f32_plan", [ctypes.c_int] * 4 + [_INT_OUT] * 3, ctypes.c_int)]
+    ("render_tile_f32_plan", [ctypes.c_int] * 4 + [_INT_OUT] * 3, ctypes.c_int),
+    ("render_tile_stream_plan", [ctypes.c_int] * 4 + [_INT_OUT] * 3, ctypes.c_longlong)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -357,7 +487,8 @@ def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     fn_name, argtypes = _ARGTYPES[name]
     queries = _QUERIES + (_RENDER_TILE_QUERIES if name == "render_tile" else [])
-    for fn, args, res in [(fn_name, argtypes, ctypes.c_int)] + queries:
+    entries = [(fn, argtypes, ctypes.c_int) for fn in (fn_name, f"{fn_name}_stream")]
+    for fn, args, res in entries + queries:
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = res
     return lib
@@ -368,10 +499,13 @@ def _on(device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _check_supported(params, net: NeRFNetConfig, lib, what: str, bf16: bool, device) -> int:
+def _check_supported(params, net: NeRFNetConfig, lib, what: str, bf16: bool, device,
+                     n_samples: int = 0):
     """Raise NotImplementedError, naming the limit, for a net the kernels do
-    not take (a narrower trunk than a core width is padded to it); returns
-    the trunk depth."""
+    not take: a net past the JAX kernel's own budget (``jax_vmem_bytes``
+    over JAX_VMEM_LIMIT) or whose smallest streaming-core tile does not fit
+    the device's shared memory, where ``core_for`` sends it to that core;
+    ``n_samples``: the render tile's S. Returns (the trunk depth, its core)."""
     depth = _depth(params)
     if not net.use_viewdirs or net.i_embed != 0:
         raise NotImplementedError(f"{what} kernel: needs use_viewdirs=True and i_embed=0")
@@ -379,20 +513,6 @@ def _check_supported(params, net: NeRFNetConfig, lib, what: str, bf16: bool, dev
         raise NotImplementedError(f"{what} kernel: a skip after the last "
                                   "trunk layer is not supported")
     width = params["pts_0_kernel"].shape[1]
-    if width > lib.nerf_width():
-        raise NotImplementedError(f"{what} kernel: trunk width {width} exceeds the kernels' "
-                                  f"{lib.nerf_width()}")
-    # the core's shared memory for this width and these encodings
-    padded = core_width(width)
-    core = lib.nerf_wgmma_smem_bytes if bf16 else lib.nerf_f32_smem_bytes
-    need = core(padded, net.input_ch, net.input_ch_views)
-    with _on(device):
-        have = lib.nerf_smem_optin()
-    if need > have:
-        raise NotImplementedError(
-            f"{what} kernel: a {padded}-wide trunk with {net.input_ch} x_pe and "
-            f"{net.input_ch_views} d_pe channels needs {need} bytes of shared memory per block "
-            f"in {'bfloat16' if bf16 else 'float32'}; the device gives {have}")
     expect = {"pts_0_kernel": (net.input_ch, width),
               "feature_kernel": (width, width), "alpha_kernel": (width, 1),
               "views_0_kernel": (width + net.input_ch_views, width // 2),
@@ -405,7 +525,27 @@ def _check_supported(params, net: NeRFNetConfig, lib, what: str, bf16: bool, dev
             raise NotImplementedError(
                 f"{what} kernel: {key} is {tuple(params[key].shape)}, "
                 f"expected {shape} for trunk width {width}")
-    return depth
+    with _on(device):
+        core = core_for(net, width, bf16, lib, render_tile=what == "fused_render_tile")
+        if core != STREAM_CORE:
+            return depth, core
+        need = lib.nerf_stream_smem_bytes(stream_width(width), net.input_ch,
+                                          net.input_ch_views)
+        have = lib.nerf_smem_optin()
+    dtype = "bfloat16" if bf16 else "float32"
+    budget = jax_vmem_bytes(what, net, width, depth, bf16, n_samples)
+    if budget > JAX_VMEM_LIMIT:
+        raise NotImplementedError(
+            f"{what} kernel: a {depth}x{width} trunk with {net.input_ch} x_pe and "
+            f"{net.input_ch_views} d_pe channels declares {budget} bytes of VMEM blocks in "
+            f"{dtype} in the JAX kernel, past its budget of {JAX_VMEM_LIMIT} bytes "
+            "(vmem_limit_bytes, 100 MiB)")
+    if need > have:
+        raise NotImplementedError(
+            f"{what} kernel: a {stream_width(width)}-wide trunk with {net.input_ch} x_pe and "
+            f"{net.input_ch_views} d_pe channels needs {need} bytes of shared memory per block "
+            f"on the streaming core's smallest tile in {dtype}; the device gives {have}")
+    return depth, core
 
 
 def _is_bf16(compute_dtype: torch.dtype, what: str) -> bool:
@@ -426,20 +566,28 @@ def _inputs(what: str, device, *specs):
     return out
 
 
-def _net_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str):
-    """The C interface's net arguments (the padded core width and the packed
-    chunks of the core the dtype runs: wgmma in bf16, the FP32 core in
-    float32), and the tensors to keep alive until the launch has been
-    queued."""
-    depth = _check_supported(params, net, lib, what, bf16, device)
+def _net_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str,
+              n_samples: int = 0):
+    """The net's core (``core_for``), the C interface's net arguments (the
+    core's padded width and what it reads: the packed chunks of the wgmma
+    core in bf16 and of the FP32 core in float32, the streaming core's
+    table of kernels), and the tensors to keep alive until the launch has
+    been queued."""
+    depth, core = _check_supported(params, net, lib, what, bf16, device, n_samples)
     for key in param_keys(depth):
         if params[key].device != device:
             raise ValueError(f"{what}: {key} is on {params[key].device}, the inputs on {device}")
-    weights, packed, table = _packed_weights(params, net, depth, bf16, lib, what)
+    weights, packed, table = _packed_weights(params, net, depth, bf16, lib, what, core)
     ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-    width = core_width(params["pts_0_kernel"].shape[1])
-    return ([ptrs, table.data_ptr(), width, depth, len(set(net.skips)), net.input_ch,
-             net.input_ch_views, int(bf16), packed.data_ptr()], weights + [packed, table])
+    width = padded_width(core, params["pts_0_kernel"].shape[1])
+    return core, [ptrs, table.data_ptr(), width, depth, len(set(net.skips)), net.input_ch,
+                  net.input_ch_views, int(bf16), packed.data_ptr()], weights + [packed, table]
+
+
+def _entry(lib, name: str, core: str):
+    """A library's C entry for a core: ``name``, or ``{name}_stream`` on the
+    streaming core."""
+    return getattr(lib, f"{name}_stream" if core == STREAM_CORE else name)
 
 
 def _run(fn, device, what: str, *args):
@@ -461,14 +609,14 @@ def _launch(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
     bf16 = _is_bf16(compute_dtype, what)
-    net_args, _weights = _net_args(params, net, device, bf16, lib, what)
+    core, net_args, _weights = _net_args(params, net, device, bf16, lib, what)
     sigma = torch.empty((n, s), dtype=torch.float32, device=device)
     rgb = torch.empty((3, n, s), dtype=torch.float32, device=device)
     if n * s == 0:
         return sigma, rgb
     if n * s >= 2 ** 31:
         raise ValueError(f"{what}: {n}x{s} samples exceed the kernel's 32-bit grid")
-    _run(lib.nerf_march, device, what, *[t.data_ptr() for t in ins], n, s,
+    _run(_entry(lib, "nerf_march", core), device, what, *[t.data_ptr() for t in ins], n, s,
          *net_args, sigma.data_ptr(), rgb.data_ptr())
     fused_nerf_march.launches += 1
     return sigma, rgb
@@ -487,14 +635,14 @@ def _launch_mlp(kind: str, params, a, b, net: NeRFNetConfig,
     ins = _inputs(what, device, ("first input", a, (m, widths[0])),
                   ("second input", b, (m, widths[1])))
     bf16 = _is_bf16(compute_dtype, what)
-    net_args, _weights = _net_args(params, net, device, bf16, lib, what)
+    core, net_args, _weights = _net_args(params, net, device, bf16, lib, what)
     raw = torch.empty((m, 4), dtype=torch.float32, device=device)
     if m == 0:
         return raw
     if m >= 2 ** 31:
         raise ValueError(f"{what}: {m} points exceed the kernel's 32-bit grid")
-    _run(lib.nerf_mlp, device, what, *[t.data_ptr() for t in ins], m, _KINDS[kind],
-         *net_args, raw.data_ptr())
+    _run(_entry(lib, "nerf_mlp", core), device, what, *[t.data_ptr() for t in ins], m,
+         _KINDS[kind], *net_args, raw.data_ptr())
     wrapper.launches += 1
     return raw
 
@@ -515,17 +663,17 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
     bf16 = _is_bf16(compute_dtype, what)
     ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
                   ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
-    net_args, _weights = _net_args(params, net, device, bf16, lib, what)
+    core, net_args, _weights = _net_args(params, net, device, bf16, lib, what, s)
     # a block keeps a segment of its rays' raw field in shared memory beside
     # its MLP core: a ray of more samples than one segment holds runs in
     # segments, but one sample and its ray's carried sums must fit
     with _on(device):
-        segment = lib.render_tile_max_samples(int(bf16), net_args[2], net.input_ch,
+        segment = lib.render_tile_max_samples(CORE_CODES[core], net_args[2], net.input_ch,
                                               net.input_ch_views)
     if segment < 1:
         raise NotImplementedError(
-            f"{what} kernel: the {net_args[2]}-wide core leaves no room in shared memory for "
-            f"one sample ({_SAMPLE_BYTES} bytes) in {compute_dtype}")
+            f"{what} kernel: the {net_args[2]}-wide {core} core leaves no room in shared memory "
+            f"for one sample ({_SAMPLE_BYTES} bytes) in {compute_dtype}")
     f32 = dict(dtype=torch.float32, device=device)
     rgb, disp, acc = torch.empty((n, 3), **f32), torch.empty(n, **f32), torch.empty(n, **f32)
     weights, depth = torch.empty((n, s), **f32), torch.empty(n, **f32)
@@ -533,8 +681,8 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
         return rgb, disp, acc, weights, depth
     if n * s >= 2 ** 31:
         raise ValueError(f"{what}: {n}x{s} samples exceed the kernel's 32-bit index range")
-    _run(lib.render_tile, device, what, *[t.data_ptr() for t in ins], n, s, *net_args,
-         int(fast_epilogue), int(white_bkgd),
+    _run(_entry(lib, "render_tile", core), device, what, *[t.data_ptr() for t in ins], n, s,
+         *net_args, int(fast_epilogue), int(white_bkgd),
          *[t.data_ptr() for t in (rgb, disp, acc, weights, depth)])
     fused_render_tile.launches += 1
     return rgb, disp, acc, weights, depth

@@ -31,7 +31,7 @@ highest coarse opacity only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,20 +67,43 @@ def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(scores, descending=True, stable=True).indices[..., :k]
 
 
+def fine_ray_count(n_rays: int, fine_fraction: float) -> int:
+    """The rays of the sparse fine pass (fine_fraction < 1) over a batch of
+    n_rays: max(8, round(n_rays * fine_fraction)) rounded up to a multiple
+    of 8, at most n_rays (neuralsim_tpu/ops/render.py)."""
+    k_sel = max(8, int(round(n_rays * fine_fraction)))
+    return min(n_rays, -(-k_sel // 8) * 8)
+
+
 def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
                 rc: RenderConfig, generator: Optional[torch.Generator] = None,
                 near=None, far=None,
-                uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                pick_fine: Optional[Callable[[torch.Tensor], Tuple]] = None
                 ) -> Dict[str, torch.Tensor]:
     """Render rays [N,3] with the coarse(+fine) pair.
 
     viewdirs: [N,3] unit directions (None when use_viewdirs=False).
     generator: draws the stratified jitter, the importance-sampling
-    uniforms and the density noise when rc asks for them.
+    uniforms and the density noise when rc asks for them, in that order of
+    use: u_z, the coarse noise, u_pdf, the fine noise.
     near, far: optional per-ray [N] overrides of rc.near / rc.far.
-    uniforms: optional (u_z [N, n_samples], u_pdf [N, n_importance]), the
+    uniforms: optional (u_z [N, n_samples], u_pdf [F, n_importance]), the
     stratified jitter and importance-sampling draws to use in place of the
     generator's (the JAX package's k_strat and k_pdf uniforms, in tests).
+    noise: optional (coarse [N, n_samples], fine [F, n_samples +
+    n_importance]) standard-normal density noise (rc.raw_noise_std > 0) in
+    place of the generator's.
+    F is the number of rays of the fine pass: N, or with rc.fine_fraction <
+    1 the chosen rays, row j of a fine draw being the j-th chosen ray's (the
+    shape and order in which the generator draws them, and the JAX package
+    its k_pdf and k_noise1 draws).
+    pick_fine: acc_map [N] -> (sel, rows), the rays of the sparse fine pass
+    and the rows of the fine draws they take (None: all rows, in order). By
+    default the ``fine_ray_count`` rays of highest coarse opacity (ties in
+    index order); a data-parallel train step ranks the whole batch
+    (``train_nerf.train_step``).
 
     Returns rgb_map/disp_map/acc_map/depth_map, plus rgb0/disp0/acc0 and
     z_std when n_importance > 0.
@@ -93,6 +116,7 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
     n_rays = rays_o.shape[0]
     compute_dtype = as_dtype(rc.compute_dtype)
     u_z, u_pdf = uniforms if uniforms is not None else (None, None)
+    noise_c, noise_f = noise if noise is not None else (None, None)
     z_vals = stratified_z_vals(
         n_rays, rc.n_samples,
         rc.near if near is None else near, rc.far if far is None else far,
@@ -104,11 +128,11 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
                                      z_vals, net, rc, compute_dtype)
         rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs_channels(
             sigma_c, rgb3_c, z_vals, rays_d, raw_noise_std=rc.raw_noise_std,
-            white_bkgd=rc.white_bkgd, generator=generator)
+            white_bkgd=rc.white_bkgd, noise=noise_c, generator=generator)
     else:
         rgb_map, disp_map, acc_map, weights, depth_map = _march(
             models["coarse"], rays_o, rays_d, viewdirs, z_vals, net, rc,
-            compute_dtype, generator)
+            compute_dtype, generator, noise_c)
 
     out = {}
     if rc.n_importance > 0:
@@ -116,21 +140,24 @@ def render_rays(models, rays_o, rays_d, viewdirs, net: NeRFNetConfig,
         if use_reuse:
             f_out = _fine_pass_reuse(models, rays_o, rays_d, viewdirs, z_vals,
                                      sigma_c, rgb3_c, weights, net, rc,
-                                     compute_dtype, generator, u_pdf)
+                                     compute_dtype, generator, u_pdf, noise_f)
         elif rc.fine_fraction < 1.0:
-            k_sel = max(8, int(round(n_rays * rc.fine_fraction)))
-            k_sel = min(n_rays, -(-k_sel // 8) * 8)
-            sel = top_k_indices(acc_map.detach(), k_sel)
+            if pick_fine is None:
+                sel = top_k_indices(acc_map.detach(), fine_ray_count(n_rays, rc.fine_fraction))
+                rows = None
+            else:
+                sel, rows = pick_fine(acc_map.detach())
+            take = (lambda d: d) if rows is None else (lambda d: None if d is None else d[rows])
             f_sel = _fine_pass(models, rays_o[sel], rays_d[sel],
                                None if viewdirs is None else viewdirs[sel],
                                z_vals[sel], weights[sel], net, rc, compute_dtype,
-                               generator, None if u_pdf is None else u_pdf[sel])
+                               generator, take(u_pdf), take(noise_f))
             f_out = {k: base.index_copy(0, sel, f_sel[k]) for k, base in (
                 ("rgb_map", rgb_map), ("disp_map", disp_map), ("acc_map", acc_map),
                 ("depth_map", depth_map), ("z_std", torch.zeros_like(acc_map)))}
         else:
             f_out = _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
-                               net, rc, compute_dtype, generator, u_pdf)
+                               net, rc, compute_dtype, generator, u_pdf, noise_f)
         rgb_map, disp_map, acc_map, depth_map = (
             f_out["rgb_map"], f_out["disp_map"], f_out["acc_map"], f_out["depth_map"])
         out["z_std"] = f_out["z_std"]
@@ -158,8 +185,9 @@ def _plain_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
 
 
 def _march(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
-           rc: RenderConfig, compute_dtype, generator=None):
-    """One network march + compositing; returns the raw2outputs tuple."""
+           rc: RenderConfig, compute_dtype, generator=None, noise=None):
+    """One network march + compositing; returns the raw2outputs tuple.
+    ``noise``: the density noise [N,S] to use in place of the generator's."""
     if _kernel_route(rays_o, net, rc):
         if rc.fuse_compositing and rc.raw_noise_std == 0.0:
             return raymarch.fused_render_tile(
@@ -170,10 +198,10 @@ def _march(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
                 params, rays_o, rays_d, viewdirs, z_vals, net, compute_dtype)
             return raw2outputs_channels(
                 sigma, rgb3, z_vals, rays_d, raw_noise_std=rc.raw_noise_std,
-                white_bkgd=rc.white_bkgd, generator=generator)
+                white_bkgd=rc.white_bkgd, noise=noise, generator=generator)
     raw = _plain_raw(params, rays_o, rays_d, viewdirs, z_vals, net, rc, compute_dtype)
     return raw2outputs(raw, z_vals, rays_d, raw_noise_std=rc.raw_noise_std,
-                       white_bkgd=rc.white_bkgd, generator=generator)
+                       white_bkgd=rc.white_bkgd, noise=noise, generator=generator)
 
 
 def _march_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
@@ -190,9 +218,9 @@ def _march_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
 
 def _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
                net: NeRFNetConfig, rc: RenderConfig, compute_dtype,
-               generator=None, u_pdf=None):
+               generator=None, u_pdf=None, noise=None):
     """Importance sampling (draws ``u_pdf`` when given) + fine-network
-    march + compositing."""
+    march + compositing (density ``noise`` when given)."""
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     z_samples = sample_pdf(z_mid, weights[..., 1:-1], rc.n_importance,
                            det=not rc.perturb, u=u_pdf, generator=generator).detach()
@@ -200,7 +228,7 @@ def _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
     fine_params = models.get("fine") or models["coarse"]
     rgb_map, disp_map, acc_map, _, depth_map = _march(
         fine_params, rays_o, rays_d, viewdirs, z_all, net, rc, compute_dtype,
-        generator)
+        generator, noise)
     return {"rgb_map": rgb_map, "disp_map": disp_map, "acc_map": acc_map,
             "depth_map": depth_map,
             "z_std": torch.std(z_samples, dim=-1, correction=0)}
@@ -208,7 +236,7 @@ def _fine_pass(models, rays_o, rays_d, viewdirs, z_vals, weights,
 
 def _fine_pass_reuse(models, rays_o, rays_d, viewdirs, z_vals, sigma_c, rgb3_c,
                      weights, net: NeRFNetConfig, rc: RenderConfig, compute_dtype,
-                     generator=None, u_pdf=None):
+                     generator=None, u_pdf=None, noise=None):
     """Fine pass that reuses the coarse raws (rc.reuse_coarse): the fine
     net marches the importance depths only, and the composite runs over
     the depth-sorted union of (coarse z, coarse raw) and (fine z, fine
@@ -226,7 +254,7 @@ def _fine_pass_reuse(models, rays_o, rays_d, viewdirs, z_vals, sigma_c, rgb3_c,
                            order.expand(3, *order.shape))
     rgb_map, disp_map, acc_map, _, depth_map = raw2outputs_channels(
         sig_all, rgb_all, z_all, rays_d, raw_noise_std=rc.raw_noise_std,
-        white_bkgd=rc.white_bkgd, generator=generator)
+        white_bkgd=rc.white_bkgd, noise=noise, generator=generator)
     return {"rgb_map": rgb_map, "disp_map": disp_map, "acc_map": acc_map,
             "depth_map": depth_map,
             "z_std": torch.std(z_samples, dim=-1, correction=0)}

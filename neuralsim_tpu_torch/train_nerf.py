@@ -18,9 +18,11 @@ jitter. ``StepDraws`` injects any of them (the tests feed the JAX draws).
 ``train_nerf(mesh=)`` trains data-parallel on a mesh of processes
 (``parallel.mesh``), as the JAX package shards its step's rays over the
 data axis: the state is replicated, every rank draws the step's rays and
-the render's uniforms for the whole batch from the same generator, takes
-its block of them, and the gradients are summed over the data group before
-an Adam step that is then the same on every rank (``train_step(mesh=)``).
+the render's uniforms and density noise for the whole batch from the same
+generator, takes its block of them, ranks the whole batch's coarse opacity
+for a sparse fine pass, and the gradients are summed over the data group
+before an Adam step that is then the same on every rank
+(``train_step(mesh=)``).
 """
 
 from __future__ import annotations
@@ -36,8 +38,20 @@ from neuralsim_tpu_torch.config import NeRFNetConfig, RenderConfig, TrainConfig
 from neuralsim_tpu_torch.detector.trainer import Optimizer
 from neuralsim_tpu_torch.models.nerf import init_nerf_pipeline_params
 from neuralsim_tpu_torch.ops.rays import get_rays, ndc_rays
-from neuralsim_tpu_torch.ops.render import img2mse, mse2psnr, render_rays
-from neuralsim_tpu_torch.parallel.mesh import all_sum, all_sum_tree, replicate, shard_rays
+from neuralsim_tpu_torch.ops.render import (
+    fine_ray_count,
+    img2mse,
+    mse2psnr,
+    render_rays,
+    top_k_indices,
+)
+from neuralsim_tpu_torch.parallel.mesh import (
+    all_gather,
+    all_sum,
+    all_sum_tree,
+    replicate,
+    shard_rays,
+)
 
 Models = Dict[str, Dict[str, torch.Tensor]]
 
@@ -116,56 +130,106 @@ def train_state_from_jax(params, opt_state, step, device="cpu") -> TrainState:
 
 def nerf_loss(params: Models, rays_o, rays_d, target_rgb, net: NeRFNetConfig,
               rc: RenderConfig, generator: Optional[torch.Generator] = None,
-              uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Coarse + fine MSE (reference :696-704); returns (loss, render)."""
+              uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, pick_fine=None):
+    """Coarse + fine MSE (reference :696-704); returns (loss, render).
+    ``uniforms``, ``noise`` and ``pick_fine`` as in ``render_rays``."""
     viewdirs = None
     if net.use_viewdirs:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     out = render_rays(params, rays_o, rays_d, viewdirs, net, rc, generator,
-                      uniforms=uniforms)
+                      uniforms=uniforms, noise=noise, pick_fine=pick_fine)
     loss = img2mse(out["rgb_map"], target_rgb)
     if "rgb0" in out:
         loss = loss + img2mse(out["rgb0"], target_rgb)
     return loss, out
 
 
-def _whole_batch_uniforms(n: int, rc: RenderConfig, generator: Optional[torch.Generator],
-                         device) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The (u_z, u_pdf) that ``render_rays`` would draw from ``generator``
-    for n rays, drawn in its order (None where it draws nothing)."""
-    u_z = draw((n, rc.n_samples), generator, device) if rc.perturb else None
-    u_pdf = (draw((n, rc.n_importance), generator, device)
-             if rc.perturb and rc.n_importance > 0 else None)
-    return u_z, u_pdf
+def _whole_batch_draws(n: int, rc: RenderConfig, generator: Optional[torch.Generator], device,
+                       uniforms=None, noise=None):
+    """The ((u_z, u_pdf), (coarse noise, fine noise)) that ``render_rays``
+    would draw from ``generator`` for a batch of n rays, drawn in its order
+    (u_z, the coarse noise, u_pdf, the fine noise) and at its shapes (the
+    fine draws over the ``fine_ray_count`` chosen rays when fine_fraction <
+    1); None where it draws nothing. ``uniforms`` / ``noise`` given are kept
+    and not drawn."""
+    fine = rc.n_importance > 0
+    f = fine_ray_count(n, rc.fine_fraction) if rc.fine_fraction < 1.0 else n
+    draw_u, draw_noise = uniforms is None and rc.perturb, noise is None and rc.raw_noise_std > 0
+    u_z, u_pdf = uniforms if uniforms is not None else (None, None)
+    noise_c, noise_f = noise if noise is not None else (None, None)
+    if draw_u:
+        u_z = draw((n, rc.n_samples), generator, device)
+    if draw_noise:
+        noise_c = draw((n, rc.n_samples), generator, device, normal=True)
+    if draw_u and fine:
+        u_pdf = draw((f, rc.n_importance), generator, device)
+    if draw_noise and fine:
+        noise_f = draw((f, rc.n_samples + rc.n_importance), generator, device, normal=True)
+    return (u_z, u_pdf), (noise_c, noise_f)
+
+
+def _shard_draws(draws, rc: RenderConfig, mesh):
+    """This rank's block of the whole batch's draws: every per-ray draw, and
+    the fine ones too unless the fine pass is sparse (their rows follow the
+    chosen rays' order in the whole batch: ``_pick_across`` takes them)."""
+    (u_z, u_pdf), (noise_c, noise_f) = draws
+    per_ray = rc.fine_fraction >= 1.0
+
+    def block(x, sharded=True):
+        return shard_rays(x, mesh) if x is not None and sharded else x
+
+    return ((block(u_z), block(u_pdf, per_ray)), (block(noise_c), block(noise_f, per_ray)))
+
+
+def _pick_across(mesh, n: int, rc: RenderConfig):
+    """``render_rays``'s pick_fine for this rank's block of a batch of n rays
+    sharded over the data axis: the whole batch's coarse opacity gathered
+    in block order, ranked by ``top_k_indices`` (ties in index order, as
+    jax.lax.top_k) at the whole batch's ``fine_ray_count``; the chosen rays
+    in this block (as block indices) and their rows of the fine draws."""
+    b = n // mesh.shape["data"]
+    lo = mesh.index("data") * b
+    k_sel = fine_ray_count(n, rc.fine_fraction)
+
+    def pick(acc_map):
+        sel = top_k_indices(all_gather(acc_map, mesh.data_group), k_sel)
+        rows = torch.nonzero((sel >= lo) & (sel < lo + b)).squeeze(-1)
+        return sel[rows] - lo, rows
+
+    return pick
 
 
 def train_step(state: TrainState, rays_o, rays_d, target_rgb, net: NeRFNetConfig,
                rc: RenderConfig, tc: TrainConfig,
                generator: Optional[torch.Generator] = None,
-               uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, mesh=None):
+               uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, mesh=None,
+               noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """One optimizer step on a ray batch: (new state, {"loss", "psnr"}).
-    The state passed in is left as it was. ``uniforms`` as in
+    The state passed in is left as it was. ``uniforms`` and ``noise`` as in
     ``render_rays``.
 
-    ``mesh``: a data-parallel step. The rays, targets and uniforms are the
-    whole batch on every rank (the uniforms drawn for the whole batch when
-    not given); each rank takes its block, differentiates its mean loss
-    times its share of the batch, and the gradients and metrics are summed
-    over the data group, so every rank takes the whole batch's step."""
-    share, group = 1.0, None
+    ``mesh``: a data-parallel step, equal to the unsharded step on the whole
+    batch. The rays, targets, uniforms and noise are the whole batch on
+    every rank (the draws left to the generator drawn for the whole batch,
+    in the unsharded render's order); each rank takes its block, renders
+    it, ranks the whole batch's coarse opacity for a sparse fine pass
+    (rc.fine_fraction < 1) and runs the fine pass on the chosen rays of its
+    block, differentiates its mean loss times its share of the batch, and
+    the gradients and metrics are summed over the data group, so every rank
+    takes the whole batch's step."""
+    share, group, pick = 1.0, None, None
     if mesh is not None:
-        if rc.raw_noise_std > 0.0 or rc.fine_fraction < 1.0:
-            raise NotImplementedError(
-                "a data-parallel step draws the density noise and picks the fine rays "
-                "per rank: raw_noise_std > 0 and fine_fraction < 1 are single-device only")
         n = rays_o.shape[0]
-        if uniforms is None:
-            uniforms = _whole_batch_uniforms(n, rc, generator, rays_o.device)
+        draws = _whole_batch_draws(n, rc, generator, rays_o.device, uniforms, noise)
+        uniforms, noise = _shard_draws(draws, rc, mesh)
+        if rc.n_importance > 0 and rc.fine_fraction < 1.0:
+            pick = _pick_across(mesh, n, rc)
         rays_o, rays_d, target_rgb = (shard_rays(x, mesh) for x in (rays_o, rays_d, target_rgb))
-        uniforms = tuple(None if u is None else shard_rays(u, mesh) for u in uniforms)
         share, group = rays_o.shape[0] / n, mesh.data_group
     leaves = _map(lambda p: p.detach().requires_grad_(), state.params)
-    loss, out = nerf_loss(leaves, rays_o, rays_d, target_rgb, net, rc, generator, uniforms)
+    loss, out = nerf_loss(leaves, rays_o, rays_d, target_rgb, net, rc, generator, uniforms,
+                          noise, pick)
     if group is not None:
         loss = loss * share
     keys = [(name, k) for name in leaves for k in leaves[name]]

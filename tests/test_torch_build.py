@@ -18,11 +18,12 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
-# the headers each source includes: the tensor-core core of the bf16
-# kernels, which includes the shared FP32 core
-HEADERS = {"nerf_march": ["nerf_mlp_wgmma.cuh", "nerf_mlp.cuh"],
-           "nerf_mlp": ["nerf_mlp_wgmma.cuh", "nerf_mlp.cuh"],
-           "render_tile": ["nerf_mlp_wgmma.cuh", "nerf_mlp.cuh"]}
+# the headers each source includes: the streaming core of the nets past
+# the other cores, the tensor-core core of the bf16 kernels, which includes
+# the shared FP32 core
+HEADERS = {"nerf_march": ["nerf_mlp_stream.cuh", "nerf_mlp_wgmma.cuh", "nerf_mlp.cuh"],
+           "nerf_mlp": ["nerf_mlp_stream.cuh", "nerf_mlp_wgmma.cuh", "nerf_mlp.cuh"],
+           "render_tile": ["nerf_mlp_stream.cuh", "nerf_mlp_wgmma.cuh", "nerf_mlp.cuh"]}
 
 
 @pytest.mark.parametrize("name", build.SOURCES)
@@ -59,7 +60,7 @@ def test_nested_headers_are_followed(csrc):
     (csrc / "inner.cuh").write_text("// v2\n")
     assert len({before, with_inner, build.library_path("nerf_mlp")}) == 3
     assert [h.name for h in build.headers(csrc / "nerf_mlp.cu")] == [
-        "nerf_mlp_wgmma.cuh", "nerf_mlp.cuh", "inner.cuh"]
+        "nerf_mlp_stream.cuh", "nerf_mlp_wgmma.cuh", "nerf_mlp.cuh", "inner.cuh"]
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -349,6 +349,20 @@ def f32_rows(channels):
     return -(-channels // 16) * 16
 
 
+def stream_core_bytes(tile, width, in_ch, in_ch_views):
+    """core_bytes of csrc/nerf_mlp_stream.cuh: two activation tiles [W][tile],
+    x_pe [in_ch][tile], d_pe [in_ch_views][tile], points and raw outputs
+    [10][tile], the heads' partial sums [4][256], in float32."""
+    return 4 * ((2 * width + in_ch + in_ch_views + 10) * tile + 4 * 256)
+
+
+def stream_pick_tile(width, in_ch, in_ch_views, extra, smem=SMEM_OPTIN):
+    """pick_tile of csrc/nerf_mlp_stream.cuh: the largest of 32, 16, 8, 4
+    points that fits, else 0."""
+    return next((t for t in (32, 16, 8, 4)
+                 if stream_core_bytes(t, width, in_ch, in_ch_views) + extra <= smem), 0)
+
+
 class _FakeMarchLibrary:
     """Stands in for the built nerf_march library and records each call of
     the C entry. Its limits are parameters (the defaults those of the CUDA
@@ -361,12 +375,15 @@ class _FakeMarchLibrary:
     chunks; the standard core: three ring stages at W = 256 with at most two
     x_pe chunks, else two; A tiles per warpgroup at W = 256, shared at 512;
     the transposed core: two rings of two pieces of min(W/2, 256) rows, h
-    and the encodings in [32][64] chunks of 4 KB, a 6 KB scratch), written
-    out here."""
+    and the encodings in [32][64] chunks of 4 KB, a 6 KB scratch) and
+    csrc/nerf_mlp_stream.cuh (``stream_core_bytes``), written out here.
+    ``calls`` records the calls of the FP32 / wgmma entry,
+    ``stream_calls`` those of the streaming core's."""
 
     def __init__(self, width=1024, smem_optin=SMEM_OPTIN):
         self.limits = (width, smem_optin)
         self.calls = []
+        self.stream_calls = []
 
     def nerf_width(self):
         return self.limits[0]
@@ -417,8 +434,21 @@ class _FakeMarchLibrary:
             info[i] = v
         return 0
 
+    @staticmethod
+    def nerf_stream_smem_bytes(width, in_ch, in_ch_views):
+        return stream_core_bytes(4, width, in_ch, in_ch_views)
+
+    def nerf_stream_launch_bytes(self, width, in_ch, in_ch_views, tile):
+        tile.contents.value = stream_pick_tile(width, in_ch, in_ch_views, 0, self.limits[1])
+        return (stream_core_bytes(tile.contents.value, width, in_ch, in_ch_views)
+                if tile.contents.value else 0)
+
     def nerf_march(self, *args):
         self.calls.append(args)
+        return 0
+
+    def nerf_march_stream(self, *args):
+        self.stream_calls.append(args)
         return 0
 
 
@@ -476,38 +506,34 @@ def test_march_launch_pads_and_packs(fake_march, name, dtype):
 
 
 def test_kernels_refuse_what_the_cores_do_not_take(fake_march):
-    """Trunks wider than 1024 (1025 and 2048), and encodings that overflow a
-    block's shared memory: in float32 a 256-wide trunk with multires 75 (464
-    rows of x_pe beside 32 of d_pe) and a 1024-wide one with multires and
-    multires_views 130 (784 rows each, past the 16-point tile's room), and
-    in bf16 a 1024-wide trunk with 363 x_pe and 123 d_pe channels, whose
-    transposed wgmma core does not fit: NotImplementedError, naming the
-    limit (the bytes for the last three), before any launch. The same
-    1024-wide net launches in float32 (the FP32 core's 16-point tiles fit).
-    Depth and multires themselves have no limit (the other tests of this
-    file and tests/test_torch_wide_nets.py take 72 layers and multires 130)."""
+    """What no core takes raises NotImplementedError, naming the limit and
+    the bytes, before any launch: a net past the JAX kernel's own VMEM
+    budget (a 4-deep 2048-wide trunk in float32, ~153 MB of double-buffered
+    weights against 100 MiB) and a net whose smallest streaming-core tile
+    does not fit the block's shared memory (multires 2400: 14,403 x_pe
+    channels). The 2048-wide net in bf16 (~77 MB) launches, on the streaming
+    core; so does every net the FP32 and wgmma cores have no room for
+    (tests/test_torch_stream_core.py). Depth and multires themselves have no
+    limit (the other tests of this file and tests/test_torch_wide_nets.py
+    take 72 layers and multires 130)."""
     rays = [torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 3), torch.rand(3, 4)]
-    both = (torch.float32, torch.bfloat16)
-    cases = {"trunk width 1025": (dict(netwidth=1025, netwidth_fine=1025), both),
-             "trunk width 2048": (dict(netwidth=2048, netwidth_fine=2048), both),
-             "needs 239904 bytes of shared memory per block in float32": (
-                 dict(multires=75), (torch.float32,)),
-             "needs 242848 bytes of shared memory per block in float32": (
-                 dict(netwidth=1024, netwidth_fine=1024, multires=130, multires_views=130),
-                 (torch.float32,)),
-             "needs 236544 bytes of shared memory": (
-                 dict(netwidth=1024, netwidth_fine=1024, multires=60, multires_views=20),
-                 (torch.bfloat16,))}
-    for message, (kw, dtypes) in cases.items():
+    cases = {r"declares \d+ bytes of VMEM blocks in float32 in the JAX kernel, past its "
+             r"budget of 104857600 bytes": (dict(netwidth=2048, netwidth_fine=2048),
+                                            torch.float32),
+             "needs 243328 bytes of shared memory per block on the streaming core's smallest "
+             "tile in float32": (dict(multires=2400), torch.float32)}
+    for message, (kw, dtype) in cases.items():
         net = tcfg.NeRFNetConfig(**{**dict(netdepth=4, netdepth_fine=4, skips=(2,)), **kw})
         params = init_nerf_params(net, generator=torch.Generator().manual_seed(7))
-        for dtype in dtypes:
-            with pytest.raises(NotImplementedError, match=message):
-                rm.fused_nerf_march(params, *rays, net, compute_dtype=dtype)
-    assert fake_march.calls == []
+        with pytest.raises(NotImplementedError, match=message):
+            rm.fused_nerf_march(params, *rays, net, compute_dtype=dtype)
+    assert fake_march.calls == [] and fake_march.stream_calls == []
+    net = tcfg.NeRFNetConfig(netdepth=4, netdepth_fine=4, skips=(2,), netwidth=2048,
+                             netwidth_fine=2048)
+    params = init_nerf_params(net, generator=torch.Generator().manual_seed(7))
     with torch.no_grad():
-        rm.fused_nerf_march(params, *rays, net, compute_dtype=torch.float32)
-    assert len(fake_march.calls) == 1
+        rm.fused_nerf_march(params, *rays, net, compute_dtype=torch.bfloat16)
+    assert fake_march.calls == [] and len(fake_march.stream_calls) == 1
 
 
 @pytest.mark.parametrize("name", ["w128x4", "w100_m12_6", "8x512", "24x256"])

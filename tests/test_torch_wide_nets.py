@@ -536,18 +536,23 @@ def test_segmented_compositing_matches_raw2outputs(white_bkgd, s):
 
 
 class _FakeRenderTileLibrary(_FakeMarchLibrary):
-    """The render_tile library's entry and its segment query: samples per
-    segment as given."""
+    """The render_tile library's entries and their segment query: samples per
+    segment as given, ``segment`` on the FP32 and wgmma cores and
+    ``stream_segment`` on the streaming core (core code 2)."""
 
-    def __init__(self, segment):
+    def __init__(self, segment, stream_segment=0):
         super().__init__()
-        self.segment = segment
+        self.segment, self.stream_segment = segment, stream_segment
 
-    def render_tile_max_samples(self, bf16, width, in_ch, in_ch_views):
-        return self.segment
+    def render_tile_max_samples(self, core, width, in_ch, in_ch_views):
+        return self.stream_segment if core == 2 else self.segment
 
     def render_tile(self, *args):
         self.calls.append(args)
+        return 0
+
+    def render_tile_stream(self, *args):
+        self.stream_calls.append(args)
         return 0
 
 
@@ -555,8 +560,10 @@ class _FakeRenderTileLibrary(_FakeMarchLibrary):
 def test_render_tile_takes_any_samples_per_ray(monkeypatch, dtype):
     """On the kernel route the render tile launches for S far past one
     segment (4,096 samples against 100), on the default net and at width
-    1024; it refuses, naming the bytes of a sample, only when its core
-    leaves no room for one."""
+    1024. Where the net's FP32 or wgmma core leaves no room for one sample
+    it launches on the streaming core (at S = 1,024, inside the JAX kernel's
+    budget, whose [S, S] triangle grows with S); it refuses, naming the
+    bytes of a sample, only when that core leaves no room for one either."""
     rays = [torch.rand(2, 3), torch.rand(2, 3), torch.rand(2, 3), torch.rand(2, 4096)]
     monkeypatch.setattr(rm, "uses_kernel", lambda t: True)
     monkeypatch.setattr(rm, "_run", lambda fn, device, what, *args: fn(*args, None))
@@ -571,8 +578,15 @@ def test_render_tile_takes_any_samples_per_ray(monkeypatch, dtype):
         assert rm.fused_render_tile.launches == 1 and out[3].shape == (2, 4096)
         (args,) = lib.calls
         assert (args[4], args[5], args[8]) == (2, 4096, rm.core_width(net.netwidth))
+        lib = _FakeRenderTileLibrary(0, 100)
+        with torch.no_grad():
+            out = rm.fused_render_tile(params, *rays[:3], rays[3][:, :1024], net,
+                                       compute_dtype=dtype)
+        assert rm.fused_render_tile.launches == 2 and out[3].shape == (2, 1024)
+        assert lib.calls == [] and len(lib.stream_calls) == 1
+        assert lib.stream_calls[0][8] == rm.stream_width(net.netwidth)
         lib = _FakeRenderTileLibrary(0)
         with pytest.raises(NotImplementedError, match="no room in shared memory for one "
                                                       "sample"):
             rm.fused_render_tile(params, *rays[:3], rays[3][:, :16], net, compute_dtype=dtype)
-        assert lib.calls == []
+        assert lib.calls == [] and lib.stream_calls == []
