@@ -4,7 +4,7 @@ of this repository (or more) on one NVIDIA GPU, in turns, so that versions
 of a kernel are compared on the same card in the same call.
 
     python3 chip_compare.py OLD_CHECKOUT NEW_CHECKOUT [MORE ...] [--rounds 2]
-                            [--net 8x1024]
+                            [--net 8x1024[,8x1152,...]] [--dtypes bfloat16]
 
 Each round runs the checkouts in order and then in reverse (OLD, NEW, NEW,
 OLD for two); each run is a child process started in that checkout
@@ -32,9 +32,20 @@ weights of the 8x1024 net (mip-NeRF 360's width; PE 10/4):
     the mean over 10 back-to-back launches), beside the same shapes' plain
     twin (median of 3) and chain_ms (the MLP as one torch.matmul per layer
     on encodings computed beforehand, TF32 off; median of 3);
+  - the same five in bf16 (the transposed wgmma core) at S = 64 and 192,
+    and chain_ms in bf16;
   - NeuralSimRenderer.render_images on 8x1024 box-scene weights, K = 8
     poses at 100x100, the exact render in float32 through each of the three
     march routes (median of WIDE_RENDERS after one untimed render).
+With ``--net`` naming a net of chip_smoke.py's STREAM_NETS (8x1152,
+8x1664, 8x256_pe75, 8x1024_pe60_20: the streaming core) a child times, on
+its random weights, in each dtype the net runs, every kernel at N = 8192 x
+S = 64 and the ray march and the render tile at S = 192: the device time
+(KEY_dev: one timed launch, then the mean of as many back-to-back launches
+as fill about 1.5 s, 2 to 10: a slow checkout's launches cost seconds)
+and chain_ms in the same dtype (median of 3). ``--net`` takes a comma
+list (each child times every net listed), and ``--dtypes`` keeps the
+dtypes named (the float32 renders run only with float32).
 It prints one JSON line per run, then a summary line: the median over a
 version's runs of each number, and each later checkout's medians over
 OLD's; and, for the default net, each checkout's bf16 outputs of the five
@@ -68,8 +79,16 @@ RENDERS = 9
 # the same for the 8x1024 renders (~10 s each in float32)
 WIDE_RENDERS = 2
 # the nets a child times: the default (every kernel, both dtypes, three
-# renders) or the 8x1024 net (float32 kernels, twins, chain_ms, renders)
+# renders), the 8x1024 net (kernels in both dtypes, float32 twins, chain_ms,
+# float32 renders) or the streaming core's nets (chip_smoke.STREAM_NETS)
 NETS = ("default", "8x1024")
+STREAM = ("8x1152", "8x1664", "8x256_pe75", "8x1024_pe60_20")
+# the streaming core's device time: back-to-back launches filling about
+# DEVICE_WINDOW ms, at least 2 and at most BATCH
+DEVICE_WINDOW = 1500.0
+# the transposed core's other nets, whose bf16 outputs the default run
+# saves on ragged rays (chip_smoke.EXTRA_NETS)
+TRANSPOSED_OTHERS = ("8x512_pe42_20", "4x256_pe50_24")
 # the environment variable naming the file where a child saves its bf16
 # outputs (the first run of each checkout)
 OUTPUTS = "CHIP_COMPARE_OUTPUTS"
@@ -97,9 +116,58 @@ def events(fn, reps=7, warmup=2, batch=1):
     return statistics.median(times)
 
 
-def child_widest(out, rays):
+def device_time(fn):
+    """(ms per call, calls): one timed call, then the mean of back-to-back
+    calls filling about DEVICE_WINDOW ms (2 to BATCH of them)."""
+    import torch
+
+    first = events(fn, reps=1, warmup=0)
+    n = max(2, min(BATCH, int(DEVICE_WINDOW / max(first, 1e-3))))
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n, n
+
+
+def child_stream(out, rays, name, dtypes):
+    """A streaming-core net's numbers into out: each kernel's device time
+    in each dtype the net runs at S = 64 (the ray march and the render tile
+    also at 192) and chain_ms."""
+    import torch
+
+    import chip_smoke as cs
+    from neuralsim_tpu_torch.config import NeRFNetConfig
+    from neuralsim_tpu_torch.models.nerf import init_nerf_params
+
+    kw, runs = cs.STREAM_NETS[name]
+    net = NeRFNetConfig(**kw)
+    params = init_nerf_params(net, generator=torch.Generator().manual_seed(0), device="cuda")
+    with torch.no_grad():
+        for s in (64, 192):
+            r = rays(8192, s)
+            for dtype in [d for d in runs if d in dtypes]:
+                cd, dt = getattr(torch, dtype), "f32" if dtype == "float32" else "bf16"
+                out[f"{name}_chain_{dt}_S{s}"] = cs.time_chain(params, net, r, cd, reps=3,
+                                                               warmup=1)
+                for kernel, (wrapper, _, inputs) in cs.KERNELS.items():
+                    if s != 64 and kernel not in cs.STREAM_S192:
+                        continue
+                    args = inputs(net, r)
+                    key = f"{name}_{kernel}_{dt}_S{s}"
+                    out[f"{key}_dev"], out[f"{key}_calls"] = device_time(
+                        lambda: wrapper(params, *args, net, compute_dtype=cd))
+                    del args
+            del r
+            torch.cuda.empty_cache()
+
+
+def child_widest(out, rays, dtypes):
     """The --net 8x1024 numbers into out (rays(n, s): a ray batch on the
-    card)."""
+    card), in the dtypes named."""
     import torch
 
     from chip_smoke import chain_mlp
@@ -115,6 +183,7 @@ def child_widest(out, rays):
     f32 = torch.float32
     net = NeRFNetConfig(netwidth=1024, netwidth_fine=1024)
     params = init_nerf_params(net, generator=torch.Generator().manual_seed(0), device=dev)
+    bf16 = torch.bfloat16
     with torch.no_grad():
         for s in (64, 192):
             r = rays(8192, s)
@@ -128,15 +197,29 @@ def child_widest(out, rays):
                        ("fused_nerf_mlp", rm.fused_nerf_mlp, nerf_apply, (x_pe, d_pe)),
                        ("fused_nerf_mlp_pe", rm.fused_nerf_mlp_pe, rm.mlp_pe_ref, (pts, dirs)))
             for name, fn, twin, args in kernels:
-                key = f"{name}_f32_S{s}"
-                out[key] = events(lambda: fn(params, *args, net, compute_dtype=f32), 3, 1)
-                out[f"{key}_b{BATCH}"] = events(
-                    lambda: fn(params, *args, net, compute_dtype=f32), 1, 0, BATCH)
-                out[f"{key}_twin"] = events(
-                    lambda: twin(params, *args, net, compute_dtype=f32), 3, 1)
-            out[f"chain_f32_S{s}"] = events(lambda: chain_mlp(params, x_pe, d_pe, net), 3, 1)
+                if "float32" in dtypes:
+                    key = f"{name}_f32_S{s}"
+                    out[key] = events(lambda: fn(params, *args, net, compute_dtype=f32), 3, 1)
+                    out[f"{key}_b{BATCH}"] = events(
+                        lambda: fn(params, *args, net, compute_dtype=f32), 1, 0, BATCH)
+                    out[f"{key}_twin"] = events(
+                        lambda: twin(params, *args, net, compute_dtype=f32), 3, 1)
+                if "bfloat16" in dtypes:
+                    key = f"{name}_bf16_S{s}"
+                    out[key] = events(lambda: fn(params, *args, net, compute_dtype=bf16), 3, 1)
+                    out[f"{key}_b{BATCH}"] = events(
+                        lambda: fn(params, *args, net, compute_dtype=bf16), 3, 1, BATCH)
+            for dtype, dt in ((f32, "float32"), (bf16, "bfloat16")):
+                if dt in dtypes:
+                    p = {k: v.to(dtype) for k, v in params.items()}
+                    a, b = x_pe.to(dtype), d_pe.to(dtype)
+                    out[f"chain_{'f32' if dtype == f32 else 'bf16'}_S{s}"] = events(
+                        lambda: chain_mlp(p, a, b, net), 3, 1)
+                    del p, a, b
             del r, pts, dirs, x_pe, d_pe
             torch.cuda.empty_cache()
+        if "float32" not in dtypes:
+            return
         box = box_scene_params(net, generator=torch.Generator().manual_seed(3), device=dev)
         psi = psi_init("5")
         routes = {"fused_nerf_march": {}, "fused_nerf_mlp_widepe": dict(fuse_pointgen=False),
@@ -157,7 +240,7 @@ def child_widest(out, rays):
             out[f"render_{route}_f32_s"] = statistics.median(seconds)
 
 
-def child(net_name):
+def child(net_names, dtypes):
     # the checkout is the working directory; this file may lie elsewhere
     sys.path[0] = os.getcwd()
     import torch
@@ -199,8 +282,12 @@ def child(net_name):
 
     out = {"checkout": os.getcwd()}
     outputs = {}
-    if net_name == "8x1024":
-        child_widest(out, rays)
+    if net_names != ["default"]:
+        for name in net_names:
+            if name == "8x1024":
+                child_widest(out, rays, dtypes)
+            else:
+                child_stream(out, rays, name, dtypes)
         print("RESULT " + json.dumps(out), flush=True)
         return
     f32 = torch.float32
@@ -291,8 +378,10 @@ def wide_bf16(out, outputs, rays):
     outputs at S = 64 into outputs["8x512"]), and fused_nerf_march in bf16
     on the 8x1024 net at S = 64, into out; the five's outputs on the 8x1024
     net at S = 64 on its random and He-scaled weights into
-    outputs["8x1024"] and ["8x1024_he"], and the render tile's on the
-    SMOKE_DRAWS inputs (the file DRAWS names) into ["smoke_draws"]."""
+    outputs["8x1024"] and ["8x1024_he"], on the other transposed-core nets
+    (TRANSPOSED_OTHERS) at the ragged 1001 x 48 into outputs[name] and
+    [name + "_he"], and the render tile's on the SMOKE_DRAWS inputs (the
+    file DRAWS names) into ["smoke_draws"]."""
     import torch
 
     from neuralsim_tpu_torch.config import NeRFNetConfig
@@ -331,6 +420,20 @@ def wide_bf16(out, outputs, rays):
                                  x_pe, d_pe)
                 del r, pts, dirs, x_pe, d_pe
                 torch.cuda.empty_cache()
+    import chip_smoke as cs
+
+    for name in TRANSPOSED_OTHERS:
+        net = NeRFNetConfig(**cs.EXTRA_NETS[name])
+        params = init_nerf_params(net, generator=torch.Generator().manual_seed(17),
+                                  device="cuda")
+        r = rays(*cs.RAGGED)
+        pts, dirs = rm.ray_points(*r)
+        x_pe, d_pe = (positional_encoding(pts, net.multires),
+                      positional_encoding(dirs, net.multires_views))
+        bf16_outputs(outputs, name, params, net, r, pts, dirs, x_pe, d_pe)
+        bf16_outputs(outputs, f"{name}_he", he_scaled(params), net, r, pts, dirs, x_pe, d_pe)
+        del r, pts, dirs, x_pe, d_pe
+    net = NeRFNetConfig(netwidth=1024, netwidth_fine=1024)
     if os.environ.get(DRAWS):
         params, r = torch.load(os.environ[DRAWS])
         got = rm.fused_render_tile({k: v.cuda() for k, v in params.items()},
@@ -446,7 +549,8 @@ def main():
     args = [a for a in sys.argv[1:] if a != CHILD]
     rounds = int(option(args, "--rounds", 1))
     net_name = option(args, "--net", "default")
-    if len(args) < 2 or net_name not in NETS:
+    dtypes = option(args, "--dtypes", "float32,bfloat16")
+    if len(args) < 2 or not set(net_name.split(",")) <= set(NETS + STREAM):
         raise SystemExit(__doc__)
     checkouts = [os.path.abspath(a) for a in args]
     labels = ["old", "new"] + [f"new{i}" for i in range(2, len(checkouts))]
@@ -465,7 +569,7 @@ def main():
             if net_name == "default":
                 env[DRAWS] = draws
             proc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), CHILD,
-                                   "--net", net_name],
+                                   "--net", net_name, "--dtypes", dtypes],
                                   cwd=checkout, capture_output=True, text=True, timeout=1200,
                                   env=env)
             lines = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")]
@@ -491,6 +595,7 @@ def main():
 
 if __name__ == "__main__":
     if CHILD in sys.argv:
-        child(option(sys.argv, "--net", "default"))
+        child(option(sys.argv, "--net", "default").split(","),
+              option(sys.argv, "--dtypes", "float32,bfloat16").split(","))
     else:
         main()

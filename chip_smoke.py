@@ -57,11 +57,18 @@ Phases, each of which exits nonzero when it fails:
      multires 60 / multires_views 20 in bf16. Each net's route is logged
      (every kernel on the streaming core in those dtypes; the nets of phase
      3 keep the FP32 and wgmma cores, which phase 3 asserts and logs
-     too); every kernel against its twin at N=8192 x S=64 (He-scaled
-     weights) and the ragged 1001x48 (random and He-scaled) at F32_TOL / the
-     bf16 rule; one timed launch of every kernel at S=64 and of the ray march
-     and the render tile at S=192, beside the bound from the net's own work;
-     8x1664 in float32 refused by every wrapper, naming the JAX budget; then
+     too); each net's launch plans logged (tile and ring stages; the render
+     tile's rays and segments at S = 64 and 192); every kernel against its
+     twin at N=8192 x S=64 (He-scaled weights), the ragged 1001x48 (random
+     and He-scaled) and 3x5 (fewer tiles than clusters) at F32_TOL / the
+     bf16 rule, each launch of blocks of 288 threads in clusters of 2 on
+     32-point tiles and of 1 on smaller ones; the device time (the mean of
+     10 back-to-back launches, of fewer filling 1.5 s for launches past 150
+     ms) of every kernel at S=64 and
+     of the ray march and the render tile at S=192, beside the bound from
+     the net's own work and chain_ms in the same dtype (whether the kernel
+     beats it logged); 8x1664 in float32 refused by every wrapper, naming
+     the JAX budget; then
      a K=2 render at 50x50 through the ray march on 8x1152 box-scene weights
      at full width (2 launches of fused_nerf_march, none of the others; rgb
      within F32_TOL of the twin's render);
@@ -387,11 +394,18 @@ STREAM_NETS = {
 }
 STREAM_REFUSED = ("8x1664", "float32")
 # the streaming core's checks (He-scaled weights at N_RAYS x 64, random and
-# He-scaled at RAGGED), its times (every kernel at S = 64, the ray march and
-# the render tile at S = 192: one launch each, after the checks' warm-up),
-# and its render: (net, K poses, camera side) through the ray march
-STREAM_SHAPES = ((N_RAYS, 64), RAGGED)
+# He-scaled at the others), its times (every kernel at S = 64, the ray march
+# and the render tile at S = 192: device time, device_ms), and its render:
+# (net, K poses, camera side) through the ray march
+STREAM_SHAPES = ((N_RAYS, 64), RAGGED, (3, 5))
 STREAM_S192 = ("fused_nerf_march", "fused_render_tile")
+# back-to-back launches of one device-time sample (chip_compare.py's _b10),
+# and the ms they fill at most for a longer launch
+BATCH = 10
+DEVICE_WINDOW = 1500.0
+# the streaming core's launches: blocks of two consumer warpgroups and a
+# producer warp, in clusters of 2 on 32-point tiles and of 1 on smaller ones
+STREAM_THREADS = 288
 STREAM_RENDER = ("8x1152", 2, 50)
 # the main path's three march routes and the render options that pick them
 ROUTES = {"fused_nerf_march": {}, "fused_nerf_mlp_widepe": dict(fuse_pointgen=False),
@@ -707,6 +721,16 @@ F32_WIDEST = re.compile(r"(nerf_march_f32|nerf_mlp_f32|render_tile_f32)ILi(\d+)E
                         r"(?:Li(\d)E)?")
 # the bf16 kernels of the standard wgmma core (W = 256 with NX 1-4, W = 512
 # with NX 1-3 x_pe chunks): clusters of blocks with a producer warpgroup
+# the transposed wgmma core's kernels (NX = 0) and the streaming core's,
+# and the most bytes (spill stores + loads) that each source's transposed
+# build may spill: those of the core with rings of two 32 KB stages (966 B
+# in nerf_march.cu, 1,028 in nerf_mlp.cu, 1,188 in render_tile.cu); the
+# streaming core's builds spill nothing
+TRANSPOSED_CORE = re.compile(r"(nerf_march_wgmma|nerf_mlp_wgmma|render_tile_wgmma)"
+                             r"ILi(256|512|1024)ELi0E(?:Li(\d)E)?(?:Lb(\d)E)?")
+TRANSPOSED_SPILLS = {"nerf_march": 966, "nerf_mlp": 1028, "render_tile": 1188}
+STREAM_CORE_RE = re.compile(r"(stream_march|stream_mlp|stream_render_tile)ILi(\d+)ELb(\d)E"
+                            r"(?:Li(\d)E)?(?:Lb(\d)E)?")
 STANDARD_CORE = re.compile(r"(nerf_march_wgmma|nerf_mlp_wgmma|render_tile_wgmma)"
                            r"ILi(256|512)ELi([1-4])E(?:Li(\d)E)?(?:Lb(\d)E)?")
 # the standard core's tile walks that a cluster must get right, (N, S): a
@@ -741,7 +765,7 @@ def phase_build():
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"build: {len(built)} sources in {time.perf_counter() - t0:.1f} s (parallel nvcc)")
-    spills, widest, standard = [], [], []
+    spills, widest, standard, redesigned, over = [], [], [], [], []
     for name, (path, seconds, report) in built.items():
         log(f"build {name}.cu: {seconds:.1f} s -> {path.name}")
         kernel, used = None, sass_registers(path)
@@ -754,6 +778,18 @@ def phase_build():
                 if m:
                     args = ", ".join(g for g in (m.group(2), "1024", m.group(3)) if g)
                     widest.append(f"{m.group(1)}<{args}>: {line.split(':', 1)[-1].strip()}")
+                for core, regex in (("transposed wgmma", TRANSPOSED_CORE),
+                                    ("streaming", STREAM_CORE_RE)):
+                    m = regex.search(kernel or "")
+                    if m and ("spill" in line or "registers" in line):
+                        args = ", ".join(g for g in m.groups()[1:] if g)
+                        redesigned.append(f"{core} core {m.group(1)}<{args}>: "
+                                          f"{line.split(':', 1)[-1].strip()}")
+                    spilled = sum(int(b) for b in re.findall(r"(\d+) bytes spill", line))
+                    limit = TRANSPOSED_SPILLS[name] if core == "transposed wgmma" else 0
+                    if m and spilled > limit:
+                        over.append(f"{name}.cu {kernel}: {spilled} bytes spill, the most "
+                                    f"allowed {limit}")
                 m = STANDARD_CORE.search(kernel or "")
                 if m and "spill" in line:
                     args = ", ".join(g for g in m.groups()[1:] if g)
@@ -767,7 +803,11 @@ def phase_build():
         log(f"build FP32 core W=1024 {line}")
     for line in standard:
         log(f"build standard wgmma core (clusters, a producer warpgroup) {line}")
+    for line in redesigned:
+        log(f"build {line}")
     log("build spills: " + ("; ".join(spills) if spills else "none"))
+    if over:
+        raise AssertionError("builds spill more than their limit: " + "; ".join(over))
     return spills
 
 
@@ -1011,10 +1051,11 @@ def check_long_rays(default, gen):
 
 def time_wide_net(name, gen, peaks, reps):
     """The five kernels on a wide net at N_RAYS x WIDE_S samples in both
-    dtypes (random weights): kernel, twin and bound ms, the bound from the
-    net's own work (not the zero-padded work), and the kernel's share of
-    its bound ({kernel: {shape key: {...}}}); and the chain_ms yardstick at
-    each shape ({shape key: ms})."""
+    dtypes (random weights): kernel (median of `reps` after a warm-up),
+    twin (one launch) and bound ms, the bound from the net's own work (not
+    the zero-padded work), and the kernel's share of its bound ({kernel:
+    {shape key: {...}}}); and the chain_ms yardstick at each shape ({shape
+    key: ms})."""
     net = NeRFNetConfig(**EXTRA_NETS[name])
     params = init_nerf_params(net, generator=gen, device=DEVICE)
     weight_bytes = sum(t.numel() * 4 for t in params.values())
@@ -1035,7 +1076,7 @@ def time_wide_net(name, gen, peaks, reps):
                     ms = time_ms(lambda: wrapper(params, *args, net, compute_dtype=dtype),
                                  reps=reps, warmup=1)
                     plain = time_ms(lambda: twin(params, *args, net, compute_dtype=dtype),
-                                    reps=reps, warmup=1)
+                                    reps=1, warmup=0)
                 peak = peaks[0] if dtype == torch.float32 else peaks[1]
                 b, by = bound(*work(kernel, net, N_RAYS, s, weight_bytes), peak, peaks[2])
                 out[kernel][key] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
@@ -1097,27 +1138,49 @@ def net_cores(net):
     return out
 
 
-def stream_plans(net, name):
-    """The streaming core's launch plans for a net on this card, logged: the
-    point kernels' tile and shared bytes, and the render tile's (also rays
-    per group and samples per segment) at S = 64 and 192."""
+def stream_plans(net, name, dtypes):
+    """The streaming core's launch plans for a net on this card in each of
+    dtypes, logged: the point kernels' tile, ring stages and shared bytes,
+    and the render tile's (also rays per group and samples per segment) at
+    S = 64 and 192."""
     width = rm.stream_width(net.netwidth)
-    ints = [ctypes.c_int() for _ in range(3)]
+    ints = [ctypes.c_int() for _ in range(4)]
     refs = [ctypes.pointer(i) for i in ints]
+    plans = {}
     with torch.cuda.device(DEVICE):
-        smem = rm._library("nerf_march").nerf_stream_launch_bytes(
-            width, net.input_ch, net.input_ch_views, refs[0])
-        plans = {"points": dict(tile=ints[0].value, smem=smem)}
-        lib = rm._library("render_tile")
-        for s in WIDE_S:
-            smem = lib.render_tile_stream_plan(s, width, net.input_ch, net.input_ch_views, *refs)
-            plans[f"render_tile_S{s}"] = dict(zip(("tile", "rays", "seg"),
-                                                  (i.value for i in ints)), smem=smem)
+        for dtype in dtypes:
+            bf16 = int(dtype == "bfloat16")
+            smem = rm._library("nerf_march").nerf_stream_launch_bytes(
+                width, net.input_ch, net.input_ch_views, bf16, refs[0], refs[1])
+            plans[f"{dtype}_points"] = dict(tile=ints[0].value, stages=ints[1].value, smem=smem)
+            lib = rm._library("render_tile")
+            for s in WIDE_S:
+                smem = lib.render_tile_stream_plan(s, width, net.input_ch, net.input_ch_views,
+                                                   bf16, *refs)
+                plans[f"{dtype}_render_tile_S{s}"] = dict(
+                    zip(("tile", "stages", "rays", "seg"), (i.value for i in ints)), smem=smem)
     log(f"streaming core plans of net {name} (W = {width}): " + "; ".join(
         f"{k} " + ", ".join(f"{a} {b}" for a, b in v.items()) for k, v in plans.items()))
     if not all(p["smem"] > 0 for p in plans.values()):
         raise AssertionError(f"net {name}: a streaming-core plan does not fit: {plans}")
     return plans
+
+
+def device_ms(fn):
+    """A kernel's device time (chip_compare.py's device_time): one timed
+    call, then ms per call of back-to-back calls of fn between two CUDA
+    events, BATCH of them for a call under DEVICE_WINDOW / BATCH ms, else
+    as many as fill DEVICE_WINDOW ms (at least 2: the host's latency, tens
+    of microseconds, is nothing beside such a call)."""
+    first = time_ms(fn, reps=1, warmup=0)
+    n = max(2, min(BATCH, int(DEVICE_WINDOW / max(first, 1e-3))))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def assert_fixed_cores(net, name):
@@ -1135,14 +1198,17 @@ def assert_fixed_cores(net, name):
 
 def phase_stream(peaks, smi):
     """3s: the streaming core on STREAM_NETS: each net's route on this card
-    (every kernel on the streaming core in its dtypes), every kernel against
-    its twin at STREAM_SHAPES (F32_TOL in float32, the bf16 rule in bf16),
-    one timed launch of each kernel at N_RAYS x 64 and of STREAM_S192 at
-    N_RAYS x 192 beside its bound (the net's own work over the dtype's peak)
-    and the twin's time at 64; 8x1664 in float32 refused, naming the JAX
-    budget, before any launch; then the render of STREAM_RENDER. Returns
-    {"nets": {name: {dtype: {kernel: {...}}}}, "launches": each kernel's
-    launches in the checks and times, "render": {...}}."""
+    (every kernel on the streaming core in its dtypes) and launch plans,
+    every kernel against its twin at STREAM_SHAPES (F32_TOL in float32, the
+    bf16 rule in bf16), each launch of STREAM_THREADS-thread blocks in
+    clusters of 2 on 32-point tiles and of 1 on smaller ones; the device
+    time of each kernel at N_RAYS x 64 and of STREAM_S192 at N_RAYS x 192
+    (device_ms) beside its bound (the net's own work over the dtype's peak)
+    and chain_ms in the same dtype, and the twin's time at 64; 8x1664 in
+    float32 refused, naming the JAX budget, before any launch; then the
+    render of STREAM_RENDER. Returns {"nets": {name: {dtype: {kernel:
+    {...}}}}, "launches": each kernel's launches in the checks and times,
+    "render": {...}}."""
     gen = torch.Generator().manual_seed(5)
     zero_counts()
     nets = {}
@@ -1158,13 +1224,13 @@ def phase_stream(peaks, smi):
         random = init_nerf_params(net, generator=gen, device=DEVICE)
         he = {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0) for k, v in random.items()}
         weight_bytes = sum(t.numel() * 4 for t in random.values())
-        plans = stream_plans(net, name)
+        plans = stream_plans(net, name, dtypes)
         rec = {dtype: {kernel: {"max_abs_err": 0.0, "core": cores[dtype], "plans": plans}
                        for kernel in KERNELS} for dtype in dtypes}
         for n, s in STREAM_SHAPES:
             rays = march_inputs(n, s, gen, DEVICE)
-            inits = (("random", random), ("random_he", he)) if (n, s) == RAGGED else (
-                ("random_he", he),)
+            inits = (("random_he", he),) if n == N_RAYS else (("random", random),
+                                                              ("random_he", he))
             for kernel, (wrapper, twin, inputs) in KERNELS.items():
                 args = inputs(net, rays)
                 for dtype in dtypes:
@@ -1173,39 +1239,46 @@ def phase_stream(peaks, smi):
                         e = check(kernel, params, args, net, getattr(torch, dtype),
                                   f"{kernel} stream net {name} {scene} N={n} S={s} {dtype}")
                         r["max_abs_err"] = max(r["max_abs_err"], e)
-                    if n != N_RAYS:
-                        continue
-                    cd = getattr(torch, dtype)
-                    with torch.no_grad():
-                        ms = time_ms(lambda: wrapper(random, *args, net, compute_dtype=cd),
-                                     reps=1, warmup=0)
-                        if kernel == "fused_nerf_march":
-                            r["plain_ms_S64"] = time_ms(
-                                lambda: twin(random, *args, net, compute_dtype=cd), reps=1,
-                                warmup=0)
-                    peak = peaks[0] if dtype == "float32" else peaks[1]
-                    b, by = bound(*work(kernel, net, n, s, weight_bytes), peak, peaks[2])
-                    r.update(ms_S64=ms, bound_ms_S64=b, bound_by=by, share_S64=b / ms)
-                    log(f"time stream {name} {kernel} {dtype} S64 N={n}: kernel {ms:.3f} ms, "
-                        f"bound {b:.3f} ms ({by}), {b / ms:.1%} of the bound"
-                        + (f", twin {r['plain_ms_S64']:.3f} ms" if "plain_ms_S64" in r else ""))
+                        launch = cluster_launch(kernel)
+                        plan = plans[f"{dtype}_render_tile_S64" if kernel == "fused_render_tile"
+                                     else f"{dtype}_points"]
+                        want = (2 if plan["tile"] == 32 else 1, STREAM_THREADS)
+                        if (launch[0], launch[3]) != want:
+                            raise AssertionError(f"{kernel} on stream net {name} did not launch "
+                                                 f"as clusters of {want}: {launch}")
                 del args
             del rays
             torch.cuda.empty_cache()
-        rays = march_inputs(N_RAYS, 192, gen, DEVICE)
-        for kernel in STREAM_S192:
-            wrapper = KERNELS[kernel][0]
+        for s in WIDE_S:
+            rays = march_inputs(N_RAYS, s, gen, DEVICE)
             for dtype in dtypes:
                 cd = getattr(torch, dtype)
-                with torch.no_grad():
-                    ms = time_ms(lambda: wrapper(random, *rays, net, compute_dtype=cd),
-                                 reps=1, warmup=0)
+                chain = time_chain(random, net, rays, cd, reps=3, warmup=1)
                 peak = peaks[0] if dtype == "float32" else peaks[1]
-                b, by = bound(*work(kernel, net, N_RAYS, 192, weight_bytes), peak, peaks[2])
-                rec[dtype][kernel].update(ms_S192=ms, bound_ms_S192=b, share_S192=b / ms)
-                log(f"time stream {name} {kernel} {dtype} S192 N={N_RAYS}: kernel {ms:.3f} ms, "
-                    f"bound {b:.3f} ms ({by}), {b / ms:.1%} of the bound")
-        del rays, random, he
+                for kernel, (wrapper, twin, inputs) in KERNELS.items():
+                    if s != 64 and kernel not in STREAM_S192:
+                        continue
+                    r = rec[dtype][kernel]
+                    args = inputs(net, rays)
+                    with torch.no_grad():
+                        ms = device_ms(lambda: wrapper(random, *args, net, compute_dtype=cd))
+                        if kernel == "fused_nerf_march" and s == 64:
+                            r["plain_ms_S64"] = time_ms(
+                                lambda: twin(random, *args, net, compute_dtype=cd), reps=1,
+                                warmup=0)
+                    b, by = bound(*work(kernel, net, N_RAYS, s, weight_bytes), peak, peaks[2])
+                    r.update({f"ms_S{s}": ms, f"bound_ms_S{s}": b, "bound_by": by,
+                              f"share_S{s}": b / ms, f"chain_ms_S{s}": chain})
+                    log(f"time stream {name} {kernel} {dtype} S{s} N={N_RAYS}: kernel {ms:.3f} ms "
+                        f"(device), bound {b:.3f} ms ({by}), {b / ms:.1%} of "
+                        f"the bound, chain_ms {chain:.3f} ms ({ms / chain:.3f} of it: "
+                        f"{'beats' if ms < chain else 'does not beat'} the chain)"
+                        + (f", twin {r['plain_ms_S64']:.3f} ms" if "plain_ms_S64" in r
+                           and s == 64 else ""))
+                    del args
+            del rays
+            torch.cuda.empty_cache()
+        del random, he
         torch.cuda.empty_cache()
         nets[name] = rec
         log(f"kernel vs twin on stream net {name} ({net.netdepth}x{net.netwidth}, multires "

@@ -21,7 +21,9 @@ wrappers that ``--kernels`` names) at N = 8192 rays on random weights of
 the nets it lists (NETS: the default net at S = 64, 192 and 16
 and an 8x512 net at S = 64 and 192, in float32 and bf16, whose kernel runs the
 tensor-core core, which shares the weight ring; the 8x1024 net at S = 64
-and 192 in float32), each checked against the plain twin first (float32
+and 192, the FP32 core in float32 and the transposed wgmma core in bf16;
+the streaming core's 8x1152 in both dtypes and 8x1664 in bf16 at S = 64),
+each checked against the plain twin first (float32
 2e-3, bf16 by the bf16 rule of chip_smoke.py) unless the variant is timed
 only (its values are wrong by design), timed as single launches (median of
 7) and as the mean of BATCH back-to-back launches (``_b10``, the device
@@ -106,11 +108,7 @@ SMALL_STAGES = (F32, STAGE_BYTES,
 # bytes (its values are wrong), which bounds what the L2 weight stream costs
 COPY = """    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n"
                  ::"r"(bar), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\\n"
-        ::"r"(smem_addr(buf + s * plan.wide_bytes)), "l"(plan.packed + off), "r"(bytes),
-          "r"(bar) : "memory");
+    bulk_copy<1>(smem_addr(buf + s * plan.wide_bytes), plan.packed + off, bytes, bar);
 """
 NO_COPY = """    (void)off;
     asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");
@@ -133,18 +131,7 @@ EPILOGUE_STORE = """    if (h != nullptr) {
 # consumers re-read the stages' old bytes
 MC_COPY = """      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n"
                    ::"r"(bar), "r"(bytes) : "memory");
-      if constexpr (CLUSTER == 1) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%0], [%1], %2, [%3];\\n"
-            ::"r"(dst), "l"(src), "r"(part), "r"(bar) : "memory");
-      } else {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            ".multicast::cluster [%0], [%1], %2, [%3], %4;\\n"
-            ::"r"(dst), "l"(src), "r"(part), "r"(bar),
-              "h"(static_cast<uint16_t>((1u << CLUSTER) - 1u)) : "memory");
-      }
+      bulk_copy<CLUSTER>(dst, src, part, bar);
 """
 MC_NO_COPY = """      (void)dst;
       (void)src;
@@ -152,12 +139,39 @@ MC_NO_COPY = """      (void)dst;
       asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");
 """
 ALL = ("8x256", "8x512", "8x1024")
+STREAM = "nerf_mlp_stream.cuh"
+# the transposed wgmma core (bf16 at W = 1024): its rings (four stages of
+# 16 KB pieces a warpgroup; two of 32 KB as the variant)
+T_PIECE = "return width / 2 < 128 ? width / 2 : 128;"
+T_VIEWS = "return width / 4 < 128 ? width / 4 : 128;"
+T_STAGES = "return width == N ? 2 : 4;"
+T_PARENT_RING = [(F32_WG, T_PIECE, "return width / 2 < 256 ? width / 2 : 256;"),
+                 (F32_WG, T_VIEWS, "return width / 4;"), (F32_WG, T_STAGES, "return 2;")]
+# the streaming core: its clusters, its ring depth and the copy of a piece
+# (a variant without it arrives on the stage's full barrier alone, so the
+# consumers re-read the stages' old bytes)
+S_CLUSTERS = "inline int cluster_for(int tile) { return tile == MAX_TILE ? MAX_CLUSTER : 1; }"
+S_STAGES = "constexpr int MAX_STAGES = 8;"
+S_COPY = """      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n"
+                   ::"r"(bar), "n"(PIECE) : "memory");
+      const uint32_t dst = smem_addr(buf + s * PIECE) + rank * part;
+      const unsigned char* src = packed + q * PIECE + rank * part;
+      if (cluster == 1) {
+        bulk_copy<1>(dst, src, part, bar);
+      } else {
+        bulk_copy<MAX_CLUSTER>(dst, src, part, bar);
+      }
+"""
+S_NO_COPY = """      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");
+"""
+WIDEST = ("8x1024",)
+STREAMED = ("8x1152", "8x1664")
 # variant -> ([(file, old text, new text)], the nets it is timed on); edits
 # None: the csrc/ of the checkout that --parent names (default
 # _archive/parent), built the same way
 PARENT = "parent"
 VARIANTS = {
-    "committed": ([], ALL),
+    "committed": ([], ALL + STREAMED),
     "unroll 4": ([(F32, UNROLL, UNROLL.replace("unroll 8", "unroll 4"))], ALL),
     "last warp refills": ([
         (F32, EMPTY_INIT, "        *reinterpret_cast<int*>(empty + s) = 0;\n"),
@@ -206,21 +220,39 @@ VARIANTS = {
     "wgmma: heads skipped (times only)": ([
         (F32_WG, DENSITY_HEAD, DENSITY_HEAD.replace("\n  {", "\n  if (false) {")),
         (F32_WG, RGB_HEAD, RGB_HEAD.replace("j < NV / 8", "j < 0"))], ("8x256", "8x512")),
-    PARENT: (None, ("8x256", "8x512")),
+    PARENT: (None, ("8x256", "8x512") + WIDEST),
     "wgmma: the other cluster size": ([(F32_WG, CLUSTERS, CLUSTERS.replace("? 2 : 1", "? 1 : 2"))],
                                       ("8x256", "8x512")),
+    # the transposed core with rings of two stages of 32 KB pieces a
+    # warpgroup, and (timed only) without the weight stream from L2
+    "transposed: 2 stages of 32 KB": (T_PARENT_RING, WIDEST),
+    "transposed: no copy (times only)": ([(F32, COPY, NO_COPY)], WIDEST),
+    # the streaming core in clusters of 1 and of 2 at every tile (the
+    # committed takes 2 on 32-point tiles only), on rings of at most 4 and 2
+    # stages, and (timed only) without the weight stream from L2
+    "stream: clusters of 1": ([(STREAM, S_CLUSTERS, S_CLUSTERS.replace(
+        "tile == MAX_TILE ? MAX_CLUSTER : 1", "1"))], STREAMED),
+    "stream: clusters of 2": ([(STREAM, S_CLUSTERS, S_CLUSTERS.replace(
+        "tile == MAX_TILE ? MAX_CLUSTER : 1", "MAX_CLUSTER"))], STREAMED),
+    "stream: 4 stages": ([(STREAM, S_STAGES, S_STAGES.replace("8;", "4;"))], STREAMED),
+    "stream: 2 stages": ([(STREAM, S_STAGES, S_STAGES.replace("8;", "2;"))], STREAMED),
+    "stream: no copy (times only)": ([(STREAM, S_COPY, S_NO_COPY)], STREAMED),
 }
 # back-to-back launches of one device-time sample
 BATCH = 10
 TIMED_ONLY = ("W = 1024: no copy (times only)", "wgmma: no copy (times only)",
-              "wgmma: epilogue stores nothing (times only)", "wgmma: heads skipped (times only)")
+              "wgmma: epilogue stores nothing (times only)", "wgmma: heads skipped (times only)",
+              "transposed: no copy (times only)", "stream: no copy (times only)")
 # the nets timed: the default, the reference's --netwidth 512 (at S = 64),
-# and mip-NeRF 360's 8x1024 (float32): (config, S values, dtypes)
+# mip-NeRF 360's 8x1024 (float32 on the FP32 core, bf16 on the transposed
+# wgmma core), and the streaming core's 8x1152 (both dtypes) and 8x1664
+# (bf16): (config, S values, dtypes)
 BOTH = (torch.float32, torch.bfloat16)
 NETS = {"8x256": (NeRFNetConfig(), (64, 192, 16), BOTH),
         "8x512": (NeRFNetConfig(netwidth=512, netwidth_fine=512), (64, 192), BOTH),
-        "8x1024": (NeRFNetConfig(netwidth=1024, netwidth_fine=1024), (64, 192),
-                   (torch.float32,))}
+        "8x1024": (NeRFNetConfig(netwidth=1024, netwidth_fine=1024), (64, 192), BOTH),
+        "8x1152": (NeRFNetConfig(netwidth=1152, netwidth_fine=1152), (64,), BOTH),
+        "8x1664": (NeRFNetConfig(netwidth=1664, netwidth_fine=1664), (64,), (torch.bfloat16,))}
 
 
 def batched_ms(fn):
@@ -258,8 +290,8 @@ def build_variants(root: Path, names, sources, parent: Path):
         for src_name in sources:
             for line in built[src_name][2].splitlines():
                 if "Compiling entry function" in line:
-                    kernel = re.search(r"(nerf_march|render_tile)_(f32|wgmma)I(L[ib]\d+E)+",
-                                       line)
+                    kernel = re.search(r"((nerf_march|render_tile)_(f32|wgmma)|stream_march)"
+                                       r"I(L[ib]\d+E)+", line)
                     kernel = kernel.group(0) if kernel else ""
                 elif kernel and ("Used" in line or "spill" in line or "warning" in line):
                     lines.append(f"{kernel}: {line.split('ptxas info    :')[-1].strip()}")
@@ -329,7 +361,8 @@ def main():
                             if name not in TIMED_ONLY:
                                 cs.check(kernel, params, args, net, dtype, f"variant {name} {key}")
                             fn = lambda: wrapper(params, *args, net, compute_dtype=dtype)  # noqa: E731
-                            ms = cs.time_ms(fn, reps=5 if net_name == "8x1024" else 7)
+                            ms = cs.time_ms(fn, reps=7 if net_name in ("8x256", "8x512")
+                                            else 3 if net_name in STREAMED else 5)
                             b10 = batched_ms(fn)
                         times.setdefault(name, {}).setdefault(key, []).append(ms)
                         times[name].setdefault(f"{key}_b{BATCH}", []).append(b10)

@@ -29,8 +29,9 @@
 //     weights streamed the same way;
 //   - a net neither core of its dtype has room for (a trunk past 1024, or
 //     encodings past their shared memory), in either dtype: the streaming
-//     core of nerf_mlp_stream.cuh on tiles of 32 to 4 points, its weights
-//     read in place from L2 (entry nerf_march_stream).
+//     core of nerf_mlp_stream.cuh on tiles of 32 to 4 points (in clusters of
+//     2 blocks on 32-point tiles), its packed pieces streamed through its
+//     own ring (entry nerf_march_stream).
 // Each header reckons its core's weight traffic.
 
 #include "nerf_mlp_stream.cuh"
@@ -146,27 +147,31 @@ nerf_march_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ray
   wg::finish(core);
 }
 
-// The streaming core (the nets the other cores have no room for): the
-// block runs tiles blockIdx.x, +gridDim.x, ... of TILE points.
-template <int TILE>
-__global__ void __launch_bounds__(THREADS, 1)
+// The streaming core (the nets the other cores have no room for): tile
+// slots blockIdx.x, +gridDim.x, ... of TILE points (a slot past the last
+// tile runs masked, see stream::Core::slots), in clusters (stream::
+// cluster_for) of blocks of two consumer warpgroups and a producer warp.
+template <int TILE, bool BF16>
+__global__ void __launch_bounds__(stream::BLOCK, 1)
 stream_march(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
              const float* __restrict__ viewdirs, const float* __restrict__ z_vals, int total,
              int n_samples, Net net, stream::Layers layers, float* __restrict__ sigma,
              float* __restrict__ rgb) {
   extern __shared__ float4 smem4[];
   const int n_tiles = (total + TILE - 1) / TILE;
-  stream::Core<TILE> core = stream::make_core<TILE>(smem4, layers, net);
+  stream::Core<TILE, BF16> core = stream::make_core<TILE, BF16>(smem4, layers, net);
+  const long long slots = core.slots(n_tiles);
+  if (stream::start(core, slots * layers.per_tile)) return;
   const int tid = threadIdx.x;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * TILE;
-    __syncthreads();  // the previous tile's raw outputs are read
+  for (long long k = 0; k < slots; ++k) {
+    const int base = static_cast<int>(blockIdx.x + k * gridDim.x) * TILE;
+    core.sync();  // the previous tile's raw outputs are read
     if (tid < TILE) {
       make_point(rays_o, rays_d, viewdirs, z_vals, base + tid, total, n_samples, core.pts, TILE,
                  tid);
     }
-    __syncthreads();
-    stream::run_tile<TILE, false>(core, net);
+    core.sync();
+    stream::run_tile<TILE, BF16, false, false>(core, net);
     for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
       const int c = idx / TILE, p = idx % TILE;
       const int g = base + p;
@@ -179,6 +184,7 @@ stream_march(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
       }
     }
   }
+  stream::finish(core);
 }
 
 // The launches of one instantiation, for the cores' dispatch.
@@ -206,13 +212,14 @@ struct MarchWgmma {
 };
 
 struct MarchStream {
-  template <int TILE>
+  template <int TILE, bool BF16>
   static int run(long long total, size_t smem, cudaStream_t s, const float* rays_o,
                  const float* rays_d, const float* viewdirs, const float* z_vals, int n_samples,
                  Net net, stream::Layers layers, float* sigma, float* rgb) {
-    return launch_persistent(stream_march<TILE>, (total + TILE - 1) / TILE, smem, s, rays_o,
-                             rays_d, viewdirs, z_vals, static_cast<int>(total), n_samples, net,
-                             layers, sigma, rgb);
+    return wg::launch_clusters(stream_march<TILE, BF16>, (total + TILE - 1) / TILE,
+                               layers.cluster, stream::BLOCK, smem, s, rays_o, rays_d, viewdirs,
+                               z_vals, static_cast<int>(total), n_samples, net, layers, sigma,
+                               rgb);
   }
 };
 
@@ -263,10 +270,10 @@ int nerf_march(const float* rays_o, const float* rays_d, const float* viewdirs,
 
 // nerf_march on the streaming core (nerf_mlp_stream.cuh), for the nets the
 // other cores have no room for: the same arguments, with weights padded to
-// a trunk of `width` (a multiple of 64), `packed` the device table of the
-// padded kernels' pointers (raymarch.py stream_table; 8-byte aligned) and
-// n_skips unused (the skips are in `table`). Both dtypes: bf16 rounds where
-// the JAX package does. Returns a cudaError_t value.
+// a trunk of `width` (a multiple of 128) and `packed` the core's pieces of
+// this dtype (raymarch.py pack_stream_weights; 16-byte aligned). Both
+// dtypes: bf16 rounds where the JAX package does. Returns a cudaError_t
+// value.
 int nerf_march_stream(const float* rays_o, const float* rays_d, const float* viewdirs,
                       const float* z_vals, long long n_rays, int n_samples,
                       const void* const* weights, const void* table, int width, int depth,
@@ -277,15 +284,23 @@ int nerf_march_stream(const float* rays_o, const float* rays_d, const float* vie
   const int err = set_net(weights, table, depth, in_ch, in_ch_views, 0, &net);
   if (err != 0) return err;
   const long long total = n_rays * n_samples;
-  if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 8 || total > 0x7fffffffLL) {
+  // a cluster's masked tile slots reach one tile past the end: their
+  // indices must stay in int as well
+  if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16 ||
+      total > 0x7fffffffLL - 2 * stream::MAX_TILE) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int tile = 0;
-  const int e = stream::pick_tile(width, in_ch, in_ch_views, 0, &tile);
+  int tile = 0, stages = 0;
+  const int e = stream::pick(width, in_ch, in_ch_views, bf16 != 0, 0, &tile, &stages);
   if (e != 0) return e;
-  const stream::Layers layers{static_cast<const unsigned long long*>(packed), width, bf16};
+  const stream::Layers layers{
+      static_cast<const unsigned char*>(packed),
+      stream::tile_pieces(width, depth, n_skips, in_ch, in_ch_views, bf16 != 0), stages,
+      stream::cluster_for(tile), width};
   return stream::dispatch<MarchStream>(
-      tile, total, static_cast<size_t>(stream::core_bytes(tile, width, in_ch, in_ch_views)),
+      tile, bf16, total,
+      static_cast<size_t>(
+          stream::launch_bytes(tile, stages, width, in_ch, in_ch_views, bf16 != 0)),
       static_cast<cudaStream_t>(stream_), rays_o, rays_d, viewdirs, z_vals, n_samples, net,
       layers, sigma, rgb);
 }

@@ -39,7 +39,8 @@
 //     and d_pe straight into the swizzled tiles (load_tile_encodings);
 //   - a net neither core of its dtype has room for, in either dtype: the
 //     streaming core of nerf_mlp_stream.cuh (entry nerf_mlp_stream), the
-//     inputs scattered into its [channel][point] tiles as on the FP32 core.
+//     inputs scattered into its tiles (stream::load_encodings) or read as
+//     points.
 // Both cores stream their packed weights through the shared-memory ring of
 // nerf_mlp.cuh.
 
@@ -167,25 +168,29 @@ nerf_mlp_wgmma(const float* __restrict__ a, const float* __restrict__ b, int tot
   wg::finish(core);
 }
 
-// The streaming core (the nets the other cores have no room for): the
-// block runs tiles blockIdx.x, +gridDim.x, ... of TILE points.
-template <int TILE, int INPUT>
-__global__ void __launch_bounds__(THREADS, 1)
+// The streaming core (the nets the other cores have no room for): tile
+// slots blockIdx.x, +gridDim.x, ... of TILE points (a slot past the last
+// tile runs masked, see stream::Core::slots), in clusters (stream::
+// cluster_for) of blocks of two consumer warpgroups and a producer warp.
+template <int TILE, bool BF16, int INPUT>
+__global__ void __launch_bounds__(stream::BLOCK, 1)
 stream_mlp(const float* __restrict__ a, const float* __restrict__ b, int total, Net net,
            stream::Layers layers, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int n_tiles = (total + TILE - 1) / TILE;
-  stream::Core<TILE> core = stream::make_core<TILE>(smem4, layers, net);
+  stream::Core<TILE, BF16> core = stream::make_core<TILE, BF16>(smem4, layers, net);
+  const long long slots = core.slots(n_tiles);
+  if (stream::start(core, slots * layers.per_tile)) return;
   const int tid = threadIdx.x;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * TILE;
-    const int here = total - base < TILE ? total - base : TILE;
-    __syncthreads();  // the previous tile's raw outputs are read
+  for (long long k = 0; k < slots; ++k) {
+    const int base = static_cast<int>(blockIdx.x + k * gridDim.x) * TILE;
+    const int here = total - base < TILE ? total - base : TILE;  // <= 0 past the end
+    core.sync();  // the previous tile's inputs and raw outputs are read
     if constexpr (INPUT == ENCODED) {
-      stream::load_encoded<TILE>(a, net.in_ch, base, here, core.x, layers.bf16 != 0);
-      stream::load_encoded<TILE>(b, net.in_ch_views, base, here, core.d, layers.bf16 != 0);
-      __syncthreads();
-      stream::mlp_tile<TILE>(core, net);
+      stream::load_encodings<TILE, BF16>(core, a + static_cast<long long>(base) * net.in_ch,
+                                         b + static_cast<long long>(base) * net.in_ch_views, here,
+                                         net);
+      stream::mlp_tile<TILE, BF16, false>(core, net);
     } else {
       // a = points, b = view directions: the tile's rows of each are one
       // run of 3 * TILE floats
@@ -196,14 +201,15 @@ stream_mlp(const float* __restrict__ a, const float* __restrict__ b, int total, 
         const float* src = which ? b : a;
         core.pts[(3 * which + c) * TILE + p] = p < here ? src[run + j] : 0.f;
       }
-      __syncthreads();
-      stream::run_tile<TILE, INPUT == TRUE_COS>(core, net);
+      core.sync();
+      stream::run_tile<TILE, BF16, false, INPUT == TRUE_COS>(core, net);
     }
     for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
       const int p = idx >> 2, c = idx & 3;
       if (p < here) out[static_cast<long long>(base) * 4 + idx] = core.raw[c * TILE + p];
     }
   }
+  stream::finish(core);
 }
 
 // The launches of one instantiation, for the cores' dispatch.
@@ -230,26 +236,31 @@ struct MlpWgmma {
 
 template <int INPUT>
 struct MlpStream {
-  template <int TILE>
+  template <int TILE, bool BF16>
   static int run(int total, size_t smem, cudaStream_t s, const float* a, const float* b, Net net,
                  stream::Layers layers, float* out) {
-    return launch_persistent(stream_mlp<TILE, INPUT>, (total + TILE - 1) / TILE, smem, s, a, b,
-                             total, net, layers, out);
+    return wg::launch_clusters(stream_mlp<TILE, BF16, INPUT>, (total + TILE - 1) / TILE,
+                               layers.cluster, stream::BLOCK, smem, s, a, b, total, net, layers,
+                               out);
   }
 };
 
 // One stage's kernel on the streaming core.
 template <int INPUT>
 int launch_stream_stage(int total, const float* a, const float* b, int width, const void* packed,
-                        int bf16, const Net& net, cudaStream_t s, float* out) {
-  int tile = 0;
-  const int e = stream::pick_tile(width, net.in_ch, net.in_ch_views, 0, &tile);
+                        int n_skips, int bf16, const Net& net, cudaStream_t s, float* out) {
+  int tile = 0, stages = 0;
+  const int e = stream::pick(width, net.in_ch, net.in_ch_views, bf16 != 0, 0, &tile, &stages);
   if (e != 0) return e;
-  const stream::Layers layers{static_cast<const unsigned long long*>(packed), width, bf16};
+  const stream::Layers layers{static_cast<const unsigned char*>(packed),
+                              stream::tile_pieces(width, net.depth, n_skips, net.in_ch,
+                                                  net.in_ch_views, bf16 != 0),
+                              stages, stream::cluster_for(tile), width};
   return stream::dispatch<MlpStream<INPUT>>(
-      tile, total,
-      static_cast<size_t>(stream::core_bytes(tile, width, net.in_ch, net.in_ch_views)), s, a, b,
-      net, layers, out);
+      tile, bf16, total,
+      static_cast<size_t>(
+          stream::launch_bytes(tile, stages, width, net.in_ch, net.in_ch_views, bf16 != 0)),
+      s, a, b, net, layers, out);
 }
 
 // One stage's kernel in one dtype.
@@ -318,9 +329,9 @@ int nerf_mlp(const float* a, const float* b, long long total, int kind,
 
 // nerf_mlp on the streaming core (nerf_mlp_stream.cuh), for the nets the
 // other cores have no room for: the same arguments, with weights padded to
-// a trunk of `width` (a multiple of 64), `packed` the device table of the
-// padded kernels' pointers (raymarch.py stream_table; 8-byte aligned) and
-// n_skips unused. Returns a cudaError_t value.
+// a trunk of `width` (a multiple of 128) and `packed` the core's pieces of
+// this dtype (raymarch.py pack_stream_weights; 16-byte aligned). Returns a
+// cudaError_t value.
 int nerf_mlp_stream(const float* a, const float* b, long long total, int kind,
                     const void* const* weights, const void* table, int width, int depth,
                     int n_skips, int in_ch, int in_ch_views, int bf16, const void* packed,
@@ -329,18 +340,21 @@ int nerf_mlp_stream(const float* a, const float* b, long long total, int kind,
   if (!stream::width_ok(width)) return static_cast<int>(cudaErrorInvalidValue);
   const int err = set_net(weights, table, depth, in_ch, in_ch_views, 0, &net);
   if (err != 0) return err;
-  if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 8 || total > 0x7fffffffLL) {
+  // a cluster's masked tile slots reach one tile past the end: their
+  // indices must stay in int as well
+  if (packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16 ||
+      total > 0x7fffffffLL - 2 * stream::MAX_TILE) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   const int m = static_cast<int>(total);
   switch (kind) {
     case PROJECTION:
-      return launch_stream_stage<PROJECTION>(m, a, b, width, packed, bf16, net, s, out);
+      return launch_stream_stage<PROJECTION>(m, a, b, width, packed, n_skips, bf16, net, s, out);
     case TRUE_COS:
-      return launch_stream_stage<TRUE_COS>(m, a, b, width, packed, bf16, net, s, out);
+      return launch_stream_stage<TRUE_COS>(m, a, b, width, packed, n_skips, bf16, net, s, out);
     case ENCODED:
-      return launch_stream_stage<ENCODED>(m, a, b, width, packed, bf16, net, s, out);
+      return launch_stream_stage<ENCODED>(m, a, b, width, packed, n_skips, bf16, net, s, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

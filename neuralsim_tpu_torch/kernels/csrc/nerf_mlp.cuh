@@ -269,12 +269,45 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// This block's rank within its cluster (0 outside a cluster launch).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// A barrier of every thread of every block of the cluster, with release /
+// acquire order across it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// One cp.async.bulk of `bytes` from global src into shared dst, completing
+// on the mbarrier bar; with CLUSTER > 1 multicast to the same offsets of
+// every block of the cluster.
+template <int CLUSTER>
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  if constexpr (CLUSTER == 1) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar),
+          "h"(static_cast<uint16_t>((1u << CLUSTER) - 1u)) : "memory");
+  }
+}
+
 // A net's packed weights and their chunk order per tile: chunks [0,
 // n_wide) of a tile (trunk and feature layers, W columns) take wide_bytes
 // each, the rest (the views layer, W/2 columns) narrow_bytes. With ways = 2
 // the counts are each warpgroup's share (Ring<STAGES, true>): it takes
-// `run` consecutive pieces of every 2 * run wide ones and every other
-// narrow one.
+// `run` consecutive pieces of every 2 * run wide ones and `narrow_run` of
+// every 2 * narrow_run narrow ones (runs of 1, 2 or 4).
 struct Plan {
   const unsigned char* packed;
   int per_tile;
@@ -283,6 +316,7 @@ struct Plan {
   int narrow_bytes;
   int ways = 1;
   int run = 1;
+  int narrow_run = 1;
 
   // bytes of one tile's chunks, all ways
   long long tile_bytes() const {
@@ -346,13 +380,16 @@ struct Ring {
     const int bytes = wide ? plan.wide_bytes : plan.narrow_bytes;
     size_t off;
     if constexpr (HALVES) {
-      // this warpgroup's piece q: wide pieces come in runs of plan.run (1
-      // or 2) out of every 2 * run, narrow ones every other one
-      const int g = threadIdx.x >> 7, sh = plan.run - 1;
-      off = wide ? static_cast<size_t>(((q >> sh) << (sh + 1)) + (g << sh) + (q & sh)) *
-                       plan.wide_bytes
+      // this warpgroup's piece q of its section: pieces come in runs of
+      // `run` (1, 2 or 4: shifts of run / 2) out of every 2 * run
+      const int g = threadIdx.x >> 7;
+      const int run = wide ? plan.run : plan.narrow_run, sh = run >> 1;
+      const int k = wide ? q : q - plan.n_wide;
+      const size_t piece =
+          static_cast<size_t>(((k >> sh) << (sh + 1)) + (g << sh) + (k & (run - 1)));
+      off = wide ? piece * plan.wide_bytes
                  : static_cast<size_t>(2 * plan.n_wide) * plan.wide_bytes +
-                       static_cast<size_t>(2 * (q - plan.n_wide) + g) * plan.narrow_bytes;
+                       piece * plan.narrow_bytes;
     } else {
       off = wide ? static_cast<size_t>(q) * plan.wide_bytes
                  : static_cast<size_t>(plan.n_wide) * plan.wide_bytes +
@@ -361,11 +398,7 @@ struct Ring {
     const uint32_t bar = smem_addr(full + s);
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                  ::"r"(bar), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        ::"r"(smem_addr(buf + s * plan.wide_bytes)), "l"(plan.packed + off), "r"(bytes),
-          "r"(bar) : "memory");
+    bulk_copy<1>(smem_addr(buf + s * plan.wide_bytes), plan.packed + off, bytes, bar);
     next_q = q + 1 == plan.per_tile ? 0 : q + 1;
     --left;
   }

@@ -9,8 +9,8 @@
 // nerf_mlp.cuh. Same function as that core in bf16 (nerf_mlp.cuh states the
 // rounding and the net shapes taken: a narrower net comes zero-padded to a
 // trunk of W = 256, 512 or 1024). Two cores: the standard one below (W = 256
-// and 512) and the transposed one (W = 1024, and W = 512 where the standard
-// core has no room for the encodings), described before its code.
+// and 512) and the transposed one (W = 1024, and W = 256 / 512 where the
+// standard core has no room for the encodings), described before its code.
 //
 // Bound on the card: operations on the tensor cores. One point of the
 // default 8x256 net costs 593,408 bf16 multiply-adds; at the published 989
@@ -222,19 +222,6 @@ __device__ __forceinline__ int warpgroup() {
   return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
 }
 
-// This block's rank within its cluster (0 outside a cluster launch).
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// A barrier of every thread of every block of the cluster, with release /
-// acquire order across it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 // The standard core's weight ring across a cluster of CLUSTER blocks (the
 // FP32 and transposed cores keep Ring). The chunks go round STAGES stages
 // (of plan.wide_bytes each) in order in every block of the cluster. One
@@ -292,18 +279,7 @@ struct McRing {
       const unsigned char* src = plan.packed + off + rank * part;
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                    ::"r"(bar), "r"(bytes) : "memory");
-      if constexpr (CLUSTER == 1) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%0], [%1], %2, [%3];\n"
-            ::"r"(dst), "l"(src), "r"(part), "r"(bar) : "memory");
-      } else {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
-            ::"r"(dst), "l"(src), "r"(part), "r"(bar),
-              "h"(static_cast<uint16_t>((1u << CLUSTER) - 1u)) : "memory");
-      }
+      bulk_copy<CLUSTER>(dst, src, part, bar);
       q = q + 1 == plan.per_tile ? 0 : q + 1;
       if (++s == STAGES) {
         s = 0;
@@ -731,10 +707,18 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
 //     [W/2 g, W/2 (g+1)) (MB m64 blocks, wgmma.m64n32k16) and views columns
 //     [W/4 g, W/4 (g+1)) (MV blocks);
 //   - each warpgroup streams its share of every chunk through a ring of its
-//     own (Ring<2, true>): pieces of min(W/2, 256) rows of a trunk chunk
-//     (32 KB at W = 1024, RUN = 2 of them per chunk) and W/4 rows of a views
-//     chunk; two stages a warpgroup, so one piece loads while the other
-//     multiplies;
+//     own (Ring<t_stages(W), true> of nerf_mlp.cuh; its first thread
+//     issues): pieces of at most 128 rows (16 KB) of a trunk chunk (RUN = 4
+//     of them per chunk at W = 1024) and of a views chunk (RUNV = 2), four
+//     stages a warpgroup at W = 512 and 1024 (two at 256), so three pieces
+//     load while one multiplies. Rings of two 32 KB stages in the same
+//     shared memory keep one piece in flight: with them the five kernels
+//     on 8x1024 take 1.03-1.06 of this time (chip_compare.py, PERF.md).
+//     Blocks in clusters of 2 that multicast
+//     each piece (L2 then serves it once per two tiles) ran 5-11% slower
+//     than blocks alone, and 34% with a refill that does not wait: each
+//     piece's stage waits for both blocks' warps, and the issuing thread, a
+//     consumer, holds its warpgroup while it waits (PERF.md);
 //   - a block barrier stands between a layer's products and its epilogue
 //     (both warpgroups read all of h); the epilogue writes each value as one
 //     bf16 into the h tiles ([32][64] chunks, 128-byte swizzle);
@@ -744,30 +728,37 @@ __device__ __forceinline__ void mlp_core_wgmma(unsigned char* a, float* raw, con
 //   - the encodings' chunk counts are run-time values (one instantiation
 //     takes every encoding that fits): x_pe and d_pe in [32][64] chunks of
 //     4 KB.
-// Shared memory (t_core_bytes): the two rings (two pieces each: 128 KB at W =
-// 512 and 1024, 64 KB at 256), h (W/64 chunks of 4 KB), a scratch of 6 KB
-// (points, raw outputs, head partial sums, the rings' barriers), then nx
-// x_pe and nd d_pe chunks: 202,752 + 4,096 (nx + nd) B at W = 1024 (211,968
-// with the launch's alignment for the default encodings), 169,984 + 4,096
-// (nx + nd) at W = 512, 88,064 + 4,096 (nx + nd) at W = 256. The standard
-// core runs every net it has room for (W = 256 with NX <= 4 and nd <= 2,
-// W = 512 with NX + nd <= 4); this one the rest, where they fit.
-// Bound: weight traffic from L2. Each 32-point tile reads every packed chunk
-// (18.2 MB for the 8x1024 default-shaped net): 892 GB per 8192 x 192
-// launch, against 28.8 ms of bf16 tensor-core work. Larger tiles (a 2-block
-// cluster sharing each piece by multicast) are its second pass (ROADMAP.md).
+// Shared memory (t_core_bytes): the two rings (128 KB at W = 512 and 1024,
+// 64 KB at 256), h (W/64 chunks of 4 KB), a scratch of 6 KB (points, raw
+// outputs, head partial sums, the rings' barriers), then nx x_pe and nd
+// d_pe chunks: 202,752 + 4,096 (nx + nd) B at W = 1024 (211,968 with the
+// launch's alignment for the default encodings), 169,984 + 4,096 (nx + nd)
+// at W = 512, 88,064 + 4,096 (nx + nd) at W = 256. The standard core runs
+// every net it has room for (W = 256 with NX <= 4 and nd <= 2, W = 512 with
+// NX + nd <= 4); this one the rest, where they fit.
+// Weight traffic: each 32-point tile reads every packed chunk (18.2 MB for
+// the 8x1024 default-shaped net) from L2, 892 GB per 8192 x 192 launch,
+// against 28.8 ms of bf16 tensor-core work. A ring that issues no copies
+// runs 0.75-0.77 of the time (chip_variants.py): the L2 stream is a quarter
+// of it; the rest is the products' own (N = 32: every k16 step reads its 2
+// KB of weights and 1 KB of activations from shared memory).
 
 constexpr int TP = 32;                            // points of a transposed tile
 constexpr int T_CHUNK_BYTES = TP * CHUNK_K * 2;   // 4 KB: an activation chunk [32][64]
-constexpr int T_STAGES = 2;                       // ring stages per warpgroup
 constexpr int T_SCRATCH = 6 * 1024;               // pts, raw, partial sums, barriers
 
-// Rows of a trunk piece (a warpgroup's share of a trunk chunk, or half of
-// it at W = 1024) and its bytes.
-__host__ __device__ constexpr int t_piece_rows(int width) { return width / 2 < 256 ? width / 2 : 256; }
+// Rows of a trunk piece (a warpgroup's share of a trunk chunk, or a part
+// of it: at most 128 rows, 16 KB) and its bytes; rows of a views piece
+// (of the views chunk's W/2 rows, a warpgroup's W/4, at most 128) and its
+// bytes; ring stages of a warpgroup: four of 16 KB at W = 512 and 1024, two
+// at W = 256 (the shared memory of the rings of two stages of 32 KB that
+// they replaced: deeper rings keep more pieces in flight).
+__host__ __device__ constexpr int t_piece_rows(int width) { return width / 2 < 128 ? width / 2 : 128; }
 __host__ __device__ constexpr int t_piece_bytes(int width) {
   return t_piece_rows(width) * CHUNK_K * 2;
 }
+__host__ __device__ constexpr int t_views_rows(int width) { return width / 4 < 128 ? width / 4 : 128; }
+__host__ __device__ constexpr int t_stages(int width) { return width == N ? 2 : 4; }
 
 template <int W>
 struct TShape {
@@ -777,12 +768,14 @@ struct TShape {
   static constexpr int MV = W / 4 / 64;                 // views m64 blocks of a warpgroup
   static constexpr int RUN = W / 2 / t_piece_rows(W);   // trunk pieces of a warpgroup per chunk
   static constexpr int PB = t_piece_rows(W) / 64;       // m64 blocks of a trunk piece
+  static constexpr int RUNV = W / 4 / t_views_rows(W);  // views pieces of a warpgroup per chunk
+  static constexpr int PBV = MV / RUNV;                 // m64 blocks of a views piece
   static constexpr int H = W / CHUNK_K;                 // h chunks
 };
 
 // Shared memory of the transposed core from a 1024-aligned base.
 __host__ __device__ constexpr int t_fixed_bytes(int width) {
-  return 2 * T_STAGES * t_piece_bytes(width) + width / CHUNK_K * T_CHUNK_BYTES + T_SCRATCH;
+  return 2 * t_stages(width) * t_piece_bytes(width) + width / CHUNK_K * T_CHUNK_BYTES + T_SCRATCH;
 }
 __host__ __device__ constexpr int t_core_bytes(int width, int nx, int nd) {
   return t_fixed_bytes(width) + (nx + nd) * T_CHUNK_BYTES;
@@ -800,10 +793,11 @@ __host__ __device__ inline bool transposed(int width, int in_ch, int in_ch_views
 inline Plan make_plan_transposed(const void* packed, int width, int depth,
                                  int n_skips, int in_ch, int in_ch_views) {
   const int nx = x_chunks(in_ch), h = width / CHUNK_K, run = width / 2 / t_piece_rows(width);
+  const int run_v = width / 4 / t_views_rows(width);
   const int wide = nx + h * (depth - 1) + nx * n_skips + h;
   const int narrow = h + d_chunks(in_ch_views);
-  return Plan{static_cast<const unsigned char*>(packed), wide * run + narrow, wide * run,
-              t_piece_bytes(width), width / 4 * CHUNK_K * 2, 2, run};
+  return Plan{static_cast<const unsigned char*>(packed), wide * run + narrow * run_v, wide * run,
+              t_piece_bytes(width), t_views_rows(width) * CHUNK_K * 2, 2, run, run_v};
 }
 
 inline Plan make_plan(const void* packed, int width, int depth, int n_skips,
@@ -882,9 +876,18 @@ __device__ __forceinline__ void layer_t(float (&acc)[M][16], uint32_t a0, int n0
   ring.release();
 }
 
+// The bf16 value x at (row, col) of a K-major [ROWS][64]-chunk tile with
+// 128-byte swizzle.
+template <int ROWS>
+__device__ __forceinline__ void store_bf16_rows(unsigned char* tile, int row, int col, float x) {
+  *reinterpret_cast<__nv_bfloat16*>(tile + tile_offset<ROWS>(row, col)) = __float2bfloat16_rn(x);
+}
+
 // Bias, optional ReLU and the bf16 rounding of this warpgroup's M column
 // blocks, left in acc and, unless h is null, written into the h tiles
-// ([TP][64] chunks) at columns col0 + .... Slot 4j + e of block m holds
+// ([TP][64] chunks) at columns col0 + ..., one bf16 a store (two a 32-bit
+// store, pairing each value with the neighbouring column's from lane ^ 4
+// by a shuffle, ran 6-21% slower: PERF.md). Slot 4j + e of block m holds
 // column 64m + 16*warp + lane/4 + 8*(e/2) (bias points at column 0 of the
 // warpgroup) and point 8j + 2*(lane%4) + e%2. FAST as in `epilogue`.
 template <int M, bool RELU, bool FAST>
@@ -907,11 +910,7 @@ __device__ __forceinline__ void epilogue_t(float (&acc)[M][16], const float* bia
           if (RELU) x = relu(x);
           x = round_bf16(x);
           acc[m][4 * j + 2 * hi + lo] = x;
-          if (h != nullptr) {
-            const int p = 8 * j + 2 * (lane & 3) + lo;
-            *reinterpret_cast<__nv_bfloat16*>(h + tile_offset<TP>(p, col0 + col)) =
-                __float2bfloat16_rn(x);
-          }
+          if (h != nullptr) store_bf16_rows<TP>(h, 8 * j + 2 * (lane & 3) + lo, col0 + col, x);
         }
       }
     }
@@ -1008,7 +1007,7 @@ __device__ __forceinline__ void mlp_transposed(unsigned char* x_tiles, unsigned 
   float accv[T::MV][16];
   zero_t(accv);
   const int last = (net.in_ch_views - CHUNK_K * (nd - 1) + 15) / 16;
-  layer_t<T::MV, T::MV, 1>(accv, h, T::H, d, nd, last, ring);
+  layer_t<T::MV, T::PBV, T::RUNV>(accv, h, T::H, d, nd, last, ring);
   epilogue_t<T::MV, true, FAST>(accv, views_bias, nullptr, 0);
   head_t<T::MV, 3>(accv, net.rgb_k + 3 * vcol0, part, 0);
 
@@ -1026,34 +1025,35 @@ __device__ __forceinline__ void mlp_transposed(unsigned char* x_tiles, unsigned 
 }
 
 // A transposed tile's encodings, bf16, into its nx x_pe and nd d_pe chunks
-// (every column, zero past each encoding's channels) from its [6][TP]
-// points; all 256 threads, a channel pair of a point each.
-template <bool TRUE_COS>
+// ([ROWS][64] each: every column, zero past each encoding's channels) from
+// its [6][ROWS] points; threads 0-255, a channel pair of a point each.
+template <bool TRUE_COS, int ROWS = TP>
 __device__ __forceinline__ void encode_transposed(const float* pts, unsigned char* xt,
                                                   unsigned char* dt, const Net& net, int nx,
                                                   int nd) {
-  const int n_x = nx * (CHUNK_K / 2) * TP;
-  const int total = n_x + nd * (CHUNK_K / 2) * TP;
+  const int n_x = nx * (CHUNK_K / 2) * ROWS;
+  const int total = n_x + nd * (CHUNK_K / 2) * ROWS;
 #pragma unroll 1
   for (int i = threadIdx.x; i < total; i += THREADS) {
     const bool view = i >= n_x;
     const int k = view ? i - n_x : i;
-    const int row = k % TP, col = 2 * (k / TP);
-    const float* xyz = pts + (view ? 3 * TP : 0) + row;
+    const int row = k % ROWS, col = 2 * (k / ROWS);
+    const float* xyz = pts + (view ? 3 * ROWS : 0) + row;
     const int n_ch = view ? net.in_ch_views : net.in_ch;
-    store_bf16x2_rows<TP>(view ? dt : xt, row, col, encode<TRUE_COS>(xyz, TP, col, n_ch),
-                          encode<TRUE_COS>(xyz, TP, col + 1, n_ch));
+    store_bf16x2_rows<ROWS>(view ? dt : xt, row, col, encode<TRUE_COS>(xyz, ROWS, col, n_ch),
+                            encode<TRUE_COS>(xyz, ROWS, col + 1, n_ch));
   }
 }
 
 // Rows [0, here) of a pre-encoded input src [*, n_ch], rounded to bf16, into
-// n chunks of a transposed tile (zero past the channels and the rows); a
-// row's channel pairs are read by consecutive threads.
+// n [ROWS][64] chunks of a transposed tile (zero past the channels and the
+// rows); a row's channel pairs are read by consecutive threads (0-255).
+template <int ROWS = TP>
 __device__ __forceinline__ void load_transposed(const float* __restrict__ src, int n_ch, int n,
                                                 int here, unsigned char* tile) {
   const int pairs = n * CHUNK_K / 2;
 #pragma unroll 1
-  for (int i = threadIdx.x; i < TP * pairs; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS * pairs; i += THREADS) {
     const int row = i / pairs, col = 2 * (i - row * pairs);
     float lo = 0.f, hi = 0.f;
     if (row < here) {
@@ -1061,7 +1061,7 @@ __device__ __forceinline__ void load_transposed(const float* __restrict__ src, i
       if (col < n_ch) lo = __ldg(r + col);
       if (col + 1 < n_ch) hi = __ldg(r + col + 1);
     }
-    store_bf16x2_rows<TP>(tile, row, col, lo, hi);
+    store_bf16x2_rows<ROWS>(tile, row, col, lo, hi);
   }
 }
 
@@ -1072,7 +1072,7 @@ __device__ __forceinline__ void load_transposed(const float* __restrict__ src, i
 template <int W, int NX>
 struct Core {
   static constexpr bool TRANSPOSED = NX == 0;
-  static constexpr int STAGES = TRANSPOSED ? T_STAGES : stages(W, NX);
+  static constexpr int STAGES = TRANSPOSED ? t_stages(W) : stages(W, NX);
   // points of a block tile, and of the tile a warpgroup reads and writes
   static constexpr int TILE = TRANSPOSED ? TP : W == N ? 2 * P : P;
   static constexpr int PTS = TRANSPOSED ? TP : P;
@@ -1135,14 +1135,14 @@ __device__ __forceinline__ Core<W, NX> make_core(void* dyn, const Plan& plan, in
   c.nd = nd;
   if constexpr (NX == 0) {
     // the two rings, h, the scratch, then the x_pe and d_pe chunks
-    c.ring.buf = c.base + c.group * T_STAGES * t_piece_bytes(W);
-    c.h = c.base + 2 * T_STAGES * t_piece_bytes(W);
+    c.ring.buf = c.base + c.group * t_stages(W) * t_piece_bytes(W);
+    c.h = c.base + 2 * t_stages(W) * t_piece_bytes(W);
     c.pts = reinterpret_cast<float*>(c.h + TShape<W>::H * T_CHUNK_BYTES);
     c.raw = c.pts + 6 * TP;
     c.part = c.raw + 4 * TP;
     c.ring.full = reinterpret_cast<uint64_t*>(c.part + (THREADS / 32) * 4 * TP) +
-                  2 * T_STAGES * c.group;
-    c.ring.empty = c.ring.full + T_STAGES;
+                  2 * t_stages(W) * c.group;
+    c.ring.empty = c.ring.full + t_stages(W);
     c.a = c.h + TShape<W>::H * T_CHUNK_BYTES + T_SCRATCH;
   } else {
     unsigned char* tiles = c.base + Core<W, NX>::STAGES * chunk_bytes(W);  // after the ring

@@ -45,8 +45,9 @@
 // Both stream their packed weights through the core's shared-memory ring
 // (each header reckons the weight traffic). A net neither core of its
 // dtype has room for runs, in either dtype, on the streaming core of
-// nerf_mlp_stream.cuh (entry render_tile_stream): sub-tiles of its tile
-// (32 to 4 points) and the groups and segments of the bf16 plan.
+// nerf_mlp_stream.cuh (entry render_tile_stream): sub-tiles of its tile (32
+// to 4 points) and the groups and segments of the bf16 plan, with masked
+// sub-tile slots in its clusters as on the standard wgmma core.
 // When all of a segment's points are in, the block turns every point's
 // density into alpha and its logits into sigmoids in parallel (a segment's
 // last sample reads the next depth from z); then thread r runs ray r's
@@ -338,9 +339,14 @@ render_tile_wgmma(const float* __restrict__ rays_o, const float* __restrict__ ra
 }
 
 // The streaming core: the block walks ray groups blockIdx.x, +gridDim.x,
-// ... of R rays, in segments of seg samples, in sub-tiles of TILE points.
-template <int TILE>
-__global__ void __launch_bounds__(THREADS, 1)
+// ... of R rays, in segments of seg samples, in sub-tiles of TILE points, in
+// clusters (stream::cluster_for) of blocks of two consumer warpgroups and a
+// producer warp. A block with fewer sub-tiles than the most of its cluster
+// runs the difference masked after its own (zero points, no outputs), so
+// that every block consumes every piece. FAST: net.fast_epilogue (bf16
+// only).
+template <int TILE, bool BF16, bool FAST>
+__global__ void __launch_bounds__(stream::BLOCK, 1)
 stream_render_tile(const float* __restrict__ rays_o, const float* __restrict__ rays_d,
                    const float* __restrict__ viewdirs, const float* __restrict__ z_vals,
                    long long n_rays, int n_samples, int rays_per_block, int seg, Net net,
@@ -352,36 +358,52 @@ stream_render_tile(const float* __restrict__ rays_o, const float* __restrict__ r
   const int S = n_samples;
   const int R = rays_per_block;
   const int stride = R * seg;
-  const long long groups = (n_rays + R - 1) / R;
-  stream::Core<TILE> core = stream::make_core<TILE>(smem4, layers, net);
+  stream::Core<TILE, BF16> core = stream::make_core<TILE, BF16>(smem4, layers, net);
   // [4][R*seg] the segment's raw field, [R*seg] its depths, [6][R] the carry
-  float* ray_raw = reinterpret_cast<float*>(smem4) +
-                   stream::core_bytes(TILE, layers.width, net.in_ch, net.in_ch_views) / 4;
+  float* ray_raw = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(core.ring.buf) +
+      stream::core_bytes(TILE, layers.stages, layers.width, net.in_ch, net.in_ch_views, BF16));
   float* ray_z = ray_raw + 4 * stride;
   float* carry = ray_z + stride;
-  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+  const long long mine = block_tiles<TILE>(blockIdx.x, n_rays, S, R, seg);
+  long long slots = 0;
+  for (int r = 0; r < layers.cluster; ++r) {
+    const long long n = block_tiles<TILE>(blockIdx.x - core.rank + r, n_rays, S, R, seg);
+    slots = n > slots ? n : slots;
+  }
+  if (stream::start(core, slots * layers.per_tile)) return;
+  // one loop over the slots, so that the core is inlined once: slot k is
+  // sub-tile t0 of segment s0 of group grp while k < mine, then masked
+  long long grp = blockIdx.x;
+  int s0 = 0, t0 = 0;
+  for (long long k = 0; k < slots; ++k) {
+    const bool real = k < mine;
     const long long ray0 = grp * R;
-    const int n_here = static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R);
-    for (int s0 = 0; s0 < S; s0 += seg) {
-      const int len = S - s0 < seg ? S - s0 : seg;
-      const int T = n_here * len;
-      for (int t0 = 0; t0 < T; t0 += TILE) {
-        __syncthreads();  // the previous sub-tile's raw outputs are read
-        if (tid < TILE) {
-          ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, s0, len, t0 + tid, T, ray_z,
-                    core.pts, TILE, tid);
-        }
-        __syncthreads();
-        stream::run_tile<TILE, false>(core, net);
-        for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
-          const int c = idx / TILE, p = idx % TILE;
-          if (t0 + p < T) ray_raw[c * stride + t0 + p] = core.raw[c * TILE + p];
-        }
+    const int n_here = real ? static_cast<int>(n_rays - ray0 < R ? n_rays - ray0 : R) : 0;
+    const int len = S - s0 < seg ? S - s0 : seg;
+    const int T = n_here * len;  // 0 when masked: zero points, no outputs
+    core.sync();                 // the previous sub-tile's pts and raw are read
+    if (tid < TILE) {
+      ray_point(rays_o, rays_d, viewdirs, z_vals, ray0, S, s0, len, t0 + tid, T, ray_z, core.pts,
+                TILE, tid);
+    }
+    core.sync();
+    stream::run_tile<TILE, BF16, FAST, false>(core, net);
+    for (int idx = tid; idx < 4 * TILE; idx += THREADS) {
+      const int c = idx / TILE, p = idx % TILE;
+      if (t0 + p < T) ray_raw[c * stride + t0 + p] = core.raw[c * TILE + p];
+    }
+    if (real && (t0 += TILE) >= T) {
+      composite<true>(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d,
+                      z_vals, white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
+      t0 = 0;
+      if ((s0 += seg) >= S) {
+        s0 = 0;
+        grp += gridDim.x;
       }
-      composite<false>(ray_raw, ray_z, carry, stride, R, n_here, s0, len, S, ray0, rays_d,
-                       z_vals, white_bkgd, rgb_map, disp_map, acc_map, weights, depth_map);
     }
   }
+  stream::finish(core);
 }
 
 int gcd(int a, int b) {
@@ -497,36 +519,47 @@ struct TileWgmma {
   }
 };
 
+template <bool FAST>
 struct TileStream {
-  template <int TILE>
+  template <int TILE, bool BF16>
   static int run(long long blocks, size_t smem, cudaStream_t s, const float* rays_o,
                  const float* rays_d, const float* viewdirs, const float* z_vals, long long n_rays,
                  int n_samples, int rays, int seg, Net net, stream::Layers layers, int white_bkgd,
                  float* rgb_map, float* disp_map, float* acc_map, float* weights_out,
                  float* depth_map) {
-    return launch_persistent(stream_render_tile<TILE>, blocks, smem, s, rays_o, rays_d, viewdirs,
-                             z_vals, n_rays, n_samples, rays, seg, net, layers, white_bkgd,
-                             rgb_map, disp_map, acc_map, weights_out, depth_map);
+    // float32 has no fast epilogue: one instantiation
+    return wg::launch_clusters(stream_render_tile<TILE, BF16, FAST && BF16>, blocks,
+                               layers.cluster, stream::BLOCK, smem, s, rays_o, rays_d, viewdirs,
+                               z_vals, n_rays, n_samples, rays, seg, net, layers, white_bkgd,
+                               rgb_map, disp_map, acc_map, weights_out, depth_map);
   }
 };
 
 // The streaming core's launch for S samples in `smem_max` bytes: the
-// largest tile that leaves room for one sample, then the bf16 plan's rays
-// per group (whole rays where they fit, else one ray in segments); false
-// when not one sample fits.
-bool plan_stream(int n_samples, int width, int in_ch, int in_ch_views, int smem_max, int* tile,
-                 int* rays, int* seg) {
-  if (stream::pick_tile(width, in_ch, in_ch_views, group_bytes(1, 1), tile) != 0 || *tile == 0) {
+// largest tile that leaves room for one sample beside the core on
+// MIN_STAGES, the bf16 plan's rays per group (whole rays where they fit,
+// else one ray in segments), then as many more ring stages as the rest
+// holds; false when not one sample fits.
+bool plan_stream(int n_samples, int width, int in_ch, int in_ch_views, bool bf16, int smem_max,
+                 int* tile, int* stages, int* rays, int* seg) {
+  if (stream::pick(width, in_ch, in_ch_views, bf16, group_bytes(1, 1), tile, stages) != 0 ||
+      *tile == 0) {
     return false;
   }
-  const long long room = smem_max - stream::core_bytes(*tile, width, in_ch, in_ch_views);
+  const long long room = smem_max - stream::launch_bytes(*tile, stream::MIN_STAGES, width, in_ch,
+                                                         in_ch_views, bf16);
   *rays = block_rays(n_samples, *tile, room);
   *seg = n_samples;
   if (*rays < 1) {
     *rays = 1;
     *seg = segment_samples(*tile, room);
   }
-  return *seg >= 1;
+  if (*seg < 1) return false;
+  const long long more = (room - group_bytes(*rays, *seg)) / (stream::PIECE + 16);
+  *stages = stream::MIN_STAGES +
+            static_cast<int>(more < stream::MAX_STAGES - stream::MIN_STAGES
+                                 ? more : stream::MAX_STAGES - stream::MIN_STAGES);
+  return true;
 }
 
 }  // namespace
@@ -534,20 +567,22 @@ bool plan_stream(int n_samples, int width, int in_ch, int in_ch_views, int smem_
 extern "C" {
 
 // The most samples of one segment (one ray per group) on a core (0: the
-// FP32 core, 1: wgmma, 2: the streaming core at the tile of its launches)
-// for a net's width and encodings, from the device's shared memory; 0 when
-// the core leaves no room for one. A ray of more samples runs in segments.
+// FP32 core, 1: wgmma, 2 / 3: the streaming core in float32 / bf16 at the
+// tile of its launches, on MIN_STAGES) for a net's width and encodings,
+// from the device's shared memory; 0 when the core leaves no room for one.
+// A ray of more samples runs in segments.
 int render_tile_max_samples(int core, int width, int in_ch, int in_ch_views) {
   int smem_max = 0;
   if (smem_optin(&smem_max) != 0) return 0;
   long long bytes;
-  if (core == 2) {
-    int tile = 0;
-    if (stream::pick_tile(width, in_ch, in_ch_views, group_bytes(1, 1), &tile) != 0 ||
+  if (core >= 2) {
+    const bool bf16 = core == 3;
+    int tile = 0, stages = 0;
+    if (stream::pick(width, in_ch, in_ch_views, bf16, group_bytes(1, 1), &tile, &stages) != 0 ||
         tile == 0) {
       return 0;
     }
-    bytes = stream::core_bytes(tile, width, in_ch, in_ch_views);
+    bytes = stream::launch_bytes(tile, stream::MIN_STAGES, width, in_ch, in_ch_views, bf16);
   } else {
     bytes = core ? wg::launch_bytes(width, in_ch, in_ch_views)
                  : f32::smallest_bytes(width, in_ch, in_ch_views);
@@ -556,16 +591,18 @@ int render_tile_max_samples(int core, int width, int in_ch, int in_ch_views) {
 }
 
 // The streaming core's plan of a launch for S samples on the current
-// device (the sub-tile, rays per group and samples per segment) and its
-// shared memory; 0 bytes when not one sample fits.
-long long render_tile_stream_plan(int n_samples, int width, int in_ch, int in_ch_views,
-                                  int* tile, int* rays, int* seg) {
+// device in a dtype (the sub-tile, ring stages, rays per group and samples
+// per segment) and its shared memory; 0 bytes when not one sample fits.
+long long render_tile_stream_plan(int n_samples, int width, int in_ch, int in_ch_views, int bf16,
+                                  int* tile, int* stages, int* rays, int* seg) {
   int smem_max = 0;
   if (n_samples < 1 || smem_optin(&smem_max) != 0 ||
-      !plan_stream(n_samples, width, in_ch, in_ch_views, smem_max, tile, rays, seg)) {
+      !plan_stream(n_samples, width, in_ch, in_ch_views, bf16 != 0, smem_max, tile, stages, rays,
+                   seg)) {
     return 0;
   }
-  return stream::core_bytes(*tile, width, in_ch, in_ch_views) + group_bytes(*rays, *seg);
+  return stream::launch_bytes(*tile, *stages, width, in_ch, in_ch_views, bf16 != 0) +
+         group_bytes(*rays, *seg);
 }
 
 // The FP32 core's plan of a launch for S samples on the current device (the
@@ -648,9 +685,9 @@ int render_tile(const float* rays_o, const float* rays_d, const float* viewdirs,
 
 // render_tile on the streaming core (nerf_mlp_stream.cuh), for the nets the
 // other cores have no room for: the same arguments, with weights padded to
-// a trunk of `width` (a multiple of 64), `packed` the device table of the
-// padded kernels' pointers (raymarch.py stream_table; 8-byte aligned) and
-// n_skips unused. Returns a cudaError_t value.
+// a trunk of `width` (a multiple of 128) and `packed` the core's pieces of
+// this dtype (raymarch.py pack_stream_weights; 16-byte aligned). Returns a
+// cudaError_t value.
 int render_tile_stream(const float* rays_o, const float* rays_d, const float* viewdirs,
                        const float* z_vals, long long n_rays, int n_samples,
                        const void* const* weights, const void* table, int width, int depth,
@@ -661,24 +698,35 @@ int render_tile_stream(const float* rays_o, const float* rays_d, const float* vi
   if (!stream::width_ok(width)) return static_cast<int>(cudaErrorInvalidValue);
   const int err = set_net(weights, table, depth, in_ch, in_ch_views, fast_epilogue, &net);
   if (err != 0) return err;
-  if (n_samples < 1 || packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 8) {
+  if (n_samples < 1 || packed == nullptr || reinterpret_cast<uintptr_t>(packed) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int smem_max = 0;
   const int e = smem_optin(&smem_max);
   if (e != 0) return e;
-  int tile = 0, rays = 0, seg = 0;
-  if (!plan_stream(n_samples, width, in_ch, in_ch_views, smem_max, &tile, &rays, &seg)) {
+  int tile = 0, stages = 0, rays = 0, seg = 0;
+  if (!plan_stream(n_samples, width, in_ch, in_ch_views, bf16 != 0, smem_max, &tile, &stages,
+                   &rays, &seg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(stream::core_bytes(tile, width, in_ch, in_ch_views) +
-                                          group_bytes(rays, seg));
-  const stream::Layers layers{static_cast<const unsigned long long*>(packed), width, bf16};
-  return stream::dispatch<TileStream>(tile, (n_rays + rays - 1) / rays, smem,
-                                      static_cast<cudaStream_t>(stream_), rays_o, rays_d,
-                                      viewdirs, z_vals, n_rays, n_samples, rays, seg, net, layers,
-                                      white_bkgd, rgb_map, disp_map, acc_map, weights_out,
-                                      depth_map);
+  const size_t smem = static_cast<size_t>(
+      stream::launch_bytes(tile, stages, width, in_ch, in_ch_views, bf16 != 0) +
+      group_bytes(rays, seg));
+  const stream::Layers layers{
+      static_cast<const unsigned char*>(packed),
+      stream::tile_pieces(width, depth, n_skips, in_ch, in_ch_views, bf16 != 0), stages,
+      stream::cluster_for(tile), width};
+  const long long blocks = (n_rays + rays - 1) / rays;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  return fast_epilogue
+      ? stream::dispatch<TileStream<true>>(tile, bf16, blocks, smem, s, rays_o, rays_d, viewdirs,
+                                           z_vals, n_rays, n_samples, rays, seg, net, layers,
+                                           white_bkgd, rgb_map, disp_map, acc_map, weights_out,
+                                           depth_map)
+      : stream::dispatch<TileStream<false>>(tile, bf16, blocks, smem, s, rays_o, rays_d,
+                                            viewdirs, z_vals, n_rays, n_samples, rays, seg, net,
+                                            layers, white_bkgd, rgb_map, disp_map, acc_map,
+                                            weights_out, depth_map);
 }
 
 }  // extern "C"

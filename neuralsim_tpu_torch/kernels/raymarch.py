@@ -22,9 +22,10 @@ from its shape and the dtype, before any launch:
   ``pad_params``, which is exact), any depth and the encodings that fit
   beside them in a block's shared memory;
 - every other net, in either dtype, the streaming core
-  (``nerf_mlp_stream.cuh``): a trunk padded to a multiple of 64, its
-  weights read in place through ``stream_table``, up to the JAX kernels'
-  own budget (``jax_vmem_bytes``); ``_check_supported`` raises, naming the
+  (``nerf_mlp_stream.cuh``): a trunk padded to a multiple of 128, its
+  weights streamed as the pieces of ``pack_stream_weights`` (bf16 for the
+  tensor cores in bf16, float32 in float32), up to the JAX kernels' own
+  budget (``jax_vmem_bytes``); ``_check_supported`` raises, naming the
   bytes, for a net past it or whose smallest tile does not fit.
 
 The render tile takes any number of samples per ray. The padded weights,
@@ -175,29 +176,40 @@ def pad_params(params: Dict[str, torch.Tensor], net: NeRFNetConfig,
     return out
 
 
-def _segments(params, net: NeRFNetConfig) -> List[torch.Tensor]:
-    """The [K, N] kernel slices the trunk, feature and views layers multiply,
-    in the order the cores consume them: layer 0 (x_pe), each later trunk
-    layer (its x_pe rows first after a skip), the feature layer, then the
-    views layer (feature rows, then d_pe rows)."""
+def _layer_segments(params, net: NeRFNetConfig) -> List[List[torch.Tensor]]:
+    """The [K, N] kernel slices that the trunk, feature and views layers
+    multiply, layer by layer in the order the cores consume them: layer 0
+    (x_pe), each later trunk layer (its x_pe rows first after a skip), the
+    feature layer, then the views layer (feature rows, then d_pe rows)."""
     depth = _depth(params)
-    segs = [params["pts_0_kernel"]]
+    layers = [[params["pts_0_kernel"]]]
     for i in range(1, depth):
         k = params[f"pts_{i}_kernel"]
-        segs += [k[:net.input_ch], k[net.input_ch:]] if (i - 1) in net.skips else [k]
+        layers.append([k[:net.input_ch], k[net.input_ch:]] if (i - 1) in net.skips else [k])
     views = params["views_0_kernel"]
     n_feature = views.shape[0] - net.input_ch_views
-    return segs + [params["feature_kernel"], views[:n_feature], views[n_feature:]]
+    return layers + [[params["feature_kernel"]], [views[:n_feature], views[n_feature:]]]
+
+
+def _segments(params, net: NeRFNetConfig) -> List[torch.Tensor]:
+    """``_layer_segments`` one after another."""
+    return [seg for layer in _layer_segments(params, net) for seg in layer]
 
 
 # trunk widths the FP32 and wgmma cores are built for: a net is padded to
 # the next one
 CORE_WIDTHS = (256, 512, 1024)
-# the streaming core's trunks: multiples of this
-STREAM_ALIGN = 64
+# the streaming core's trunks: multiples of this (so the views layer's
+# W/2 is whole m64 blocks of its bf16 products)
+STREAM_ALIGN = 128
 # the cores (core_for) and the code of each in the render tile's queries
+# (the streaming core's in float32; in bf16 one more)
 F32_CORE, WGMMA_CORE, STREAM_CORE = "fp32", "wgmma", "stream"
 CORE_CODES = {F32_CORE: 0, WGMMA_CORE: 1, STREAM_CORE: 2}
+# the streaming core's pieces (nerf_mlp_stream.cuh): output columns of a
+# column block, and input rows in bf16 and float32
+STREAM_NB = 128
+STREAM_ROWS = {True: 64, False: 32}
 # wgmma weight chunks (nerf_mlp_wgmma.cuh): 64 input rows each
 CHUNK_K = 64
 # FP32-core weight chunks (nerf_mlp.cuh): 16 input rows each
@@ -248,10 +260,36 @@ def pack_f32_weights(params: Dict[str, torch.Tensor], net: NeRFNetConfig) -> tor
     return torch.cat([_f32_chunks(w) for w in _segments(params, net)])
 
 
+def pack_stream_weights(params: Dict[str, torch.Tensor], net: NeRFNetConfig,
+                        bf16: bool) -> torch.Tensor:
+    """The trunk, feature and views kernels as the flat pieces of 16 KB that
+    the streaming core streams, in the order it consumes them: layer by
+    layer (``_layer_segments``), each layer's output columns in blocks of
+    STREAM_NB (zero columns past the layer's own), and for each column
+    block every segment's rows in chunks of STREAM_ROWS (zero rows past the
+    segment's own). A bf16 piece is [STREAM_NB columns][64 inputs], the
+    swizzled image of ``_swizzled_chunks`` (the A operand of the core's
+    products); a float32 piece [32 inputs][STREAM_NB columns], row-major.
+    22.9 MB in bf16 for the 8x1152 net."""
+    rows = STREAM_ROWS[bf16]
+    pieces = []
+    for segs in _layer_segments(params, net):
+        n = segs[0].shape[1]
+        for c0 in range(0, n, STREAM_NB):
+            for seg in segs:
+                k = seg.shape[0]
+                block = torch.zeros((-(-k // rows) * rows, STREAM_NB), dtype=torch.float32,
+                                    device=seg.device)
+                w = seg.detach()[:, c0:c0 + STREAM_NB]
+                block[:k, :w.shape[1]] = w
+                pieces.append(_swizzled_chunks(block) if bf16 else block.reshape(-1))
+    return torch.cat(pieces)
+
+
 def stream_width(width: int) -> int:
     """The trunk width a net runs at on the streaming core: the next
-    multiple of STREAM_ALIGN (its warps take the columns in units of 32,
-    the views layer's W/2 included)."""
+    multiple of STREAM_ALIGN (its column blocks take 128 columns, and the
+    views layer's W/2 whole m64 blocks)."""
     return -(-width // STREAM_ALIGN) * STREAM_ALIGN
 
 
@@ -360,6 +398,12 @@ def core_for(net: NeRFNetConfig, width: int, bf16: bool, lib, render_tile: bool 
     return STREAM_CORE
 
 
+def core_code(core: str, bf16: bool) -> int:
+    """A core's code in the render tile's queries (``CORE_CODES``; the
+    streaming core's in bf16 one more than in float32)."""
+    return CORE_CODES[core] + int(bf16 and core == STREAM_CORE)
+
+
 def padded_width(core: str, width: int) -> int:
     """The trunk width a net of ``width`` takes on ``core``."""
     return stream_width(width) if core == STREAM_CORE else core_width(width)
@@ -386,14 +430,6 @@ def _int64(values: List[int], device) -> torch.Tensor:
                         dtype=torch.int64).to(device)
 
 
-def stream_table(weights: List[torch.Tensor]) -> torch.Tensor:
-    """The streaming core's table of a net's kernels (``Layers`` in
-    csrc/nerf_mlp_stream.cuh): the pointers of the padded kernels of
-    ``weights`` (``param_keys`` order: pts_0 .. pts_{depth-1}, feature,
-    alpha, views_0, rgb), as int64 on the weights' device."""
-    return _int64([w.data_ptr() for w in weights[0::2]], weights[0].device)
-
-
 # prepared weights of the last few (weight set, dtype, core), keyed by the
 # tensors' ids and versions; the entry holds the tensors, so an id is not
 # reused while cached
@@ -409,10 +445,10 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, wha
     zero-padded to the core's width of its trunk (``pad_params``,
     ``padded_width``) and each kernel rounded to bf16 in bf16; from them the
     chunks of the FP32 and wgmma cores (``pack_f32_weights``,
-    ``pack_wgmma_weights``, checked against the library's chunk plan) or
-    the streaming core's ``stream_table``; and ``net_table``. Once per
-    weight set, dtype and core; an in-place update of a weight prepares
-    again."""
+    ``pack_wgmma_weights``) or the streaming core's pieces
+    (``pack_stream_weights``), each checked against the library's plan;
+    and ``net_table``. Once per weight set, dtype and core; an in-place
+    update of a weight prepares again."""
     core = core or (WGMMA_CORE if bf16 else F32_CORE)
     keys = param_keys(depth)
     tensors = tuple(params[k] for k in keys)
@@ -429,21 +465,21 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, wha
                   for k, t in padded.items()}
     weights = [_aligned(padded[k]) for k in keys]
     table = net_table(weights, depth, net.skips)
+    plan = (width, depth, len(set(net.skips)), net.input_ch, net.input_ch_views)
     if core == STREAM_CORE:
-        packed = stream_table(weights)
+        packed = pack_stream_weights(padded, net, bf16)
+        want = lib.nerf_stream_plan_bytes(*plan, int(bf16))
+    elif bf16:
+        packed = pack_wgmma_weights(padded, net)
+        want = lib.nerf_wgmma_plan_bytes(*plan)
     else:
-        plan = (width, depth, len(set(net.skips)), net.input_ch, net.input_ch_views)
-        if bf16:
-            packed = pack_wgmma_weights(padded, net)
-            want = lib.nerf_wgmma_plan_bytes(*plan)
-        else:
-            packed = pack_f32_weights(padded, net)
-            want = lib.nerf_f32_plan_bytes(*plan)
-        nbytes = packed.numel() * packed.element_size()
-        if nbytes != want or packed.data_ptr() % 16:
-            raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
-                             f"{packed.data_ptr():#x} do not match the kernel's chunk plan "
-                             f"({want} bytes)")
+        packed = pack_f32_weights(padded, net)
+        want = lib.nerf_f32_plan_bytes(*plan)
+    nbytes = packed.numel() * packed.element_size()
+    if nbytes != want or packed.data_ptr() % 16:
+        raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
+                         f"{packed.data_ptr():#x} do not match the kernel's chunk plan "
+                         f"({want} bytes)")
     _PACKED[key] = (tensors, weights, packed, table)
     if len(_PACKED) > _PACKED_SETS:
         _PACKED.popitem(last=False)
@@ -473,13 +509,14 @@ _QUERIES = [(fn, [], ctypes.c_int) for fn in ("nerf_width", "nerf_smem_optin")] 
     for fn in ("nerf_f32_smem_bytes", "nerf_wgmma_smem_bytes")] + [
     ("nerf_f32_launch_bytes", [ctypes.c_int] * 3 + [_INT_OUT], ctypes.c_int),
     ("nerf_wgmma_last_launch", [_INT_OUT], ctypes.c_int),
-    ("nerf_stream_smem_bytes", [ctypes.c_int] * 3, ctypes.c_longlong),
-    ("nerf_stream_launch_bytes", [ctypes.c_int] * 3 + [_INT_OUT], ctypes.c_longlong)]
+    ("nerf_stream_plan_bytes", [ctypes.c_int] * 6, ctypes.c_longlong),
+    ("nerf_stream_smem_bytes", [ctypes.c_int] * 4, ctypes.c_longlong),
+    ("nerf_stream_launch_bytes", [ctypes.c_int] * 4 + [_INT_OUT] * 2, ctypes.c_longlong)]
 # the render tile's own: (name, argtypes, restype)
 _RENDER_TILE_QUERIES = [
     ("render_tile_max_samples", [ctypes.c_int] * 4, ctypes.c_int),
     ("render_tile_f32_plan", [ctypes.c_int] * 4 + [_INT_OUT] * 3, ctypes.c_int),
-    ("render_tile_stream_plan", [ctypes.c_int] * 4 + [_INT_OUT] * 3, ctypes.c_longlong)]
+    ("render_tile_stream_plan", [ctypes.c_int] * 5 + [_INT_OUT] * 4, ctypes.c_longlong)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -530,7 +567,7 @@ def _check_supported(params, net: NeRFNetConfig, lib, what: str, bf16: bool, dev
         if core != STREAM_CORE:
             return depth, core
         need = lib.nerf_stream_smem_bytes(stream_width(width), net.input_ch,
-                                          net.input_ch_views)
+                                          net.input_ch_views, int(bf16))
         have = lib.nerf_smem_optin()
     dtype = "bfloat16" if bf16 else "float32"
     budget = jax_vmem_bytes(what, net, width, depth, bf16, n_samples)
@@ -571,8 +608,8 @@ def _net_args(params, net: NeRFNetConfig, device, bf16: bool, lib, what: str,
     """The net's core (``core_for``), the C interface's net arguments (the
     core's padded width and what it reads: the packed chunks of the wgmma
     core in bf16 and of the FP32 core in float32, the streaming core's
-    table of kernels), and the tensors to keep alive until the launch has
-    been queued."""
+    pieces), and the tensors to keep alive until the launch has been
+    queued."""
     depth, core = _check_supported(params, net, lib, what, bf16, device, n_samples)
     for key in param_keys(depth):
         if params[key].device != device:
@@ -668,8 +705,8 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
     # its MLP core: a ray of more samples than one segment holds runs in
     # segments, but one sample and its ray's carried sums must fit
     with _on(device):
-        segment = lib.render_tile_max_samples(CORE_CODES[core], net_args[2], net.input_ch,
-                                              net.input_ch_views)
+        segment = lib.render_tile_max_samples(core_code(core, bf16), net_args[2],
+                                              net.input_ch, net.input_ch_views)
     if segment < 1:
         raise NotImplementedError(
             f"{what} kernel: the {net_args[2]}-wide {core} core leaves no room in shared memory "

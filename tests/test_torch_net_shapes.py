@@ -349,18 +349,57 @@ def f32_rows(channels):
     return -(-channels // 16) * 16
 
 
-def stream_core_bytes(tile, width, in_ch, in_ch_views):
-    """core_bytes of csrc/nerf_mlp_stream.cuh: two activation tiles [W][tile],
-    x_pe [in_ch][tile], d_pe [in_ch_views][tile], points and raw outputs
-    [10][tile], the heads' partial sums [4][256], in float32."""
-    return 4 * ((2 * width + in_ch + in_ch_views + 10) * tile + 4 * 256)
+# the streaming core's pieces (csrc/nerf_mlp_stream.cuh): bytes, and ring
+# stages at least and at most
+STREAM_PIECE, STREAM_STAGES = 16384, (2, 8)
 
 
-def stream_pick_tile(width, in_ch, in_ch_views, extra, smem=SMEM_OPTIN):
-    """pick_tile of csrc/nerf_mlp_stream.cuh: the largest of 32, 16, 8, 4
-    points that fits, else 0."""
-    return next((t for t in (32, 16, 8, 4)
-                 if stream_core_bytes(t, width, in_ch, in_ch_views) + extra <= smem), 0)
+def stream_rows(channels, bf16):
+    """tile_rows of csrc/nerf_mlp_stream.cuh: channels rounded up to whole
+    pieces (64 rows in bf16, 32 in float32)."""
+    k = 64 if bf16 else 32
+    return -(-channels // k) * k
+
+
+def stream_core_bytes(tile, width, in_ch, in_ch_views, bf16=False, stages=2):
+    """launch_bytes of csrc/nerf_mlp_stream.cuh: the ring's stages of 16 KB,
+    two activation tiles [W][tile], x_pe and d_pe [rows][tile] (bf16 or
+    float32), in float32 two buffers of partial sums [128][tile], points,
+    raw outputs and the heads' partial sums [10 + 32][tile] float32, the
+    ring's barriers and the 1024 bytes of alignment."""
+    esz = 2 if bf16 else 4
+    rows = 2 * width + stream_rows(in_ch, bf16) + stream_rows(in_ch_views, bf16)
+    return (stages * STREAM_PIECE + rows * tile * esz + (0 if bf16 else 2 * 128 * tile * 4)
+            + 42 * tile * 4 + 16 * stages + 1024)
+
+
+def stream_pick(width, in_ch, in_ch_views, extra, bf16=False, smem=SMEM_OPTIN):
+    """pick of csrc/nerf_mlp_stream.cuh: (tile, stages), the largest of 32,
+    16, 8 (and in float32 4) points whose core fits on two stages, then as
+    many more stages as the rest holds, up to eight; (0, 0) when none fits."""
+    lo, hi = STREAM_STAGES
+    for t in (32, 16, 8, 4)[:3 if bf16 else 4]:
+        need = stream_core_bytes(t, width, in_ch, in_ch_views, bf16, lo) + extra
+        if need <= smem:
+            return t, lo + min(hi - lo, (smem - need) // (STREAM_PIECE + 16))
+    return 0, 0
+
+
+def stream_pick_tile(width, in_ch, in_ch_views, extra, bf16=False, smem=SMEM_OPTIN):
+    """The tile of ``stream_pick``."""
+    return stream_pick(width, in_ch, in_ch_views, extra, bf16, smem)[0]
+
+
+def stream_plan_bytes(width, depth, n_skips, in_ch, in_ch_views, bf16):
+    """nerf_stream_plan_bytes of csrc/nerf_mlp_stream.cuh: every layer's
+    column blocks of 128 times its input chunks, 16 KB a piece."""
+    k = 64 if bf16 else 32
+    nx, nd = stream_rows(in_ch, bf16) // k, stream_rows(in_ch_views, bf16) // k
+    nh = width // k
+    blocks = -(-width // 128)
+    pieces = (blocks * (nx + nh * (depth - 1) + nx * n_skips + nh)
+              + -(-width // 2 // 128) * (nh + nd))
+    return pieces * STREAM_PIECE
 
 
 class _FakeMarchLibrary:
@@ -374,8 +413,9 @@ class _FakeMarchLibrary:
     csrc/nerf_mlp_wgmma.cuh (64-row
     chunks; the standard core: three ring stages at W = 256 with at most two
     x_pe chunks, else two; A tiles per warpgroup at W = 256, shared at 512;
-    the transposed core: two rings of two pieces of min(W/2, 256) rows, h
-    and the encodings in [32][64] chunks of 4 KB, a 6 KB scratch) and
+    the transposed core: two rings of four pieces of min(W/2, 128) rows
+    (two at W = 256), h and the encodings in [32][64] chunks of 4 KB, a
+    6 KB scratch) and
     csrc/nerf_mlp_stream.cuh (``stream_core_bytes``), written out here.
     ``calls`` records the calls of the FP32 / wgmma entry,
     ``stream_calls`` those of the streaming core's."""
@@ -420,8 +460,8 @@ class _FakeMarchLibrary:
     def nerf_wgmma_smem_bytes(width, in_ch, in_ch_views):
         nx, nd = -(-in_ch // 64), -(-in_ch_views // 64)
         if transposed(width, in_ch, in_ch_views):
-            piece = min(width // 2, 256) * 128
-            return 4 * piece + (width // 64 + nx + nd) * 4096 + 6144 + 1024
+            piece, stages = min(width // 2, 128) * 128, 2 if width == 256 else 4
+            return 2 * stages * piece + (width // 64 + nx + nd) * 4096 + 6144 + 1024
         stages = 3 if width == 256 and nx <= 2 else 2
         tiles = (2 if width == 256 else 1) * (nx + width // 64 + nd) * 8192
         return stages * width * 128 + tiles + 2 * stages * 8 + 1024
@@ -435,13 +475,17 @@ class _FakeMarchLibrary:
         return 0
 
     @staticmethod
-    def nerf_stream_smem_bytes(width, in_ch, in_ch_views):
-        return stream_core_bytes(4, width, in_ch, in_ch_views)
+    def nerf_stream_plan_bytes(width, depth, n_skips, in_ch, in_ch_views, bf16):
+        return stream_plan_bytes(width, depth, n_skips, in_ch, in_ch_views, bf16)
 
-    def nerf_stream_launch_bytes(self, width, in_ch, in_ch_views, tile):
-        tile.contents.value = stream_pick_tile(width, in_ch, in_ch_views, 0, self.limits[1])
-        return (stream_core_bytes(tile.contents.value, width, in_ch, in_ch_views)
-                if tile.contents.value else 0)
+    @staticmethod
+    def nerf_stream_smem_bytes(width, in_ch, in_ch_views, bf16):
+        return stream_core_bytes(8 if bf16 else 4, width, in_ch, in_ch_views, bf16)
+
+    def nerf_stream_launch_bytes(self, width, in_ch, in_ch_views, bf16, tile, stages):
+        t, n = stream_pick(width, in_ch, in_ch_views, 0, bf16, self.limits[1])
+        tile.contents.value, stages.contents.value = t, n
+        return stream_core_bytes(t, width, in_ch, in_ch_views, bf16, n) if t else 0
 
     def nerf_march(self, *args):
         self.calls.append(args)
@@ -520,7 +564,7 @@ def test_kernels_refuse_what_the_cores_do_not_take(fake_march):
     cases = {r"declares \d+ bytes of VMEM blocks in float32 in the JAX kernel, past its "
              r"budget of 104857600 bytes": (dict(netwidth=2048, netwidth_fine=2048),
                                             torch.float32),
-             "needs 243328 bytes of shared memory per block on the streaming core's smallest "
+             "needs 278208 bytes of shared memory per block on the streaming core's smallest "
              "tile in float32": (dict(multires=2400), torch.float32)}
     for message, (kw, dtype) in cases.items():
         net = tcfg.NeRFNetConfig(**{**dict(netdepth=4, netdepth_fine=4, skips=(2,)), **kw})

@@ -195,26 +195,31 @@ def test_padding_to_1024_is_exact(monkeypatch, width, dtype):
 
 def _transposed_plan(width, depth, n_skips, in_ch, in_ch_views):
     """make_plan_transposed of csrc/nerf_mlp_wgmma.cuh: each warpgroup's
-    pieces per tile, its wide ones, their bytes and run."""
+    pieces per tile, its wide ones, their bytes and runs (trunk pieces of
+    min(W/2, 128) rows, views pieces of min(W/4, 128))."""
     nx, nd, h = -(-in_ch // 64), -(-in_ch_views // 64), width // 64
-    rows = min(width // 2, 256)
-    run = width // 2 // rows
+    rows, views_rows = min(width // 2, 128), min(width // 4, 128)
+    run, run_v = width // 2 // rows, width // 4 // views_rows
     wide = nx + h * (depth - 1) + nx * n_skips + h
-    return dict(per_tile=wide * run + h + nd, n_wide=wide * run, wide_bytes=rows * 128,
-                narrow_bytes=width // 4 * 128, run=run)
+    return dict(per_tile=wide * run + (h + nd) * run_v, n_wide=wide * run,
+                wide_bytes=rows * 128, narrow_bytes=views_rows * 128, run=run, run_v=run_v)
 
 
 def _pieces(plan, g):
     """(byte offset, bytes) of warpgroup g's pieces in order:
-    Ring<STAGES, true>::issue of csrc/nerf_mlp.cuh."""
-    sh = plan["run"] - 1
+    Ring<STAGES, true>::issue of csrc/nerf_mlp.cuh (a section's pieces in
+    runs of `run` out of every 2 * run, the two warpgroups' runs side by
+    side)."""
     for q in range(plan["per_tile"]):
-        if q < plan["n_wide"]:
-            yield ((((q >> sh) << (sh + 1)) + (g << sh) + (q & sh)) * plan["wide_bytes"],
-                   plan["wide_bytes"])
+        wide = q < plan["n_wide"]
+        run = plan["run"] if wide else plan["run_v"]
+        k = q if wide else q - plan["n_wide"]
+        piece = (k // run) * 2 * run + g * run + k % run
+        if wide:
+            yield piece * plan["wide_bytes"], plan["wide_bytes"]
         else:
-            yield (2 * plan["n_wide"] * plan["wide_bytes"]
-                   + (2 * (q - plan["n_wide"]) + g) * plan["narrow_bytes"], plan["narrow_bytes"])
+            yield (2 * plan["n_wide"] * plan["wide_bytes"] + piece * plan["narrow_bytes"],
+                   plan["narrow_bytes"])
 
 
 def _piece_matrix(image, offset, nbytes):
@@ -262,7 +267,8 @@ def _emulate_transposed_core(image, plan, padded, net, x_pe, d_pe):
         h = torch.relu(v) if i < depth else v
         if i == depth - 1:
             alpha = h @ padded["alpha_kernel"] + padded["alpha_bias"]
-    v = torch.relu(layer(chunks(h) + d_chunks, width // 4, 1) + padded["views_0_bias"])
+    v = torch.relu(layer(chunks(h) + d_chunks, width // 4, plan["run_v"])
+                   + padded["views_0_bias"])
     rgb = v @ padded["rgb_kernel"] + padded["rgb_bias"]
     for g in range(2):
         assert next(rings[g], None) is None                 # every piece consumed once
@@ -538,14 +544,14 @@ def test_segmented_compositing_matches_raw2outputs(white_bkgd, s):
 class _FakeRenderTileLibrary(_FakeMarchLibrary):
     """The render_tile library's entries and their segment query: samples per
     segment as given, ``segment`` on the FP32 and wgmma cores and
-    ``stream_segment`` on the streaming core (core code 2)."""
+    ``stream_segment`` on the streaming core (core codes 2 and 3)."""
 
     def __init__(self, segment, stream_segment=0):
         super().__init__()
         self.segment, self.stream_segment = segment, stream_segment
 
     def render_tile_max_samples(self, core, width, in_ch, in_ch_views):
-        return self.stream_segment if core == 2 else self.segment
+        return self.stream_segment if core >= 2 else self.segment
 
     def render_tile(self, *args):
         self.calls.append(args)
