@@ -1,0 +1,9 @@
+"""stage_s.render_grad: seconds of the outer iteration's ``render_grad``
+stage, per epoch of the window: the driver's own ``phase_timer`` span
+(synchronised on entry and exit, ``BilevelDriver.phases``), summed over
+the window's epochs and divided by their count. Moves epoch_s."""
+
+
+def read(ctx):
+    value = ctx["record"].get("stage_s", {}).get("render_grad")
+    return value if value else None
