@@ -37,6 +37,7 @@ from neuralsim_tpu_torch.models.retinanet import (
     retinanet_loss,
 )
 from neuralsim_tpu_torch.parallel.mesh import all_sum, all_sum_tree
+from neuralsim_tpu_torch.utils.profiling import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -238,10 +239,12 @@ def inner_train(state: DetectorState, batches, dc: DetectorConfig, anchors_cat=N
 
     metrics = []
     for i in range(n_steps):
-        if remat and torch.is_grad_enabled():
-            state, m = checkpoint(body, state, i, use_reentrant=False)
-        else:
-            state, m = body(state, i)
+        # outside the checkpoint: a recompute in the backward opens no span
+        with span("inner_train.step"):
+            if remat and torch.is_grad_enabled():
+                state, m = checkpoint(body, state, i, use_reentrant=False)
+            else:
+                state, m = body(state, i)
         metrics.append(m)
     return state, {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 

@@ -32,6 +32,8 @@ from typing import Callable
 
 import torch
 
+from neuralsim_tpu_torch.utils.profiling import span
+
 
 # --------------------------------------------------------------------------- #
 # trees of tensors
@@ -268,7 +270,7 @@ def mixed_grad_wrt_images(loss_fn_img: Callable, params, images, v):
     out = []
     for image in images:
         img = image.detach().requires_grad_()
-        with torch.enable_grad():
+        with span("grad_E.image"), torch.enable_grad():
             grads = torch.autograd.grad(loss_fn_img(p_tree, img), leaves, create_graph=True,
                                         allow_unused=True, materialize_grads=True)
             dot = sum(torch.sum(g * vi) for g, vi in zip(grads, _leaves(v)))

@@ -58,6 +58,7 @@ from neuralsim_tpu_torch.sampler.poses import (
     poses_from_noise_gaussian,
     psi_to_probs,
 )
+from neuralsim_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -83,6 +84,12 @@ def _grad(loss_fn, psi):
     with torch.enable_grad():
         p = psi.detach().requires_grad_(True)
         return torch.autograd.grad(loss_fn(p), p)[0]
+
+
+def _strip_grad(loss_fn, psi):
+    """``_grad`` of one strip tile's loss, as the span ``render_grad.strip``."""
+    with span("render_grad.strip"):
+        return _grad(loss_fn, psi)
 
 
 def _rows(noise, index):
@@ -257,8 +264,9 @@ def render_grad_psi_strips(models, psi, noise: PoseNoise, grad_E,
             for start in range(0, n_pix, strip):
                 ge = ge_flat[i, start:start + strip]
                 rc_s = dataclasses.replace(rc, remat=False, ray_chunk=ge.shape[0])
-                total += _grad(lambda p: psi_strip_loss(models, p, noise_1, ge, start, H, W,
-                                                        K, net, rc_s, sc, psi_mode), psi)
+                total += _strip_grad(lambda p: psi_strip_loss(models, p, noise_1, ge, start,
+                                                              H, W, K, net, rc_s, sc, psi_mode),
+                                     psi)
         return total / n_img
 
     for lo in range(0, n_img, ib):
@@ -268,8 +276,8 @@ def render_grad_psi_strips(models, psi, noise: PoseNoise, grad_E,
         for start in range(0, n_pix, strip):
             ge = ge_b[:, start:start + strip]
             rc_b = dataclasses.replace(rc, ray_chunk=ge.shape[0] * ge.shape[1])
-            total += _grad(lambda p: psi_strips_batch_loss(models, p, nz, ge, start, H, W, K,
-                                                           net, rc_b, sc, psi_mode), psi)
+            total += _strip_grad(lambda p: psi_strips_batch_loss(models, p, nz, ge, start, H, W,
+                                                                 K, net, rc_b, sc, psi_mode), psi)
     if mesh is not None:
         total = all_sum(total, mesh.data_group)
     return total / n_img
@@ -327,8 +335,9 @@ def _render_grad_strips_culled(models, psi, noise, ge_flat, H: int, W: int, K,
                 noise_1 = _rows(nz_g, slice(i, i + 1))
                 for j0 in range(0, n_sel, strip):
                     ge, ix = ge_g[i, j0:j0 + strip], idx[i, j0:j0 + strip]
-                    total += _grad(lambda p: psi_gather_loss(models, p, noise_1, ge, ix, H, W,
-                                                             K, net, rc_s, sc, psi_mode), psi)
+                    total += _strip_grad(lambda p: psi_gather_loss(models, p, noise_1, ge, ix,
+                                                                   H, W, K, net, rc_s, sc,
+                                                                   psi_mode), psi)
             continue
         n_local = ib if mesh is None else ib // mesh.shape["data"]
         rc_b = dataclasses.replace(rc, ray_chunk=n_local * strip)
@@ -338,8 +347,9 @@ def _render_grad_strips_culled(models, psi, noise, ge_flat, H: int, W: int, K,
                 nz, ge_r, ix_r = _local_images(mesh, ib, nz, ge_r, ix_r)
             for j0 in range(0, n_sel, strip):
                 ge, ix = ge_r[:, j0:j0 + strip], ix_r[:, j0:j0 + strip]
-                total += _grad(lambda p: psi_gather_batch_loss(models, p, nz, ge, ix, H, W, K,
-                                                               net, rc_b, sc, psi_mode), psi)
+                total += _strip_grad(lambda p: psi_gather_batch_loss(models, p, nz, ge, ix, H,
+                                                                     W, K, net, rc_b, sc,
+                                                                     psi_mode), psi)
     if mesh is not None:
         total = all_sum(total, mesh.data_group)
     return total / n_img

@@ -56,6 +56,7 @@ from neuralsim_tpu_torch.kernels import build
 from neuralsim_tpu_torch.models.nerf import nerf_apply, round_to
 from neuralsim_tpu_torch.ops.encoding import positional_encoding
 from neuralsim_tpu_torch.ops.volume import raw2outputs
+from neuralsim_tpu_torch.utils.profiling import span
 
 # nerf_mlp.cu input stages
 _KINDS = {"widepe": 0, "pe": 1, "encoded": 2}
@@ -448,7 +449,8 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, wha
     ``pack_wgmma_weights``) or the streaming core's pieces
     (``pack_stream_weights``), each checked against the library's plan;
     and ``net_table``. Once per weight set, dtype and core; an in-place
-    update of a weight prepares again."""
+    update of a weight prepares again. Each preparation is the span
+    ``kernels.pack_weights``; a cached set opens none."""
     core = core or (WGMMA_CORE if bf16 else F32_CORE)
     keys = param_keys(depth)
     tensors = tuple(params[k] for k in keys)
@@ -457,29 +459,30 @@ def _packed_weights(params, net: NeRFNetConfig, depth: int, bf16: bool, lib, wha
     if key in _PACKED:
         _PACKED.move_to_end(key)
         return _PACKED[key][1:]
-    width = padded_width(core, params["pts_0_kernel"].shape[1])
-    padded = pad_params({k: t.detach().to(torch.float32) for k, t in zip(keys, tensors)}, net,
-                        width)
-    if bf16:
-        padded = {k: round_to(t, torch.bfloat16) if k.endswith("kernel") else t
-                  for k, t in padded.items()}
-    weights = [_aligned(padded[k]) for k in keys]
-    table = net_table(weights, depth, net.skips)
-    plan = (width, depth, len(set(net.skips)), net.input_ch, net.input_ch_views)
-    if core == STREAM_CORE:
-        packed = pack_stream_weights(padded, net, bf16)
-        want = lib.nerf_stream_plan_bytes(*plan, int(bf16))
-    elif bf16:
-        packed = pack_wgmma_weights(padded, net)
-        want = lib.nerf_wgmma_plan_bytes(*plan)
-    else:
-        packed = pack_f32_weights(padded, net)
-        want = lib.nerf_f32_plan_bytes(*plan)
-    nbytes = packed.numel() * packed.element_size()
-    if nbytes != want or packed.data_ptr() % 16:
-        raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
-                         f"{packed.data_ptr():#x} do not match the kernel's chunk plan "
-                         f"({want} bytes)")
+    with span("kernels.pack_weights"):
+        width = padded_width(core, params["pts_0_kernel"].shape[1])
+        padded = pad_params({k: t.detach().to(torch.float32) for k, t in zip(keys, tensors)},
+                            net, width)
+        if bf16:
+            padded = {k: round_to(t, torch.bfloat16) if k.endswith("kernel") else t
+                      for k, t in padded.items()}
+        weights = [_aligned(padded[k]) for k in keys]
+        table = net_table(weights, depth, net.skips)
+        plan = (width, depth, len(set(net.skips)), net.input_ch, net.input_ch_views)
+        if core == STREAM_CORE:
+            packed = pack_stream_weights(padded, net, bf16)
+            want = lib.nerf_stream_plan_bytes(*plan, int(bf16))
+        elif bf16:
+            packed = pack_wgmma_weights(padded, net)
+            want = lib.nerf_wgmma_plan_bytes(*plan)
+        else:
+            packed = pack_f32_weights(padded, net)
+            want = lib.nerf_f32_plan_bytes(*plan)
+        nbytes = packed.numel() * packed.element_size()
+        if nbytes != want or packed.data_ptr() % 16:
+            raise ValueError(f"{what}: packed weights of {nbytes} bytes at "
+                             f"{packed.data_ptr():#x} do not match the kernel's chunk plan "
+                             f"({want} bytes)")
     _PACKED[key] = (tensors, weights, packed, table)
     if len(_PACKED) > _PACKED_SETS:
         _PACKED.popitem(last=False)

@@ -56,6 +56,7 @@ from neuralsim_tpu_torch.ops.volume import (
     stratified_z_vals,
 )
 from neuralsim_tpu_torch.parallel.distributed import ModelShards
+from neuralsim_tpu_torch.utils.profiling import span
 
 
 def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -391,14 +392,15 @@ def _render_ray_batch_dense(models, rays_o, rays_d, net: NeRFNetConfig,
         m = tile[0].shape[0]
         if pad_tail:
             tile = [None if t is None else _pad_rows(t, chunk) for t in tile]
-        if remat:
-            out = _checkpointed(
-                lambda o, d, vd, nr, fr: render_rays(models, o, d, vd, net, rc, generator,
-                                                     near=nr, far=fr),
-                generator, *tile)
-        else:
-            out = render_rays(models, tile[0], tile[1], tile[2], net, rc, generator,
-                              near=tile[3], far=tile[4])
+        with span("render.chunk"):
+            if remat:
+                out = _checkpointed(
+                    lambda o, d, vd, nr, fr: render_rays(models, o, d, vd, net, rc, generator,
+                                                         near=nr, far=fr),
+                    generator, *tile)
+            else:
+                out = render_rays(models, tile[0], tile[1], tile[2], net, rc, generator,
+                                  near=tile[3], far=tile[4])
         chunks.append({k: v[:m] for k, v in out.items()})
     return {k: torch.cat([c[k] for c in chunks], dim=0) for k in chunks[0]}
 

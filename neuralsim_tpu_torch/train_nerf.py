@@ -52,6 +52,7 @@ from neuralsim_tpu_torch.parallel.mesh import (
     replicate,
     shard_rays,
 )
+from neuralsim_tpu_torch.utils.profiling import span
 
 Models = Dict[str, Dict[str, torch.Tensor]]
 
@@ -218,31 +219,34 @@ def train_step(state: TrainState, rays_o, rays_d, target_rgb, net: NeRFNetConfig
     block, differentiates its mean loss times its share of the batch, and
     the gradients and metrics are summed over the data group, so every rank
     takes the whole batch's step."""
-    share, group, pick = 1.0, None, None
-    if mesh is not None:
-        n = rays_o.shape[0]
-        draws = _whole_batch_draws(n, rc, generator, rays_o.device, uniforms, noise)
-        uniforms, noise = _shard_draws(draws, rc, mesh)
-        if rc.n_importance > 0 and rc.fine_fraction < 1.0:
-            pick = _pick_across(mesh, n, rc)
-        rays_o, rays_d, target_rgb = (shard_rays(x, mesh) for x in (rays_o, rays_d, target_rgb))
-        share, group = rays_o.shape[0] / n, mesh.data_group
-    leaves = _map(lambda p: p.detach().requires_grad_(), state.params)
-    loss, out = nerf_loss(leaves, rays_o, rays_d, target_rgb, net, rc, generator, uniforms,
-                          noise, pick)
-    if group is not None:
-        loss = loss * share
-    keys = [(name, k) for name in leaves for k in leaves[name]]
-    grads = iter(torch.autograd.grad(loss, [leaves[name][k] for name, k in keys]))
-    grad_tree = all_sum_tree(_map(lambda _: next(grads), leaves), group)
-    with torch.no_grad():
-        params, opt_state = make_optimizer(tc).update(grad_tree, state.opt_state, state.params)
-        mse = img2mse(out["rgb_map"], target_rgb)
+    with span("train_nerf.step"):
+        share, group, pick = 1.0, None, None
+        if mesh is not None:
+            n = rays_o.shape[0]
+            draws = _whole_batch_draws(n, rc, generator, rays_o.device, uniforms, noise)
+            uniforms, noise = _shard_draws(draws, rc, mesh)
+            if rc.n_importance > 0 and rc.fine_fraction < 1.0:
+                pick = _pick_across(mesh, n, rc)
+            rays_o, rays_d, target_rgb = (shard_rays(x, mesh) for x in (rays_o, rays_d, target_rgb))
+            share, group = rays_o.shape[0] / n, mesh.data_group
+        leaves = _map(lambda p: p.detach().requires_grad_(), state.params)
+        with span("train_nerf.forward"):
+            loss, out = nerf_loss(leaves, rays_o, rays_d, target_rgb, net, rc, generator, uniforms,
+                                  noise, pick)
         if group is not None:
-            loss, mse = all_sum(torch.stack([loss, mse * share]), group)
-        psnr = mse2psnr(torch.clamp(mse, min=1e-10))
-    metrics = {"loss": loss.detach(), "psnr": psnr}
-    return TrainState(params, opt_state, state.step + 1), metrics
+            loss = loss * share
+        keys = [(name, k) for name in leaves for k in leaves[name]]
+        with span("train_nerf.backward"):
+            grads = iter(torch.autograd.grad(loss, [leaves[name][k] for name, k in keys]))
+            grad_tree = all_sum_tree(_map(lambda _: next(grads), leaves), group)
+        with span("train_nerf.update"), torch.no_grad():
+            params, opt_state = make_optimizer(tc).update(grad_tree, state.opt_state, state.params)
+            mse = img2mse(out["rgb_map"], target_rgb)
+            if group is not None:
+                loss, mse = all_sum(torch.stack([loss, mse * share]), group)
+            psnr = mse2psnr(torch.clamp(mse, min=1e-10))
+        metrics = {"loss": loss.detach(), "psnr": psnr}
+        return TrainState(params, opt_state, state.step + 1), metrics
 
 
 class RayPool(NamedTuple):

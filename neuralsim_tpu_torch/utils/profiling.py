@@ -1,10 +1,12 @@
-"""Per-phase timing and tracing (the port of
+"""Spans and per-phase timing (the port of
 ``neuralsim_tpu/utils/profiling.py``).
 
-``phase_timer`` keeps structured per-phase wall times and opens a
-``torch.profiler.record_function`` range, so a device trace lines up with
-the host phases; ``trace_context`` wraps ``torch.profiler``;
-``debug_nans`` wraps ``torch.autograd.detect_anomaly``.
+``span`` marks a unit of work on the profiler's clock: with
+``torch.profiler`` on it opens a ``record_function`` range, so the device's
+kernels line up under it (nested under whatever span is open); with the
+profiler off it costs one check. ``phase_timer`` keeps structured
+per-phase wall times and opens its phase as a span. ``debug_nans`` wraps
+``torch.autograd.detect_anomaly``.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -30,7 +32,16 @@ class PhaseTimes:
         }
 
 
-GLOBAL_PHASES = PhaseTimes()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking one unit of work as ``name``: a
+    ``torch.profiler.record_function`` range while the profiler records,
+    else nothing. It never synchronises the device."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _sync(device):
@@ -39,38 +50,18 @@ def _sync(device):
 
 
 @contextlib.contextmanager
-def phase_timer(name: str, phases: Optional[PhaseTimes] = None, verbose: bool = False,
-                device=None):
-    """Time a phase on the host clock. With a CUDA ``device`` the card is
-    synchronized on entry and on exit, so the time covers the phase's work
-    on the card and not only its dispatch (launches return at once)."""
-    target = phases or GLOBAL_PHASES
+def phase_timer(name: str, phases: PhaseTimes, device=None):
+    """Time a phase on the host clock into ``phases``, as the span
+    ``name``. With a CUDA ``device`` the card is synchronized on entry and
+    on exit, so the time covers the phase's work on the card and not only
+    its dispatch (launches return at once)."""
     _sync(device)
     t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
+    with span(name):
         yield
         _sync(device)
-    dt = time.perf_counter() - t0
-    target.totals[name] += dt
-    target.counts[name] += 1
-    if verbose:
-        print(f"[phase] {name}: {dt:.3f}s")
-
-
-@contextlib.contextmanager
-def trace_context(logdir: Optional[str]):
-    """Capture a torch.profiler trace (CPU and, when present, CUDA
-    activity) into ``logdir`` when it is set; no-op otherwise."""
-    if not logdir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
-        yield
+    phases.totals[name] += time.perf_counter() - t0
+    phases.counts[name] += 1
 
 
 @contextlib.contextmanager

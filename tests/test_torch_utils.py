@@ -1,10 +1,9 @@
 """The port's utils (neuralsim_tpu_torch/utils/) against the JAX
 package's: the save_result lines and files byte for byte, the phase timer,
-the trace and NaN scopes, the args snapshot, the NeRF .tar export, and the
+the NaN scope, the args snapshot, the NeRF .tar export, and the
 PNG writer against ``to8b``."""
 
 import json
-import os
 
 import imageio.v2 as imageio
 import numpy as np
@@ -24,7 +23,6 @@ from neuralsim_tpu_torch.utils.profiling import (
     PhaseTimes,
     debug_nans,
     phase_timer,
-    trace_context,
 )
 
 MAP_RESULT = {"AP": 12.345678901234, "AP50": 50.0, "AP75": float("nan"), "APs": 0.0,
@@ -85,12 +83,7 @@ def test_phase_timer_opens_a_profiler_range():
     assert "grad_E" in {e.key for e in prof.key_averages()}
 
 
-def test_trace_context_and_debug_nans(tmp_path):
-    with trace_context(None):
-        pass
-    with trace_context(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert os.listdir(tmp_path / "trace")
+def test_debug_nans():
     with debug_nans(False):
         pass
     x = torch.tensor([-1.0], requires_grad=True)
