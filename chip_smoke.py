@@ -132,6 +132,18 @@ Phases, each of which exits nonzero when it fails:
      cosine >= GRAD_BF16_COS to float32; a Gaussian-psi strips gradient
      equals its fwd; one momentum psi step. Seconds per image (host clock)
      and peak memory of each mode go to a JSON line {"render_grad": ...};
+ 8b. one strip of the outer iteration's bf16 strips gradient (5,000 rays
+     of one 100x100 image, 64 + 128 samples, seeded grad_E) through the
+     low-precision layers (models/nerf.py: bf16 activations, the forward's
+     products as float32 matmuls, the backward's on the tensor cores)
+     against the same strip through the emulated formula they replaced
+     (emulated_nerf_apply: bf16-rounded float32 operands, float32 matmuls),
+     on the box scene and on He-scaled random weights: the rendered rgb
+     bit-equal, the psi gradients within STRIP_BF16_REL of the norm on the
+     box (reported on the random net), nerf_apply.bf16_layers 24 for the
+     strip (12 layers, coarse and fine), no kernel launched; seconds and
+     peak memory of a strip each way. A JSON line {"bf16_strip": ...};
+     ``python3 chip_smoke.py --strips`` runs this phase alone;
   9. the detector slice (phase_detector): K = 50 renders from psi_init("5")
      through NeuralSimRenderer.render_images on phase 7's float32 production
      renderer (fused_nerf_march must launch), annotated on the card by
@@ -270,6 +282,7 @@ from neuralsim_tpu_torch.detector import dataset as detector_dataset
 from neuralsim_tpu_torch.detector import evaluator, trainer
 from neuralsim_tpu_torch.kernels import build
 from neuralsim_tpu_torch.kernels import raymarch as rm
+from neuralsim_tpu_torch.models import nerf as nerf_model
 from neuralsim_tpu_torch.models import retinanet
 from neuralsim_tpu_torch.models.box_scene import box_scene_params
 from neuralsim_tpu_torch.models.nerf import init_nerf_params, make_sigma_fn, nerf_apply
@@ -422,6 +435,9 @@ COMPOSITE_FLOP = 28
 GRAD_REL = 1e-4
 # bf16 strips gradient vs float32: the least cosine
 GRAD_BF16_COS = 0.999
+# one bf16 strip through the low-precision layers vs the emulated formula:
+# the same forward, the backward's products summed in another order
+STRIP_BF16_REL = 1e-3
 # the culled gradient's strip: the budget rounds up to a multiple of it, and
 # at the default 5000 a 100x100 image's budget (0.65) rounds up to every pixel
 CULL_STRIP = 1000
@@ -2157,6 +2173,159 @@ def phase_render_grad(box, smi):
     return rec
 
 
+def emulated_nerf_apply(params, x_pe, d_pe, net, compute_dtype=torch.float32,
+                        fast_epilogue=False):
+    """nerf_apply as the bf16 formula was emulated before the low-precision
+    layers: every matmul operand rounded to the compute dtype and held in
+    float32, float32 matmuls, the float32 bias, each activation rounded
+    after its ReLU. Phase 8b's yardstick."""
+
+    def r(x):
+        return x.to(compute_dtype).to(torch.float32)
+
+    def dense(h, name):
+        return r(h) @ r(params[f"{name}_kernel"]) + params[f"{name}_bias"]
+
+    def dense_relu(h, name):
+        if not fast_epilogue:
+            return r(torch.relu(dense(h, name)))
+        return r(torch.relu(r(r(h) @ r(params[f"{name}_kernel"]))
+                            + r(params[f"{name}_bias"])))
+
+    depth = sum(1 for k in params if k.startswith("pts_") and k.endswith("kernel"))
+    x_pe = r(x_pe)
+    h = x_pe
+    for i in range(depth):
+        h = dense_relu(h, f"pts_{i}")
+        if i in net.skips:
+            h = torch.cat([x_pe, h], dim=-1)
+    if not net.use_viewdirs:
+        return dense(h, "output")
+    alpha = dense(h, "alpha")
+    h = torch.cat([r(dense(h, "feature")), r(d_pe)], dim=-1)
+    rgb = dense(dense_relu(h, "views_0"), "rgb")
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def phase_bf16_strip(box, smi):
+    """Phase 8b: one strip of the bilevel epoch's bf16 strips gradient
+    (grad_ray_chunk rays of a 100x100 image at the default config) through
+    nerf_apply's low-precision layers against the same strip through
+    emulated_nerf_apply, from the same psi, pose noise and grad_E, on the
+    box scene and on He-scaled random weights (whose sums, unlike the box's,
+    round: there the backward's tensor-core order shows)."""
+    cfg = NeuralSimConfig()
+    bc = cfg.bilevel
+    net, sc, strip = cfg.net, cfg.sampler, bc.grad_ray_chunk
+    random_he = {k: v * (6 ** 0.5 if k.endswith("kernel") else 1.0) for k, v in
+                 init_nerf_params(net, generator=torch.Generator().manual_seed(5),
+                                  device=DEVICE).items()}
+    psi = psi_init(bc.psi_pose_cats_mode).to(DEVICE)
+    # pose 3 of phase 8's draw: one of its least saturated
+    noise = draw_pose_noise(torch.Generator().manual_seed(0), sc, K_POSES, DEVICE)
+    noise_1 = type(noise)(*(x[3:4] for x in noise))
+    grad_e = (torch.randn((strip, 3), generator=torch.Generator().manual_seed(1))
+              * 1e-2).to(DEVICE)
+    rec = {"config": f"{strip} rays of one 100x100 image, {net.netdepth}x{net.netwidth} pair, "
+                     f"64+128 samples, {bc.grad_compute_dtype}", "card": smi}
+    for scene, params in (("box", box), ("random_he", random_he)):
+        rec[scene] = bf16_strip(scene, {"coarse": params, "fine": params}, cfg, psi, noise_1,
+                                grad_e)
+    return rec
+
+
+def bf16_strip(scene, models, cfg, psi, noise_1, grad_e):
+    """One scene of phase 8b: the strip's psi gradient and rgb each way, the
+    low-precision layers counted, times and peak memory."""
+    bc, net, sc, strip = cfg.bilevel, cfg.net, cfg.sampler, cfg.bilevel.grad_ray_chunk
+    renderer = NeuralSimRenderer(cfg, models=models, device=DEVICE)
+    H, W, K = renderer.H, renderer.W, renderer.K
+    rc = dataclasses.replace(renderer.rc, pe_projection=False, use_pallas=False, remat=False,
+                             compute_dtype=bc.grad_compute_dtype, ray_chunk=strip)
+
+    def loss(p):
+        return render_grad.psi_strip_loss(models, p, noise_1, grad_e, 0, H, W, K, net, rc, sc)
+
+    def rgb():
+        with torch.no_grad():
+            rays_o, rays_d = render_grad._image_rays(psi, noise_1, H, W, K, sc, "categorical")
+            return render_ray_batch(models, rays_o[0, :strip], rays_d[0, :strip], net,
+                                    rc)["rgb_map"]
+
+    def run(fn, repeats=3):
+        """fn() once to warm up, then timed repeats: (result, median s, peak GB)."""
+        out = fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, statistics.median(times), torch.cuda.max_memory_allocated() / 1e9
+
+    zero_counts()
+    layers = nerf_apply.bf16_layers
+    render_grad._grad(loss, psi)
+    torch.cuda.synchronize()
+    layers = nerf_apply.bf16_layers - layers
+    rgb_new = rgb()
+    g_new, s_new, gb_new = run(lambda: render_grad._grad(loss, psi))
+    launched = counts()
+
+    nerf_model.nerf_apply = emulated_nerf_apply      # query_points' global
+    try:
+        rgb_old = rgb()
+        g_old, s_old, gb_old = run(lambda: render_grad._grad(loss, psi))
+    finally:
+        nerf_model.nerf_apply = nerf_apply
+    rec = {"bf16_layers": layers, "launches": launched,
+           "rgb_max_abs": float((rgb_new - rgb_old).abs().max()),
+           "grad_new": g_new.tolist(), "grad_emulated": g_old.tolist(),
+           "grad_rel_l2": float((g_new.double() - g_old.double()).norm() / g_old.double().norm()),
+           "s_new": s_new, "s_emulated": s_old, "peak_gb_new": gb_new,
+           "peak_gb_emulated": gb_old}
+    name = f"bf16 strip, {scene}, low-precision layers vs emulated"
+    if scene == "box":
+        rec["grad_rel"] = grad_close(name, g_new, g_old, rel=STRIP_BF16_REL)
+    else:
+        # reported: one pose's strip of a random net, no scene a run checks
+        rec["grad_rel"] = float((g_new.double() - g_old.double()).abs().max()
+                                / g_old.double().norm())
+        log(f"render gradient [{name}]: max abs difference {rec['grad_rel']:.3e} of the "
+            f"emulated norm {float(g_old.double().norm()):.4e} (reported)")
+    expected = 2 * (net.netdepth + 4)            # 12 layers, coarse and fine
+    log(f"bf16 strip [{scene}]: rgb max abs difference {rec['rgb_max_abs']:.3e} (the forward "
+        f"keeps the emulated arithmetic: must be 0); psi gradient rel l2 "
+        f"{rec['grad_rel_l2']:.3e}; bf16_layers {layers} (expected {expected}); launches "
+        f"{launched}; a strip {s_new:.4f} s (peak {gb_new:.2f} GB) against {s_old:.4f} s "
+        f"emulated (peak {gb_old:.2f} GB), host clock, median of 3")
+    if layers != expected:
+        raise AssertionError(f"bf16 strip [{scene}]: {layers} low-precision layers, not "
+                             f"{expected}")
+    if any(launched.values()):
+        raise AssertionError(f"bf16 strip [{scene}] launched a kernel: {launched}")
+    if rec["rgb_max_abs"] != 0:
+        raise AssertionError(f"bf16 strip [{scene}]: the forward's rgb moved "
+                             f"{rec['rgb_max_abs']:.3e} from the emulated formula's")
+    return rec
+
+
+def main_strips():
+    """``python3 chip_smoke.py --strips``: phase 8b alone (plain torch: no
+    kernel is built)."""
+    t_start = time.perf_counter()
+    name, smi = phase_device()
+    box = box_scene_params(NeRFNetConfig(), generator=torch.Generator().manual_seed(0),
+                           device=DEVICE)
+    strip = timed_phase("8b bf16 strip", phase_bf16_strip, box, smi)
+    print(json.dumps({"bf16_strip": strip}), flush=True)
+    log(f"chip_smoke --strips: passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+
+
 def detector_rel(name, got, want, rel=DET_REL):
     """max |got - want| over max |want| (want on the CPU); raises above rel."""
     got, want = got.detach().cpu().double(), want.detach().cpu().double()
@@ -3848,6 +4017,8 @@ def main_mesh():
 def main():
     if "--mesh" in sys.argv[1:]:
         return main_mesh()
+    if "--strips" in sys.argv[1:]:
+        return main_strips()
     t_start = time.perf_counter()
     name, smi = phase_device()
     peak_key, peaks = peaks_for(name)
@@ -3867,6 +4038,7 @@ def main():
     entries, entries16 = timed_phase("6 entry points", phase_entry_points, box, cfg, routes)
     pipeline, others, bench = timed_phase("7 production", phase_production, box, routes, routes16)
     grad = timed_phase("8 render gradient", phase_render_grad, box, smi)
+    bf16_strip = timed_phase("8b bf16 strip", phase_bf16_strip, box, smi)
     detector = timed_phase("9 detector", phase_detector, pipeline["float32"]["renderer"], smi)
     bilevel, rerun = timed_phase("10 bilevel", phase_bilevel, box, smi)
     train = timed_phase("11 trainer", phase_train_nerf, box, smi)
@@ -3980,6 +4152,7 @@ def main():
             "card": smi,
         })
     print(json.dumps({"render_grad": grad}), flush=True)
+    print(json.dumps({"bf16_strip": bf16_strip}), flush=True)
     print(json.dumps({"detector": detector}), flush=True)
     print(json.dumps({"bilevel": bilevel}), flush=True)
     print(json.dumps({"train_nerf": train}), flush=True)

@@ -6,12 +6,13 @@ layers of ``netwidth`` with the encoded position concatenated back in
 (``[x_pe, h]``) after each layer index in ``skips``, then the viewdir head:
 ``alpha`` W->1, ``feature`` W->W, ``views_0`` (W+27)->W/2, ``rgb`` W/2->3.
 
-``compute_dtype`` follows ``neuralsim_tpu/models/nerf.py:86-99``: matmul
-operands are rounded to the compute dtype, products accumulate in float32,
-the bias is added in float32, and each activation is cast back to the
-compute dtype after its ReLU. A float32 product of two bfloat16 values is
-exact, so an f32 matmul over bf16-rounded operands is that contract on any
-device.
+``compute_dtype`` follows ``neuralsim_tpu/models/nerf.py:86-120``: the
+activations between layers are held in the compute dtype, matmul operands
+are in the compute dtype, products accumulate in float32, the bias is added
+in float32, and each activation is cast back to the compute dtype after its
+ReLU. The forward's products run as a float32 matmul of the upcast
+operands (a float32 product of two bfloat16 values is exact); the
+backward's on the card's tensor cores (``_LowPrecisionDense``).
 """
 
 from __future__ import annotations
@@ -79,49 +80,123 @@ def round_to(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     return x.to(compute_dtype).to(torch.float32)
 
 
-def _dense(h, kernel, bias, compute_dtype):
-    return (round_to(h, compute_dtype) @ round_to(kernel, compute_dtype)
-            + bias.to(torch.float32))
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of 2-D operands as a float32 matmul of the operands upcast
+    (exact for bf16 operands): the forward's product, summed in the float32
+    GEMM's own order."""
+    return a.float() @ b.float()
 
 
-def _dense_relu(h, kernel, bias, compute_dtype, fast_epilogue: bool):
-    """ReLU layer, activation rounded to compute_dtype. ``fast_epilogue``
-    (the fused kernels' option) rounds the product and the bias to
-    compute_dtype before adding them; in float32 it changes nothing."""
-    if not fast_epilogue:
-        return round_to(torch.relu(_dense(h, kernel, bias, compute_dtype)),
-                        compute_dtype)
-    acc = round_to(h, compute_dtype) @ round_to(kernel, compute_dtype)
-    return round_to(torch.relu(round_to(acc, compute_dtype)
-                               + round_to(bias, compute_dtype)), compute_dtype)
+def _matmul_low(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two low-precision operands, products summed in float32,
+    float32 out: on the card the tensor cores (``aten::mm.dtype``),
+    elsewhere ``_matmul``, the same arithmetic in another order."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return _matmul(a, b)
+
+
+class _LowPrecisionDense(torch.autograd.Function):
+    """One dense layer on low-precision activations: h [N, in] @ kernel
+    [in, out] (both in the compute dtype), products summed in float32, plus
+    the float32 bias; then a ReLU where ``relu``, and the output cast to the
+    compute dtype where ``round_out`` (a float32 head otherwise).
+    ``fast_epilogue`` rounds the product and the bias to the compute dtype
+    before adding them.
+
+    The forward sums its products as a float32 GEMM does, in the order of
+    the emulated formula it replaced: which bf16 step an activation rounds
+    to follows that order, and the strips gradient follows those steps
+    (another order moves it as far as the tensor cores do, ~1e-2 of its
+    norm on the outer iteration's scene). The backward masks the cotangent
+    by the ReLU and multiplies it by the kernel: a cotangent in the compute
+    dtype on the tensor cores (``_matmul_low``), a float32 one (the heads')
+    in float32. The input's gradient is cast to the compute dtype; the
+    weights' gradients are computed only when asked for, the kernel's cast
+    to the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, h, kernel, bias, relu: bool, round_out: bool, fast_epilogue: bool):
+        dtype = kernel.dtype
+        acc = _matmul(h, kernel)
+        if fast_epilogue:
+            out = acc.to(dtype) + bias.to(dtype)
+        elif round_out:
+            out = torch.add(acc, bias, out=torch.empty_like(acc, dtype=dtype))
+        else:
+            out = acc.add_(bias)
+        if relu:
+            out.relu_()
+        ctx.relu, ctx.fast_epilogue = relu, fast_epilogue
+        ctx.save_for_backward(h if ctx.needs_input_grad[1] else None, kernel,
+                              out if relu else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, kernel, out = ctx.saved_tensors
+        if ctx.relu:
+            g = torch.ops.aten.threshold_backward(g, out, 0)
+        product = _matmul_low if g.dtype == kernel.dtype else _matmul
+        dh = dk = db = None
+        if ctx.needs_input_grad[0]:
+            dh = product(g, kernel.t()).to(kernel.dtype)
+        if ctx.needs_input_grad[1]:
+            dk = product(h.t(), g).to(kernel.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum(0)
+            if ctx.fast_epilogue:
+                db = db.to(kernel.dtype).float()
+        return dh, dk, db, None, None, None
 
 
 def nerf_apply(params: Params, x_pe, d_pe, net: NeRFNetConfig,
                compute_dtype=torch.float32,
                fast_epilogue: bool = False) -> torch.Tensor:
     """MLP on encoded inputs x_pe [N, input_ch], d_pe [N, input_ch_views]
-    (or None). Returns raw [N, 4]: rgb logits, density."""
+    (or None). Returns raw [N, 4]: rgb logits, density.
+
+    In float32 each layer is a float32 matmul plus bias (and ReLU). In
+    another compute dtype, as the JAX package does, the activations between
+    layers are held in that dtype (the encodings and the concats included)
+    and each layer is one ``_LowPrecisionDense``, on the kernels cast once
+    per call; ``nerf_apply.bf16_layers`` counts those layers."""
     depth = sum(1 for k in params if k.startswith("pts_") and k.endswith("kernel"))
-    x_pe = round_to(x_pe, compute_dtype)
-    h = x_pe
+    if compute_dtype == torch.float32:
+        def dense(h, name, relu, round_out):
+            out = _matmul(h, params[f"{name}_kernel"]) + params[f"{name}_bias"]
+            return torch.relu(out) if relu else out
+    else:
+        kernels = {k[:-len("_kernel")]: v.to(compute_dtype)
+                   for k, v in params.items() if k.endswith("_kernel")}
+
+        def dense(h, name, relu, round_out):
+            nerf_apply.bf16_layers += 1
+            return _LowPrecisionDense.apply(h, kernels[name], params[f"{name}_bias"], relu,
+                                            round_out, fast_epilogue and relu)
+
+    # x_pe feeds the first layer and each skip: each reads its own cast of
+    # the rounded x_pe, so their cotangents sum in float32 and round once
+    x_rounded = round_to(x_pe, compute_dtype)
+    h = x_rounded.to(compute_dtype)
     for i in range(depth):
-        h = _dense_relu(h, params[f"pts_{i}_kernel"], params[f"pts_{i}_bias"],
-                        compute_dtype, fast_epilogue)
+        h = dense(h, f"pts_{i}", True, True)
         if i in net.skips:
-            h = torch.cat([x_pe, h], dim=-1)
+            h = torch.cat([x_rounded.to(compute_dtype), h], dim=-1)
 
     if not net.use_viewdirs:
-        return _dense(h, params["output_kernel"], params["output_bias"], compute_dtype)
+        return dense(h, "output", False, False)
     if d_pe is None:
         raise ValueError("use_viewdirs=True requires encoded directions")
-    alpha = _dense(h, params["alpha_kernel"], params["alpha_bias"], compute_dtype)
-    feature = round_to(_dense(h, params["feature_kernel"], params["feature_bias"],
-                              compute_dtype), compute_dtype)
-    h = torch.cat([feature, round_to(d_pe, compute_dtype)], dim=-1)
-    h = _dense_relu(h, params["views_0_kernel"], params["views_0_bias"],
-                    compute_dtype, fast_epilogue)
-    rgb = _dense(h, params["rgb_kernel"], params["rgb_bias"], compute_dtype)
+    alpha = dense(h, "alpha", False, False)
+    feature = dense(h, "feature", False, True)
+    h = torch.cat([feature, d_pe.to(compute_dtype)], dim=-1)
+    h = dense(h, "views_0", True, True)
+    rgb = dense(h, "rgb", False, False)
     return torch.cat([rgb, alpha], dim=-1)
+
+
+nerf_apply.bf16_layers = 0
 
 
 def query_points(params: Params, pts, viewdirs: Optional[torch.Tensor],

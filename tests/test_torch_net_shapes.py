@@ -147,14 +147,14 @@ def test_view_direction_nets_still_take_the_kernel(kernel_route):
                                  tcfg.RenderConfig(use_pallas=False)) is False
 
 
-def _dense_in_order(h, kernel, bias, compute_dtype):
-    """_dense with the products summed in input-row order, one row at a
-    time, as the FP32 core sums them (BLAS may block a longer K otherwise)."""
-    h, k = round_to(h, compute_dtype), round_to(kernel, compute_dtype)
-    acc = torch.zeros(h.shape[0], k.shape[1])
-    for i in range(k.shape[0]):
-        acc = acc + h[:, i:i + 1] * k[i]
-    return acc + bias.to(torch.float32)
+def _matmul_in_order(a, b):
+    """nerf._matmul with the products summed in input-row order, one row at
+    a time, as the FP32 core sums them (BLAS may block a longer K otherwise)."""
+    a, b = a.float(), b.float()
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for i in range(b.shape[0]):
+        acc = acc + a[:, i:i + 1] * b[i]
+    return acc
 
 
 def _encoded(net, m, seed):
@@ -189,7 +189,7 @@ def test_padded_twin_is_bit_equal(monkeypatch, width, dtype):
     x_pe, d_pe = _encoded(net, 64, width)
     blas = (nerf_apply(params, x_pe, d_pe, net, compute_dtype=dtype),
             nerf_apply(padded, x_pe, d_pe, net, compute_dtype=dtype))
-    monkeypatch.setattr(tnerf, "_dense", _dense_in_order)
+    monkeypatch.setattr(tnerf, "_matmul", _matmul_in_order)
     got = nerf_apply(padded, x_pe, d_pe, net, compute_dtype=dtype)
     want = nerf_apply(params, x_pe, d_pe, net, compute_dtype=dtype)
     assert want.abs().max() > 0.1                             # not a vacuous zero field

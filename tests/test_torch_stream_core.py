@@ -58,10 +58,10 @@ from neuralsim_tpu_torch.models.nerf import init_nerf_params, nerf_apply, round_
 from tests.test_torch_net_shapes import (
     SMEM_OPTIN,
     STREAM_PIECE,
-    _dense_in_order,
     _encoded,
     _FakeMarchLibrary,
     _he,
+    _matmul_in_order,
     stream_core_bytes,
     stream_pick,
     stream_pick_tile,
@@ -635,7 +635,7 @@ def test_padding_to_a_multiple_of_64_is_exact(monkeypatch, dtype):
     assert padded["pts_2_kernel"].shape == (net.input_ch + 1152, 1152)
     assert padded["views_0_kernel"].shape == (1152 + net.input_ch_views, 576)
     x_pe, d_pe = _encoded(net, 16, 5)
-    monkeypatch.setattr(tnerf, "_dense", _dense_in_order)
+    monkeypatch.setattr(tnerf, "_matmul", _matmul_in_order)
     want = nerf_apply(params, x_pe, d_pe, net, compute_dtype=dtype)
     assert want.abs().max() > 0.1
     torch.testing.assert_close(nerf_apply(padded, x_pe, d_pe, net, compute_dtype=dtype), want,

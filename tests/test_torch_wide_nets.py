@@ -52,11 +52,11 @@ from neuralsim_tpu_torch.ops.volume import raw2outputs
 from tests.test_torch_net_shapes import (
     NETS,
     SMEM_OPTIN,
-    _dense_in_order,
     _emulate_f32_core,
     _encoded,
     _FakeMarchLibrary,
     _he,
+    _matmul_in_order,
     _unpermute,
     f32_core_bytes,
     f32_pick_tile,
@@ -184,7 +184,7 @@ def test_padding_to_1024_is_exact(monkeypatch, width, dtype):
         torch.testing.assert_close(nerf_apply(padded, x_pe, d_pe, net, compute_dtype=dtype),
                                    nerf_apply(params, x_pe, d_pe, net, compute_dtype=dtype),
                                    rtol=1e-5, atol=1e-5)
-    monkeypatch.setattr(tnerf, "_dense", _dense_in_order)
+    monkeypatch.setattr(tnerf, "_matmul", _matmul_in_order)
     want = nerf_apply(params, x_pe, d_pe, net, compute_dtype=dtype)
     assert want.abs().max() > 0.1
     torch.testing.assert_close(nerf_apply(padded, x_pe, d_pe, net, compute_dtype=dtype), want,
