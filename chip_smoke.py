@@ -97,6 +97,23 @@ Phases, each of which exits nonzero when it fails:
      each of the three routes, in float32 and bfloat16: 20 launches of the
      route's kernel and 0 of the others, rgb within 2e-3 / BF16_RENDER_TOL
      of the twin's render, rays/s beside the card's name and power limit;
+ 5h. Instant-NGP's hash-grid field (models/ngp.py, HashNetConfig at the
+     published widths: 16 levels x 2 features, 2^19 entries a level,
+     resolutions 16-2048, 64-wide MLPs, SH degree 4) through its kernel
+     (csrc/ngp_march.cu): sigma and rgb against the twin at NGP_TOL at N=8192
+     x S=64 and 192 and the ragged 1001x48 and 3x5, a tenth of the rays
+     starting outside the box; the counters fused_ngp_march.calls / .points
+     one launch and N x S points a call; the kernel's time at the cell's
+     chunk (65,536 rays) x 64 and 192 beside its bound and the twin's; the
+     K=8 render through NeuralSimRenderer at ray_chunk 65,536 (2 launches a
+     chunk, the points the shapes give, no other kernel; rgb within F32_TOL
+     of the twin's render); every route that takes no hash field raising
+     (fuse_compositing, fuse_pointgen=False, the culled production render
+     at a budget of 0.5, the point-major kernels, a bf16 renderer or
+     kernel); one backward through
+     the kernel's recompute against plain autograd. A JSON line
+     {"ngp": ...}; ``python3 chip_smoke.py --ngp`` runs this phase alone,
+     then phase 5;
   6. entry points: the exported fused_nerf_mlp (pre-encoded inputs) and
      fused_nerf_mlp_pe on the coarse sample points of the same K=8 render,
      one launch each, held against the ray-march kernel's raw field there
@@ -3997,6 +4014,218 @@ def mesh_inputs(box):
             "draws": draws, "ref": ref, "render_launches": counts()["fused_nerf_march"]}
 
 
+# the hash-grid field's check against its twin: the kernel and the twin
+# compute the encoding and the SH alike and sum the MLPs in other orders,
+# so sigma = exp(out_0) moves by a few float32 steps of out_0 (relative)
+NGP_TOL = 1e-4
+NGP_SHAPES = ((N_RAYS, 64), (N_RAYS, 192), RAGGED, (3, 5))
+# the cell's chunk (render.ngp.exact_f32.k50) for the kernel's time
+NGP_CHUNK = 65536
+
+
+def ngp_bound_ms(net, n, s, peaks):
+    """(least ms, what bounds it) of one hash march call, from the
+    benchmark's arithmetic (``bench_port/work_ngp.py``)."""
+    from bench_port.reference.ngp import HashGrid
+    from bench_port.work_ngp import march_work
+
+    # the net's settings; the widths it fixes, the reference's published ones
+    grid = HashGrid()
+    settings = {f.name: getattr(net, f.name, getattr(grid, f.name))
+                for f in dataclasses.fields(HashGrid)}
+    return bound(*march_work(settings, n, s), peaks[0], peaks[2])
+
+
+def ngp_params(net, seed, device):
+    """Instant-NGP's init with the table at the benchmark's scale (U(-1, 1)):
+    a field whose every level moves the output."""
+    from neuralsim_tpu_torch.models import ngp
+
+    return ngp.init_ngp_params(net, torch.Generator().manual_seed(seed), device,
+                               table_scale=1.0)
+
+
+def ngp_refusals(net, models, cfg, psi):
+    """Each route that takes no hash field raises, naming itself."""
+    from neuralsim_tpu_torch.models.nerf import query_points
+
+    refused = {}
+
+    def expect(name, fn, words):
+        try:
+            fn()
+        except (NotImplementedError, ValueError) as e:
+            if words not in str(e):
+                raise AssertionError(f"ngp refusal [{name}]: the message names no {words!r}: {e}")
+            refused[name] = str(e)
+            log(f"ngp refusal [{name}]: {e}")
+            return
+        raise AssertionError(f"ngp refusal [{name}]: did not raise")
+
+    rays = march_inputs(4, 8, torch.Generator().manual_seed(3), DEVICE)
+    pts = rays[0][:, None, :] + rays[1][:, None, :] * rays[3][..., None]
+    for name, render, words in (("fuse_compositing", dict(fuse_compositing=True),
+                                 "fuse_compositing"),
+                                ("fuse_pointgen=False", dict(fuse_pointgen=False),
+                                 "fuse_pointgen")):
+        rc = dataclasses.replace(cfg.render, **render)
+
+        def run(rc=rc):
+            r = NeuralSimRenderer(dataclasses.replace(cfg, render=rc), models=models,
+                                  device=DEVICE)
+            r.render_images(psi, generator=torch.Generator().manual_seed(1), num_k=1)
+
+        expect(name, run, words)
+    # the production renderer calibrates this field's budget to 1 (its
+    # density fills the box: every ray hits), so the culled route is asked
+    # for directly, with a budget below 1
+    production = NeuralSimRenderer(dataclasses.replace(cfg, render=cfg.render.production_mode()),
+                                   models=models, device=DEVICE)
+    log(f"ngp production renderer: calibrated hit_budget {production.rc.hit_budget:.4f}")
+    grid = production.occupancy_grid(resolution=32)
+    culled = dataclasses.replace(production.rc, hit_budget=0.5)
+    expect("production", lambda: render_ray_batch(models, rays[0], rays[1], net, culled,
+                                                  grid=grid), "production")
+    expect("point-major kernels", lambda: query_points(models["coarse"], pts, rays[2], net,
+                                                        use_pallas=True), "point-major")
+    expect("bfloat16 renderer", lambda: NeuralSimRenderer(
+        dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
+                                                            compute_dtype="bfloat16")),
+        models=models, device=DEVICE), "compute_dtype")
+    expect("bfloat16 kernel", lambda: rm.fused_ngp_march(models["coarse"], *rays, net,
+                                                         torch.bfloat16), "float32")
+    return refused
+
+
+def phase_ngp(peaks, smi):
+    """Instant-NGP's hash-grid field (models/ngp.py) through its kernel
+    (csrc/ngp_march.cu) at the published widths: kernel vs twin, its time
+    beside its bound, the render's launches and counters, the refused
+    routes, one backward."""
+    from neuralsim_tpu_torch.config import HashNetConfig
+    from neuralsim_tpu_torch.models import ngp
+
+    net = HashNetConfig()
+    params = ngp_params(net, 0, DEVICE)
+    gen = torch.Generator().manual_seed(11)
+    rec = {"errors": {}, "ms": {}}
+    for n, s in NGP_SHAPES:
+        rays = march_inputs(n, s, gen, DEVICE)
+        # a tenth of the rays start outside the box and leave it: sigma 0
+        # there, and the colour from the clamped coordinates
+        rays[0][: max(1, n // 10)] *= 1.5
+        calls, points = rm.fused_ngp_march.calls, rm.fused_ngp_march.points
+        with torch.no_grad():
+            got = rm.fused_ngp_march(params, *rays, net)
+            want = rm.ngp_march_ref(params, *rays, net)
+        torch.cuda.synchronize()
+        if (rm.fused_ngp_march.calls - calls, rm.fused_ngp_march.points - points) != (1, n * s):
+            raise AssertionError(f"ngp {n}x{s}: counters moved by "
+                                 f"{rm.fused_ngp_march.calls - calls}, "
+                                 f"{rm.fused_ngp_march.points - points}")
+        for name, a, b in (("sigma", got[0], want[0]), ("rgb", got[1], want[1])):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"ngp {n}x{s} {name}: not finite")
+            err = float(((a - b).abs() / (1.0 + b.abs())).max())
+            rec["errors"][f"{name}_N{n}_S{s}"] = err
+            log(f"ngp {n}x{s} {name}: kernel vs twin {err:.3e} (|a-b| / (1 + |b|); limit "
+                f"{NGP_TOL:g})")
+            if not err <= NGP_TOL:
+                raise AssertionError(f"ngp {n}x{s} {name}: {err:.3e} > {NGP_TOL:g}")
+        outside = got[0][: max(1, n // 10)]
+        log(f"ngp {n}x{s}: {int((outside == 0).sum())} of {outside.numel()} samples of the "
+            "outside rays read sigma 0")
+    for s in (64, 192):
+        rays = march_inputs(NGP_CHUNK, s, gen, DEVICE)
+        with torch.no_grad():
+            ms = time_ms(lambda: rm.fused_ngp_march(params, *rays, net))
+            twin_ms = time_ms(lambda: rm.ngp_march_ref(params, *[t[:N_RAYS] for t in rays],
+                                                       net), reps=3, warmup=1)
+        least, what = ngp_bound_ms(net, NGP_CHUNK, s, peaks)
+        rec["ms"][f"N{NGP_CHUNK}_S{s}"] = {"kernel": ms, "bound": least, "share": least / ms,
+                                            "twin_N8192": twin_ms}
+        log(f"ngp time N={NGP_CHUNK} S={s}: kernel {ms:.3f} ms, bound {least:.3f} ms "
+            f"({what}), {100 * least / ms:.1f}% of it; twin at N={N_RAYS}: {twin_ms:.3f} ms "
+            f"[{smi}]")
+        del rays
+        torch.cuda.empty_cache()
+    # the render through NeuralSimRenderer: two launches a chunk, nothing else
+    cfg = NeuralSimConfig(net=net)
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, ray_chunk=NGP_CHUNK))
+    models = {"coarse": params, "fine": params}
+    psi = psi_init("5")
+    renderer = NeuralSimRenderer(cfg, models=models, device=DEVICE)
+    zero_counts()
+    calls, points = rm.fused_ngp_march.calls, rm.fused_ngp_march.points
+    t0 = time.perf_counter()
+    rgb, noise = renderer.render_images(psi, generator=torch.Generator().manual_seed(2),
+                                        num_k=K_POSES)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    rays = K_POSES * cfg.camera.height * cfg.camera.width
+    chunks = -(-rays // NGP_CHUNK)
+    launched = (rm.fused_ngp_march.calls - calls, rm.fused_ngp_march.points - points)
+    want = (2 * chunks, rays * (cfg.render.n_samples * 2 + cfg.render.n_importance))
+    log(f"ngp render K={K_POSES}: {launched[0]} launches, {launched[1]} points (expected "
+        f"{want[0]}, {want[1]}); other kernels {counts()}; {render_s:.3f} s")
+    if launched != want or any(counts().values()):
+        raise AssertionError("ngp render: launches or counters off")
+    plain = NeuralSimRenderer(dataclasses.replace(
+        cfg, render=dataclasses.replace(cfg.render, use_pallas=False, ray_chunk=4096)),
+        models=models, device=DEVICE)
+    with torch.no_grad():
+        twin = plain._render_impl(psi, noise)[0]
+    err = float((rgb - twin).abs().max())
+    log(f"ngp render: rgb vs the twin's render {err:.3e} (limit {F32_TOL:g}); rgb mean "
+        f"{float(rgb.mean()):.4f}")
+    if not err <= F32_TOL or not torch.isfinite(rgb).all():
+        raise AssertionError(f"ngp render: {err:.3e} from the twin's")
+    refused = ngp_refusals(net, models, cfg, psi)
+    # one backward: the kernel's recompute against plain autograd
+    rays = march_inputs(256, 32, gen, DEVICE)
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    o = rays[0].clone().requires_grad_(True)
+    cot = [torch.randn(256, 32, generator=gen).to(DEVICE),
+           torch.randn(3, 256, 32, generator=gen).to(DEVICE)]
+    grads = []
+    for fn in (rm.fused_ngp_march, rm.ngp_march_ref):
+        out = fn(leaves, o, *rays[1:], net)
+        g = torch.autograd.grad(out, [o, leaves["hash_table"], leaves["density_0_kernel"],
+                                      leaves["color_2_kernel"]], cot)
+        grads.append(g)
+    back = {}
+    for name, a, b in zip(("rays_o", "hash_table", "density_0_kernel", "color_2_kernel"),
+                          *grads):
+        back[name] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        log(f"ngp backward d{name}: kernel route vs twin {back[name]:.3e} of the norm")
+        if not back[name] <= 1e-6:
+            raise AssertionError(f"ngp backward d{name}: {back[name]:.3e}")
+    return {"errors": rec["errors"], "ms": rec["ms"], "render_launches": launched[0],
+            "render_points": launched[1], "render_s": render_s, "render_err": err,
+            "refused": sorted(refused), "backward": back}
+
+
+def main_ngp():
+    """``python3 chip_smoke.py --ngp``: the hash-grid field's phase (5h)
+    alone, then phase 5 (kernel 1's main path) as before."""
+    t_start = time.perf_counter()
+    name, smi = phase_device()
+    _, peaks = peaks_for(name)
+    for src, (path, seconds, report) in build.build_all(["ngp_march"] + list(
+            build.SOURCES[:3])).items():
+        log(f"build {src}.cu: {seconds:.1f} s")
+        if src == "ngp_march":
+            for line in report.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas ngp_march: {line.strip()}")
+    hashed = timed_phase("5h hash field", phase_ngp, peaks, smi)
+    print(json.dumps({"ngp": hashed}), flush=True)
+    timed_phase("5 main path", phase_main_path)
+    log(f"chip_smoke --ngp: passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main_mesh():
     """``python3 chip_smoke.py --mesh``: phase 12 alone, on nerf_march's
     build and mesh_inputs."""
@@ -4019,6 +4248,8 @@ def main():
         return main_mesh()
     if "--strips" in sys.argv[1:]:
         return main_strips()
+    if "--ngp" in sys.argv[1:]:
+        return main_ngp()
     t_start = time.perf_counter()
     name, smi = phase_device()
     peak_key, peaks = peaks_for(name)
@@ -4035,6 +4266,8 @@ def main():
                              psi_init("5"), smi, 2),
                  WIDEST: timed_phase(f"5c {WIDEST}", phase_wide_main_path, WIDEST, tuple(ROUTES),
                                psi_init("5"), smi, 1)}
+    hashed = timed_phase("5h hash field", phase_ngp, peaks, smi)
+    print(json.dumps({"ngp": hashed}), flush=True)
     entries, entries16 = timed_phase("6 entry points", phase_entry_points, box, cfg, routes)
     pipeline, others, bench = timed_phase("7 production", phase_production, box, routes, routes16)
     grad = timed_phase("8 render gradient", phase_render_grad, box, smi)

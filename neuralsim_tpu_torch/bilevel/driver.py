@@ -89,6 +89,7 @@ from neuralsim_tpu_torch.hypergrad.unrolled import unrolled_grad_images
 from neuralsim_tpu_torch.models.convert import params_from_numpy
 from neuralsim_tpu_torch.models.convert_retinanet import params_from_flax, params_to_flax
 from neuralsim_tpu_torch.models.nerf import make_sigma_fn
+from neuralsim_tpu_torch.models.ngp import check_float32
 from neuralsim_tpu_torch.models.retinanet import (
     DetBatch,
     Detections,
@@ -246,6 +247,8 @@ class BilevelDriver:
                  background_labels: Optional[np.ndarray] = None,
                  output_dir: Optional[str] = None,
                  calibration_noise: Optional[PoseNoise] = None, device=None, mesh=None):
+        check_float32(cfg.net, "BilevelDriver", compute_dtype=cfg.render.compute_dtype,
+                      grad_compute_dtype=cfg.bilevel.grad_compute_dtype)
         self.cfg = cfg
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)

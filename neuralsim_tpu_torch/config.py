@@ -47,6 +47,38 @@ class NeRFNetConfig:
         return 4
 
 
+# NeRFNetConfig.i_embed of a multiresolution hash-grid field (HashNetConfig),
+# the value HashNeRF-pytorch gives its hash embedder
+HASH_EMBED = 1
+
+
+@dataclass(frozen=True)
+class HashNetConfig(NeRFNetConfig):
+    """Instant-NGP's NeRF field (Müller et al., SIGGRAPH 2022; NVlabs
+    instant-ngp ``configs/nerf/base.json``): a multiresolution hash grid of
+    ``hash_levels`` levels and at most 2^``log2_hashmap_size`` entries
+    each, resolutions from ``base_resolution`` to ``finest_resolution``
+    over the box ``hash_aabb`` (the same bounds on every axis), and the
+    bias-free density and colour MLPs, whose widths are fixed at the
+    published ones (``models/ngp.py``, which computes the field). The NeRF
+    MLP's fields and properties stay and are not read."""
+
+    i_embed: int = HASH_EMBED
+    hash_levels: int = 16
+    log2_hashmap_size: int = 19
+    base_resolution: int = 16
+    finest_resolution: int = 2048
+    hash_aabb: Tuple[float, float] = (-1.0, 1.0)
+
+
+def hash_net(net: NeRFNetConfig, **settings) -> HashNetConfig:
+    """``net`` as a hash-grid field (i_embed = HASH_EMBED) with
+    ``settings`` over HashNetConfig's defaults (or ``net``'s own)."""
+    fields = {f.name: getattr(net, f.name) for f in dataclasses.fields(net)}
+    fields.update(settings, i_embed=HASH_EMBED)
+    return HashNetConfig(**fields)
+
+
 @dataclass(frozen=True)
 class RenderConfig:
     """Volume-rendering options (reference render_rays,
@@ -414,6 +446,9 @@ _FLAG_MAP = {
     "eval_stream_images": ("detector", "eval_stream_images"),
     "reuse_coarse": ("render", "reuse_coarse"),
     "ndc": ("render", "ndc"),
+    # the hash-grid field's settings (HashNetConfig; i_embed = 1)
+    **{name: ("net", name) for name in (
+        "hash_levels", "log2_hashmap_size", "base_resolution", "finest_resolution")},
 }
 
 # flags the reference accepts but that have no effect on this implementation
@@ -467,6 +502,13 @@ def config_from_flags(flags: dict, base: Optional[NeuralSimConfig] = None) -> Ne
         if key in ("object_id", "psi_pose_cats_mode"):
             val = str(val)
         sections[sec][fieldname] = val
+    net = sections["net"]
+    hashed = set(net) - {f.name for f in dataclasses.fields(NeRFNetConfig)}
+    if net.get("i_embed", cfg.net.i_embed) == HASH_EMBED:
+        cfg = dataclasses.replace(cfg, net=hash_net(cfg.net))
+    elif hashed:
+        raise KeyError(f"flags {sorted(hashed)} set a hash-grid field: they need --i_embed "
+                       f"{HASH_EMBED}")
     return dataclasses.replace(
         cfg,
         **{

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # card's 8-core machine)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
-SOURCES = ("nerf_march", "nerf_mlp", "render_tile")
+SOURCES = ("nerf_march", "nerf_mlp", "render_tile", "ngp_march")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 

@@ -8,6 +8,7 @@
 | ``fused_nerf_mlp_pe``   | ``_mlp_pe_kernel``       | ``nerf_mlp.cu``      | ``mlp_pe_ref``       |
 | ``fused_nerf_mlp``      | ``_mlp_kernel``          | ``nerf_mlp.cu``      | ``nerf_apply``       |
 | ``fused_render_tile``   | ``_render_tile_kernel``  | ``render_tile.cu``   | ``render_tile_ref``  |
+| ``fused_ngp_march``     | (none: the port's own)   | ``ngp_march.cu``     | ``ngp_march_ref``    |
 
 On a tensor for which ``uses_kernel`` is true (a CUDA tensor) a wrapper
 launches its kernel or raises; on a CPU tensor it computes its plain
@@ -39,6 +40,12 @@ a gradient on the card.
 
 Each wrapper's ``launches`` counts its kernel's launches, so a run can show
 that its render went through the kernel.
+
+``fused_ngp_march`` marches Instant-NGP's hash-grid field
+(``models/ngp.py``) in float32 only, with its gradient recomputed through
+its twin as the others'. Its counters ``calls`` and ``points`` (rays x
+samples) count its kernel's launches and the points they marched, and each
+launch is the span ``render.hash_march``.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import torch
 
 from neuralsim_tpu_torch.config import NeRFNetConfig
 from neuralsim_tpu_torch.kernels import build
+from neuralsim_tpu_torch.models import ngp
 from neuralsim_tpu_torch.models.nerf import nerf_apply, round_to
 from neuralsim_tpu_torch.ops.encoding import positional_encoding
 from neuralsim_tpu_torch.ops.volume import raw2outputs
@@ -88,6 +96,14 @@ def march_channels_ref(params: Dict[str, torch.Tensor], rays_o, rays_d,
     """Plain PyTorch march: (sigma [N,S] raw density, rgb3 [3,N,S] logits)."""
     raw = mlp_widepe_ref(params, *ray_points(rays_o, rays_d, viewdirs, z_vals), net,
                          compute_dtype).reshape(*z_vals.shape, 4)
+    return raw[..., 3], torch.movedim(raw[..., :3], -1, 0)
+
+
+def ngp_march_ref(params: Dict[str, torch.Tensor], rays_o, rays_d, viewdirs, z_vals,
+                  net: NeRFNetConfig):
+    """Plain march of a hash-grid field: (sigma [N,S], rgb3 [3,N,S] logits)."""
+    raw = ngp.ngp_apply(params, *ray_points(rays_o, rays_d, viewdirs, z_vals),
+                        net).reshape(*z_vals.shape, 4)
     return raw[..., 3], torch.movedim(raw[..., :3], -1, 0)
 
 
@@ -728,6 +744,81 @@ def _launch_render_tile(params, rays_o, rays_d, viewdirs, z_vals,
     return rgb, disp, acc, weights, depth
 
 
+# ngp_march.cu: rays o, d, viewdirs, z, N, S, table, five kernels, levels,
+# their four int arrays, lo, extent, sigma, rgb, stream
+_NGP_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 6
+             + [ctypes.c_int, _INT_OUT, _INT_OUT, ctypes.POINTER(ctypes.c_uint), _INT_OUT]
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)
+_NGP_MAX_LEVELS = 16   # ngp_march.cu's MAX_LEVELS
+
+
+@functools.lru_cache(maxsize=None)
+def _ngp_library() -> ctypes.CDLL:
+    lib = build.load("ngp_march")
+    lib.ngp_march.argtypes, lib.ngp_march.restype = _NGP_ARGS, ctypes.c_int
+    return lib
+
+
+def _check_ngp(params, net, what: str):
+    """Raise NotImplementedError, naming the setting, for a hash-grid field
+    the kernel is not built for; ValueError for params of other shapes."""
+    if net.hash_levels > _NGP_MAX_LEVELS:
+        raise NotImplementedError(f"{what} kernel: hash_levels={net.hash_levels}; the kernel "
+                                  f"is built for at most {_NGP_MAX_LEVELS}")
+    if net.log2_hashmap_size > 30:
+        raise NotImplementedError(f"{what} kernel: log2_hashmap_size={net.log2_hashmap_size} "
+                                  "past the kernel's 32-bit rows")
+    shapes = dict(ngp.kernel_shapes(net), hash_table=(ngp.table_rows(net), ngp.FEATURES))
+    for key, shape in shapes.items():
+        if tuple(params[key].shape) != shape:
+            raise ValueError(f"{what}: {key} is {tuple(params[key].shape)}, expected {shape}")
+
+
+@functools.lru_cache(maxsize=8)
+def _grid_args(net):
+    """The kernel's level arrays of a net (ctypes), and its box."""
+    layout = ngp.level_layout(net)
+    n = len(layout)
+    res = (ctypes.c_int * n)(*[lv.resolution for lv in layout])
+    offset = (ctypes.c_int * n)(*[lv.offset for lv in layout])
+    side = (ctypes.c_uint * n)(*[lv.resolution + 1 if lv.dense else lv.size - 1
+                                 for lv in layout])
+    dense = (ctypes.c_int * n)(*[int(lv.dense) for lv in layout])
+    lo, hi = net.hash_aabb
+    return [n, res, offset, side, dense, float(lo), float(hi - lo)]
+
+
+def _launch_ngp(params, rays_o, rays_d, viewdirs, z_vals, net):
+    """ngp_march.cu on CUDA tensors: (sigma [N,S], rgb3 [3,N,S])."""
+    what = "fused_ngp_march"
+    lib = _ngp_library()
+    device = z_vals.device
+    n, s = z_vals.shape
+    ins = _inputs(what, device, ("rays_o", rays_o, (n, 3)), ("rays_d", rays_d, (n, 3)),
+                  ("viewdirs", viewdirs, (n, 3)), ("z_vals", z_vals, (n, s)))
+    _check_ngp(params, net, what)
+    weights = []
+    for key in ngp.param_keys(net):
+        t = params[key]
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{what}: {key} is {t.dtype} on {t.device}, the kernel takes "
+                             f"float32 on {device}")
+        weights.append(_aligned(t.detach()))
+    sigma = torch.empty((n, s), dtype=torch.float32, device=device)
+    rgb = torch.empty((3, n, s), dtype=torch.float32, device=device)
+    if n * s == 0:
+        return sigma, rgb
+    if n * s >= 2 ** 31:
+        raise ValueError(f"{what}: {n}x{s} samples exceed the kernel's 32-bit grid")
+    with span("render.hash_march"):
+        _run(lib.ngp_march, device, what, *[t.data_ptr() for t in ins], n, s,
+             *[w.data_ptr() for w in weights], *_grid_args(net), sigma.data_ptr(),
+             rgb.data_ptr())
+    fused_ngp_march.calls += 1
+    fused_ngp_march.points += n * s
+    return sigma, rgb
+
+
 class _Recompute(torch.autograd.Function):
     """Kernel forward; backward recomputes ``ref`` in float32 through plain
     autograd (the JAX package's custom_vjp backwards)."""
@@ -751,8 +842,8 @@ class _Recompute(torch.autograd.Function):
         return (None, None, None, None, *[next(got) if need else None for need in needs])
 
 
-def _apply(launch, ref, params, inputs):
-    keys = tuple(param_keys(_depth(params)))
+def _apply(launch, ref, params, inputs, keys=None):
+    keys = tuple(keys or param_keys(_depth(params)))
     return _Recompute.apply(launch, ref, keys, len(inputs), *inputs,
                             *[params[k] for k in keys])
 
@@ -848,6 +939,27 @@ def fused_render_tile(params: Dict[str, torch.Tensor], rays_o, rays_d,
                                white_bkgd, compute_dtype, fast_epilogue)
 
 
+def fused_ngp_march(params: Dict[str, torch.Tensor], rays_o, rays_d, viewdirs, z_vals,
+                    net: NeRFNetConfig, compute_dtype=torch.float32):
+    """Ray march of a hash-grid field (``models/ngp.py``): rays o, d, unit
+    viewdirs [N,3] and depths z [N,S] -> (sigma [N,S], rgb3 [3,N,S]
+    logits), in float32 only.
+
+    Gradients recompute through ``ngp_march_ref`` in float32; the table's
+    is a scatter-add of the corners' weights."""
+    if not ngp.is_hash_field(net):
+        raise ValueError(f"fused_ngp_march: a hash-grid field (i_embed={ngp.HASH_EMBED}), "
+                         f"not i_embed={net.i_embed}")
+    ngp.check_float32(net, "fused_ngp_march", compute_dtype=compute_dtype)
+    if not uses_kernel(z_vals):
+        return ngp_march_ref(params, rays_o, rays_d, viewdirs, z_vals, net)
+    return _apply(
+        lambda p, o, d, v, z: _launch_ngp(p, o, d, v, z, net),
+        lambda p, o, d, v, z: ngp_march_ref(p, o, d, v, z, net),
+        params, (rays_o, rays_d, viewdirs, z_vals), keys=ngp.param_keys(net))
+
+
 for _fn in (fused_nerf_march, fused_nerf_mlp_widepe, fused_nerf_mlp_pe,
             fused_nerf_mlp, fused_render_tile):
     _fn.launches = 0
+fused_ngp_march.calls = fused_ngp_march.points = 0

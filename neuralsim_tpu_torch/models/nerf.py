@@ -25,6 +25,7 @@ from torch import nn
 
 from neuralsim_tpu_torch import draw
 from neuralsim_tpu_torch.config import NeRFNetConfig
+from neuralsim_tpu_torch.models import ngp
 from neuralsim_tpu_torch.ops.encoding import positional_encoding
 
 Params = Dict[str, torch.Tensor]
@@ -68,7 +69,10 @@ def init_nerf_params(net: NeRFNetConfig, fine: bool = False,
 def init_nerf_pipeline_params(net: NeRFNetConfig, n_importance: int,
                               generator: Optional[torch.Generator] = None,
                               device="cpu") -> Dict[str, Params]:
-    """Coarse (+ fine when n_importance > 0) pair (reference create_nerf)."""
+    """Coarse (+ fine when n_importance > 0) pair (reference create_nerf);
+    for a hash-grid field (``models/ngp.py``) one field for both."""
+    if ngp.is_hash_field(net):
+        return ngp.init_ngp_pipeline_params(net, n_importance, generator, device)
     models = {"coarse": init_nerf_params(net, False, generator, device)}
     if n_importance > 0:
         models["fine"] = init_nerf_params(net, True, generator, device)
@@ -211,9 +215,12 @@ def query_points(params: Params, pts, viewdirs: Optional[torch.Tensor],
     (``kernels.raymarch.fused_nerf_mlp_widepe``), whose encoding is the
     projection form whatever ``pe_projection`` says, as in the JAX
     package. Otherwise the plain encoding (``pe_projection`` picks its
-    form) and ``nerf_apply``.
+    form) and ``nerf_apply``. A hash-grid field goes to ``ngp.query_points``.
     """
     from neuralsim_tpu_torch.kernels import raymarch
+
+    if ngp.is_hash_field(net):
+        return ngp.query_points(params, pts, viewdirs, net, compute_dtype, use_pallas)
 
     n, s, _ = pts.shape
     flat = pts.reshape(n * s, 3)

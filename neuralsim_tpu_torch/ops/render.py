@@ -20,6 +20,13 @@ directions or without an encoding, every route takes the plain
 ``raw2outputs``, as the JAX package does off the TPU (and for such nets on
 it).
 
+A hash-grid field (``models/ngp.py``, ``i_embed = 1``) on the card with
+``rc.use_pallas`` takes one route, the hash-grid ray march
+(``fused_ngp_march``) and ``raw2outputs_channels``; every other route
+(``fuse_compositing``, ``fuse_pointgen=False``, the occupancy-culled
+production render) raises, naming itself. Off that route it runs its
+plain twin through ``query_points``.
+
 Production routes, as in the JAX package: with an occupancy grid and
 ``rc.hit_budget < 1`` only a top-k budget of rays is rendered
 (``_render_ray_batch_culled``, optionally in a tightened z interval and as
@@ -42,6 +49,7 @@ from neuralsim_tpu_torch.config import NeRFNetConfig, RenderConfig
 from neuralsim_tpu_torch.kernels import raymarch
 from neuralsim_tpu_torch.kernels.raymarch import as_dtype
 from neuralsim_tpu_torch.models.nerf import query_points
+from neuralsim_tpu_torch.models.ngp import is_hash_field
 from neuralsim_tpu_torch.ops.occupancy import (
     empty_ray_outputs,
     ray_aabb_bounds,
@@ -185,11 +193,32 @@ def _plain_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
                         use_pallas=rc.use_pallas, pe_projection=rc.pe_projection)
 
 
+def _hash_march(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
+                rc: RenderConfig, compute_dtype, fused: bool):
+    """The hash-grid ray march of a kernel-route march: (sigma, rgb3).
+    ``fused``: whether the march would composite in the render tile."""
+    for route, taken in (("fuse_compositing=True (fused_render_tile)", fused),
+                         ("fuse_pointgen=False (the point-major kernels)",
+                          not rc.fuse_pointgen)):
+        if taken:
+            raise NotImplementedError(f"render: the route {route} takes no hash-grid field; "
+                                      "it marches through fused_ngp_march only")
+    return raymarch.fused_ngp_march(params, rays_o, rays_d, viewdirs, z_vals, net,
+                                    compute_dtype)
+
+
 def _march(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
            rc: RenderConfig, compute_dtype, generator=None, noise=None):
     """One network march + compositing; returns the raw2outputs tuple.
     ``noise``: the density noise [N,S] to use in place of the generator's."""
     if _kernel_route(rays_o, net, rc):
+        if is_hash_field(net):
+            sigma, rgb3 = _hash_march(params, rays_o, rays_d, viewdirs, z_vals, net, rc,
+                                      compute_dtype,
+                                      rc.fuse_compositing and rc.raw_noise_std == 0.0)
+            return raw2outputs_channels(
+                sigma, rgb3, z_vals, rays_d, raw_noise_std=rc.raw_noise_std,
+                white_bkgd=rc.white_bkgd, noise=noise, generator=generator)
         if rc.fuse_compositing and rc.raw_noise_std == 0.0:
             return raymarch.fused_render_tile(
                 params, rays_o, rays_d, viewdirs, z_vals, net,
@@ -210,6 +239,9 @@ def _march_raw(params, rays_o, rays_d, viewdirs, z_vals, net: NeRFNetConfig,
     """Channel-separated raw field along rays without compositing:
     (sigma [N,S], rgb3 [3,N,S]); the march kernel when _march would take
     it, else query_points."""
+    if _kernel_route(rays_o, net, rc) and is_hash_field(net):
+        return _hash_march(params, rays_o, rays_d, viewdirs, z_vals, net, rc, compute_dtype,
+                           False)
     if _kernel_route(rays_o, net, rc) and rc.fuse_pointgen:
         return raymarch.fused_nerf_march(params, rays_o, rays_d, viewdirs,
                                          z_vals, net, compute_dtype)
@@ -279,6 +311,9 @@ def render_ray_batch(models, rays_o, rays_d, net: NeRFNetConfig,
     if isinstance(models, ModelShards):
         models = models.whole_layers()
     if grid is not None and rc.hit_budget < 1.0:
+        if is_hash_field(net) and _kernel_route(rays_o, net, rc):
+            raise NotImplementedError("render: the occupancy-culled production route takes no "
+                                      "hash-grid field; render it exact (test_mode())")
         return _render_ray_batch_culled(models, grid, rays_o, rays_d, net, rc, generator)
     return _render_ray_batch_dense(models, rays_o, rays_d, net, rc, generator)
 

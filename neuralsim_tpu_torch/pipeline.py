@@ -34,6 +34,7 @@ from neuralsim_tpu_torch.models.convert import (
     params_from_numpy,
 )
 from neuralsim_tpu_torch.models.nerf import init_nerf_pipeline_params, make_sigma_fn
+from neuralsim_tpu_torch.models.ngp import check_float32
 from neuralsim_tpu_torch.ops.occupancy import (
     OccupancyGrid,
     build_occupancy_grid,
@@ -64,6 +65,7 @@ class NeuralSimRenderer:
 
     def __init__(self, cfg: NeuralSimConfig, models=None,
                  generator: Optional[torch.Generator] = None, device=None):
+        check_float32(cfg.net, "NeuralSimRenderer", compute_dtype=cfg.render.compute_dtype)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.rc = cfg.render.test_mode()

@@ -7,6 +7,12 @@ kernels line up under it (nested under whatever span is open); with the
 profiler off it costs one check. ``phase_timer`` keeps structured
 per-phase wall times and opens its phase as a span. ``debug_nans`` wraps
 ``torch.autograd.detect_anomaly``.
+
+Counters are attributes of the function they count, read as deltas around
+a stretch of work: ``models.nerf.nerf_apply.bf16_layers`` (low-precision
+layers run) and ``kernels.raymarch.fused_ngp_march.calls`` / ``.points``
+(hash-march launches, and the rays x samples they marched; each launch is
+the span ``render.hash_march``).
 """
 
 from __future__ import annotations
