@@ -77,7 +77,7 @@ from neuralsim_tpu_torch.detector.trainer import (
 from neuralsim_tpu_torch.hypergrad.influence import (
     grad_loss,
     inverse_hvp,
-    mixed_grad_wrt_images,
+    mixed_grad_wrt_image_batch,
 )
 from neuralsim_tpu_torch.hypergrad.render_grad import (
     psi_poses,
@@ -401,14 +401,15 @@ class BilevelDriver:
             return True
         return False
 
-    def _det_loss_trainable(self, trainable, frozen, batch: DetBatch, image_weight=None):
+    def _det_loss_trainable(self, trainable, frozen, batch: DetBatch, image_weight=None,
+                            per_image_norm: bool = False):
         """The detector loss as a function of the trainable parameters (the
         theta of every hypergradient quantity: the reference optimizer's
         param_groups, frozen backbone excluded; gradients still flow
         through its activations to the image)."""
         total, _ = retinanet_loss(self.det_apply, merge_params(trainable, frozen), batch,
                                   self.anchors_cat, self.cfg.detector,
-                                  image_weight=image_weight)
+                                  image_weight=image_weight, per_image_norm=per_image_norm)
         return total
 
     def _val_grad(self, params):
@@ -485,18 +486,33 @@ class BilevelDriver:
     def _grad_e(self, params, renders, gt_boxes, gt_labels, gt_valid, v):
         """[3.2] grad_E per rendered image, with respect to the raw render:
         the normalization and padding (prepare_images) are differentiated
-        through. One image at a time, each its own batch of 1."""
+        through. One double backward per batch of images_per_batch images,
+        each image over its own foreground count (``per_image_norm``), so
+        its row is its batch-1 grad_E; a tail batch is padded with
+        zero-weight images, whose rows are dropped, so every batch has one
+        shape."""
         dc = self.cfg.detector
         trainable, frozen = split_trainable(params, dc)
+        n = renders.shape[0]
+        bs = min(dc.images_per_batch, n)
         out = []
-        for i in range(renders.shape[0]):
-            def loss_img(tp, r, i=i):
-                batch = DetBatch(prepare_images(r[None], dc), gt_boxes[i:i + 1],
-                                 gt_labels[i:i + 1], gt_valid[i:i + 1])
-                return self._det_loss_trainable(tp, frozen, batch)
+        for lo in range(0, n, bs):
+            hi = min(lo + bs, n)
 
-            out.append(mixed_grad_wrt_images(loss_img, trainable, renders[i:i + 1], v)[0])
-        return torch.stack(out)
+            def padded(x):
+                return torch.cat([x[lo:hi], x.new_zeros((bs - (hi - lo),) + x.shape[1:])])
+
+            boxes, labels, valid = padded(gt_boxes), padded(gt_labels), padded(gt_valid)
+            weight = (torch.arange(bs, device=renders.device) < hi - lo).to(torch.float32)
+
+            def loss_batch(tp, r):
+                batch = DetBatch(prepare_images(r, dc), boxes, labels, valid)
+                return self._det_loss_trainable(tp, frozen, batch, image_weight=weight,
+                                                per_image_norm=True)
+
+            out.append(mixed_grad_wrt_image_batch(loss_batch, trainable, padded(renders), v,
+                                                  n_images=hi - lo))
+        return torch.cat(out)
 
     def _render_grad(self, psi, noise_g, grad_E_g):
         """[3.3] in the fwd / rev modes: dL/dpsi of one group of images."""

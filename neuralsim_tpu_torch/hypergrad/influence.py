@@ -19,7 +19,8 @@ is a function of ``loss_fn(params, batch) -> scalar`` with params a tree
   (no reference analog)             inverse_hvp("cg_normal"): CG on the SPD
                                     normal equations, the sign-correct
                                     solve for an indefinite H
-  compute_grad_E mixed partial      mixed_grad_wrt_images      (:855-911)
+  compute_grad_E mixed partial      mixed_grad_wrt_images      (:855-911),
+                                    mixed_grad_wrt_image_batch
 
 The JAX package's ``lax.scan`` loops (batches, CG and LiSSA iterations)
 are Python loops of fixed length here: no early exit, so the results stay
@@ -28,7 +29,7 @@ comparable with the JAX package's iteration for iteration.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -255,8 +256,12 @@ def mixed_grad_wrt_images(loss_fn_img: Callable, params, images, v):
 
     The reference loops images with create_graph double-grads (:855-911);
     here too, one image at a time: loss_fn_img(params, image) is one
-    image's loss, a batch of 1 (the detector loss normalizes by its batch's
-    foreground count, so a batch of several images is a different loss).
+    image's loss, a batch of 1. The detector loss's default normalizes by
+    its batch's foreground count, so a batch of several images is a
+    different loss; under ``retinanet_loss(per_image_norm=True)`` a batch's
+    loss is the sum of its images' batch-1 losses, and
+    ``mixed_grad_wrt_image_batch`` gives the same rows in one double
+    backward a batch.
 
     Args:
       loss_fn_img: (params, image) -> scalar train loss for one image.
@@ -277,3 +282,38 @@ def mixed_grad_wrt_images(loss_fn_img: Callable, params, images, v):
             out.append(torch.autograd.grad(dot, img, allow_unused=True,
                                            materialize_grads=True)[0])
     return torch.stack(out)
+
+
+def mixed_grad_wrt_image_batch(loss_fn_batch: Callable, params, images, v,
+                               n_images: Optional[int] = None):
+    """grad_E of a batch of images in one create-graph double backward.
+
+    loss_fn_batch(params, images) must be a sum of per-image terms, image
+    i's depending on image i alone (the detector loss under
+    ``retinanet_loss(per_image_norm=True)``): then d/dI_i <dL/dtheta, v> is
+    d/dI_i of image i's own term, the row mixed_grad_wrt_images gives for
+    it.
+
+    Args:
+      loss_fn_batch: (params, images [B, ...]) -> scalar.
+      images: [B, ...] tensor; rows past the first ``n_images`` (default
+        all) pad a tail batch to the batch's shape, their terms zero.
+      v: inverse-HVP tree (same structure as params).
+
+    Returns grad_E [n_images, ...]. Counters: ``.batches`` (double
+    backwards) and ``.images`` (real images, pads excluded)."""
+    n = images.shape[0] if n_images is None else n_images
+    leaves = [p.detach().requires_grad_() for p in _leaves(params)]
+    imgs = images.detach().requires_grad_()
+    with span("grad_E.batch"), torch.enable_grad():
+        grads = torch.autograd.grad(loss_fn_batch(_rebuild(params, leaves), imgs), leaves,
+                                    create_graph=True, allow_unused=True,
+                                    materialize_grads=True)
+        dot = sum(torch.sum(g * vi) for g, vi in zip(grads, _leaves(v)))
+        out = torch.autograd.grad(dot, imgs, allow_unused=True, materialize_grads=True)[0]
+    mixed_grad_wrt_image_batch.batches += 1
+    mixed_grad_wrt_image_batch.images += n
+    return out[:n]
+
+
+mixed_grad_wrt_image_batch.batches = mixed_grad_wrt_image_batch.images = 0

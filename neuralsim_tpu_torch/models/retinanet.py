@@ -175,7 +175,8 @@ class DetBatch(NamedTuple):
 
 
 def retinanet_loss(apply_fn, params, batch: DetBatch, anchors: torch.Tensor,
-                   dc: DetectorConfig, image_weight=None, fg_total=None):
+                   dc: DetectorConfig, image_weight=None, fg_total=None,
+                   per_image_norm: bool = False):
     """Total loss (focal cls + smooth-L1 box), normalized by the number of
     fg anchors: the sum of detectron2's loss dict that the reference
     backprops (``neural_sim_main.py:555-589``).
@@ -187,7 +188,14 @@ def retinanet_loss(apply_fn, params, batch: DetBatch, anchors: torch.Tensor,
     ``fg_total``: maps this batch's fg count to the whole batch's when the
     batch is one rank's block of a data-parallel step (a sum over the data
     group): the loss sums stay local, the normalizer is the whole batch's,
-    so the group's losses and gradients sum to those of the whole batch."""
+    so the group's losses and gradients sum to those of the whole batch.
+
+    ``per_image_norm``: each image's sums over its own clamped fg count,
+    ``sum_i w_i (cls_i + box_i) / max(n_fg_i w_i, 1)``: the sum of the
+    images' batch-1 losses, so no image's term depends on another image
+    (grad_E's batches, ``hypergrad.influence.mixed_grad_wrt_image_batch``).
+    It leaves ``fg_total`` unused. The default is the whole batch's
+    normalizer, detectron2's."""
     logits, deltas = apply_fn(params, batch.images)               # [N,A,C], [N,A,4]
     midx, mlabel = match_anchors(anchors, batch.gt_boxes, batch.gt_valid,
                                  dc.iou_fg_threshold, dc.iou_bg_threshold)
@@ -208,9 +216,13 @@ def retinanet_loss(apply_fn, params, batch: DetBatch, anchors: torch.Tensor,
     if image_weight is not None:
         w = image_weight.to(cls_l.dtype)
         cls_l, box_l, n_fg = cls_l * w, box_l * w, n_fg * w
-    n_total = n_fg.sum() if fg_total is None else fg_total(n_fg.sum())
-    norm = torch.clamp(n_total, min=1.0)
-    losses = {"loss_cls": cls_l.sum() / norm, "loss_box_reg": box_l.sum() / norm}
+    if per_image_norm:
+        norm = torch.clamp(n_fg, min=1.0)
+        losses = {"loss_cls": (cls_l / norm).sum(), "loss_box_reg": (box_l / norm).sum()}
+    else:
+        n_total = n_fg.sum() if fg_total is None else fg_total(n_fg.sum())
+        norm = torch.clamp(n_total, min=1.0)
+        losses = {"loss_cls": cls_l.sum() / norm, "loss_box_reg": box_l.sum() / norm}
     return losses["loss_cls"] + losses["loss_box_reg"], losses
 
 

@@ -10,9 +10,12 @@ per-phase wall times and opens its phase as a span. ``debug_nans`` wraps
 
 Counters are attributes of the function they count, read as deltas around
 a stretch of work: ``models.nerf.nerf_apply.bf16_layers`` (low-precision
-layers run) and ``kernels.raymarch.fused_ngp_march.calls`` / ``.points``
+layers run), ``kernels.raymarch.fused_ngp_march.calls`` / ``.points``
 (hash-march launches, and the rays x samples they marched; each launch is
-the span ``render.hash_march``).
+the span ``render.hash_march``) and
+``hypergrad.influence.mixed_grad_wrt_image_batch.batches`` / ``.images``
+(grad_E's double backwards, and the real images they took; each is the
+span ``grad_E.batch``).
 """
 
 from __future__ import annotations

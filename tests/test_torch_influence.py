@@ -12,9 +12,16 @@ and mixed_grad_wrt_images, along v = the detector Hessian's dominant
 direction (6 power iterations); every inverse_hvp mode on it is in
 tests/test_torch_influence_modes.py. Tolerance: 1e-4 of the JAX result's
 norm (the difference's norm).
+
+The driver's grad_E in batches (``BilevelDriver._grad_e``: one
+``mixed_grad_wrt_image_batch`` a batch under the per-image normalizer)
+against the port's serial mixed_grad_wrt_images at batch 1, image by
+image, to 1e-5 of the serial grad_E's norm.
 """
 
 import functools
+import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -25,11 +32,14 @@ import torch
 from neuralsim_tpu.detector import trainer as jt
 from neuralsim_tpu.hypergrad import influence as ji
 from neuralsim_tpu.models import retinanet as jr
+from neuralsim_tpu_torch.bilevel.driver import BilevelDriver
 from neuralsim_tpu_torch.config import DetectorConfig
 from neuralsim_tpu_torch.detector import trainer as tt
+from neuralsim_tpu_torch.detector.dataset import prepare_images
 from neuralsim_tpu_torch.hypergrad import influence as ti
 from neuralsim_tpu_torch.models import retinanet as tr
 from neuralsim_tpu_torch.models.convert_retinanet import params_from_flax, params_to_flax
+from neuralsim_tpu_torch.ops.boxes import match_anchors
 from tests.test_torch_retinanet import carried_params, jdc_of, loss_batch
 
 torch.set_num_threads(2)
@@ -296,3 +306,86 @@ def test_detector_mixed_grad_wrt_images():
     err = rel(got.numpy(), want)
     print(f"detector mixed_grad_wrt_images: {err:.2e} of the norm")
     assert np.abs(want).max() > 0 and err < TOL
+
+
+# --------------------------------------------------------------------------- #
+# grad_E in batches
+# --------------------------------------------------------------------------- #
+
+
+def grad_e_stage(shared_norm: bool = False):
+    """``BilevelDriver._grad_e`` on a stand-in holding what it reads: the
+    tiny detector at images_per_batch 2. ``shared_norm`` plants the fault
+    of batching under the batch's shared normalizer."""
+    drv = types.SimpleNamespace(cfg=types.SimpleNamespace(detector=DC),
+                                det_apply=tt.make_detector_apply(DC)[1],
+                                anchors_cat=torch.cat(tr.generate_anchors(32), 0))
+
+    def det_loss(tp, frozen, batch, image_weight=None, per_image_norm=False):
+        return BilevelDriver._det_loss_trainable(drv, tp, frozen, batch, image_weight,
+                                                 per_image_norm and not shared_norm)
+
+    drv._det_loss_trainable = det_loss
+    return functools.partial(BilevelDriver._grad_e, drv)
+
+
+def serial_grad_e(params, renders, boxes, labels, valid, v):
+    """grad_E one image at a time, each its own batch of 1 under the
+    default normalizer."""
+    trainable, frozen = tt.split_trainable(params, DC)
+    apply = tt.make_detector_apply(DC)[1]
+    anchors = torch.cat(tr.generate_anchors(32), 0)
+
+    def loss_img(i):
+        def loss(t, r):
+            batch = tr.DetBatch(prepare_images(r[None], DC), boxes[i:i + 1], labels[i:i + 1],
+                                valid[i:i + 1])
+            return tr.retinanet_loss(apply, tt.merge_params(t, frozen), batch, anchors, DC)[0]
+        return loss
+
+    return torch.cat([ti.mixed_grad_wrt_images(loss_img(i), trainable, renders[i:i + 1], v)
+                      for i in range(renders.shape[0])])
+
+
+@functools.lru_cache(maxsize=1)
+def five_images():
+    """(full params, 5 images with their boxes, v, serial grad_E): one image
+    with no foreground anchor (its normalizer clamps at 1) and images with
+    different foreground counts (a shared normalizer rescales them)."""
+    *_, tv = detector()
+    params, _ = carried_params(DC)
+    raw = loss_batch(np.random.RandomState(3), n=5, size=32, num_classes=2)
+    data = tuple(torch.from_numpy(np.array(x)) for x in raw)
+    _, mlabel = match_anchors(torch.cat(tr.generate_anchors(32), 0), data[1], data[3],
+                              DC.iou_fg_threshold, DC.iou_bg_threshold)
+    n_fg = (mlabel == 1).sum(-1).tolist()
+    assert 0 in n_fg and len({n for n in n_fg if n > 0}) >= 2, n_fg
+    return params, data, tv, serial_grad_e(params, *data, tv)
+
+
+def row_errors(got, want) -> list:
+    """Each image's difference over the norm of the serial grad_E (the
+    image without foreground has a row ~2,000x smaller than the others,
+    whose rounding its own norm would judge)."""
+    return [float(torch.linalg.norm(g - w) / torch.linalg.norm(want)) for g, w in zip(got, want)]
+
+
+def test_batched_grad_e_equals_serial_image_by_image():
+    """P = 5 at batch 2: batches of 2, 2 and a tail of 1 padded with a
+    zero-weight image; the counters read ceil(P / B) batches and P images."""
+    params, data, tv, want = five_images()
+    fn = ti.mixed_grad_wrt_image_batch
+    batches, images = fn.batches, fn.images
+    got = grad_e_stage()(params, *data, tv)
+    assert (fn.batches - batches, fn.images - images) == (math.ceil(5 / DC.images_per_batch), 5)
+    assert got.shape == want.shape == (5, 32, 32, 3)
+    assert all(float(torch.linalg.norm(w)) > 0 for w in want)
+    errs = row_errors(got, want)
+    print(f"batched grad_E against serial, per image: {errs}")
+    assert max(errs) < 1e-5
+
+
+def test_batched_grad_e_under_a_shared_normalizer_fails_the_comparison():
+    params, data, tv, want = five_images()
+    errs = row_errors(grad_e_stage(shared_norm=True)(params, *data, tv), want)
+    assert max(errs) > 1e-2, errs

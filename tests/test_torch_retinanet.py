@@ -31,6 +31,7 @@ from neuralsim_tpu_torch.models import convert_retinanet as tconv
 from neuralsim_tpu_torch.models import fpn as tfpn
 from neuralsim_tpu_torch.models import resnet as tres
 from neuralsim_tpu_torch.models import retinanet as tr
+from neuralsim_tpu_torch.ops.boxes import encode_deltas, match_anchors
 from tests.test_convert_retinanet import _fake_torchvision_sd
 
 
@@ -212,6 +213,60 @@ def test_losses_equal_jax(rng):
         lambda p, im: (torch.as_tensor(logits), torch.as_tensor(deltas)), None, empty,
         torch.as_tensor(anchors), dc)
     assert float(parts["loss_box_reg"]) == 0.0 and float(total) > 0
+
+
+def shared_norm_loss(logits, deltas, batch, anchors, dc, image_weight=None):
+    """retinanet_loss's default as it stood before the per-image option (a
+    copy): one normalizer, the batch's clamped fg count."""
+    midx, mlabel = match_anchors(anchors, batch.gt_boxes, batch.gt_valid,
+                                 dc.iou_fg_threshold, dc.iou_bg_threshold)
+    fg, not_ignore = mlabel == 1, mlabel != -1
+    cls_target = torch.where(fg, torch.gather(batch.gt_labels.long(), 1, midx), -1)
+    onehot = (cls_target[..., None] == torch.arange(dc.num_classes)).to(logits.dtype)
+    cls_loss = tr.sigmoid_focal_loss(logits, onehot, dc.focal_alpha, dc.focal_gamma)
+    cls_l = torch.where(not_ignore, cls_loss, torch.zeros_like(cls_loss)).sum(dim=-1)
+    matched = torch.gather(batch.gt_boxes, 1, midx[..., None].expand(*midx.shape, 4))
+    box_loss = tr.smooth_l1(deltas - encode_deltas(anchors, matched), dc.smooth_l1_beta).sum(-1)
+    box_l = torch.where(fg, box_loss, torch.zeros_like(box_loss)).sum(dim=-1)
+    n_fg = fg.to(cls_l.dtype).sum(dim=-1)
+    if image_weight is not None:
+        cls_l, box_l, n_fg = cls_l * image_weight, box_l * image_weight, n_fg * image_weight
+    norm = torch.clamp(n_fg.sum(), min=1.0)
+    return cls_l.sum() / norm + box_l.sum() / norm
+
+
+def test_per_image_normalizer_sums_the_batch1_losses(rng):
+    """Under per_image_norm a batch's loss is the sum of its images' batch-1
+    losses (weight 0 drops an image; the image without GT clamps its
+    normalizer at 1); the default, the batch's shared normalizer, is the
+    formula it was, to the bit."""
+    dc = DetectorConfig(num_classes=3, image_size=64)
+    anchors = torch.cat(tr.generate_anchors(64))
+    images, boxes, labels, valid = (torch.as_tensor(v) for v in loss_batch(rng))
+    a = anchors.shape[0]
+    logits = torch.as_tensor((rng.randn(3, a, 3) * 2).astype(np.float32))
+    deltas = torch.as_tensor(rng.randn(3, a, 4).astype(np.float32))
+    batch = tr.DetBatch(images, boxes, labels, valid)
+    n_fg = (match_anchors(anchors, boxes, valid, dc.iou_fg_threshold,
+                          dc.iou_bg_threshold)[1] == 1).sum(-1).tolist()
+    assert n_fg[-1] == 0 and len(set(n_fg[:-1])) == 2 and min(n_fg[:-1]) > 1, n_fg
+
+    def loss(rows, **kw):
+        return tr.retinanet_loss(lambda p, im: (logits[rows], deltas[rows]), None,
+                                 tr.DetBatch(*(x[rows] for x in batch)), anchors, dc, **kw)
+
+    one = [float(loss([i])[0]) for i in range(3)]
+    for weight in (None, torch.tensor([1.0, 0.0, 1.0])):
+        w = [1.0] * 3 if weight is None else weight.tolist()
+        total, parts = loss([0, 1, 2], image_weight=weight, per_image_norm=True)
+        want = sum(wi * li for wi, li in zip(w, one))
+        np.testing.assert_allclose(float(total), want, rtol=1e-6)
+        np.testing.assert_allclose(float(parts["loss_cls"] + parts["loss_box_reg"]),
+                                   float(total), rtol=1e-7)
+        shared, _ = loss([0, 1, 2], image_weight=weight)
+        assert torch.equal(shared, shared_norm_loss(logits, deltas, batch, anchors, dc,
+                                                    image_weight=weight))
+        assert abs(float(shared) - want) > 1e-3 * want
 
 
 def test_network_logits_loss_and_image_grad_equal_jax(rng):

@@ -6,6 +6,8 @@ span per unit of work, nested under the span open around it.
   inner_train.step      detector/trainer.py inner_train, per step (outside
                         the step's checkpoint: a recompute opens none)
   grad_E.image          hypergrad/influence.py mixed_grad_wrt_images, per image
+  grad_E.batch          hypergrad/influence.py mixed_grad_wrt_image_batch, per
+                        double backward (the driver's grad_E)
   render_grad.strip     hypergrad/render_grad.py render_grad_psi_strips, per
                         strip tile
   render.chunk          ops/render.py's dense chunk loop, per ray chunk
@@ -31,7 +33,10 @@ from neuralsim_tpu_torch.config import (
     TrainConfig,
 )
 from neuralsim_tpu_torch.detector import trainer as tt
-from neuralsim_tpu_torch.hypergrad.influence import mixed_grad_wrt_images
+from neuralsim_tpu_torch.hypergrad.influence import (
+    mixed_grad_wrt_image_batch,
+    mixed_grad_wrt_images,
+)
 from neuralsim_tpu_torch.hypergrad.render_grad import render_grad_psi_strips
 from neuralsim_tpu_torch.kernels import raymarch as rm
 from neuralsim_tpu_torch.models.nerf import init_nerf_params, init_nerf_pipeline_params
@@ -122,6 +127,43 @@ def test_grad_e_opens_one_span_per_image(tmp_path):
     per_image = spans["grad_E.image"]
     assert len(per_image) == 2 and disjoint(per_image)
     assert all(inside(s, spans["grad_E"][0]) for s in per_image)
+
+
+def test_grad_e_batch_opens_one_span_per_batch(tmp_path):
+    """5 images in batches of 2, the tail padded with a zero-weight row:
+    one span and one ``.batches`` a double backward, ``.images`` counts the
+    real images; the rows are the serial form's."""
+    g = torch.Generator().manual_seed(1)
+    params = {"w": torch.randn(6, generator=g), "b": torch.randn(1, generator=g)}
+    v = {"w": torch.randn(6, generator=g), "b": torch.randn(1, generator=g)}
+    images = torch.randn(5, 6, generator=g)
+
+    def loss_img(p, img):
+        return torch.sum(torch.tanh(p["w"] * img + p["b"]) ** 2)
+
+    def run():
+        out = []
+        with phase_timer("grad_E", PhaseTimes()):
+            for lo in range(0, 5, 2):
+                n = min(2, 5 - lo)
+                rows = torch.cat([images[lo:lo + n], torch.zeros(2 - n, 6)])
+                weight = (torch.arange(2) < n).to(torch.float32)
+
+                def loss_batch(p, imgs, weight=weight):
+                    return sum(wi * loss_img(p, im) for wi, im in zip(weight, imgs))
+
+                out.append(mixed_grad_wrt_image_batch(loss_batch, params, rows, v, n_images=n))
+        return torch.cat(out)
+
+    fn = mixed_grad_wrt_image_batch
+    batches, counted = fn.batches, fn.images
+    out, spans = traced(run, tmp_path)
+    assert (fn.batches - batches, fn.images - counted) == (3, 5)
+    torch.testing.assert_close(out, mixed_grad_wrt_images(loss_img, params, images, v))
+    per_batch = spans["grad_E.batch"]
+    assert len(per_batch) == 3 and disjoint(per_batch)
+    assert all(inside(s, spans["grad_E"][0]) for s in per_batch)
+    assert "grad_E.image" not in spans
 
 
 def _nerf_models(seed: int):
